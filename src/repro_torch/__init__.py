@@ -1,0 +1,15 @@
+"""SMOL on PyTorch and CUDA: the port of the ``repro`` package to one NVIDIA H100.
+
+The layout mirrors ``repro`` module for module; host-side modules (codecs,
+DAG optimizer, cost model, placement, planner, memory, workers) are copies
+with their imports rewritten, and every device-side piece runs on torch
+tensors.  The two Pallas kernels of the split-decode path are hand-written
+CUDA C++ kernels under ``csrc/`` (``kernels/idct``, ``kernels/fused_preproc``).
+
+Devices are explicit: entry points default to ``"cuda"`` and raise when no
+card is visible; ``device="cpu"`` runs every kernel's plain PyTorch version.
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use — never at import — and is cached on disk under
+``build/repro_torch_kernels/`` keyed by a hash of the sources and flags, so
+a second process reuses the library.  Each ``.cu`` file compiles in its
+own ``nvcc`` process, all started together.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build did: seconds, library path, ptxas report (registers,
+# shared memory, spills per kernel) — chip_smoke.py prints it
+build_info: dict = {}
+
+
+def build_dir() -> Path:
+    """``REPRO_TORCH_BUILD_DIR`` or ``<checkout>/build/repro_torch_kernels``."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of repro_torch "
+        "are built from source at first use on the card"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Start every command at once, wait for all; raise on the first failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{log}")
+    return logs
+
+
+def _build(out: Path) -> None:
+    nvcc = find_nvcc()
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (p.stem + ".o") for p in units]
+        logs = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+             for src, obj in zip(units, objs)]
+        )
+        lib_tmp = Path(tmp) / out.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(lib_tmp)]])
+        os.replace(lib_tmp, out)  # atomic: a concurrent loader sees all or nothing
+    build_info.update(
+        seconds=time.perf_counter() - t0, built=True, ptxas="\n".join(logs).strip()
+    )
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lib_path = out_dir / f"librepro_torch_kernels_{source_hash()}.so"
+        build_info.update(path=str(lib_path), built=False, seconds=0.0)
+        if not lib_path.exists():
+            _build(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        _declare(lib)
+        _lib = lib
+        return lib
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """C signatures: every pointer and the stream as ``c_void_p`` (a bare
+    Python int would be passed as a 32-bit int and cut the pointer)."""
+    lib.repro_idct_rows_f32.argtypes = [_P, _P, _P, _I, _I, _P]
+    lib.repro_idct_rows_f32.restype = _I
+    lib.repro_resize_affine_planar_f32.argtypes = [
+        _P, _I, _I, _I,  # x, planes, h, w
+        _P, _P, _P, _I,  # y0, y1, wy, oh
+        _P, _P, _P, _I,  # x0, x1, wx, ow
+        _P, _P, _I,  # scale, bias, round_uint8
+        _P, _P,  # out, stream
+    ]
+    lib.repro_resize_affine_planar_f32.restype = _I
+    lib.repro_cuda_error_string.argtypes = [_I]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+def check(lib: ctypes.CDLL, status: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if status != 0:
+        text = lib.repro_cuda_error_string(status).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status} ({text})")
