@@ -19,7 +19,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    a full-width ResNet-50 with seeded random weights; checks the outputs,
    the plan, the kernels' launch counts, and the first batch's logits
    against a CPU run of the same program;
-4. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
+4. LM path: Gemma3-1B at full width (26 layers, bf16, seeded random
+   weights): ``prefill`` of 4 x 2048 tokens, ``forward`` over the same
+   prompts, 16 ``decode_step``s, and ``ServingEngine.serve`` of 16
+   requests over 8 slots; checks the K3/K4 launch counts of each phase,
+   finite logits, prefill and decode logits against the same model with
+   plain attention and forward's last position against prefill's; prints
+   prefill tokens/s, decode ms/step, serve tokens/s and a profile of
+   decode steps;
+5. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX and nothing of the reference ``repro`` package.
 """
@@ -43,6 +51,7 @@ ROOT = Path(__file__).resolve().parent
 # FLOP/s — the denominators of every bound_ms below
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 
 SEED = 0
 BATCH = 64
@@ -51,6 +60,25 @@ IMG_H, IMG_W = 384, 512
 INPUT = 224
 K1_ATOL = 2e-2  # fp32 FMA order vs cuBLAS fp32: values reach the thousands
 LOGIT_RTOL = 1e-3  # card vs CPU logits, relative to the largest |logit|
+
+# the LM path: Gemma3-1B at full width, bf16
+PREFILL_B, PREFILL_S = 4, 2048  # prompts x tokens: past the 512-token window
+DECODE_STEPS = 16
+DECODE_MAX_LEN = PREFILL_S + 64  # cache length of the prefill + decode phases
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 16, 8, 256, 16
+GEMMA_WINDOW, N_GLOBAL, N_LOCAL = 512, 4, 22  # 26 layers, 5:1 local:global
+# kernel vs plain on the card, both f32 inside: f32 outputs sum in another
+# order (the CPU tests' 2e-5 bound); bf16 outputs may round one bf16 step
+# apart, at most 2^-7 of the value, held elementwise (plus f32 noise)
+ATTN_F32_ATOL = 2e-5
+ATTN_BF16_RTOL, ATTN_BF16_ATOL = 2**-7, 1e-4
+# forward vs prefill on the card: the same layers; only the logits product's
+# shape differs, so cuBLAS may round a bf16 logit one step apart
+FORWARD_LOGIT_RTOL = 2**-7
+# Gemma3-1B logits, kernels vs plain attention on the card, relative to the
+# largest |logit|: both run bf16 activations; the attention outputs round to
+# bf16 one step apart now and then, and 26 layers carry that on
+LM_LOGIT_RTOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -75,13 +103,16 @@ def card_line() -> str:
 def median_ms(fn, flush: torch.Tensor | None, iters: int = 20, warmup: int = 3) -> float:
     """Median time of ``fn()`` on the card (CUDA events).  With ``flush``,
     L2 is flushed before each launch so the operands come from device
-    memory, as on the main path."""
+    memory, as on the main path.  A spin of ~1 ms on the card before the
+    start event keeps it busy while the host enqueues ``fn``'s launches,
+    so a small kernel's time is its own, not its wrapper's host time."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(2_000_000)  # clock cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -91,8 +122,8 @@ def median_ms(fn, flush: torch.Tensor | None, iters: int = 20, warmup: int = 3) 
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -240,6 +271,220 @@ def time_fused_preproc(dev, low, flush) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 2: K3
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+
+def _attn_bound(got: torch.Tensor, want: torch.Tensor, dt: torch.dtype) -> tuple[float, bool, str]:
+    """(max |kernel - plain|, every element inside its bound, the bound)."""
+    d = (got.float() - want.float()).abs()
+    if dt == torch.float32:
+        return d.max().item(), bool((d <= ATTN_F32_ATOL).all()), f"{ATTN_F32_ATOL}"
+    bound = ATTN_BF16_RTOL * want.float().abs() + ATTN_BF16_ATOL
+    return d.max().item(), bool((d <= bound).all()), f"2^-7 |plain| + {ATTN_BF16_ATOL}"
+
+
+def check_flash_attention(dev) -> float:
+    """K3 against its plain version: head_dim 256 (MQA, the Gemma3 prefill
+    shape 4 x 2048, window and none, in f32 and bf16) and 128/64 (GQA),
+    ragged S, causal and not.  Returns the largest |kernel - plain| over
+    the f32 cases (the bf16 ones are held to their own bound)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 2)
+    cases = [  # B, S, H, KVH, D, causal, window, dtype
+        (PREFILL_B, PREFILL_S, 4, 1, 256, True, GEMMA_WINDOW, torch.float32),
+        (PREFILL_B, PREFILL_S, 4, 1, 256, True, None, torch.float32),
+        (PREFILL_B, PREFILL_S, 4, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (PREFILL_B, PREFILL_S, 4, 1, 256, True, None, torch.bfloat16),
+        (2, 777, 4, 1, 256, True, 100, torch.float32),
+        (2, 777, 4, 1, 256, True, None, torch.float32),
+        (1, 300, 16, 8, 128, True, None, torch.float32),
+        (1, 300, 16, 8, 128, True, 64, torch.bfloat16),
+        (2, 200, 4, 2, 64, False, None, torch.float32),
+        (1, 65, 2, 1, 128, False, 16, torch.bfloat16),
+    ]
+    worst = 0.0
+    for b, s, h, kvh, d, causal, window, dt in cases:
+        q, k, v = (_randn(rng, (b, s, n, d), dt, dev) for n in (h, kvh, kvh))
+        got = fa_ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
+        want = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(got, want, dt)
+        log(f"  flash_attention B={b} S={s} H={h} KVH={kvh} D={d} causal={causal} "
+            f"window={window} {str(dt)[6:]}: max|kernel-plain|={err:.3e} (bound {tol})")
+        if not (got.dtype == dt and got.shape == q.shape and inside):
+            raise AssertionError(f"flash_attention disagrees with its plain version: {err}, bound {tol}")
+        if dt == torch.float32:
+            worst = max(worst, err)
+    return worst
+
+
+def attention_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask lets through: what attention must compute."""
+    qpos = np.arange(s)
+    hi = qpos + 1 if causal else np.full(s, s)
+    lo = np.maximum(0, qpos - window + 1) if window is not None else np.zeros(s, np.int64)
+    return int((hi - lo).sum())
+
+
+def time_flash_attention(dev, flush) -> dict:
+    """One Gemma3-1B prefill's K3 launches (4 prompts x 2048 tokens, D 256,
+    4 query heads over 1 KV head, bf16): 4 global layers + 22 local
+    (window 512), each shape timed alone and summed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 3)
+    b, s, h, kvh, d, dt = PREFILL_B, PREFILL_S, 4, 1, 256, torch.bfloat16
+    q, k, v = (_randn(rng, (b, s, n, d), dt, dev) for n in (h, kvh, kvh))
+    # SDPA's (B, H, S, D) layout, made once outside the timed calls
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0)
+    for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None, :] > pos[:, None] - window
+        kernel = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v, window=window), flush)
+        plain = median_ms(lambda: fa_plain.flash_attention_bshd(q, k, v, window=window), flush,
+                          iters=5, warmup=1)
+        library = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+        log(f"  flash_attention {'global' if window is None else f'local (window {window})'} "
+            f"layer ({b}x{s}, D {d}, bf16): kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+            f"SDPA {library:.4f} ms")
+        totals["ms"] += n_layers * kernel
+        totals["plain_ms"] += n_layers * plain
+        totals["library_ms"] += n_layers * library
+        totals["flops"] += n_layers * 4.0 * d * attention_pairs(s, True, window) * b * h
+    nbytes = (N_GLOBAL + N_LOCAL) * (2 * b * s * h * d + 2 * b * s * kvh * d) * 2
+    b_ms, b_by = bound_ms(nbytes, totals["flops"], PEAK_BF16_FLOPS)
+    log(f"  flash_attention per prefill ({N_GLOBAL} global + {N_LOCAL} local launches): "
+        f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
+        f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:99",
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": totals["library_ms"],
+    }
+
+
+# ------------------------------------------------------------ phase 2: K4
+def _lengths(rng, b: int, s: int, dev) -> torch.Tensor:
+    """Ragged lengths with the edge cases: 1 key, a full cache, and one past
+    it (an idle serving slot keeps counting)."""
+    lens = rng.integers(1, s + 1, size=b)
+    lens[0] = 1
+    if b > 2:
+        lens[1], lens[2] = s, s + 5
+    return torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+def check_decode_attention(dev) -> float:
+    """K4 against its plain version on layer slices of a stacked cache (so
+    through strides): head_dim 256 (MQA, the Gemma3 decode shape 4 x 2112
+    with q in f32 and bf16, and the serve shape) and 128/64 (GQA, up to 8
+    heads a group), window and none, ragged lengths, q f32/bf16 and the
+    cache f32/bf16."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plain as da_plain
+
+    rng = np.random.default_rng(SEED + 4)
+    cases = [  # B, S, H, KVH, D, window, q dtype, cache dtype
+        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, GEMMA_WINDOW, torch.float32, torch.bfloat16),
+        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, None, torch.float32, torch.bfloat16),
+        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, GEMMA_WINDOW, torch.float32, torch.float32),
+        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, GEMMA_WINDOW, torch.bfloat16, torch.bfloat16),
+        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, None, torch.bfloat16, torch.bfloat16),
+        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, None, torch.bfloat16, torch.float32),
+        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, 40, torch.float32, torch.float32),
+        (5, 300, 16, 8, 128, None, torch.float32, torch.float32),
+        (5, 300, 16, 8, 128, 64, torch.bfloat16, torch.float32),
+        (3, 1000, 8, 1, 64, None, torch.float32, torch.bfloat16),
+    ]
+    worst = 0.0
+    for b, s, h, kvh, d, window, qdt, cdt in cases:
+        q = _randn(rng, (b, h, d), qdt, dev)
+        kc, vc = (_randn(rng, (2, b, s, kvh, d), cdt, dev) for _ in range(2))
+        lens = _lengths(rng, b, s, dev)
+        got = da_ops.decode_attention_cache(q, kc[1], vc[1], lens, window=window)
+        want = da_plain.decode_attention(q, kc[1], vc[1], lens, window=window)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(got, want, qdt)
+        log(f"  decode_attention B={b} S={s} H={h} KVH={kvh} D={d} window={window} "
+            f"q {str(qdt)[6:]} cache {str(cdt)[6:]}: max|kernel-plain|={err:.3e} (bound {tol})")
+        if not (got.dtype == qdt and got.shape == q.shape and inside):
+            raise AssertionError(f"decode_attention disagrees with its plain version: {err}, bound {tol}")
+        if qdt == torch.float32:
+            worst = max(worst, err)
+    return worst
+
+
+def time_decode_attention(dev, flush) -> dict:
+    """One Gemma3-1B decode step's K4 launches at the decode phase's shape
+    (4 sequences at 2048..2063 keys in a 2112-key bf16 cache, q bf16):
+    4 global layers + 22 local (window 512), each timed alone and summed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plain as da_plain
+
+    rng = np.random.default_rng(SEED + 5)
+    b, s, h, kvh, d, dt = PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, torch.bfloat16
+    q = _randn(rng, (b, h, d), dt, dev)
+    kc, vc = (_randn(rng, (b, s, kvh, d), dt, dev) for _ in range(2))
+    lens_np = PREFILL_S + np.arange(b, dtype=np.int32) * (DECODE_STEPS // b)
+    lens = torch.from_numpy(lens_np).to(dev)
+    qt = q[:, :, None, :]  # SDPA: (B, H, 1, D) against (B, KVH, S, D) views of the cache
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    pos = torch.arange(s, device=dev)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
+        mask = pos[None, :] < lens[:, None]
+        if window is not None:
+            mask &= pos[None, :] >= lens[:, None] - window
+        mask = mask[:, None, None, :]
+        kernel = median_ms(lambda: da_ops.decode_attention_cache(q, kc, vc, lens, window=window), flush)
+        plain = median_ms(lambda: da_plain.decode_attention(q, kc, vc, lens, window=window), flush)
+        library = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+        log(f"  decode_attention {'global' if window is None else f'local (window {window})'} "
+            f"layer ({b} seqs, cache {s}, D {d}, bf16): kernel {kernel:.4f} ms, plain "
+            f"{plain:.4f} ms, SDPA {library:.4f} ms")
+        keys = np.minimum(lens_np, s) - (np.maximum(0, lens_np - window) if window else 0)
+        totals["ms"] += n_layers * kernel
+        totals["plain_ms"] += n_layers * plain
+        totals["library_ms"] += n_layers * library
+        totals["flops"] += n_layers * 4.0 * h * d * keys.sum()
+        totals["bytes"] += n_layers * (kvh * keys.sum() * d * 2 * 2 + 2 * b * h * d * 2 + b * 4)
+    b_ms, b_by = bound_ms(totals["bytes"], totals["flops"], PEAK_BF16_FLOPS)
+    log(f"  decode_attention per decode step ({N_GLOBAL} global + {N_LOCAL} local launches): "
+        f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
+        f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:91",
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": totals["library_ms"],
+    }
+
+
 # ------------------------------------------------------------ phase 3: main
 def make_corpus(formats):
     from repro_torch.preprocessing.formats import StoredImage
@@ -312,6 +557,202 @@ def run_main_path(dev, corpus, full, thumb) -> dict:
                 dispatches=dispatches, cpu_logits=cpu_logits)
 
 
+# ------------------------------------------------------------ phase 4: LM
+def _attention_counts() -> dict:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {"flash_attention": fa_ops.flash_attention_bshd.launches,
+            "decode_attention": da_ops.decode_attention_cache.launches}
+
+
+def _zero_attention_counts() -> None:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fa_ops.flash_attention_bshd.launches = 0
+    da_ops.decode_attention_cache.launches = 0
+
+
+def _plain_attention():
+    """The model with K3/K4 swapped for their plain versions (the card
+    comparison's reference): patches the two wrappers the layers call."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plain as da_plain
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(fa_ops, "flash_attention_bshd", fa_plain.flash_attention_bshd))
+    stack.enter_context(mock.patch.object(da_ops, "decode_attention_cache", da_plain.decode_attention))
+    return stack
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor, vocab: int) -> tuple[float, float]:
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / scale, scale
+
+
+def _expect_counts(phase: str, got: dict, want: dict) -> None:
+    log(f"[lm] {phase} launches {got}")
+    if got != want:
+        raise AssertionError(f"{phase}: kernel launches {got}, expected {want}")
+
+
+def run_lm_path(dev, card: str) -> dict:
+    """Gemma3-1B at full width in bf16 (random weights from a seeded
+    generator on the card): ``prefill`` of 4 x 2048 tokens, ``forward`` over
+    the same prompts, 16 ``decode_step``s from the prefill's cache,
+    ``ServingEngine.serve`` of 16 requests over 8 slots.  Each phase runs
+    with the K3/K4 counters zeroed just before it and read just after;
+    prefill and decode logits are held against the same model with plain
+    attention, forward's last position against prefill.  Returns the
+    launches."""
+    from repro_torch import configs
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    cfg = configs.get_config("gemma3-1b")
+    n_layers, vocab = cfg.num_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.name}: {n_layers} layers ({sum(model.is_local)} local, window "
+        f"{cfg.sliding_window}), d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {vocab}, {n_params / 1e9:.3f} B params "
+        f"{cfg.dtype}, built on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 6)
+    prompts = torch.from_numpy(rng.integers(0, vocab, size=(PREFILL_B, PREFILL_S))).to(dev)
+
+    # ---- prefill (one warm-up call first: cuBLAS handles, allocator)
+    D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
+    torch.cuda.synchronize()
+    _zero_attention_counts()
+    t0 = time.perf_counter()
+    logits, cache, lens = D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = _attention_counts()
+    _expect_counts("prefill", launches, {"flash_attention": n_layers, "decode_attention": 0})
+    if logits.shape != (PREFILL_B, cfg.padded_vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite")
+    with _plain_attention():
+        plain_logits, plain_cache, _ = D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
+    err, scale = _rel_err(logits, plain_logits, vocab)
+    log(f"[lm] prefill {PREFILL_B}x{PREFILL_S} tokens: {prefill_s * 1e3:.1f} ms, "
+        f"{PREFILL_B * PREFILL_S / prefill_s:.0f} tokens/s; last-token logits vs plain attention: "
+        f"max|d| / max|logit| {err:.3e} (max|logit| {scale:.3e}, tolerance {LM_LOGIT_RTOL}) [{card}]")
+    if not err <= LM_LOGIT_RTOL:
+        raise AssertionError(f"prefill logits differ from the plain-attention model by {err}")
+
+    # ---- forward over the same prompts (its K3 call site is gqa_apply)
+    _zero_attention_counts()
+    t0 = time.perf_counter()
+    all_logits = T.forward(model, cfg, prompts)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    _expect_counts("forward", _attention_counts(), {"flash_attention": n_layers, "decode_attention": 0})
+    launches["flash_attention"] += n_layers
+    if all_logits.shape != (PREFILL_B, PREFILL_S, cfg.padded_vocab_size):
+        raise AssertionError(f"forward logits: shape {tuple(all_logits.shape)}")
+    err, _ = _rel_err(all_logits[:, -1], logits, vocab)
+    finite = bool(torch.isfinite(all_logits).all())
+    del all_logits
+    log(f"[lm] forward {PREFILL_B}x{PREFILL_S} tokens: {forward_s * 1e3:.1f} ms (one call); "
+        f"last-position logits vs prefill's: max|d| / max|logit| {err:.3e} "
+        f"(tolerance {FORWARD_LOGIT_RTOL:.4g}), all finite {finite} [{card}]")
+    if not (finite and err <= FORWARD_LOGIT_RTOL):
+        raise AssertionError(f"forward logits non-finite or differ from prefill's by {err}")
+
+    # ---- decode: greedy tokens of the kernel path, fed to both paths
+    tok = logits.argmax(-1)
+    tokens, kernel_logits, step_ms = [], [], []
+    _zero_attention_counts()
+    for _ in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, lens = D.decode_step(model, cfg, tok, cache, lens)
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(tok)
+        kernel_logits.append(logits)
+        tok = nxt
+    c = _attention_counts()
+    _expect_counts("decode", c, {"flash_attention": 0, "decode_attention": n_layers * DECODE_STEPS})
+    launches["decode_attention"] += c["decode_attention"]
+    if not all(torch.isfinite(lg).all() for lg in kernel_logits):
+        raise AssertionError("non-finite decode logits")
+    plain_lens = torch.full_like(lens, PREFILL_S)
+    worst = 0.0
+    with _plain_attention():
+        for tk, lg in zip(tokens, kernel_logits):
+            plain_lg, plain_cache, plain_lens = D.decode_step(model, cfg, tk, plain_cache, plain_lens)
+            worst = max(worst, _rel_err(lg, plain_lg, vocab)[0])
+    log(f"[lm] decode {DECODE_STEPS} steps x {PREFILL_B} sequences from {PREFILL_S} tokens: "
+        f"{statistics.median(step_ms):.3f} ms/step median, {statistics.mean(step_ms):.3f} mean "
+        f"(host clock, synchronised); logits vs plain attention: max|d| / max|logit| {worst:.3e} "
+        f"(tolerance {LM_LOGIT_RTOL}) [{card}]")
+    if not worst <= LM_LOGIT_RTOL:
+        raise AssertionError(f"decode logits differ from the plain-attention model by {worst}")
+    del cache, plain_cache, kernel_logits
+
+    # ---- where one decode step's time goes (torch.profiler, 4 steps)
+    profile_decode(model, cfg, D, prompts)
+
+    # ---- serving: 16 requests, 8 slots, f32 cache (the engine's default)
+    engine = E.ServingEngine(model, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev)
+    reqs = [E.Request(uid=i, text=f"request {i}: the quick brown fox jumps over the lazy dog",
+                      max_new_tokens=SERVE_MAX_NEW) for i in range(SERVE_REQUESTS)]
+    _zero_attention_counts()
+    done, stats = engine.serve(reqs)
+    c = _attention_counts()
+    _expect_counts("serve", c, {"flash_attention": 0, "decode_attention": n_layers * engine.model_steps})
+    launches["decode_attention"] += c["decode_attention"]
+    if stats.completed != SERVE_REQUESTS or sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"served {stats.completed} of {SERVE_REQUESTS} requests")
+    if not all(1 <= len(r.output_ids) <= SERVE_MAX_NEW and all(0 <= t < vocab for t in r.output_ids)
+               for r in done):
+        raise AssertionError("a request came back with no tokens or ids outside the vocabulary")
+    log(f"[lm] serve {SERVE_REQUESTS} requests over {SERVE_SLOTS} slots: {stats.tokens_generated} "
+        f"tokens in {stats.wall_seconds:.3f} s, {stats.tokens_per_second:.1f} tokens/s; "
+        f"{stats.decode_steps} serve steps + {engine.model_steps - stats.decode_steps} prompt steps, "
+        f"{stats.wall_seconds / engine.model_steps * 1e3:.3f} ms per model step [{card}]")
+    return launches
+
+
+def profile_decode(model, cfg, D, prompts) -> None:
+    """torch.profiler over 4 decode steps after a short prefill: device
+    busy share and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, cache, lens = D.prefill(model, cfg, prompts[:, :PREFILL_S // 4], max_len=DECODE_MAX_LEN)
+    tok = torch.zeros(PREFILL_B, dtype=torch.long, device=prompts.device)
+    D.decode_step(model, cfg, tok, cache, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            _, cache, lens = D.decode_step(model, cfg, tok, cache, lens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"[lm] profile of 4 decode steps ({PREFILL_B} seqs at {PREFILL_S // 4} tokens): wall "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), "
+        f"{len(rows)} kernel names")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[lm]   device {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"[lm]   host {e.self_cpu_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -359,6 +800,13 @@ def main() -> int:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     rows = [time_idct(dev, luma_rows, chroma_rows, flush), time_fused_preproc(dev, low, flush)]
     rows[0]["max_abs_err"] = idct_err
+    log(f"[kernels] flash_attention and decode_attention vs plain (f32 atol {ATTN_F32_ATOL}; "
+        f"bf16 elementwise 2^-7 |plain| + {ATTN_BF16_ATOL})")
+    attn_errs = {"flash_attention": check_flash_attention(dev),
+                 "decode_attention": check_decode_attention(dev)}
+    for timed in (time_flash_attention(dev, flush), time_decode_attention(dev, flush)):
+        timed["max_abs_err"] = attn_errs[timed["name"]]
+        rows.append(timed)
     del flush
 
     # ---- phase 3: the main path
@@ -397,6 +845,9 @@ def main() -> int:
     if not (diff <= LOGIT_RTOL * scale and same_argmax):
         raise AssertionError("card logits differ from the CPU run of the same program")
 
+    del res, compiled, prog, outs
+    # ---- phase 4: the LM serving path
+    launches.update(run_lm_path(dev, card))
     for row in rows:
         row["launches"] = launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

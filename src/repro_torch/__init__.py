@@ -3,8 +3,11 @@
 The layout mirrors ``repro`` module for module; host-side modules (codecs,
 DAG optimizer, cost model, placement, planner, memory, workers) are copies
 with their imports rewritten, and every device-side piece runs on torch
-tensors.  The two Pallas kernels of the split-decode path are hand-written
-CUDA C++ kernels under ``csrc/`` (``kernels/idct``, ``kernels/fused_preproc``).
+tensors.  Every Pallas kernel of the reference is a hand-written CUDA C++
+kernel under ``csrc/``: ``kernels/idct`` and ``kernels/fused_preproc`` on
+the split-decode path, ``kernels/flash_attention`` and
+``kernels/decode_attention`` on the LM serving path (``models/transformer``,
+``models/decode``, ``serving/engine``, ``launch/serve``).
 
 Devices are explicit: entry points default to ``"cuda"`` and raise when no
 card is visible; ``device="cpu"`` runs every kernel's plain PyTorch version.

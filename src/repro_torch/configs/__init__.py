@@ -1,0 +1,48 @@
+"""Architecture registry of the port.
+
+The names are ``repro.configs``' ten; only the dense-GQA configurations
+whose every layer the port runs are copied here.  The others raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_MODULES = {
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+}
+
+# the reference's other architectures and what they still need
+NOT_PORTED = {
+    "qwen3-32b": "dense GQA; config not copied until a slice runs it",
+    "internlm2-20b": "dense GQA; config not copied until a slice runs it",
+    "internvl2-26b": "VLM frontend and decode",
+    "xlstm-125m": "xLSTM blocks (models/ssm.py)",
+    "whisper-large-v3": "encoder-decoder and cross attention",
+    "hymba-1.5b": "hybrid attention + Mamba blocks (models/ssm.py)",
+    "deepseek-v2-236b": "MLA attention and MoE",
+    "olmoe-1b-7b": "MoE",
+}
+
+ARCH_NAMES = list(ARCH_MODULES) + list(NOT_PORTED)
+
+
+def _module(name: str):
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet ({NOT_PORTED[name]}): "
+            "ROADMAP port queue item 25 (LLM side stack)"
+        )
+    return importlib.import_module(ARCH_MODULES[name])
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the split-decode path.
+"""Hand-written Hopper kernels of the port.
 
 Each kernel package ships:
   ops.py   — the wrapper: checks device/dtype/shape/contiguity, launches the
@@ -13,4 +13,8 @@ loaded with ``ctypes``).
 * idct          — dequantize + (scaled) 8x8 IDCT of coefficient rows
 * fused_preproc — bilinear gather resample + uint8 re-quantize + per-plane
                   affine (the folded ToFloat/Normalize)
+* flash_attention  — online-softmax prefill attention: causal, sliding
+                     window, GQA (the LM's prefill and forward)
+* decode_attention — flash-decoding of one token per sequence against the
+                     KV cache in its own layout (every decode step)
 """

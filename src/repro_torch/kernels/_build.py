@@ -117,6 +117,8 @@ def load_library() -> ctypes.CDLL:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -132,6 +134,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         _P, _P,  # out, stream
     ]
     lib.repro_resize_affine_planar_f32.restype = _I
+    lib.repro_flash_attention.argtypes = [
+        _I, _P, _P, _P, _P,  # dtype, q, k, v, out
+        _I, _I, _I, _I, _I,  # B, S, H, KVH, D
+        _L, _L, _L, _L, _L, _L,  # q / k strides (batch, seq, head)
+        _L, _L, _L, _L, _L, _L,  # v / out strides
+        _F, _I, _I, _P,  # scale, causal, window (-1 = none), stream
+    ]
+    lib.repro_flash_attention.restype = _I
+    lib.repro_decode_attention.argtypes = [
+        _I, _I,  # q dtype, cache dtype
+        _P, _L, _L,  # q, its (batch, head) strides
+        _P, _L, _L, _L,  # k cache, its (batch, seq, head) strides
+        _P, _L, _L, _L,  # v cache, its strides
+        _P, _P, _P, _P, _P,  # lengths, out, partial max, partial sum, partial acc
+        _I, _I, _I, _I, _I, _I,  # B, S, KVH, group, D, splits
+        _F, _I, _P,  # scale, window (-1 = none), stream
+    ]
+    lib.repro_decode_attention.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,89 @@
+"""Flash attention (K3): the wrapper around ``csrc/flash_attention.cu``.
+
+:func:`flash_attention_bshd` takes the model's layout — q (B, S, H, D),
+k/v (B, S, KVH, D) — and is what ``models/layers.attention_scores_blockwise``
+calls.  The reference wrapper's (B, H, S, D) layout is the same call on
+``transpose(1, 2)`` views: the kernel takes any strides.
+
+The reference wrapper pads S up to its block size and crops back
+(``repro/kernels/flash_attention/ops.py``), because a Pallas grid needs
+whole blocks.  The CUDA kernel instead masks the ragged tail itself
+(query rows past S are not stored, keys past S are masked as the padded
+keys are), so nothing is copied: the kernel reads q, k and v in place
+through their strides and writes one new (B, S, H, D) tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import plain
+
+HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q/k/v must be (B, S, heads, D), got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of {k.shape[2]} KV heads")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q/k/v on {q.device}/{k.device}/{v.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KVH, D)
+    v: torch.Tensor,  # (B, S, KVH, D)
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Causal / sliding-window (``kpos > qpos - window``) GQA attention ->
+    (B, S, H, D) in q's dtype, f32 softmax and accumulation.
+
+    On a CUDA tensor this launches ``csrc/flash_attention.cu`` on the
+    current stream (and raises if it cannot); on a CPU tensor it runs the
+    plain version."""
+    _check(q, k, v, window)
+    b, s, h, d = q.shape
+    scale = float(d) ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("q/k/v need a contiguous head_dim")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.repro_flash_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, h, k.shape[2], d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        scale, int(causal), -1 if window is None else int(window), stream,
+    )
+    _build.check(lib, status, "flash_attention")
+    flash_attention_bshd.launches += 1
+    return out
+
+
+flash_attention_bshd.launches = 0  # kernel launches (CPU calls do not count)
+

@@ -1,0 +1,80 @@
+"""Plain PyTorch version of the flash-attention kernel (K3).
+
+The same function as ``csrc/flash_attention.cu``, written as
+``repro.models.layers.attention_scores_blockwise`` writes it: a dense
+softmax when the keys fit one block, else an online softmax over KV blocks
+with the padded tail masked.  Scores, softmax and the value sum are f32;
+the result is cast to q's dtype.  The CPU path and the card check in
+``chip_smoke.py`` use it.
+
+Fully masked rows: here (as in the reference) a row whose every key is
+masked gets the mean of V, the CUDA kernel gives 0 (``l == 0`` guard, as
+the Pallas kernel's finalize).  No such row is ever read: a causal row
+always sees its own key, a windowed row (``kpos > qpos - window``) too,
+and padded query rows are cropped.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # finite: exp(NEG_INF - NEG_INF) must be 1, not NaN
+
+
+def _mask(s: int, kpos: torch.Tensor, causal: bool, window: int | None) -> torch.Tensor:
+    qpos = torch.arange(s, device=kpos.device)[:, None]
+    mask = torch.ones((s, kpos.shape[0]), dtype=torch.bool, device=kpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos
+    if window is not None:
+        mask &= kpos[None, :] > qpos - window
+    return mask
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KVH, D)
+    v: torch.Tensor,  # (B, S, KVH, D)
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    block: int = 1024,
+) -> torch.Tensor:
+    """(B, S, H, D) attention in the model's layout; GQA in grouped form
+    (query heads ``h`` read KV head ``h // group``, no repeat)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    group = h // kvh
+    scale = scale if scale is not None else d**-0.5
+    qg = q.reshape(b, s, kvh, group, d).float()
+    if s <= block:
+        sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, k.float()) * scale
+        mask = _mask(s, torch.arange(s, device=q.device), causal, window)
+        sc = sc.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
+        return out.reshape(b, s, h, d).to(q.dtype)
+
+    nb = -(-s // block)
+    pad = nb * block - s
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    m = torch.full((b, kvh, group, s), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, group, s), device=q.device)
+    acc = torch.zeros((b, kvh, group, s, d), device=q.device)
+    for bi in range(nb):
+        kb = kf[:, bi * block:(bi + 1) * block]
+        vb = vf[:, bi * block:(bi + 1) * block]
+        sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, kb) * scale
+        kpos = bi * block + torch.arange(block, device=q.device)
+        mask = _mask(s, kpos, causal, window) & (kpos < s)[None, :]
+        sc = sc.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1)
+        acc = corr[..., None] * acc + torch.einsum("bkgqm,bmkd->bkgqd", p, vb)
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4)  # (B, S, K, G, D)
+    return out.reshape(b, s, h, d).to(q.dtype)

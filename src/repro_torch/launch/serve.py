@@ -1,0 +1,59 @@
+"""Serving CLI of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \
+        --requests 8 --max-new 16 [--device cpu]
+
+Runs the batched serving engine (tokenize on host threads + decode on the
+card) with weights drawn at random from a seeded ``torch.Generator``.
+``--restore`` (loading a checkpoint) is not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import Request, ServingEngine
+
+
+def main(argv: list[str] | None = None) -> tuple[list[Request], object]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=configs.ARCH_NAMES, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--restore", default=None, help="checkpoint dir to load params from")
+    args = ap.parse_args(argv)
+
+    if args.restore:
+        raise NotImplementedError(
+            "--restore: the checkpoint module (distributed/checkpoint.py) is not ported to "
+            "repro_torch yet: ROADMAP port queue item 25 (LLM side stack)"
+        )
+    cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
+    dev = resolve_device(args.device)
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    engine = ServingEngine(params, cfg, batch_slots=args.slots, max_len=args.max_len, device=dev)
+    reqs = [
+        Request(uid=i, text=f"request {i}: the quick brown fox", max_new_tokens=args.max_new)
+        for i in range(args.requests)
+    ]
+    done, stats = engine.serve(reqs)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(
+        f"completed {stats.completed} requests, {stats.tokens_generated} tokens "
+        f"in {stats.wall_seconds:.2f}s ({stats.tokens_per_second:.1f} tok/s) on {name}"
+    )
+    return done, stats
+
+
+if __name__ == "__main__":
+    main()

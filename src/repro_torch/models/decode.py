@@ -1,0 +1,165 @@
+"""Serving paths of the port: cache init, prefill, and single-token decode.
+
+``repro.models.decode`` for the dense-GQA family.  The cache is a dict
+of layer-stacked tensors, k/v (L, B, S, KVH, hd), as in the reference.
+What differs:
+
+* **In place.**  The reference's cache is immutable: the decode scan
+  returns each layer's slice with the new row scattered in.  Here
+  :func:`decode_step` writes the new row into ``cache["k"][l]`` /
+  ``cache["v"][l]`` in place and returns the same dict, and
+  :func:`prefill` writes each layer's rows into one cache allocated up
+  front.  A write at a position past the cache is dropped, as JAX drops an
+  out-of-bounds scatter (an idle serving slot's length keeps counting).
+* **Kernels.**  Prefill attention is K3 and decode attention is K4, which
+  reads each layer slice through its strides: no step copies the cache.
+* ``lax.scan`` over layers and ``lax.cond`` on ``is_local`` become a
+  Python loop and a Python branch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+
+def kv_cache_heads(cfg: ModelConfig, kv_repeat: int = 1) -> int:
+    return cfg.num_kv_heads * kv_repeat
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, kv_repeat: int = 1,
+    dtype: torch.dtype = torch.bfloat16, device: str | torch.device | None = "cuda",
+) -> dict[str, torch.Tensor]:
+    """Zero-filled cache for ``batch`` sequences of up to ``max_len``."""
+    T.check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+# ------------------------------------------------------------------ helpers
+def _scatter_rows_(cache: torch.Tensor, rows: torch.Tensor, lengths: torch.Tensor) -> None:
+    """cache (B, S, ...) <- rows (B, ...) at per-sequence positions, in
+    place; positions >= S are dropped (JAX's scatter drops them too)."""
+    b, s = cache.shape[:2]
+    idx = torch.arange(b, device=cache.device)
+    pos = lengths.clamp(max=s - 1)
+    keep = (lengths < s).view(b, *([1] * (rows.dim() - 1)))
+    cache[idx, pos] = torch.where(keep, rows.to(cache.dtype), cache[idx, pos])
+
+
+def _gqa_decode(p_attn, cfg, x, k_cache, v_cache, lengths, window, kv_repeat):
+    """x: (B, D); k/v_cache: this layer's (B, S, KVHe, hd) views of the
+    stacked cache, updated in place."""
+    bsz, _ = x.shape
+    hd = cfg.resolved_head_dim
+    dt = x.dtype
+    q = (x @ p_attn.wq.to(dt)).reshape(bsz, cfg.num_heads, hd)
+    k = (x @ p_attn.wk.to(dt)).reshape(bsz, cfg.num_kv_heads, hd)
+    v = (x @ p_attn.wv.to(dt)).reshape(bsz, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p_attn.q_norm.scale)
+        k = L.rmsnorm(k, p_attn.k_norm.scale)
+    cos, sin = L.rope_cos_sin(lengths, hd, cfg.rope_theta)  # (B, hd/2)
+    q = L.apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+    k = L.apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=1)
+        v = v.repeat_interleave(kv_repeat, dim=1)
+    _scatter_rows_(k_cache, k, lengths)
+    _scatter_rows_(v_cache, v, lengths)
+    out = decode_ops.decode_attention_cache(q, k_cache, v_cache, lengths + 1, window=window)
+    out = out.reshape(bsz, cfg.num_heads * hd)
+    return out @ p_attn.wo.to(dt)
+
+
+def _window(cfg: ModelConfig, is_local) -> int | None:
+    """The reference's choice: with a local/global pattern the flag picks;
+    without one every layer takes ``cfg.sliding_window``."""
+    if cfg.sliding_window is not None and is_local is not None:
+        return cfg.sliding_window if is_local else None
+    return cfg.sliding_window
+
+
+def _block_decode(p, cfg, x, cache, l_idx, is_local, lengths, kv_repeat):
+    """One block, one token.  x: (B, D)."""
+    h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
+    x = x + _gqa_decode(p.attn, cfg, h, cache["k"][l_idx], cache["v"][l_idx], lengths,
+                        _window(cfg, is_local), kv_repeat)
+    h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
+    return x + L.mlp_apply(p.mlp, h2, cfg.mlp_act)
+
+
+@torch.no_grad()
+def decode_step(
+    params: T.TransformerLM,
+    cfg: ModelConfig,
+    token,  # (B,) int
+    cache: dict,
+    lengths: torch.Tensor,  # (B,) int — cache fill before this token
+    kv_repeat: int = 1,
+) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """One decode step.  Returns (logits (B, V), the cache — updated in
+    place —, new lengths)."""
+    token = T.as_tokens(params, token)
+    lengths = torch.as_tensor(lengths, device=token.device)
+    x = T.embed_tokens(params, cfg, token[:, None])[:, 0]  # (B, D)
+    for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
+        x = _block_decode(blk, cfg, x, cache, i, is_local, lengths, kv_repeat)
+    logits = T.logits_from(params, cfg, x[:, None, :])[:, 0]
+    return logits, cache, lengths + 1
+
+
+# ------------------------------------------------------------------ prefill
+def _block_prefill(p, cfg, x, positions, is_local, cache, l_idx, kv_repeat):
+    """One block over the full prompt; writes this layer's cache rows."""
+    h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
+    b, s, _ = h.shape
+    q, k, v = L.gqa_project_qkv(p.attn, cfg, h, positions)
+    out = L.attention_scores_blockwise(q, k, v, causal=True, window=_window(cfg, is_local))
+    out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    x = x + out @ p.attn.wo.to(h.dtype)
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    cache["k"][l_idx, :, :s] = k
+    cache["v"][l_idx, :, :s] = v
+    h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
+    return x + L.mlp_apply(p.mlp, h2, cfg.mlp_act)
+
+
+@torch.no_grad()
+def prefill(
+    params: T.TransformerLM,
+    cfg: ModelConfig,
+    tokens,  # (B, S) int
+    max_len: int,
+    kv_repeat: int = 1,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    encoder_frames=None,
+    vision_embeds=None,
+) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """Run the prompt, build the cache.  Returns (last-token logits, cache,
+    lengths)."""
+    if vision_embeds is not None or encoder_frames is not None:
+        raise NotImplementedError("VLM and encoder-decoder prefill are not ported to repro_torch yet: "
+                                  "ROADMAP port queue item 25 (LLM side stack)")
+    tokens = T.as_tokens(params, tokens)
+    bsz, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
+    x = T.embed_tokens(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device)
+    cache = init_cache(cfg, bsz, max_len, kv_repeat, cache_dtype, device=x.device)
+    for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
+        x = _block_prefill(blk, cfg, x, positions, is_local, cache, i, kv_repeat)
+    logits = T.logits_from(params, cfg, x[:, -1:, :])[:, 0]
+    lengths = torch.full((bsz,), s, dtype=torch.int32, device=x.device)
+    return logits, cache, lengths

@@ -1,0 +1,184 @@
+"""Port attention kernels K3 (flash attention) and K4 (flash-decoding)
+against the reference Pallas kernels (interpret mode), their jnp oracles,
+and the jnp functions the reference model calls, on the CPU.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
+kernels are held against those plain versions on the card by
+``chip_smoke.py``.  Same seeded numpy inputs on both sides.  Tolerances:
+f32 2e-5 and bf16 3e-2 absolute, the reference's own kernel-sweep bounds
+(``tests/test_kernels.py``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention.ops import decode_attention as ref_decode  # noqa: E402
+from repro.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro.models import layers as RL  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da  # noqa: E402
+from repro_torch.kernels.decode_attention import plain as da_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import plain as fa_plain  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+F32_ATOL, BF16_ATOL = 2e-5, 3e-2
+RNG = np.random.default_rng(0)
+
+
+def _normal(*shape):
+    return RNG.normal(size=shape).astype(np.float32)
+
+
+def _t(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _flash_bhsd(q, k, v, **kw):
+    """K3 on the reference's (B, H, S, D) layout: the same call on views."""
+    out = fa.flash_attention_bshd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    return out.transpose(1, 2)
+
+
+# ----------------------------------------------------------- K3: the sweep
+@pytest.mark.parametrize(
+    "b,h,kvh,s,d,causal,window",
+    [
+        (1, 2, 2, 64, 32, True, None),
+        (1, 4, 2, 64, 32, True, None),  # GQA
+        (2, 4, 1, 96, 32, True, None),  # MQA
+        (1, 2, 2, 80, 32, True, None),  # ragged padding
+        (1, 2, 2, 64, 32, False, None),  # encoder
+        (1, 2, 2, 128, 32, True, 64),  # sliding window
+        (1, 2, 1, 1100, 16, True, 300),  # the plain version's blockwise branch
+    ],
+)
+def test_flash_attention_sweep(b, h, kvh, s, d, causal, window):
+    q, k, v = _normal(b, h, s, d), _normal(b, kvh, s, d), _normal(b, kvh, s, d)
+    out = _flash_bhsd(*_t(q, k, v), causal=causal, window=window)
+    assert out.shape == (b, h, s, d) and out.dtype == torch.float32
+    ref = np.asarray(attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal, window=window))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
+    if s <= 128:  # interpret mode is slow at long S
+        pallas = np.asarray(ref_flash(*map(jnp.asarray, (q, k, v)), causal=causal, window=window,
+                                      bq=32, bk=32))
+        np.testing.assert_allclose(out.numpy(), pallas, atol=F32_ATOL)
+
+
+def test_flash_attention_bf16():
+    q, k, v = _normal(1, 2, 64, 32), _normal(1, 2, 64, 32), _normal(1, 2, 64, 32)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    out = _flash_bhsd(*_t(q, k, v, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(attention_ref(jq, jk, jv), np.float32)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=BF16_ATOL)
+    pallas = np.asarray(ref_flash(jq, jk, jv, bq=32, bk=32), np.float32)
+    np.testing.assert_allclose(out.float().numpy(), pallas, atol=BF16_ATOL)
+
+
+# ----------------------------------------------------------- K4: the sweep
+@pytest.mark.parametrize(
+    "b,h,kvh,s,d,window",
+    [
+        (2, 8, 1, 256, 64, None),
+        (2, 8, 2, 256, 64, None),
+        (1, 4, 4, 100, 32, None),
+        (2, 8, 2, 512, 64, 128),
+    ],
+)
+def test_decode_attention_sweep(b, h, kvh, s, d, window):
+    q, k, v = _normal(b, h, d), _normal(b, kvh, s, d), _normal(b, kvh, s, d)
+    lengths = RNG.integers(max(1, s // 2), s + 1, size=(b,)).astype(np.int32)
+    kc, vc = (x.transpose(1, 2) for x in _t(k, v))  # the reference's (B, KVH, S, D) as views
+    out = da.decode_attention_cache(torch.from_numpy(q), kc, vc, torch.from_numpy(lengths), window=window)
+    args = [jnp.asarray(x) for x in (q, k, v, lengths)]
+    ref = np.asarray(decode_attention_ref(*args, window=window))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
+    pallas = np.asarray(ref_decode(*args, window=window, bk=64))
+    np.testing.assert_allclose(out.numpy(), pallas, atol=F32_ATOL)
+
+
+# --------------------------------- the model-layout functions the LM calls
+@pytest.mark.parametrize("block", [1024, 16])  # the reference's dense / scan branch
+@pytest.mark.parametrize(
+    "b,s,h,kvh,hd,window", [(2, 64, 4, 2, 16, None), (2, 50, 4, 1, 16, 8), (1, 40, 6, 3, 8, None)]
+)
+def test_attention_scores_blockwise_matches_reference(block, b, s, h, kvh, hd, window):
+    q, k, v = _normal(b, s, h, hd), _normal(b, s, kvh, hd), _normal(b, s, kvh, hd)
+    ref = np.asarray(RL.attention_scores_blockwise(*map(jnp.asarray, (q, k, v)), causal=True,
+                                                   window=window, block=block))
+    out = L.attention_scores_blockwise(*_t(q, k, v), causal=True, window=window)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
+    # the plain version's own two branches
+    plain = fa_plain.flash_attention_bshd(*_t(q, k, v), causal=True, window=window, block=block)
+    np.testing.assert_allclose(plain.numpy(), ref, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_decode_attention_jnp_matches_reference_bf16_q_f32_cache(window):
+    # the serving engine's mix: bf16 activations against an f32 cache,
+    # read in the cache's own (B, S, KVH, hd) layout
+    b, h, kvh, s, hd = 3, 4, 1, 64, 32
+    q, kc, vc = _normal(b, h, hd), _normal(b, s, kvh, hd), _normal(b, s, kvh, hd)
+    lengths = np.array([1, 40, 64], np.int32)
+    ref = RL.decode_attention_jnp(jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc), jnp.asarray(vc),
+                                  jnp.asarray(lengths), window=window)
+    out = da.decode_attention_cache(torch.from_numpy(q).bfloat16(), *_t(kc, vc),
+                                    torch.from_numpy(lengths), window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, hd)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=BF16_ATOL)
+
+
+def test_decode_attention_reads_a_layer_slice_of_the_stacked_cache():
+    # (L, B, S, KVH, hd)[l] is a strided view: same answer as a copy
+    b, h, kvh, s, hd = 2, 4, 2, 32, 16
+    q = torch.from_numpy(_normal(b, h, hd))
+    kc, vc = (torch.from_numpy(_normal(3, b, s, kvh, hd)) for _ in range(2))
+    lens = torch.tensor([5, 32], dtype=torch.int32)
+    got = da.decode_attention_cache(q, kc[1], vc[1], lens, window=8)
+    want = da_plain.decode_attention(q, kc[1].clone(), vc[1].clone(), lens, window=8)
+    assert torch.equal(got, want)
+
+
+# ----------------------------------------------------- wrapper contracts
+def test_wrappers_never_fall_back_to_plain_off_the_cpu():
+    # a tensor that is not on the CPU goes to the kernel or raises; the
+    # meta device stands in for "not the CPU" here
+    q = torch.empty((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention_bshd(q, q, q)
+    qd = torch.empty((1, 2, 64), device="meta")
+    kc = torch.empty((1, 8, 1, 64), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        da.decode_attention_cache(qd, kc, kc, torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+def test_wrappers_check_dtype_and_shape():
+    x = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(TypeError):
+        fa.flash_attention_bshd(x.double(), x.double(), x.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_bshd(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_bshd(torch.zeros((1, 8, 3, 16)), x, x)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_bshd(x, x, x, window=0)
+    q, kc = torch.zeros((1, 2, 16)), torch.zeros((1, 8, 1, 16))
+    with pytest.raises(ValueError, match="lengths"):
+        da.decode_attention_cache(q, kc, kc, torch.ones(2, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        da.decode_attention_cache(q, kc.half(), kc.half(), torch.ones(1, dtype=torch.int32))
+
+
+def test_launch_counters_ignore_cpu_calls():
+    before = (fa.flash_attention_bshd.launches, da.decode_attention_cache.launches)
+    x = torch.zeros((1, 8, 2, 16))
+    fa.flash_attention_bshd(x, x, x)
+    da.decode_attention_cache(torch.zeros((1, 2, 16)), x, x, torch.ones(1, dtype=torch.int32))
+    assert (fa.flash_attention_bshd.launches, da.decode_attention_cache.launches) == before

@@ -1,6 +1,7 @@
 """``SmolRuntime.run`` in both packages on the setup of
 ``tests/test_runtime.py``: same corpus bytes, same linear-model weights,
-decode time and dispatch overhead pinned so both plan alike; then the same
+decode time, entropy-stage time and dispatch overhead pinned so both plan
+alike; then the same
 plan key, identical argmax and logits within 1e-4.  Also: the features a
 later slice of the port brings raise NotImplementedError."""
 
@@ -72,6 +73,9 @@ def _runtimes(images, **device_cfg):
             decode_time=lambda fmt: 1e-4 if fmt.short_side else 2e-3,
             **kw,
         )
+        # the split-decode host stage is priced by a measured entropy time:
+        # pin it like the decode time, so a loaded CPU cannot flip the plan
+        rt._entropy_time_cache.update({full.key: 2e-3, thumb.key: 1e-4})
         out.append((rt, corpus))
     (r_rt, r_corpus), (t_rt, t_corpus) = out
     return r_rt, t_rt, r_corpus, t_corpus
