@@ -127,27 +127,76 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# ------------------------------------------------------------ phase 1: build
+# the tensor-core kernels and the instruction their SASS must hold
+TC_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA"}
+
+
+def check_kernel_code(build) -> None:
+    """The tensor-core kernels were compiled as designed: their SASS
+    (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16,
+    ``wgmma``) and HMMA (K1 point 8, ``mma.sync`` tf32), and ptxas reports
+    no spills for them (when this process built the library)."""
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", build.build_info["path"]],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = {op: 0 for op in set(TC_KERNELS.values())}
+        elif name is not None:
+            for op in counts[name]:
+                counts[name][op] += f" {op}." in line or f" {op} " in line
+    spills, entry = {}, None
+    for line in build.build_info.get("ptxas", "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry is not None:
+            spills[entry] = line.strip()
+    for key, op in TC_KERNELS.items():
+        found = {n: c[op] for n, c in counts.items() if key in n}
+        log(f"[env] sass: {key}: {op} instructions per instance {sorted(found.values())}")
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"{key}: no {op} in its SASS ({found})")
+        for n, report in spills.items():
+            if key in n and "0 bytes spill stores, 0 bytes spill loads" not in report:
+                raise AssertionError(f"{n} spills: {report}")
+    if not spills:
+        log("[env] ptxas report: none (the library was built by an earlier process)")
+
+
 # --------------------------------------------------------------- phase 2: K1
 def check_idct(dev, luma_rows: int) -> float:
-    """K1 against its plain version: every point, two qualities, ragged and
-    main-path row counts.  Returns the largest |kernel - plain|."""
+    """K1 against its plain version: every point, two qualities, the main
+    path's row count and ragged ones: 1, one tile of 128 rows less and more
+    one, 777, and a count past three sweeps of the point-8 kernel's
+    persistent grid (2 blocks x 8 warps x 16 rows per SM) that is no
+    multiple of it.  Returns the largest |kernel - plain|."""
     from repro_torch.kernels.idct import ops as idct_ops
     from repro_torch.kernels.idct import plain as idct_plain
     from repro_torch.preprocessing import dct
 
     rng = np.random.default_rng(SEED)
+    sweep = 2 * 8 * 16 * torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for point in idct_ops.SCALED_POINTS:
         for quality in (50, 95):
             q = dct.quality_scale(dct.QTABLE_LUMA, quality)
             m = torch.from_numpy(idct_ops.idct_matrix(q, point)).to(dev)
-            for n in (1, 777, luma_rows):
+            for n in (1, 127, 129, 777, 3 * sweep + 37, luma_rows):
                 coeffs = rng.integers(-300, 300, size=(n, 64)).astype(np.float32)
                 x = torch.from_numpy(coeffs).to(dev)
                 got = idct_ops.idct_rows(x, m)
                 want = idct_plain.idct_rows(x, m)
                 err = (got - want).abs().max().item()
-                log(f"  idct point={point} q={quality} n={n}: max|kernel-plain|={err:.3e}")
+                extra = ""
+                if n == luma_rows and point == 8:  # both against the exact (f64) product
+                    exact = x.double() @ m.double()
+                    extra = (f" (vs f64: kernel {(got.double() - exact).abs().max().item():.3e}, "
+                             f"plain {(want.double() - exact).abs().max().item():.3e}, "
+                             f"max|value| {exact.abs().max().item():.0f})")
+                log(f"  idct point={point} q={quality} n={n}: max|kernel-plain|={err:.3e}{extra}")
                 if not err <= K1_ATOL:
                     raise AssertionError(f"idct disagrees with its plain version: {err} > {K1_ATOL}")
                 worst = max(worst, err)
@@ -288,8 +337,12 @@ def _attn_bound(got: torch.Tensor, want: torch.Tensor, dt: torch.dtype) -> tuple
 def check_flash_attention(dev) -> float:
     """K3 against its plain version: head_dim 256 (MQA, the Gemma3 prefill
     shape 4 x 2048, window and none, in f32 and bf16) and 128/64 (GQA),
-    ragged S, causal and not.  Returns the largest |kernel - plain| over
-    the f32 cases (the bf16 ones are held to their own bound)."""
+    ragged S, causal and not; for the bf16 tensor-core kernel also the
+    edges of its 128-row query and 64-key tiles (S = 1, 63, 65, 127, 129,
+    2049), windows that end inside a tile (64, 100), groups 1/4/8, D
+    64/128/256, causal off, and q/k/v as (B, H, S, D) views.  Returns the
+    largest |kernel - plain| over the f32 cases (the bf16 ones are held to
+    their own bound)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
 
@@ -305,10 +358,28 @@ def check_flash_attention(dev) -> float:
         (1, 300, 16, 8, 128, True, 64, torch.bfloat16),
         (2, 200, 4, 2, 64, False, None, torch.float32),
         (1, 65, 2, 1, 128, False, 16, torch.bfloat16),
+        # the bf16 kernel's tile edges
+        (1, 1, 4, 1, 256, True, None, torch.bfloat16),
+        (2, 63, 4, 1, 256, True, None, torch.bfloat16),
+        (2, 65, 4, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (1, 127, 4, 1, 256, True, None, torch.bfloat16),
+        (1, 129, 4, 1, 256, True, 64, torch.bfloat16),
+        (1, 2049, 4, 1, 256, True, None, torch.bfloat16),
+        (1, 2049, 4, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (2, 300, 4, 1, 256, True, 64, torch.bfloat16),
+        (2, 300, 4, 1, 256, True, 100, torch.bfloat16),
+        (1, 300, 2, 2, 128, True, None, torch.bfloat16),  # group 1
+        (1, 300, 8, 1, 64, True, 100, torch.bfloat16),  # group 8
+        (1, 200, 4, 1, 64, False, None, torch.bfloat16),
+        (1, 200, 4, 2, 128, False, 100, torch.bfloat16),
+        (1, 129, 4, 1, 256, False, None, torch.bfloat16),
     ]
     worst = 0.0
-    for b, s, h, kvh, d, causal, window, dt in cases:
-        q, k, v = (_randn(rng, (b, s, n, d), dt, dev) for n in (h, kvh, kvh))
+    for i, (b, s, h, kvh, d, causal, window, dt) in enumerate(cases):
+        if i == len(cases) - 1:  # (B, H, S, D) tensors read through (B, S, H, D) views
+            q, k, v = (_randn(rng, (b, n, s, d), dt, dev).transpose(1, 2) for n in (h, kvh, kvh))
+        else:
+            q, k, v = (_randn(rng, (b, s, n, d), dt, dev) for n in (h, kvh, kvh))
         got = fa_ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
         want = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -330,10 +401,24 @@ def attention_pairs(s: int, causal: bool, window: int | None) -> int:
     return int((hi - lo).sum())
 
 
+def _sdpa_backend(q, k, v, mask, causal: bool) -> str:
+    """The backend SDPA picks for these inputs (logged beside its time)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
+    except (AttributeError, TypeError, RuntimeError) as e:  # a private API: log, never fail on it
+        return f"unknown ({type(e).__name__})"
+    return SDPBackend(choice).name
+
+
 def time_flash_attention(dev, flush) -> dict:
     """One Gemma3-1B prefill's K3 launches (4 prompts x 2048 tokens, D 256,
     4 query heads over 1 KV head, bf16): 4 global layers + 22 local
-    (window 512), each shape timed alone and summed."""
+    (window 512), each shape timed alone and summed.  The library
+    yardstick is SDPA's faster form: with the explicit mask, and for the
+    global layers also ``is_causal=True`` (no mask: PyTorch may pick its
+    flash backend)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -355,9 +440,15 @@ def time_flash_attention(dev, flush) -> dict:
                           iters=5, warmup=1)
         library = median_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+        forms = f"SDPA with mask {library:.4f} ms ({_sdpa_backend(qt, kt, vt, mask, False)})"
+        if window is None:
+            causal_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+            forms += f", is_causal {causal_ms:.4f} ms ({_sdpa_backend(qt, kt, vt, None, True)})"
+            library = min(library, causal_ms)
         log(f"  flash_attention {'global' if window is None else f'local (window {window})'} "
             f"layer ({b}x{s}, D {d}, bf16): kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
-            f"SDPA {library:.4f} ms")
+            f"{forms}")
         totals["ms"] += n_layers * kernel
         totals["plain_ms"] += n_layers * plain
         totals["library_ms"] += n_layers * library
@@ -365,7 +456,7 @@ def time_flash_attention(dev, flush) -> dict:
     nbytes = (N_GLOBAL + N_LOCAL) * (2 * b * s * h * d + 2 * b * s * kvh * d) * 2
     b_ms, b_by = bound_ms(nbytes, totals["flops"], PEAK_BF16_FLOPS)
     log(f"  flash_attention per prefill ({N_GLOBAL} global + {N_LOCAL} local launches): "
-        f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
+        f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA (faster form) "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
     return {
         "name": "flash_attention",
@@ -781,8 +872,9 @@ def main() -> int:
     log(f"[env] kernels ready in {time.perf_counter() - t0:.2f} s (nvcc "
         f"{_build.build_info['seconds']:.2f} s, {_build.build_info['path']})")
     for line in _build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or "warning" in line:
             log(f"[env] ptxas: {line.strip()}")
+    check_kernel_code(_build)
 
     # ---- phase 2: kernels at the main path's shapes
     full = ImageFormat("jpeg", None, 90, subsample=True)

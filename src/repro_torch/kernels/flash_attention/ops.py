@@ -11,17 +11,27 @@ whole blocks.  The CUDA kernel instead masks the ragged tail itself
 (query rows past S are not stored, keys past S are masked as the padded
 keys are), so nothing is copied: the kernel reads q, k and v in place
 through their strides and writes one new (B, S, H, D) tensor.
+
+The kernel is fixed by dtype: float32 runs the SIMT kernel (full fp32,
+any strides), bfloat16 the tensor-core kernel, whose TMA loads need
+16-byte aligned base pointers and (batch, seq, head) strides; a bf16
+tensor that breaks that raises here, before any launch.  Nothing switches
+kernels at run time.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import plain
 
-HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
+HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
+# the C entry point's dtype code: 0 the SIMT fp32 kernel, 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_ALIGN = 16  # bytes: TMA base pointers and strides
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
@@ -39,6 +49,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"q/k/v on {q.device}/{k.device}/{v.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def _strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, seq, head) strides in elements; a dimension of size 1 is
+    never stepped, so it gets its contiguous stride whatever torch reports."""
+    return tuple(x.stride(i) if x.shape[i] > 1 else math.prod(x.shape[i + 1:]) for i in range(3))
+
+
+def _check_tma(*xs: torch.Tensor) -> None:
+    for x in xs:
+        if x.data_ptr() % _TMA_ALIGN or any(st * x.element_size() % _TMA_ALIGN for st in _strides(x)):
+            raise ValueError(
+                f"the bf16 kernel's TMA loads need 16-byte aligned pointers and (batch, seq, head) "
+                f"strides: pointer offset {x.data_ptr() % _TMA_ALIGN} B, strides {_strides(x)} elements"
+            )
 
 
 def flash_attention_bshd(
@@ -60,12 +85,14 @@ def flash_attention_bshd(
     scale = float(d) ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {d}")
+        raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, got {d}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q/k/v need a contiguous head_dim")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -74,10 +101,7 @@ def flash_attention_bshd(
     status = lib.repro_flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, h, k.shape[2], d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         scale, int(causal), -1 if window is None else int(window), stream,
     )
     _build.check(lib, status, "flash_attention")

@@ -82,6 +82,65 @@ def test_flash_attention_bf16():
     np.testing.assert_allclose(out.float().numpy(), pallas, atol=BF16_ATOL)
 
 
+# ------------------------------------- K3: the bf16 kernel's arithmetic
+def _k3_bf16_emulation(q, k, v, causal, window, bk=64, split_p=True):
+    """The tensor-core kernel's arithmetic, written in torch: f32 scores of
+    bf16 inputs pre-scaled by scale * log2 e, an online softmax with exp2
+    over 64-key tiles (masked scores -1e30), P split into bf16 hi + bf16
+    lo with both products added, l summed from the unrounded f32 P, the
+    output divided by l and rounded once to bf16.  ``split_p=False`` rounds
+    P once to bf16 instead (no lo product)."""
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    scale_log2 = d**-0.5 * 1.4426950408889634
+    m = torch.full((b, h, s), -1e30)
+    l = torch.zeros((b, h, s))
+    o = torch.zeros((b, h, s, d))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        kpos = torch.arange(k0, min(k0 + bk, s))[None, :]
+        x = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf[:, k0:k0 + bk]) * scale_log2
+        ok = torch.ones((s, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        x = x.masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split_p else torch.zeros_like(p)
+        vt = vf[:, k0:k0 + bk]
+        pv = torch.einsum("bhqk,bkhd->bhqd", hi, vt) + torch.einsum("bhqk,bkhd->bhqd", lo, vt)
+        l = corr * l + p.sum(-1)
+        o = corr[..., None] * o + pv
+        m = m_new
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (o / l[..., None]).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64), (True, 100), (False, None)])
+def test_k3_bf16_arithmetic_within_the_card_bound(causal, window):
+    # the card check's bound on the bf16 kernel, elementwise: one bf16
+    # rounding step, 2^-7 |plain| + 1e-4 (chip_smoke.py ATTN_BF16_*)
+    b, s, h, kvh, d = 1, 256, 4, 1, 64
+    q, k, v = _t(_normal(b, s, h, d), _normal(b, s, kvh, d), _normal(b, s, kvh, d), dtype=torch.bfloat16)
+    got = _k3_bf16_emulation(q, k, v, causal, window)
+    want = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    bound = 2**-7 * want.float().abs() + 1e-4
+    assert ((got.float() - want.float()).abs() <= bound).all()
+    # and the reference's f32 attention on the same bf16 inputs
+    jq, jk, jv = (jnp.asarray(x.float().transpose(1, 2).numpy()) for x in (q, k, v))
+    ref = np.asarray(attention_ref(jq, jk, jv, causal=causal, window=window)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=BF16_ATOL)
+    # P rounded once to bf16 before P.V breaks the same bound
+    once = _k3_bf16_emulation(q, k, v, causal, window, split_p=False)
+    assert ((once.float() - want.float()).abs() > bound).any()
+
+
 # ----------------------------------------------------------- K4: the sweep
 @pytest.mark.parametrize(
     "b,h,kvh,s,d,window",
@@ -157,6 +216,30 @@ def test_wrappers_never_fall_back_to_plain_off_the_cpu():
     kc = torch.empty((1, 8, 1, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         da.decode_attention_cache(qd, kc, kc, torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+def test_flash_attention_kernel_is_fixed_by_dtype(monkeypatch):
+    # bf16 goes to the tensor-core kernel: a base pointer or stride TMA
+    # cannot take raises before the library is even loaded; float32 goes to
+    # the SIMT kernel, which takes any stride, and meets the device check
+    def no_launch():
+        raise AssertionError("a kernel was launched")
+
+    monkeypatch.setattr(fa._build, "load_library", no_launch)
+    assert fa._DTYPES == {torch.float32: 0, torch.bfloat16: 1}
+    bf16 = torch.bfloat16
+    odd_stride = torch.empty((1, 8, 2, 68), device="meta", dtype=bf16)[..., :64]  # 136-byte head stride
+    odd_base = torch.empty((1 * 8 * 2 * 64 + 1,), device="meta", dtype=bf16)[1:].view(1, 8, 2, 64)
+    for q in (odd_stride, odd_base):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_bshd(q, q, q)
+    aligned = torch.empty((1, 8, 2, 64), device="meta", dtype=bf16)
+    # B = S = 1: those strides are never stepped, whatever their value
+    one_row = torch.empty(1000, device="meta", dtype=bf16).as_strided((1, 1, 2, 64), (999, 4, 64, 1))
+    f32_odd = torch.empty((1, 8, 2, 68), device="meta")[..., :64]
+    for q in (aligned, one_row, f32_odd):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            fa.flash_attention_bshd(q, q, q)
 
 
 def test_wrappers_check_dtype_and_shape():

@@ -50,6 +50,40 @@ def test_idct_sweep(n, quality):
     np.testing.assert_allclose(out, pallas, atol=2e-2)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10-bit mantissa), to nearest with ties away from
+    zero: the kernel's ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _k1_3xtf32_emulation(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """K1's point-8 arithmetic in torch: x and m split into TF32 hi + lo,
+    per k-step of 8 the three products lo.hi + hi.lo + hi.hi from zero,
+    each k-step's sum added to the f32 result."""
+    xh, mh = _tf32(x), _tf32(m)
+    xl, ml = _tf32(x - xh), _tf32(m - mh)
+    acc = torch.zeros((x.shape[0], m.shape[1]))
+    for k0 in range(0, 64, 8):
+        ks = slice(k0, k0 + 8)
+        acc += xl[:, ks] @ mh[ks] + xh[:, ks] @ ml[ks] + xh[:, ks] @ mh[ks]
+    return acc
+
+
+@pytest.mark.parametrize("quality", [50, 95])
+def test_k1_3xtf32_arithmetic_within_bound(quality):
+    # the bound of every K1 check (2e-2): 3xTF32 keeps near-fp32 accuracy
+    # where one TF32 product (10 mantissa bits) does not
+    coeffs = RNG.integers(-300, 300, size=(512, 8, 8)).astype(np.int16)
+    q = dct.quality_scale(dct.QTABLE_LUMA, quality)
+    m = torch.from_numpy(idct.idct_matrix(q, 8))
+    x = torch.from_numpy(coeffs.reshape(-1, 64).astype(np.float32))
+    got = _k1_3xtf32_emulation(x, m).numpy().reshape(-1, 8, 8)
+    pallas = np.asarray(ref_idct.dequant_idct(coeffs, q))  # interpret mode
+    np.testing.assert_allclose(got, pallas, atol=2e-2)
+    one_pass = (_tf32(x) @ _tf32(m)).numpy().reshape(-1, 8, 8)
+    assert np.abs(one_pass - pallas).max() > 2e-2
+
+
 @pytest.mark.parametrize("point", [8, 4, 2, 1])
 @pytest.mark.parametrize("n", [3, 512])
 def test_scaled_idct_matches_ref(point, n):
