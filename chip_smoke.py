@@ -9,11 +9,14 @@ NVIDIA H100, ``nvcc`` and PyTorch built for CUDA:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
-   build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+   build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
+   and the redesigned kernels' SASS (tensor-core, TMA or ``cp.async``
+   instructions, no spills);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones, then its median time (CUDA
    events, cold L2) beside the plain version's, one library call's, and
-   the least time the card could take (the bound);
+   the least time the card could take (the bound); for K4 also per layer,
+   beside the launch floor of an empty kernel;
 3. main path: ``SmolRuntime.run`` with split decode over a seeded SJPG
    corpus (384x512, 4:2:0, q90; 2 full batches of 64 + a ragged tail) into
    a full-width ResNet-50 with seeded random weights; checks the outputs,
@@ -26,7 +29,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    finite logits, prefill and decode logits against the same model with
    plain attention and forward's last position against prefill's; prints
    prefill tokens/s, decode ms/step, serve tokens/s and a profile of
-   decode steps;
+   decode steps (K4 must launch one kernel per layer there);
 5. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX and nothing of the reference ``repro`` package.
@@ -128,15 +131,19 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 
 
 # ------------------------------------------------------------ phase 1: build
-# the tensor-core kernels and the instruction their SASS must hold
-TC_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA"}
+# the redesigned kernels and the instruction their SASS must hold: tensor
+# cores (K3 bf16, K1 point 8), TMA bulk copies (K4), cp.async copies into
+# shared memory (K2)
+DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
+                    "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS"}
 
 
 def check_kernel_code(build) -> None:
-    """The tensor-core kernels were compiled as designed: their SASS
+    """The redesigned kernels were compiled as designed: their SASS
     (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16,
-    ``wgmma``) and HMMA (K1 point 8, ``mma.sync`` tf32), and ptxas reports
-    no spills for them (when this process built the library)."""
+    ``wgmma``), HMMA (K1 point 8, ``mma.sync`` tf32), UBLKCP (K4, TMA bulk
+    copies) and LDGSTS (K2, ``cp.async``), and ptxas reports no spills for
+    them (when this process built the library)."""
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", build.build_info["path"]],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -144,7 +151,7 @@ def check_kernel_code(build) -> None:
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ", 1)[1].strip()
-            counts[name] = {op: 0 for op in set(TC_KERNELS.values())}
+            counts[name] = {op: 0 for op in set(DESIGNED_KERNELS.values())}
         elif name is not None:
             for op in counts[name]:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
@@ -154,7 +161,7 @@ def check_kernel_code(build) -> None:
             entry = line.split("'")[1]
         elif "spill stores" in line and entry is not None:
             spills[entry] = line.strip()
-    for key, op in TC_KERNELS.items():
+    for key, op in DESIGNED_KERNELS.items():
         found = {n: c[op] for n, c in counts.items() if key in n}
         log(f"[env] sass: {key}: {op} instructions per instance {sorted(found.values())}")
         if not found or min(found.values()) == 0:
@@ -244,8 +251,11 @@ def _taps(low, dev):
 
 
 def check_fused_preproc(dev, low) -> None:
-    """K2 against its plain version, bitwise: the main path's crop windows
-    and a non-square upsample, with and without the uint8 re-quantize."""
+    """K2 against its plain version, bitwise, with and without the uint8
+    re-quantize: the main path's crop windows, a non-square upsample, a
+    crop at odd offsets, output widths that are no multiple of 4, two
+    column tiles whose bands must be cut into sub-bands, and a downsample
+    so wide that not even two input rows fit the stage (direct reads)."""
     from repro_torch.kernels.fused_preproc import ops as fp_ops
     from repro_torch.kernels.fused_preproc import plain as fp_plain
 
@@ -253,12 +263,20 @@ def check_fused_preproc(dev, low) -> None:
     scale = np.asarray(low.scale, np.float32)
     bias = np.asarray(low.bias, np.float32)
     h, w = low.in_meta.spatial
-    main_taps = _taps(low, dev)
-    cases = [("main path crop+resize", BATCH * 3, h, w, main_taps)]
-    # a non-square upsample, no crop
-    cases.append(("upsample 161x193->224x300", 6, 161, 193, [
-        torch.from_numpy(a).to(dev)
-        for a in (*fp_ops.bilinear_taps(161, 224), *fp_ops.bilinear_taps(193, 300))]))
+
+    def bilinear(rows, cols):  # (in, out, start, count, offset) per axis
+        return [torch.from_numpy(a).to(dev)
+                for a in (*fp_ops.bilinear_taps(*rows), *fp_ops.bilinear_taps(*cols))]
+
+    cases = [
+        ("main path crop+resize", BATCH * 3, h, w, _taps(low, dev)),
+        ("upsample 161x193->224x300", 6, 161, 193, bilinear((161, 224), (193, 300))),
+        ("crop (5, 3) 110x190 of 120x203 ->64x100", 3, 120, 203,
+         bilinear((110, 64, 0, None, 5), (190, 100, 0, None, 3))),
+        ("odd widths 161x193->97x131", 3, 161, 193, bilinear((161, 97), (193, 131))),
+        ("two column tiles 50x3000->60x1100", 3, 50, 3000, bilinear((50, 60), (3000, 1100))),
+        ("wide downsample 40x20000->30x1500", 3, 40, 20000, bilinear((40, 30), (20000, 1500))),
+    ]
     for label, planes, ph, pw, taps in cases:
         x = torch.from_numpy(rng.uniform(0, 255, size=(planes, ph, pw)).astype(np.float32)).to(dev)
         s = torch.from_numpy(np.tile(scale, planes // 3)).to(dev)
@@ -303,9 +321,11 @@ def time_fused_preproc(dev, low, flush) -> dict:
     )
     out_bytes = planes * oh * ow * 4
     b_ms, b_by = bound_ms(planes * ch * cw * 4 + out_bytes, 13.0 * planes * oh * ow)
-    log(f"  fused_preproc per batch ({planes} planes {h}x{w}, crop {ch}x{cw} -> {oh}x{ow}): "
-        f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, F.interpolate + affine (two calls) "
-        f"{library:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    blocks = -(-oh // fp_ops.BAND_ROWS) * planes
+    log(f"  fused_preproc per batch ({planes} planes {h}x{w}, crop {ch}x{cw} -> {oh}x{ow}; "
+        f"{blocks} blocks of {fp_ops.BAND_ROWS} rows): kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+        f"F.interpolate + affine (two calls) {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / kernel:.1%} of it, {(planes * ch * cw * 4 + out_bytes) / kernel / 1e9:.3f} TB/s")
     return {
         "name": "fused_preproc",
         "route": "cuda",
@@ -485,49 +505,87 @@ def _lengths(rng, b: int, s: int, dev) -> torch.Tensor:
 def check_decode_attention(dev) -> float:
     """K4 against its plain version on layer slices of a stacked cache (so
     through strides): head_dim 256 (MQA, the Gemma3 decode shape 4 x 2112
-    with q in f32 and bf16, and the serve shape) and 128/64 (GQA, up to 8
-    heads a group), window and none, ragged lengths, q f32/bf16 and the
-    cache f32/bf16."""
+    with q in f32 and bf16, the decode phase's lengths 2048..2060, and the
+    serve shape) and 128/64 (GQA, up to 8 heads a group), window and none,
+    ragged lengths (int32, and int64 the wrapper converts), q f32/bf16 and
+    the cache f32/bf16; and sequences with no valid key (length 0, length
+    >= S + window), whose rows must be the mean of the cache's S value
+    rows, as the reference gives.  The per-(sequence, KV head) arrival counters must be back at 0
+    after every launch."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import plain as da_plain
 
     rng = np.random.default_rng(SEED + 4)
-    cases = [  # B, S, H, KVH, D, window, q dtype, cache dtype
-        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, GEMMA_WINDOW, torch.float32, torch.bfloat16),
-        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, None, torch.float32, torch.bfloat16),
-        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, GEMMA_WINDOW, torch.float32, torch.float32),
-        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, GEMMA_WINDOW, torch.bfloat16, torch.bfloat16),
-        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, None, torch.bfloat16, torch.bfloat16),
-        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, None, torch.bfloat16, torch.float32),
-        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, 40, torch.float32, torch.float32),
-        (5, 300, 16, 8, 128, None, torch.float32, torch.float32),
-        (5, 300, 16, 8, 128, 64, torch.bfloat16, torch.float32),
-        (3, 1000, 8, 1, 64, None, torch.float32, torch.bfloat16),
+    s, w = DECODE_MAX_LEN, GEMMA_WINDOW
+    decode_lens = PREFILL_S + np.arange(PREFILL_B) * (DECODE_STEPS // PREFILL_B)
+    cases = [  # B, S, H, KVH, D, window, q dtype, cache dtype, lengths (None: ragged)
+        (PREFILL_B, s, 4, 1, 256, w, torch.float32, torch.bfloat16, None),
+        (PREFILL_B, s, 4, 1, 256, None, torch.float32, torch.bfloat16, None),
+        (PREFILL_B, s, 4, 1, 256, w, torch.float32, torch.float32, None),
+        (PREFILL_B, s, 4, 1, 256, w, torch.bfloat16, torch.bfloat16, None),
+        (PREFILL_B, s, 4, 1, 256, None, torch.bfloat16, torch.bfloat16, None),
+        (PREFILL_B, s, 4, 1, 256, w, torch.bfloat16, torch.bfloat16, decode_lens),
+        (PREFILL_B, s, 4, 1, 256, None, torch.bfloat16, torch.bfloat16, decode_lens),
+        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, None, torch.bfloat16, torch.float32, None),
+        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, 40, torch.float32, torch.float32, None),
+        (5, 300, 16, 8, 128, None, torch.float32, torch.float32, None),
+        (5, 300, 16, 8, 128, 64, torch.bfloat16, torch.float32, None),
+        (3, 1000, 8, 1, 64, None, torch.float32, torch.bfloat16, None),
+        # no valid key: length 0, and length >= S + window (an idle slot
+        # counting past the cache)
+        (PREFILL_B, s, 4, 1, 256, w, torch.float32, torch.bfloat16, [0, s + w, s + w + 7, 1000]),
+        (PREFILL_B, s, 4, 1, 256, None, torch.float32, torch.float32, [0, s, 2055, 0]),
+        (PREFILL_B, s, 4, 1, 256, w, torch.bfloat16, torch.bfloat16, [s + w, 0, 2051, 513]),
+        (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, 40, torch.float32, torch.float32,
+         [0, SERVE_MAX_LEN + 40, 5, 296, 295, 1, 256, 0]),
+        (5, 300, 16, 8, 128, 64, torch.float32, torch.float32, [364, 0, 363, 65, 300]),
+        (3, 1000, 8, 1, 64, 100, torch.float32, torch.bfloat16, [0, 1100, 50]),
     ]
     worst = 0.0
-    for b, s, h, kvh, d, window, qdt, cdt in cases:
+    for i, (b, s_, h, kvh, d, window, qdt, cdt, lens_list) in enumerate(cases):
         q = _randn(rng, (b, h, d), qdt, dev)
-        kc, vc = (_randn(rng, (2, b, s, kvh, d), cdt, dev) for _ in range(2))
-        lens = _lengths(rng, b, s, dev)
+        kc, vc = (_randn(rng, (2, b, s_, kvh, d), cdt, dev) for _ in range(2))
+        if lens_list is None:
+            lens = _lengths(rng, b, s_, dev)
+        else:
+            lens = torch.tensor(np.asarray(lens_list), dtype=torch.int64 if i % 2 else torch.int32,
+                                device=dev)
         got = da_ops.decode_attention_cache(q, kc[1], vc[1], lens, window=window)
         want = da_plain.decode_attention(q, kc[1], vc[1], lens, window=window)
         torch.cuda.synchronize()
         err, inside, tol = _attn_bound(got, want, qdt)
-        log(f"  decode_attention B={b} S={s} H={h} KVH={kvh} D={d} window={window} "
-            f"q {str(qdt)[6:]} cache {str(cdt)[6:]}: max|kernel-plain|={err:.3e} (bound {tol})")
+        lo = (lens - window).clamp(min=0) if window is not None else torch.zeros_like(lens)
+        empty = (lens.clamp(max=s_) <= lo).nonzero().flatten().tolist()
+        note = ""
+        if empty:  # the reference's value there: the mean of V's S rows
+            mean = vc[1][empty].float().mean(1).repeat_interleave(h // kvh, dim=1)
+            e_err, e_in, _ = _attn_bound(got[empty], mean.to(qdt), qdt)
+            inside &= e_in
+            note = f"; no valid key in sequences {empty}: max|kernel-mean(V)|={e_err:.3e}"
+        log(f"  decode_attention B={b} S={s_} H={h} KVH={kvh} D={d} window={window} "
+            f"q {str(qdt)[6:]} cache {str(cdt)[6:]} lengths {str(lens.dtype)[6:]}: "
+            f"max|kernel-plain|={err:.3e} (bound {tol}){note}")
         if not (got.dtype == qdt and got.shape == q.shape and inside):
             raise AssertionError(f"decode_attention disagrees with its plain version: {err}, bound {tol}")
         if qdt == torch.float32:
             worst = max(worst, err)
+    left = sum(int(c.count_nonzero()) for c in da_ops._arrivals.values())
+    log(f"  decode_attention arrival counters after {len(cases)} launches: {left} non-zero")
+    if left:
+        raise AssertionError(f"{left} arrival counters were left non-zero")
     return worst
 
 
 def time_decode_attention(dev, flush) -> dict:
     """One Gemma3-1B decode step's K4 launches at the decode phase's shape
-    (4 sequences at 2048..2063 keys in a 2112-key bf16 cache, q bf16):
-    4 global layers + 22 local (window 512), each timed alone and summed."""
+    (4 sequences at 2048..2060 keys in a 2112-key bf16 cache, q bf16):
+    4 global layers + 22 local (window 512), each timed alone and summed.
+    Per layer it prints the time beside the layer's bytes bound (its share
+    of it and the bytes/s reached) and the launch floor: an empty kernel
+    from the same library, on the local layer's grid, timed the same way."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import plain as da_plain
 
@@ -540,6 +598,7 @@ def time_decode_attention(dev, flush) -> dict:
     qt = q[:, :, None, :]  # SDPA: (B, H, 1, D) against (B, KVH, S, D) views of the cache
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     pos = torch.arange(s, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
     for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
         mask = pos[None, :] < lens[:, None]
@@ -550,15 +609,32 @@ def time_decode_attention(dev, flush) -> dict:
         plain = median_ms(lambda: da_plain.decode_attention(q, kc, vc, lens, window=window), flush)
         library = median_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
-        log(f"  decode_attention {'global' if window is None else f'local (window {window})'} "
-            f"layer ({b} seqs, cache {s}, D {d}, bf16): kernel {kernel:.4f} ms, plain "
-            f"{plain:.4f} ms, SDPA {library:.4f} ms")
         keys = np.minimum(lens_np, s) - (np.maximum(0, lens_np - window) if window else 0)
+        nbytes = kvh * keys.sum() * d * 2 * 2 + 2 * b * h * d * 2 + b * 4
+        flops = 4.0 * h * d * keys.sum()
+        layer_bound, _ = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        chunk, n_split = da_ops.split_plan(b * kvh, s, window, d, 2, n_sm)
+        line = (f"  decode_attention {'global' if window is None else f'local (window {window})'} "
+                f"layer ({b} seqs, cache {s}, D {d}, bf16; {n_split} chunks of {chunk} keys x "
+                f"{b * kvh} = {n_split * b * kvh} blocks, one launch): kernel {kernel:.4f} ms, plain "
+                f"{plain:.4f} ms, SDPA {library:.4f} ms; bytes bound {layer_bound:.4f} ms, "
+                f"{layer_bound / kernel:.1%} of it, {nbytes / kernel / 1e9:.3f} TB/s")
+        if window is not None:
+            lib = _build.load_library()
+
+            def empty():
+                status = lib.repro_empty_kernel(n_split * b * kvh, 256,
+                                                torch.cuda.current_stream(dev).cuda_stream)
+                _build.check(lib, status, "empty_kernel")
+
+            floor = median_ms(empty, flush)
+            line += f"; launch floor (empty kernel, same grid) {floor:.4f} ms"
+        log(line)
         totals["ms"] += n_layers * kernel
         totals["plain_ms"] += n_layers * plain
         totals["library_ms"] += n_layers * library
-        totals["flops"] += n_layers * 4.0 * h * d * keys.sum()
-        totals["bytes"] += n_layers * (kvh * keys.sum() * d * 2 * 2 + 2 * b * h * d * 2 + b * 4)
+        totals["flops"] += n_layers * flops
+        totals["bytes"] += n_layers * nbytes
     b_ms, b_by = bound_ms(totals["bytes"], totals["flops"], PEAK_BF16_FLOPS)
     log(f"  decode_attention per decode step ({N_GLOBAL} global + {N_LOCAL} local launches): "
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
@@ -820,7 +896,8 @@ def run_lm_path(dev, card: str) -> dict:
 
 def profile_decode(model, cfg, D, prompts) -> None:
     """torch.profiler over 4 decode steps after a short prefill: device
-    busy share and the kernels that take the device time."""
+    busy share, the kernels that take the device time, and K4's device
+    launches per step (one per layer)."""
     from torch.profiler import ProfilerActivity, profile
 
     _, cache, lens = D.prefill(model, cfg, prompts[:, :PREFILL_S // 4], max_len=DECODE_MAX_LEN)
@@ -835,9 +912,13 @@ def profile_decode(model, cfg, D, prompts) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    k4_launches = sum(e.count for e in rows if "flash_decode_kernel" in e.key) / 4
     log(f"[lm] profile of 4 decode steps ({PREFILL_B} seqs at {PREFILL_S // 4} tokens): wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), "
-        f"{len(rows)} kernel names")
+        f"{len(rows)} kernel names; K4 device launches per step {k4_launches:g}")
+    if k4_launches != cfg.num_layers:
+        raise AssertionError(f"K4 launched {k4_launches} kernels per decode step, "
+                             f"expected one per layer ({cfg.num_layers})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[lm]   device {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:90]}")
     for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]:

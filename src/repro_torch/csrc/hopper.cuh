@@ -1,12 +1,15 @@
-// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, `wgmma` shared-memory descriptors and the warpgroup products the
-// flash-attention kernel (flash_attention.cu) issues.  Inline PTX names
+// Hopper (sm_90a) building blocks in inline PTX: `cp.async` copies
+// (fused_preproc.cu), mbarriers, TMA bulk copies (decode_attention.cu) and
+// tensor loads, `wgmma` shared-memory descriptors and the warpgroup
+// products the flash-attention kernel (flash_attention.cu) issues.  Inline PTX names
 // every accumulator register, so each product's operand list is written
 // out in full.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only; no driver call is linked)
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace hopper {
@@ -44,7 +47,56 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// ---------------------------------------------------------------- launch set-up
+// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
+// device, calling cudaFuncSetAttribute only when the limit has to grow:
+// the call can wait for the device, so it stays off the per-launch path.
+// `limit` is the kernel's own record, one entry per device.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t raise_smem_limit(Kernel* kernel, int bytes, int (&limit)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && limit[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) limit[dev] = bytes;
+  return err;
+}
+
+// ---------------------------------------------------------------- cp.async
+// copies into shared memory that bypass the registers (LDGSTS): 16 bytes
+// (both addresses 16-byte aligned, L1 bypassed) or 4 bytes; a group is
+// committed, then waited for until at most N newer groups are in flight
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------- TMA
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory by the copy engine, one
+// instruction; completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // box of a 4-d tensor map at coordinates (c0 innermost .. c3) into shared
 // memory; completion is counted in bytes on `bar`.  Out-of-bounds elements
 // of the box arrive as zeros.

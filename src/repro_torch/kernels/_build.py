@@ -131,7 +131,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         _P, _P, _P, _I,  # y0, y1, wy, oh
         _P, _P, _P, _I,  # x0, x1, wx, ow
         _P, _P, _I,  # scale, bias, round_uint8
-        _P, _P,  # out, stream
+        _P, _I, _I, _I, _P,  # out, band rows, tile columns, stage floats, stream
     ]
     lib.repro_resize_affine_planar_f32.restype = _I
     lib.repro_flash_attention.argtypes = [
@@ -147,11 +147,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         _P, _L, _L,  # q, its (batch, head) strides
         _P, _L, _L, _L,  # k cache, its (batch, seq, head) strides
         _P, _L, _L, _L,  # v cache, its strides
-        _P, _P, _P, _P, _P,  # lengths, out, partial max, partial sum, partial acc
-        _I, _I, _I, _I, _I, _I,  # B, S, KVH, group, D, splits
+        _P, _P, _P, _P,  # lengths, out, partials, arrival counters
+        _I, _I, _I, _I, _I, _I, _I,  # B, S, KVH, group, D, chunk, splits
         _F, _I, _P,  # scale, window (-1 = none), stream
     ]
     lib.repro_decode_attention.restype = _I
+    lib.repro_empty_kernel.argtypes = [_I, _I, _P]  # blocks, threads, stream
+    lib.repro_empty_kernel.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -8,12 +8,17 @@ port's ``decode_attention_jnp``: ``models/decode.py`` calls it on every
 layer of every step.  The reference wrapper's
 (B, KVH, S, D) layout is the same call on ``transpose(1, 2)`` views.
 
-The kernel splits S into chunks of :data:`CHUNK` keys, one block per
-(sequence·KV head, chunk), and a second pass combines the chunks' partial
-softmax sums; the wrapper allocates the f32 scratch for them.
+One launch per call: the kernel splits each sequence's valid keys into
+chunks (:func:`split_plan`), one block per (chunk, sequence·KV head), and
+the last block of each sequence·KV head merges the chunks' partial softmax
+sums.  The wrapper allocates the f32 scratch for the partials; the
+per-(sequence·KV head) arrival counters are kept per device and stream,
+and the kernel leaves them at zero.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,8 +27,61 @@ from repro_torch.kernels.decode_attention import plain
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
 MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
-CHUNK = 128  # keys per block (csrc/decode_attention.cu kChunk)
+STAGE_BYTES = 64 * 1024  # K + V rows of one chunk in shared memory (csrc kStageBytes)
+MIN_CHUNK = 8  # keys per block, at least (unless fewer are valid)
+_ALIGN = 16  # bytes: the kernel's TMA bulk copies
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def split_plan(bkvh: int, s: int, window: int | None, d: int, cache_bytes: int,
+               n_sm: int) -> tuple[int, int]:
+    """``(chunk, n_split)``: keys per block and blocks per sequence·KV head.
+
+    Chosen from shapes alone — never from lengths, which live on the card.
+    A sequence has at most ``span = min(S, window)`` valid keys, and its
+    chunks start at ``max(0, length - window)``, so ``n_split`` chunks of
+    ``chunk`` keys cover them.  The chunk is as large as keeps
+    ``bkvh * n_split >= n_sm`` (the grid fills the card), at least
+    :data:`MIN_CHUNK`, and at most what :data:`STAGE_BYTES` holds."""
+    span = s if window is None else min(s, window)
+    want = -(-n_sm // bkvh)
+    most = STAGE_BYTES // (2 * d * cache_bytes)
+    chunk = min(most, max(min(MIN_CHUNK, span), span // want))
+    return chunk, -(-span // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_arrivals: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 counters, one per sequence·KV head, kept per (device,
+    stream): the kernel's last block of each sets its counter back to 0, and
+    launches on one stream run in order, so they are zero at every launch.
+    Two streams get two sets, so their launches may overlap."""
+    key = (device.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _arrivals[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
+
+
+def _check_alignment(*caches: torch.Tensor) -> None:
+    """The kernel copies each cache row with one TMA bulk copy: the base
+    pointer and every stepped (batch, seq, head) stride must be 16-byte
+    aligned."""
+    for x in caches:
+        strides = [x.stride(i) * x.element_size() for i in range(3) if x.shape[i] > 1]
+        if x.data_ptr() % _ALIGN or any(st % _ALIGN for st in strides):
+            raise ValueError(
+                f"decode attention's bulk copies need a 16-byte aligned cache: "
+                f"pointer offset {x.data_ptr() % _ALIGN} B, (batch, seq, head) strides "
+                f"{[x.stride(i) for i in range(3)]} elements of {x.element_size()} B"
+            )
 
 
 def decode_attention_cache(
@@ -36,8 +94,10 @@ def decode_attention_cache(
 ) -> torch.Tensor:
     """One query token per sequence against its cache -> (B, H, D) in q's
     dtype.  Keys ``pos < lengths`` attend; with ``window`` only
-    ``pos >= lengths - window``.  q and the cache may differ in dtype
-    (float32 or bfloat16 each).
+    ``pos >= lengths - window``; with no such key the result is the mean of
+    the cache's S value rows (the reference's uniform softmax over masked
+    scores).  q and the cache may differ in dtype (float32 or bfloat16
+    each).
 
     On a CUDA tensor this launches ``csrc/decode_attention.cu`` on the
     current stream (and raises if it cannot); on a CPU tensor it runs the
@@ -61,21 +121,23 @@ def decode_attention_cache(
     scale = float(d) ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return plain.decode_attention(q, k_cache, v_cache, lengths, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu tensors, got {q.device}")
     group = h // kvh
     if d not in HEAD_DIMS or group > MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS} and at most "
                          f"{MAX_GROUP} query heads per KV head, got {d} / {group}")
     if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("q and the cache need a contiguous head_dim")
+    if b * kvh > 65535:
+        raise ValueError(f"at most 65535 sequence x KV head pairs per launch, got {b * kvh}")
+    _check_alignment(k_cache, v_cache)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu tensors, got {q.device}")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or s == 0:
         return out.zero_()
     lens = lengths.to(torch.int32).contiguous()
-    n_split = -(-s // CHUNK)
-    part_ml = torch.empty((2, b * kvh, n_split, group), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b * kvh, n_split, group, d), dtype=torch.float32, device=q.device)
+    chunk, n_split = split_plan(b * kvh, s, window, d, k_cache.element_size(), _sm_count(q.device.index))
+    part = torch.empty(b * kvh * n_split * group * (2 + d), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.repro_decode_attention(
@@ -83,9 +145,9 @@ def decode_attention_cache(
         q.data_ptr(), q.stride(0), q.stride(1),
         k_cache.data_ptr(), k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.data_ptr(), v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        lens.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-        part_acc.data_ptr(), b, s, kvh, group, d, n_split,
-        scale, -1 if window is None else int(window), stream,
+        lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+        _arrival_counters(q.device, stream, b * kvh).data_ptr(),
+        b, s, kvh, group, d, chunk, n_split, scale, -1 if window is None else int(window), stream,
     )
     _build.check(lib, status, "decode_attention")
     decode_attention_cache.launches += 1
@@ -93,4 +155,3 @@ def decode_attention_cache(
 
 
 decode_attention_cache.launches = 0  # kernel launches (CPU calls do not count)
-

@@ -22,6 +22,39 @@ from repro_torch.kernels.fused_preproc import plain
 from repro_torch.preprocessing.ops import bilinear_coords
 
 
+BAND_ROWS = 16  # output rows per block
+TILE_COLS = 1024  # output columns per pass over a band (a multiple of 4)
+STAGE_BYTES = 33 * 1024  # a band's input rows in shared memory: 6 blocks an SM
+
+
+def band_plan(y0: np.ndarray, y1: np.ndarray, x0: np.ndarray, x1: np.ndarray) -> list[dict]:
+    """What ``csrc/fused_preproc.cu`` stages, worked out as the kernel does
+    it from the tap tables: for each band of :data:`BAND_ROWS` output rows
+    and tile of :data:`TILE_COLS` output columns, the sub-bands ``[r0, r1)``
+    whose input rows ``[lo, hi]`` and columns ``[cmin, cmax]`` fit the
+    stage together (a row padded to a multiple of 4 floats past its offset
+    within 16 bytes).  ``staged`` is False where not even one output row's
+    two input rows fit: that row reads device memory directly."""
+    oh, ow = len(y0), len(x0)
+    rows_lo, rows_hi = np.minimum(y0, y1), np.maximum(y0, y1)
+    plan = []
+    for t0 in range(0, ow, TILE_COLS):
+        cols = slice(t0, min(ow, t0 + TILE_COLS))
+        cmin, cmax = int(min(x0[cols].min(), x1[cols].min())), int(max(x0[cols].max(), x1[cols].max()))
+        pitch = (cmax - cmin + 1 + 3 + 3) // 4 * 4
+        cap = STAGE_BYTES // 4 // pitch
+        for band in range(0, oh, BAND_ROWS):
+            r0, stop = band, min(oh, band + BAND_ROWS)
+            while r0 < stop:
+                lo, hi, r1 = int(rows_lo[r0]), int(rows_hi[r0]), r0 + 1
+                while r1 < stop and max(hi, rows_hi[r1]) - min(lo, rows_lo[r1]) + 1 <= cap:
+                    lo, hi, r1 = min(lo, int(rows_lo[r1])), max(hi, int(rows_hi[r1])), r1 + 1
+                plan.append(dict(t0=t0, r0=r0, r1=r1, lo=lo, hi=hi, cmin=cmin, cmax=cmax,
+                                 pitch=pitch, staged=hi - lo + 1 <= cap))
+                r0 = r1
+    return plan
+
+
 @functools.lru_cache(maxsize=64)
 def bilinear_matrix(in_dim: int, out_dim: int) -> np.ndarray:
     """(out_dim, in_dim) bilinear interpolation matrix, half-pixel centers
@@ -114,7 +147,7 @@ def resize_affine_planar(
         y0.data_ptr(), y1.data_ptr(), wy.data_ptr(), oh,
         x0.data_ptr(), x1.data_ptr(), wx.data_ptr(), ow,
         scale.data_ptr(), bias.data_ptr(), int(round_uint8),
-        out.data_ptr(), stream,
+        out.data_ptr(), BAND_ROWS, min(ow, TILE_COLS), STAGE_BYTES // 4, stream,
     )
     _build.check(lib, status, "resize_affine_planar")
     resize_affine_planar.launches += 1

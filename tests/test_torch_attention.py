@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.decode_attention.decode_attention import decode_attention_packed  # noqa: E402
 from repro.kernels.decode_attention.ops import decode_attention as ref_decode  # noqa: E402
 from repro.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
@@ -163,6 +164,144 @@ def test_decode_attention_sweep(b, h, kvh, s, d, window):
     np.testing.assert_allclose(out.numpy(), pallas, atol=F32_ATOL)
 
 
+# ------------------------------------------ K4: the kernel's split plan
+H100_SMS = 132
+
+
+def _chunk_keys(length, s, window, chunk, split):
+    """Keys [c0, c1) of one block, as csrc/decode_attention.cu takes them:
+    chunks start at max(0, length - window) and stop at min(length, S)."""
+    length = max(length, 0)
+    lo = max(0, length - window) if window is not None else 0
+    c0 = lo + split * chunk
+    return c0, max(c0, min(c0 + chunk, length, s))
+
+
+@pytest.mark.parametrize(
+    "bkvh,s,window,d,cache_bytes",
+    [
+        (4, 2112, None, 256, 2),  # Gemma3-1B decode, global layer
+        (4, 2112, 512, 256, 2),  # Gemma3-1B decode, local layer
+        (8, 256, None, 256, 4),  # serve, f32 cache
+        (8, 256, 512, 256, 4),  # window >= S
+        (5, 300, 64, 128, 4),
+        (3, 1000, 100, 64, 2),
+        (1, 1, None, 64, 4),
+        (2, 100_000, None, 128, 2),  # the stage caps the chunk
+    ],
+)
+def test_k4_split_plan_covers_every_valid_key_once(bkvh, s, window, d, cache_bytes):
+    chunk, n_split = da.split_plan(bkvh, s, window, d, cache_bytes, H100_SMS)
+    assert 2 * chunk * d * cache_bytes <= da.STAGE_BYTES
+    span = s if window is None else min(s, window)
+    assert bkvh * n_split >= H100_SMS or chunk in (min(da.MIN_CHUNK, span),
+                                                   da.STAGE_BYTES // (2 * d * cache_bytes))
+    w = 0 if window is None else window
+    for length in sorted({0, 1, s // 2, s - 1, s, s + 5, s + w - 1, s + w, s + w + 7, 3 * s}):
+        lo = max(0, length - window) if window is not None else 0
+        want = list(range(lo, min(length, s)))
+        got = []
+        for split in range(n_split):
+            c0, c1 = _chunk_keys(length, s, window, chunk, split)
+            assert c1 == c0 or c1 <= s  # an empty chunk reads nothing
+            got += range(c0, c1)
+        assert got == want, (length, chunk, n_split)
+
+
+def test_k4_split_plan_fills_the_card_at_the_gemma_decode_shape():
+    # B 4 x KVH 1, 2112-key bf16 cache, D 256: global and local layers
+    for window in (None, 512):
+        chunk, n_split = da.split_plan(4, 2112, window, 256, 2, H100_SMS)
+        assert 4 * n_split >= H100_SMS
+    assert da.split_plan(4, 2112, None, 256, 2, H100_SMS) == (64, 33)
+    chunk, n_split = da.split_plan(4, 2112, 512, 256, 2, H100_SMS)
+    assert n_split == -(-512 // chunk)  # the window's keys, not the cache's
+
+
+# ------------------------- K4: the kernel's split-and-merge arithmetic
+def _k4_emulation(q, k, v, lengths, window, n_sm=H100_SMS):
+    """csrc/decode_attention.cu's arithmetic in torch, at the plan the
+    wrapper picks: per chunk a max, p = exp(s - max), its sum and p V;
+    then the last block's merge over the chunks in split order, skipping
+    empty chunks; with no valid key at all, the mean of V's S rows."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    chunk, n_split = da.split_plan(b * kvh, s, window, d, k.element_size(), n_sm)
+    out = torch.empty((b, h, d))
+    for bi in range(b):
+        for kv in range(kvh):
+            qg = q[bi, kv * g:(kv + 1) * g].float()
+            parts = []
+            for split in range(n_split):
+                c0, c1 = _chunk_keys(int(lengths[bi]), s, window, chunk, split)
+                if c1 == c0:
+                    parts.append((torch.full((g,), -1e30), torch.zeros(g), None))
+                    continue
+                sc = qg @ k[bi, c0:c1, kv].float().T * d**-0.5
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[:, None])
+                parts.append((m, p.sum(-1), p @ v[bi, c0:c1, kv].float()))
+            mx = torch.stack([m for m, _, _ in parts]).amax(0)
+            total = torch.zeros(g)
+            acc = torch.zeros((g, d))
+            for m, l, a in parts:
+                total += l * torch.exp(m - mx)
+                if a is not None:
+                    acc += a * torch.exp(m - mx)[:, None]
+            if (total == 0).all():
+                res = v[bi, :, kv].float().mean(0).expand(g, d)
+            else:
+                res = acc / total[:, None]
+            out[bi, kv * g:(kv + 1) * g] = res
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize(
+    "b,h,kvh,s,d,window,lengths",
+    [
+        (3, 4, 1, 256, 64, None, [0, 100, 263]),  # 32 chunks of 8 keys
+        (3, 8, 2, 128, 64, 32, [0, 160, 50]),  # 160 = S + window: no valid key
+        (4, 4, 1, 512, 256, 128, [640, 0, 300, 511]),  # Gemma's head_dim and group
+        (2, 4, 1, 192, 128, None, [192, 1]),
+    ],
+)
+def test_k4_split_merge_matches_the_pallas_kernel(b, h, kvh, s, d, window, lengths):
+    q, k, v = _normal(b, h, d), _normal(b, s, kvh, d), _normal(b, s, kvh, d)
+    lens = np.asarray(lengths, np.int32)
+    got = _k4_emulation(*_t(q, k, v), torch.from_numpy(lens), window)
+    # the Pallas kernel on the reference's packed (B * KVH, ., D) layout
+    g = h // kvh
+    pk = lambda x: jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * kvh, s, d))  # noqa: E731
+    pallas = np.asarray(decode_attention_packed(
+        jnp.asarray(q.reshape(b * kvh, g, d)), pk(k), pk(v),
+        jnp.asarray(np.repeat(lens, kvh).reshape(b * kvh, 1)),
+        scale=d**-0.5, window=window, bk=64, interpret=True)).reshape(b, h, d)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=F32_ATOL)
+    # and the plain version (the wrapper on CPU tensors)
+    plain = da.decode_attention_cache(*_t(q, k, v), torch.from_numpy(lens), window=window)
+    np.testing.assert_allclose(plain.numpy(), pallas, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("window,length", [(None, 0), (32, 0), (32, 128 + 32), (32, 128 + 40)])
+def test_k4_no_valid_key_gives_the_mean_of_v(window, length):
+    # the reference's masked scores are all -1e30, its softmax uniform:
+    # the Pallas kernel returns the mean of V's S rows, and so must K4
+    b, h, kvh, s, d = 2, 4, 1, 128, 64
+    q, k, v = _normal(b, h, d), _normal(b, s, kvh, d), _normal(b, s, kvh, d)
+    lens = np.array([length, 5], np.int32)
+    pk = lambda x: jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * kvh, s, d))  # noqa: E731
+    pallas = np.asarray(decode_attention_packed(
+        jnp.asarray(q.reshape(b * kvh, h, d)), pk(k), pk(v), jnp.asarray(lens.reshape(b, 1)),
+        scale=d**-0.5, window=window, bk=64, interpret=True))
+    mean = v[0, :, 0].mean(0)
+    np.testing.assert_allclose(pallas[0], np.broadcast_to(mean, (h, d)), atol=1e-6)
+    got = _k4_emulation(*_t(q, k, v), torch.from_numpy(lens), window)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=F32_ATOL)
+    plain = da.decode_attention_cache(*_t(q, k, v), torch.from_numpy(lens), window=window)
+    np.testing.assert_allclose(plain.numpy(), pallas, atol=F32_ATOL)
+
+
 # --------------------------------- the model-layout functions the LM calls
 @pytest.mark.parametrize("block", [1024, 16])  # the reference's dense / scan branch
 @pytest.mark.parametrize(
@@ -240,6 +379,26 @@ def test_flash_attention_kernel_is_fixed_by_dtype(monkeypatch):
     for q in (aligned, one_row, f32_odd):
         with pytest.raises(ValueError, match="cuda or cpu"):
             fa.flash_attention_bshd(q, q, q)
+
+
+def test_decode_attention_checks_cache_alignment(monkeypatch):
+    # the kernel's 16-byte cp.async copies: a cache whose base or stepped
+    # stride is not 16-byte aligned raises before the library is loaded;
+    # a size-1 dimension's stride is never stepped, whatever its value
+    def no_launch():
+        raise AssertionError("a kernel was launched")
+
+    monkeypatch.setattr(da._build, "load_library", no_launch)
+    q = torch.empty((2, 4, 64), device="meta", dtype=torch.bfloat16)
+    odd_seq = torch.empty((2, 16, 1, 68), device="meta", dtype=torch.bfloat16)[..., :64]  # 136 B
+    odd_base = torch.empty((2 * 16 * 64 + 1,), device="meta", dtype=torch.bfloat16)[1:].view(2, 16, 1, 64)
+    for kc in (odd_seq, odd_base):
+        with pytest.raises(ValueError, match="16-byte"):
+            da.decode_attention_cache(q, kc, kc, torch.ones(2, dtype=torch.int32, device="meta"))
+    one_head = torch.empty(4000, device="meta", dtype=torch.bfloat16).as_strided(
+        (2, 16, 1, 64), (1024, 64, 3, 1))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        da.decode_attention_cache(q, one_head, one_head, torch.ones(2, dtype=torch.int32, device="meta"))
 
 
 def test_wrappers_check_dtype_and_shape():

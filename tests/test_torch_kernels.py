@@ -183,6 +183,49 @@ def test_plain_resample_matches_reference_gather_bitwise(round_uint8):
     np.testing.assert_allclose(out.reshape(ref.shape), ref, rtol=0, atol=1e-6)
 
 
+def _main_path_taps():
+    # SmolRuntime's standard chain at 224 over 384x512 images: crop 336x336
+    # at (24, 88), resize to 224x224 (what chip_smoke.py's main path runs)
+    from repro_torch.core import dag as dag_mod
+    from repro_torch.core import device_compiler as DC
+    from repro_torch.core.planner import standard_chain
+    from repro_torch.preprocessing.ops import TensorMeta
+
+    meta = TensorMeta((384, 512, 3), "uint8", "HWC")
+    return DC.lowering_taps(DC.lower_device_ops(dag_mod.optimize(standard_chain(224), meta).ops, meta))
+
+
+@pytest.mark.parametrize("shape", ["main path", "upsample 161x193->224x300", "wide 40x20000->30x1500"])
+def test_k2_band_plan_stages_every_tap_within_budget(shape):
+    if shape == "main path":
+        y0, y1, _, x0, x1, _ = _main_path_taps()
+    elif shape.startswith("upsample"):
+        (y0, y1, _), (x0, x1, _) = fp.bilinear_taps(161, 224), fp.bilinear_taps(193, 300)
+    else:
+        (y0, y1, _), (x0, x1, _) = fp.bilinear_taps(40, 30), fp.bilinear_taps(20000, 1500)
+    plan = fp.band_plan(y0, y1, x0, x1)
+    oh, ow = len(y0), len(x0)
+    for t0 in range(0, ow, fp.TILE_COLS):
+        tile = [p for p in plan if p["t0"] == t0]
+        cols = slice(t0, t0 + fp.TILE_COLS)
+        # the sub-bands cut each band of BAND_ROWS output rows, in order
+        assert [p["r0"] for p in tile] == [0] + [p["r1"] for p in tile[:-1]] and tile[-1]["r1"] == oh
+        assert all(p["r0"] // fp.BAND_ROWS == (p["r1"] - 1) // fp.BAND_ROWS for p in tile)
+        for p in tile:
+            rows = slice(p["r0"], p["r1"])
+            assert p["cmin"] <= min(x0[cols].min(), x1[cols].min())
+            assert max(x0[cols].max(), x1[cols].max()) <= p["cmax"] < p["pitch"] + p["cmin"] - 3
+            if p["staged"]:  # the staged input rows hold every row tap, within the budget
+                assert p["lo"] <= min(y0[rows].min(), y1[rows].min())
+                assert max(y0[rows].max(), y1[rows].max()) <= p["hi"]
+                assert (p["hi"] - p["lo"] + 1) * p["pitch"] * 4 <= fp.STAGE_BYTES
+            else:  # one output row whose two input rows do not fit: direct reads
+                assert p["r1"] == p["r0"] + 1 and 2 * p["pitch"] * 4 > fp.STAGE_BYTES
+    if shape != "wide 40x20000->30x1500":
+        # one staged pass per band: 16 output rows of a plane per block
+        assert all(p["staged"] for p in plan) and len(plan) == -(-oh // fp.BAND_ROWS)
+
+
 def test_taps_recovered_from_matrix():
     for in_dim, out_dim in ((161, 224), (224, 161), (7, 7), (5, 1)):
         got = fp.taps_from_matrix(fp.bilinear_matrix(in_dim, out_dim))
