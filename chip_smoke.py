@@ -30,7 +30,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain attention and forward's last position against prefill's; prints
    prefill tokens/s, decode ms/step, serve tokens/s and a profile of
    decode steps (K4 must launch one kernel per layer there);
-5. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
+5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
+   ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
+   (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
+   item as a ``ClassificationQuery``, 32 thumbnail-first ``CascadeQuery``s
+   with a full-resolution refetch and one ``AggregationQuery``; checks the
+   predictions against phase 3, that every bucket was captured before
+   serving and nothing after, a ragged batch of 37 through bucket 64, the
+   K1/K2 kernels inside one replay (profiler), no warm failures, and a
+   ``run()`` with ``RecalConfig(every=64)``; prints serving items/s, p50/p99
+   latency, capture seconds per bucket, the graph pool's memory and the
+   program's time per batch eager and as a replay;
+6. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX and nothing of the reference ``repro`` package.
 """
@@ -83,6 +94,15 @@ FORWARD_LOGIT_RTOL = 2**-7
 # bf16 one step apart now and then, and 26 layers carry that on
 LM_LOGIT_RTOL = 5e-2
 
+# the vision serving phase
+SERVE_TENANTS = (("gold", 4.0), ("bronze", 1.0))
+N_CASCADES = 32
+RAGGED_ROWS = 37
+RECAL_EVERY = 64
+RENDITION_CACHE_BYTES = 64 * 2**20
+SERVE_TIMEOUT_S = 300.0
+TIMED_BUCKETS = (1, 8, BATCH)  # eager vs replay per batch
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -123,6 +143,20 @@ def median_ms(fn, flush: torch.Tensor | None, iters: int = 20, warmup: int = 3) 
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Wall time per call of ``fn`` issued back to back, from the first
+    call to the card finishing the last (host clock): host launch cost
+    included, which CUDA graphs remove."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -721,7 +755,270 @@ def run_main_path(dev, corpus, full, thumb) -> dict:
         f"of which ResNet-50 {model_ms:.3f} ms and decode + preprocessing "
         f"{program_ms - model_ms:.3f} ms (CUDA events)")
     return dict(compiled=compiled, prog=prog, outs=outs, report=report, launches=launches,
-                dispatches=dispatches, cpu_logits=cpu_logits)
+                dispatches=dispatches, cpu_logits=cpu_logits, model=model, spec=spec)
+
+
+# ------------------------------------------------------- phase 5: serving
+def _same_as_run(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Scores against ``run()``'s for the same item: the same argmax, and
+    within LOGIT_RTOL of the largest |logit|."""
+    diff = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    if int(np.argmax(got)) != int(np.argmax(want)) or diff > LOGIT_RTOL * scale:
+        raise AssertionError(f"{what}: argmax {int(np.argmax(got))} vs {int(np.argmax(want))}, "
+                             f"max|dlogit| {diff:.4e} vs tolerance {LOGIT_RTOL * scale:.4e}")
+
+
+def _kernel_counts(zero: bool = False) -> dict:
+    """K1's and K2's wrapper launch counts (set to 0 first when ``zero``)."""
+    from repro_torch.kernels.fused_preproc import ops as fp_ops
+    from repro_torch.kernels.idct import ops as idct_ops
+
+    if zero:
+        idct_ops.idct_rows.launches = 0
+        fp_ops.resize_affine_planar.launches = 0
+    return {"idct": idct_ops.idct_rows.launches,
+            "fused_preproc": fp_ops.resize_affine_planar.launches}
+
+
+def profile_replay(prog, batch, active: int = 3) -> dict:
+    """torch.profiler over graph replays of ``prog``: the device launches of
+    K1 and K2 per replay, by their CUDA kernel names.  A schedule skips a
+    wait step and a warm-up step first, so the profiler is fully on before
+    the ``active`` replays it counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    prog(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=active, repeat=1)) as prof:
+        for _ in range(2 + active):
+            prog(batch)
+            torch.cuda.synchronize()
+            prof.step()
+    # device rows only: the cudaGraphLaunch row also carries its kernels' time
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0 and e.self_cpu_time_total == 0]
+    counts = {"idct": sum(e.count for e in rows if "idct_rows_tc_kernel" in e.key),
+              "fused_preproc": sum(e.count for e in rows if "resize_affine_band_kernel" in e.key)}
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / active
+    per_replay = {k: v / active for k, v in counts.items()}
+    log(f"[serve] profile of {active} replays: {len(rows)} kernel names, device busy "
+        f"{busy_ms:.3f} ms a replay, K1/K2 device launches a replay {per_replay}")
+    return per_replay
+
+
+def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
+    """The vision serving path on the card (see the module docstring)."""
+    from repro_torch.core import device_compiler as DC
+    from repro_torch.core.aggregation import control_variate_aggregate
+    from repro_torch.core.planner import ModelSpec
+    from repro_torch.runtime import (AggregationQuery, CascadeQuery, CascadeStageSpec,
+                                     ClassificationQuery, DeviceCompilerConfig, MemoryConfig,
+                                     RecalConfig, RuntimeConfig, SmolRuntime, TelemetryConfig,
+                                     TenantConfig)
+
+    model, spec, ref = main["model"], main["spec"], main["outs"]
+    ref_argmax = np.array([int(np.argmax(o)) for o in ref])
+    # stage 0 of the cascade: the same network on the thumbnail; its
+    # accuracy is below the floor, so only a cascade stage naming it uses it
+    thumb_spec = ModelSpec("resnet50-thumb", INPUT, exec_throughput=spec.exec_throughput,
+                           accuracy_by_format={full.key: 0.7, thumb.key: 0.6})
+    rt = SmolRuntime(
+        [spec, thumb_spec], [full, thumb], {"resnet50": model, "resnet50-thumb": model},
+        calibration=corpus[:4],
+        config=RuntimeConfig(
+            batch_size=BATCH, num_workers=8, min_accuracy=0.8, max_wait_ms=5.0,
+            device=DeviceCompilerConfig(split_decode="full"), warmup="full",
+            tenants=tuple(TenantConfig(n, weight=w) for n, w in SERVE_TENANTS),
+            telemetry=TelemetryConfig(spans=True),
+            memory=MemoryConfig(rendition_cache_bytes=RENDITION_CACHE_BYTES),
+            recal=RecalConfig(every=RECAL_EVERY)),
+        device=dev,
+    )
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    captures0 = DC.capture_program.captures
+    _kernel_counts(zero=True)
+    t0 = time.perf_counter()
+    rt.start_serving()
+    try:
+        t_start = time.perf_counter() - t0
+        if not rt.wait_warm(timeout=SERVE_TIMEOUT_S):
+            raise AssertionError("background warmup did not finish")
+        t_warm = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reserved1 = torch.cuda.memory_reserved(dev)
+        compiled = rt.compile()
+        ps = compiled.program_sets[0]
+        warm = rt.stats().warmup
+        log(f"[serve] plan {compiled.plan.key}; start_serving {t_start:.2f} s (bucket {BATCH} "
+            f"captured inline), all buckets warm after {t_warm:.2f} s")
+        log(f"[serve] capture seconds per bucket "
+            f"{ {b: round(v, 4) for b, v in sorted(warm.graphs.items())} } [{card}]")
+        log(f"[serve] memory reserved {reserved0 / 2**20:.1f} MiB before warmup, "
+            f"{reserved1 / 2**20:.1f} MiB after ({(reserved1 - reserved0) / 2**20:.1f} MiB "
+            f"for {len(warm.graphs)} graphs in one pool and their warm-up runs)")
+        want = DC.batch_buckets(BATCH)
+        if ps.buckets != want or warm.ready != want or sorted(warm.graphs) != list(want):
+            raise AssertionError(f"buckets {ps.buckets}, ready {warm.ready}, captured "
+                                 f"{sorted(warm.graphs)}; expected all of {want}")
+        if DC.capture_program.captures - captures0 != len(want):
+            raise AssertionError(f"{DC.capture_program.captures - captures0} captures at "
+                                 f"startup, expected {len(want)}")
+        per_graph = {b: g.kernel_launches for b, g in ps.graphs().items()}
+        if any(k != {"idct": 2, "fused_preproc": 1} for k in per_graph.values()):
+            raise AssertionError(f"kernels captured per graph {per_graph}, expected K1 x2, K2 x1")
+
+        # every item as a ClassificationQuery, spread over both tenants
+        captures1 = DC.capture_program.captures
+        replays0 = {b: g.replays for b, g in ps.graphs().items()}
+        t1 = time.perf_counter()
+        uids = {}
+        for i, item in enumerate(corpus):
+            uids[rt.submit(ClassificationQuery(item), tenant=SERVE_TENANTS[i % 2][0])] = i
+        rt.flush(timeout=SERVE_TIMEOUT_S)
+        done = rt.drain(timeout=SERVE_TIMEOUT_S)
+        serve_s = time.perf_counter() - t1
+        if len(done) != len(corpus) or any(r.error is not None for r in done):
+            raise AssertionError(f"{len(done)} results, errors "
+                                 f"{[r.error for r in done if r.error is not None][:3]}")
+        for r in done:
+            _same_as_run(f"classification of item {uids[r.uid]}", r.scores, ref[uids[r.uid]])
+        replays = {b: g.replays - replays0.get(b, 0) for b, g in ps.graphs().items()}
+        e2e = rt.stats().latency.stages["e2e"]
+        log(f"[serve] {len(corpus)} classifications in {serve_s:.3f} s: "
+            f"{len(corpus) / serve_s:.2f} items/s, e2e latency p50 {e2e.p50 * 1e3:.2f} ms, "
+            f"p99 {e2e.p99 * 1e3:.2f} ms; graph replays by bucket {replays}; argmax and "
+            f"scores as run() (tolerance {LOGIT_RTOL} x max|logit|) [{card}]")
+        if DC.capture_program.captures != captures1 or sum(replays.values()) == 0:
+            raise AssertionError("classification traffic captured a graph or replayed none")
+
+        # cascades: the thumbnail first; an item whose max softmax stays
+        # below 1.0 is refetched at full resolution (random weights give
+        # huge logits, so about half the items exit at the thumbnail)
+        stages = (CascadeStageSpec(1.0, "resnet50-thumb"), CascadeStageSpec(0.0, "resnet50"))
+        uids = {rt.submit(CascadeQuery(corpus[i], stages), tenant=SERVE_TENANTS[0][0]): i
+                for i in range(N_CASCADES)}
+        rt.flush(timeout=SERVE_TIMEOUT_S)
+        done = rt.drain(timeout=SERVE_TIMEOUT_S)
+        if len(done) != N_CASCADES or any(r.error is not None or r.refetched != (r.exit_stage == 1)
+                                          for r in done):
+            raise AssertionError(f"cascades: {[(r.exit_stage, r.refetched, r.error) for r in done][:4]}")
+        # a refetched item has run()'s full-resolution scores; one that
+        # exited has the thumbnail stage's, held against that stage's
+        # program run eagerly on the same items
+        thumb_stage = next(iter(rt._cascades.values())).cheap
+        exited = [r for r in done if r.exit_stage == 0]
+        staged = np.zeros((BATCH, *thumb_stage.out_shape), thumb_stage.out_dtype)
+        for row, r in enumerate(exited):
+            staged[row] = thumb_stage.host_fn(corpus[uids[r.uid]])
+        with torch.inference_mode():
+            thumb_scores = thumb_stage.device_program.fn(torch.from_numpy(staged).to(dev))
+        thumb_scores = thumb_scores.cpu().numpy()
+        for r in done:
+            if r.exit_stage == 1:
+                _same_as_run(f"cascade of item {uids[r.uid]}", r.scores, ref[uids[r.uid]])
+        for row, r in enumerate(exited):
+            _same_as_run(f"cascade exit of item {uids[r.uid]}", r.scores, thumb_scores[row])
+        if not exited or len(exited) == len(done):
+            raise AssertionError(f"{len(exited)} of {len(done)} cascades exited at the thumbnail; "
+                                 "expected both exits")
+        cascade = rt.stats().cascade
+        if rt.wait_warm(timeout=SERVE_TIMEOUT_S) is not True:
+            raise AssertionError("the cascade's stage warmup did not finish")
+        stage_captures = DC.capture_program.captures - captures1
+        log(f"[serve] {N_CASCADES} cascades: stage items {[s.items for s in cascade.stages]}, "
+            f"refetched {cascade.refetched_items}; the thumbnail stage's program set "
+            f"warmed at its first query: {stage_captures} captures, all in warm passes")
+
+        # one aggregation query over the corpus, against the same estimator
+        # over run()'s argmax values
+        captures2 = DC.capture_program.captures
+        query = AggregationQuery(corpus, eps=25.0, delta=0.1, seed=SEED)
+        agg = rt.submit(query, tenant=SERVE_TENANTS[1][0])
+        want_agg = control_variate_aggregate(
+            ref_argmax.astype(np.float64), lambda idx: ref_argmax[np.asarray(idx)].astype(np.float64),
+            eps=query.eps, delta=query.delta, batch=query.batch, min_samples=query.min_samples,
+            max_samples=query.max_samples, seed=query.seed)
+        log(f"[serve] aggregation: estimate {agg.estimate:.6f} +- {agg.ci_halfwidth:.4f}, "
+            f"{agg.num_specialized_invocations} scanned, {agg.num_target_invocations} refetched, "
+            f"{agg.latency:.3f} s; from run()'s argmax {want_agg.estimate:.6f}")
+        if (agg.num_specialized_invocations != len(corpus)
+                or abs(agg.estimate - want_agg.estimate) > 1e-6
+                or DC.capture_program.captures != captures2):
+            raise AssertionError("aggregation differs from run()'s values or captured a graph")
+    finally:
+        rt.stop_serving()
+    # the wrappers count the warm-up runs and captures (a replay bypasses
+    # them); the replays launch each graph's captured kernels
+    wrapper = _kernel_counts()
+    via_replays = {k: sum(g.replays * g.kernel_launches.get(k, 0) for g in ps.graphs().values())
+                   for k in wrapper}
+    log(f"[serve] K1/K2 launches in the serving phase: through the wrappers {wrapper}, "
+        f"in graph replays {via_replays}")
+    if min(wrapper.values()) == 0 or min(via_replays.values()) == 0:
+        raise AssertionError("the serving phase launched K1 or K2 no time")
+    stats = rt.stats()
+    log(f"[serve] warm failures {stats.warmup.failures}, programs compiled post warmup "
+        f"{rt.programs_compiled_post_warmup}, program compile+capture seconds "
+        f"{rt.program_compile_seconds_total:.2f}; requests "
+        f"{ {n: (t.stats.completed, t.stats.failed) for n, t in stats.tenants.items()} }; "
+        f"rendition cache hits {stats.cache.hits} misses {stats.cache.misses} resident "
+        f"{stats.cache.resident_bytes / 2**20:.1f} MiB")
+    if stats.warmup.failures or rt.programs_compiled_post_warmup:
+        raise AssertionError(f"warm failures {stats.warmup.errors}, "
+                             f"{rt.programs_compiled_post_warmup} post-warmup compiles")
+
+    # a ragged batch of 37 through bucket 64: the replay against the eager
+    # program on the same rows, then through run()
+    prog, bucket = ps.program_for(RAGGED_ROWS)
+    staged = np.zeros((bucket, *compiled.out_shape), compiled.out_dtype)
+    staged[:RAGGED_ROWS] = np.stack([compiled.host_fn(it) for it in corpus[:RAGGED_ROWS]])
+    replayed = prog(staged)[:RAGGED_ROWS].cpu().numpy()
+    on_dev = torch.from_numpy(staged).to(dev)
+    with torch.inference_mode():
+        eager = prog.fn(on_dev)[:RAGGED_ROWS].cpu().numpy()
+    diff = float(np.abs(replayed - eager).max())
+    outs, _ = rt.run(corpus[:RAGGED_ROWS])
+    log(f"[serve] ragged batch of {RAGGED_ROWS}: bucket {bucket}, replay vs eager max|dlogit| "
+        f"{diff:.4e}")
+    if bucket != BATCH or diff > LOGIT_RTOL * float(np.abs(eager).max()):
+        raise AssertionError(f"ragged batch: bucket {bucket}, replay vs eager {diff:.4e}")
+    for i, o in enumerate(outs):
+        _same_as_run(f"run() of the ragged batch, item {i}", o, ref[i])
+
+    # K1 twice and K2 once inside one replay, by their CUDA kernel names
+    counts = profile_replay(prog, staged)
+    if counts != {"idct": 2, "fused_preproc": 1}:
+        raise AssertionError(f"a replay launched {counts}, expected K1 x2 and K2 x1")
+
+    # the device program per batch, eager vs graph replay on a resident
+    # batch: device time (CUDA events, host enqueue hidden) and wall time
+    # per dispatch back to back (host clock, launches included)
+    for b in TIMED_BUCKETS:
+        bprog = ps.programs[b]
+        graph = bprog.graph
+        with torch.inference_mode():
+            eager_ms = median_ms(lambda: bprog.fn(graph.static_in), None, iters=10, warmup=2)
+            replay_ms = median_ms(graph.graph.replay, None, iters=10, warmup=2)
+            eager_wall = wall_ms(lambda: bprog.fn(graph.static_in))
+            replay_wall = wall_ms(graph.graph.replay)
+        log(f"[serve] device program at bucket {b}: eager {eager_ms:.3f} ms, replay "
+            f"{replay_ms:.3f} ms (CUDA events); per dispatch back to back eager "
+            f"{eager_wall:.3f} ms, replay {replay_wall:.3f} ms (host clock) [{card}]")
+
+    # run() with online recalibration every 64 items
+    n_recal = len(rt.recalibrations)
+    outs, report = rt.run(corpus)
+    log(f"[serve] run() with RecalConfig(every={RECAL_EVERY}): {len(report.recalibrations)} "
+        f"recalibrations {[(e.old_split, e.new_split, e.new_factor) for e in report.recalibrations]}, "
+        f"{report.stats.throughput:.2f} items/s")
+    expected = -(-len(corpus) // RECAL_EVERY) - 1
+    if len(report.recalibrations) != expected or len(rt.recalibrations) - n_recal != expected:
+        raise AssertionError(f"{len(report.recalibrations)} recalibrations, expected {expected}")
+    for i, o in enumerate(outs):
+        _same_as_run(f"recalibrated run(), item {i}", o, ref[i])
 
 
 # ------------------------------------------------------------ phase 4: LM
@@ -1018,9 +1315,14 @@ def main() -> int:
     if not (diff <= LOGIT_RTOL * scale and same_argmax):
         raise AssertionError("card logits differ from the CPU run of the same program")
 
-    del res, compiled, prog, outs
+    del compiled, prog, outs
     # ---- phase 4: the LM serving path
     launches.update(run_lm_path(dev, card))
+    # ---- phase 5: the vision serving path over phase 3's model and corpus
+    t0 = time.perf_counter()
+    run_vision_serving(dev, corpus, full, thumb, res, card)
+    log(f"[serve] phase 5 took {time.perf_counter() - t0:.1f} s")
+    del res
     for row in rows:
         row["launches"] = launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -21,6 +21,12 @@ the device suffix (paper §6.2's fusion, pushed device-side) exactly as
   the model under ``torch.inference_mode()`` on the device's current
   stream.
 
+:class:`ProgramSet` holds one program per batch bucket (the reference's one
+AOT-compiled executable per bucket).  On a CUDA device ``warm()`` captures
+each bucket's whole program — stage kernels and DNN — as one
+``torch.cuda.CUDAGraph``; a dispatch of a captured program is then one copy
+into the graph's static input, one replay and one copy of its output.
+
 :func:`compile_coeff_program` extends the lowering upstream of pixels: the
 host stops after the entropy stage (``jpeg.decode_to_coefficients``) and
 the program runs dequantize+IDCT on the ``kernels/idct`` kernel, JFIF color
@@ -35,6 +41,7 @@ tensor built once when the program is built, never per call.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Callable, MutableMapping, Sequence
 
@@ -175,6 +182,10 @@ class ProgramCache(MutableMapping):
             self._pins.pop(key, None)
         else:
             self._pins[key] = n - 1
+
+    def pinned(self, key) -> bool:
+        """True while some bound program set holds ``key``."""
+        return key in self._pins
 
     def __delitem__(self, key) -> None:
         del self._data[key]
@@ -382,7 +393,9 @@ class DevicePreprocProgram:
     ``build_seconds`` is the host-side cost of building the program (its
     constant tables included); ``first_dispatch_seconds`` is the wall time
     of dispatch #1 up to a device synchronize — the cold start that pays
-    the kernels' build and the first launches.
+    the kernels' build and the first launches.  Once :meth:`ProgramSet.warm`
+    has captured the program as a CUDA graph (``graph``), every dispatch
+    replays it.
     """
 
     fn: Callable[[torch.Tensor], Any]  # (device batch,) -> model outputs
@@ -398,25 +411,157 @@ class DevicePreprocProgram:
     build_seconds: float = 0.0
     first_dispatch_seconds: float | None = None
     batch_size: int = 0
+    # invoked as listener(program, seconds) once the program's cold start is
+    # paid: its first eager dispatch, or on CUDA its warm-up run plus graph
+    # capture — the facade counts post-warmup compiles and emits "compile"
+    # telemetry spans through it
+    compile_listener: Callable[["DevicePreprocProgram", float], None] | None = None
+    # True while ProgramSet.warm() is executing this program: the listener
+    # can tell a startup warmup compile from a cold request-path compile
+    _warming: bool = False
     # split-decode programs only: the scaled-IDCT resolution divisor and the
     # coefficient staging layout this program was compiled for
     coeff_factor: int | None = None
     coeff_layout: str | None = None
+    # the program captured as one CUDA graph (ProgramSet.warm on CUDA)
+    graph: "CapturedGraph | None" = None
 
     @property
     def dispatches_per_batch(self) -> int:
-        return 1  # the whole suffix + DNN is one dispatch
+        return 1  # the whole suffix + DNN is one dispatch (or one replay)
 
     def __call__(self, batch):
         self.dispatch_count += 1
+        if self.graph is not None:
+            return self.graph.replay(batch)
         with torch.inference_mode():
             if self.dispatch_count == 1:
                 t0 = time.perf_counter()
                 out = self.fn(_place(batch, self.device))
                 synchronize(self.device)
                 self.first_dispatch_seconds = time.perf_counter() - t0
+                if self.compile_listener is not None:
+                    self.compile_listener(self, self.first_dispatch_seconds)
                 return out
             return self.fn(_place(batch, self.device))
+
+
+class _GraphPool:
+    """The memory pool a ProgramSet's graphs share, and the order of their
+    replays.  Graphs captured into one pool reuse each other's freed
+    intermediates, so two of them must never run at once: every replay
+    waits, on its own stream, for the set's previous replay to finish, and
+    the host side of a replay (copy, launch, output copy) holds a lock."""
+
+    def __init__(self):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        self.last_done: torch.cuda.Event | None = None
+
+
+class CapturedGraph:
+    """One bucket's program captured as a CUDA graph.
+
+    ``static_in`` is the graph's input (bucket rows of the program's staged
+    geometry) and ``static_out`` its output, both addresses the graph
+    reads and writes on every replay.  :meth:`replay` copies a staged
+    batch into ``static_in``, replays the graph and copies ``static_out``
+    into a fresh tensor, all on the calling thread's current stream: the
+    engine keeps several batches in flight, and the next replay overwrites
+    ``static_out``.  ``kernel_launches`` maps each kernel wrapper that ran
+    during capture to the number of its launches the graph holds — what one
+    replay launches, since a replay bypasses the wrappers' counters."""
+
+    def __init__(self, graph, static_in, static_out, pool: _GraphPool,
+                 capture_seconds: float, kernel_launches: dict[str, int]):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.pool = pool
+        self.capture_seconds = capture_seconds
+        self.kernel_launches = dict(kernel_launches)
+        self.replays = 0
+
+    def replay(self, batch) -> torch.Tensor:
+        src = batch if torch.is_tensor(batch) else torch.from_numpy(np.ascontiguousarray(batch))
+        if tuple(src.shape) != tuple(self.static_in.shape):
+            raise ValueError(
+                f"graph captured for {tuple(self.static_in.shape)}, got {tuple(src.shape)}"
+            )
+        pool = self.pool
+        with pool.lock, torch.inference_mode():
+            stream = torch.cuda.current_stream(self.static_in.device)
+            if pool.last_done is not None:
+                stream.wait_event(pool.last_done)
+            self.static_in.copy_(src, non_blocking=True)
+            self.graph.replay()
+            out = self.static_out.clone()
+            done = torch.cuda.Event()
+            done.record(stream)
+            pool.last_done = done
+            self.replays += 1
+        return out
+
+
+def _kernel_counters() -> dict[str, Any]:
+    """The kernel wrappers a device program launches, by name."""
+    return {"idct": idct_ops.idct_rows, "fused_preproc": fp_ops.resize_affine_planar}
+
+
+def capture_program(prog: DevicePreprocProgram, bucket: int, pool: _GraphPool) -> CapturedGraph:
+    """Capture ``prog`` at ``bucket`` rows as one CUDA graph.
+
+    On a side stream: one eager dispatch on zeros first — it picks cuDNN's
+    algorithms, fills the fused stage's per-batch tables, loads the kernel
+    library and raises the kernels' shared-memory limits, none of which may
+    happen inside a capture — then the capture itself, into the set's
+    shared pool.  The capture is thread-local, so other threads' work
+    (dispatchers reading results back) neither joins nor invalidates it.
+    """
+    dev = prog.device
+    dtype = getattr(torch, prog.in_meta.dtype)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    listener, prog.compile_listener = prog.compile_listener, None
+    try:
+        with torch.cuda.stream(side):
+            static_in = torch.zeros((bucket, *prog.in_meta.shape), dtype=dtype, device=dev)
+            t0 = time.perf_counter()
+            if prog.dispatch_count == 0:
+                prog(static_in)  # dispatch #1, synchronized
+            else:
+                with torch.inference_mode():
+                    prog.fn(static_in)
+                synchronize(dev)
+            counters = _kernel_counters()
+            before = {name: fn.launches for name, fn in counters.items()}
+            graph = torch.cuda.CUDAGraph()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                graph.capture_begin(pool=pool.handle, capture_error_mode="thread_local")
+                try:
+                    static_out = prog.fn(static_in)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:  # noqa: BLE001 — the fn's error is the one to raise
+                        pass
+                    raise
+                graph.capture_end()
+            side.synchronize()
+            t2 = time.perf_counter()
+    finally:
+        prog.compile_listener = listener
+    launches = {name: fn.launches - before[name] for name, fn in counters.items()}
+    captured = CapturedGraph(graph, static_in, static_out, pool, t2 - t1,
+                             {k: v for k, v in launches.items() if v})
+    capture_program.captures += 1
+    if listener is not None:
+        listener(prog, t2 - t0)
+    return captured
+
+
+capture_program.captures = 0  # graphs captured in this process
 
 
 def batch_buckets(batch_size: int) -> tuple[int, ...]:
@@ -430,6 +575,154 @@ def batch_buckets(batch_size: int) -> tuple[int, ...]:
         buckets.add(b)
         b <<= 1
     return tuple(sorted(buckets))
+
+
+@dataclasses.dataclass
+class ProgramSet:
+    """Bucket program set for one (plan geometry, device) pair.
+
+    One :class:`DevicePreprocProgram` per bucketed batch size: batch
+    formation closes a ragged batch to :meth:`bucket_for`'s smallest
+    covering bucket, dispatches the staged buffer's ``[:bucket]`` prefix,
+    and reads back only the real rows — padded lanes never reach a retired
+    result.  ``warm()`` (``RuntimeConfig.warmup="full"``) moves every
+    bucket's cold start into startup: on the CPU it runs each program once
+    on zeros; on CUDA it captures each program as one CUDA graph
+    (:func:`capture_program`), the counterpart of the reference's one
+    AOT-compiled executable per bucket, and every later dispatch of that
+    bucket replays the graph.
+
+    ``require_ready=True`` makes :meth:`program_for` serve only *warm*
+    buckets until :meth:`warm` has covered the whole set — the background-
+    warmer contract: a dispatcher never pays a request-path cold start
+    while warmup is still running; a ragged batch falls forward to the
+    smallest ready covering bucket (the warmer runs largest-first, so the
+    full-size program is ready before serving starts and always covers).
+    A bucket whose capture failed stays unready; its error is kept in
+    ``failures``.
+    """
+
+    programs: dict[int, DevicePreprocProgram]  # bucket -> program, ascending
+    geometry: tuple = ()  # the plan's staging-geometry bin (shape, dtype)
+    device: Any = None
+    # serve only warmed buckets until warm() completes (background warmer)
+    require_ready: bool = False
+
+    def __post_init__(self):
+        if not self.programs:
+            raise ValueError("ProgramSet needs at least one program")
+        self.programs = dict(sorted(self.programs.items()))
+        self._warm_done = not self.require_ready
+        self._pool: _GraphPool | None = None  # created at the first capture
+        self.failures: list[tuple[int, BaseException]] = []
+
+    @property
+    def buckets(self) -> tuple[int, ...]:
+        return tuple(self.programs)
+
+    @property
+    def max_batch(self) -> int:
+        return next(reversed(self.programs))
+
+    def bucket_for(self, n: int) -> int | None:
+        """Smallest bucket covering ``n`` rows (None when n exceeds the set)."""
+        for b in self.programs:
+            if b >= n:
+                return b
+        return None
+
+    @staticmethod
+    def _is_warm(prog: DevicePreprocProgram) -> bool:
+        """Dispatched at least once and, on CUDA, captured as a graph."""
+        if not prog.dispatch_count:
+            return False
+        dev = getattr(prog, "device", None)
+        return dev is None or dev.type != "cuda" or prog.graph is not None
+
+    @classmethod
+    def _is_ready(cls, prog: DevicePreprocProgram) -> bool:
+        """Warm and not mid-warm — no cold-start risk."""
+        return cls._is_warm(prog) and not prog._warming
+
+    @property
+    def fully_warm(self) -> bool:
+        """True once every bucket is safe to dispatch without a cold start."""
+        return self._warm_done or all(self._is_ready(p) for p in self.programs.values())
+
+    def program_for(self, n: int) -> tuple[DevicePreprocProgram, int] | None:
+        """(program, bucket) dispatching ``n`` staged rows, or None.
+
+        Under ``require_ready`` (background warmup still running) only
+        warm buckets are served: the smallest *ready* bucket covering
+        ``n``.  None means no ready bucket covers — the caller falls back
+        to its full-size program.
+        """
+        if self._warm_done:
+            b = self.bucket_for(n)
+            if b is None:
+                return None
+            return self.programs[b], b
+        for b, prog in self.programs.items():
+            if b >= n and self._is_ready(prog):
+                return prog, b
+        return None
+
+    def keys(self) -> tuple:
+        """Program-cache keys of every entry (for pin/unpin bookkeeping)."""
+        return tuple(p.key for p in self.programs.values())
+
+    def graphs(self) -> dict[int, CapturedGraph]:
+        """bucket -> captured graph, for the buckets captured so far."""
+        return {b: p.graph for b, p in self.programs.items() if p.graph is not None}
+
+    def warm(self, buckets: tuple[int, ...] | None = None) -> int:
+        """Warm each not-yet-warm entry, largest bucket first.
+
+        On the CPU each program runs once on zeros; on CUDA each is
+        captured as one CUDA graph into the set's shared memory pool.
+        ``buckets`` restricts the pass (the facade warms the full-size
+        bucket inline at startup and hands the rest to the background
+        warmer).  A bucket that fails is recorded in ``failures`` and the
+        pass goes on with the next; the first failure is raised at the
+        end.  Returns the number of programs warmed.
+        """
+        warmed = 0
+        chosen = self.programs if buckets is None else [b for b in buckets if b in self.programs]
+        errors: list[BaseException] = []
+        for bucket in sorted(chosen, reverse=True):
+            prog = self.programs[bucket]
+            if self._is_warm(prog):
+                continue
+            dispatched = prog.dispatch_count
+            prog._warming = True
+            try:
+                if prog.device.type == "cuda":
+                    if self._pool is None:
+                        self._pool = _GraphPool()
+                    prog.graph = capture_program(prog, bucket, self._pool)
+                else:
+                    zeros = np.zeros((bucket, *prog.in_meta.shape), np.dtype(prog.in_meta.dtype))
+                    prog(zeros)
+            except Exception as e:  # noqa: BLE001 — recorded, raised below
+                prog.dispatch_count = dispatched  # a failed warm leaves it cold
+                self.failures.append((bucket, e))
+                errors.append(e)
+                continue
+            finally:
+                prog._warming = False
+            warmed += 1
+        if all(self._is_warm(p) for p in self.programs.values()):
+            self._warm_done = True
+        if errors:
+            raise errors[0]
+        return warmed
+
+    def release(self, keep: Callable[[DevicePreprocProgram], bool] = lambda p: False) -> None:
+        """Drop the captured graphs of every program ``keep`` rejects, so
+        their memory pool can be freed (a rebuilt plan captures anew)."""
+        for prog in self.programs.values():
+            if prog.graph is not None and not keep(prog):
+                prog.graph = None
 
 
 def program_cache_key(

@@ -122,9 +122,13 @@ class PipelinedEngine:
       device: where a bare ``device_fn`` runs (a compiled program carries
         its own); CUDA gets pinned staging buffers and event-based
         retirement.  Default: the CPU.
+      program_set: optional :class:`~repro_torch.core.device_compiler.ProgramSet`
+        of bucket programs — ragged tail batches dispatch through the
+        smallest covering bucket's program (``buf[:bucket]``; on CUDA a
+        captured graph once the set is warm) instead of the full buffer.
 
-    A ragged tail batch dispatches the full staging buffer (its padding
-    rows are stale); only real rows are read at retirement.
+    Only a batch's real rows are read at retirement, so padding rows (stale
+    staging contents) never reach an output.
     """
 
     def __init__(
@@ -143,6 +147,7 @@ class PipelinedEngine:
         telemetry: Any = None,
         double_buffer: bool = True,
         device: str | torch.device | None = None,
+        program_set: Any = None,
     ):
         # Deferred: repro_torch.core must stay importable without
         # repro_torch.runtime (runtime's facade imports this module at
@@ -160,6 +165,7 @@ class PipelinedEngine:
         self.worker_state_factory = worker_state_factory
         self.telemetry = telemetry
         self.double_buffer = double_buffer
+        self.program_set = program_set
         if isinstance(device_fn, DevicePreprocProgram):
             self.device = device_fn.device
         else:
@@ -370,9 +376,22 @@ class PipelinedEngine:
             tenant_bytes[name] = tenant_bytes.get(name, 0) + self._item_nbytes
         batch_idx.append(idx)
 
-    def _dispatch(self, buf):
-        """Enqueue one staged batch; returns (device output, done event)."""
-        dev_out = self.device_fn(buf)
+    def _dispatch_fn(self, count: int):
+        """The program dispatching ``count`` staged rows: the smallest
+        covering bucket's program when a ProgramSet is bound (a ragged tail
+        runs it on ``buf[:bucket]``), else the full-batch fn.  Returns
+        (fn, rows-or-None)."""
+        if self.program_set is not None and count < self.batch_size:
+            hit = self.program_set.program_for(count)
+            if hit is not None:
+                return hit
+        return self.device_fn, None
+
+    def _dispatch(self, buf, count: int):
+        """Enqueue one staged batch of ``count`` real rows; returns (device
+        output, done event)."""
+        fn, rows = self._dispatch_fn(count)
+        dev_out = fn(buf if rows is None else buf[:rows])
         return dev_out, _record_done(self.device)
 
     def _consume_sync(
@@ -392,7 +411,7 @@ class PipelinedEngine:
             if count == 0:
                 return
             dispatch_t = time.perf_counter()
-            dev_out, done = self._dispatch(buf)  # async dispatch
+            dev_out, done = self._dispatch(buf, count)  # async dispatch
             in_flight.append((list(batch_idx[:count]), dev_out, done, dispatch_t, lease))
             n_batches += 1
             if len(in_flight) >= self.ring_slots:
@@ -425,7 +444,7 @@ class PipelinedEngine:
                 )
                 if len(batch_idx) == self.batch_size:
                     flush(self.batch_size)
-            if batch_idx:  # ragged tail: padding rows are stale, never read back
+            if batch_idx:  # ragged tail: bucketed dispatch, padding never read back
                 flush(len(batch_idx))
             while in_flight:
                 self._retire(in_flight.pop(0), outputs, return_outputs, clock)
@@ -462,7 +481,7 @@ class PipelinedEngine:
                     idxs, dbuf, dlease, t_staged = msg
                     current = dlease
                     dispatch_t = time.perf_counter()
-                    dev_out, done = self._dispatch(dbuf)
+                    dev_out, done = self._dispatch(dbuf, len(idxs))
                     t_called = time.perf_counter()
                     if self.telemetry is not None:
                         # queue wait + the dispatch call's enqueue (copy and

@@ -2,8 +2,13 @@
 ``tests/test_runtime.py``: same corpus bytes, same linear-model weights,
 decode time, entropy-stage time and dispatch overhead pinned so both plan
 alike; then the same
-plan key, identical argmax and logits within 1e-4.  Also: the features a
-later slice of the port brings raise NotImplementedError."""
+plan key, identical argmax and logits within 1e-4 — also with warmup,
+recalibration, tenants, telemetry and the rendition cache on, and through
+a serving round trip.  The replica mesh, which a later slice of the port
+brings, raises NotImplementedError.
+
+``_runtimes`` is the shared set-up of the ``tests/test_torch_*`` files
+that hold the runtime against the reference."""
 
 import numpy as np
 import pytest
@@ -12,6 +17,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import jax  # noqa: E402
+import repro.runtime as R  # noqa: E402
+import repro_torch.runtime as T  # noqa: E402
 
 from conftest import smooth_image  # noqa: E402
 from repro.core.planner import ModelSpec as RModelSpec  # noqa: E402
@@ -24,9 +31,7 @@ from repro_torch.core.planner import ModelSpec as TModelSpec  # noqa: E402
 from repro_torch.preprocessing.formats import ImageFormat as TFormat  # noqa: E402
 from repro_torch.preprocessing.formats import StoredImage as TStored  # noqa: E402
 from repro_torch.runtime import DeviceCompilerConfig as TDevCfg  # noqa: E402
-from repro_torch.runtime import MemoryConfig as TMemCfg  # noqa: E402
 from repro_torch.runtime import MeshConfig as TMeshCfg  # noqa: E402
-from repro_torch.runtime import RecalConfig as TRecalCfg  # noqa: E402
 from repro_torch.runtime import RuntimeConfig as TConfig  # noqa: E402
 from repro_torch.runtime import SmolRuntime as TRuntime  # noqa: E402
 
@@ -46,12 +51,17 @@ def _weights(seed, classes=7):
     )
 
 
-def _runtimes(images, **device_cfg):
-    """(reference runtime, port runtime, reference corpus, port corpus)."""
+def _runtimes(images, extra=None, **device_cfg):
+    """(reference runtime, port runtime, reference corpus, port corpus).
+
+    ``extra(pkg)`` returns further ``RuntimeConfig`` kwargs, built from
+    ``pkg`` — ``repro.runtime`` for the reference, ``repro_torch.runtime``
+    for the port — so both get the same tenants, telemetry, memory or
+    recalibration config."""
     out = []
-    for ModelSpec, Format, Stored, Config, DevCfg, Runtime, to_model in (
-        (RModelSpec, RFormat, RStored, RConfig, RDevCfg, RRuntime, lambda w: w),
-        (TModelSpec, TFormat, TStored, TConfig, TDevCfg, TRuntime, torch.from_numpy),
+    for ModelSpec, Format, Stored, Config, DevCfg, Runtime, to_model, pkg in (
+        (RModelSpec, RFormat, RStored, RConfig, RDevCfg, RRuntime, lambda w: w, R),
+        (TModelSpec, TFormat, TStored, TConfig, TDevCfg, TRuntime, torch.from_numpy, T),
     ):
         full, thumb = Format(*FMT_ARGS["full"]), Format(*FMT_ARGS["thumb"])
         corpus = [Stored.from_array(img, [full, thumb]) for img in images]
@@ -69,7 +79,8 @@ def _runtimes(images, **device_cfg):
         rt = Runtime(
             models, [full, thumb], fns, calibration=corpus[:3],
             config=Config(batch_size=4, num_workers=2, min_accuracy=0.9,
-                          device=DevCfg(dispatch_overhead_s=0.0, **device_cfg)),
+                          device=DevCfg(dispatch_overhead_s=0.0, **device_cfg),
+                          **(extra(pkg) if extra is not None else {})),
             decode_time=lambda fmt: 1e-4 if fmt.short_side else 2e-3,
             **kw,
         )
@@ -137,15 +148,50 @@ def test_measure_exec_throughput_on_cpu():
     assert rate > 0
 
 
+def _assert_same_outputs(t_outs, r_outs, atol=1e-4):
+    assert len(t_outs) == len(r_outs)
+    for a, b in zip(t_outs, r_outs):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=atol)
+        assert np.argmax(a) == np.argmax(b)
+
+
+@pytest.mark.parametrize(
+    "feature,extra",
+    [
+        ("recalibration", lambda pkg: {"recal": pkg.RecalConfig(every=8)}),
+        ("warmup", lambda pkg: {"warmup": "full"}),
+        ("tenants", lambda pkg: {"tenants": (pkg.TenantConfig("a", weight=4.0),
+                                             pkg.TenantConfig("b"))}),
+        ("telemetry", lambda pkg: {"telemetry": pkg.TelemetryConfig(spans=True)}),
+        ("rendition cache", lambda pkg: {"memory": pkg.MemoryConfig(rendition_cache_bytes=1 << 22)}),
+    ],
+)
+def test_ported_features_run_like_the_reference(images, feature, extra):
+    r_rt, t_rt, r_corpus, t_corpus = _runtimes(images, extra, split_decode="full")
+    tenants = ["ab"[i % 2] for i in range(len(r_corpus))] if feature == "tenants" else None
+    r_outs, r_report = r_rt.run(r_corpus, tenants=tenants)
+    t_outs, t_report = t_rt.run(t_corpus, tenants=tenants)
+    assert t_report.plan_key == r_report.plan_key
+    assert len(t_report.recalibrations) == len(r_report.recalibrations)
+    assert [c.num_items for c in t_report.chunk_stats] == [
+        c.num_items for c in r_report.chunk_stats
+    ]
+    _assert_same_outputs(t_outs, r_outs)
+    if feature == "warmup":
+        assert t_rt.wait_warm(timeout=60.0) and r_rt.wait_warm(timeout=60.0)
+        assert t_rt.compile().program_sets[0].buckets == r_rt.compile().program_sets[0].buckets
+        assert t_rt.stats().warmup.failures == 0
+    if feature == "rendition cache":
+        # a second pass hits every staged tensor in both packages
+        _assert_same_outputs(t_rt.run(t_corpus)[0], r_rt.run(r_corpus)[0])
+        assert t_rt.stats().cache.hits == r_rt.stats().cache.hits > 0
+
+
 @pytest.mark.parametrize(
     "cfg_kwargs,match",
     [
-        ({"recal": TRecalCfg(every=8)}, "recalibration"),
-        ({"warmup": "full"}, "warmup"),
         ({"mesh": TMeshCfg(replicas=2)}, "mesh"),
-        ({"tenants": ("a",)}, "tenant"),
-        ({"telemetry": object()}, "telemetry"),
-        ({"memory": TMemCfg(rendition_cache_bytes=1 << 20)}, "rendition cache"),
+        ({"mesh": TMeshCfg(devices=(0,))}, "mesh"),
     ],
 )
 def test_deferred_features_raise(images, cfg_kwargs, match):
@@ -155,13 +201,35 @@ def test_deferred_features_raise(images, cfg_kwargs, match):
     with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP"):
         TRuntime([spec], [fmt], {"m": lambda x: x}, corpus, config=TConfig(**cfg_kwargs),
                  device="cpu")
+    rt = TRuntime([spec], [fmt], {"m": lambda x: x}, corpus, device="cpu")
+    with pytest.raises(NotImplementedError, match="(?s)fail_replica.*ROADMAP.*Mesh"):
+        rt.fail_replica(0)
 
 
 def test_serving_methods_raise_and_cuda_is_the_default(images, monkeypatch):
-    _, t_rt, _, _ = _runtimes(images)
-    for call in (t_rt.start_serving, lambda: t_rt.submit(object()), t_rt.drain):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # before start_serving() the serving methods raise, as the reference's
+    r_rt, t_rt, r_corpus, t_corpus = _runtimes(images)
+    for rt, item in ((r_rt, R.ClassificationQuery(r_corpus[0])),
+                     (t_rt, T.ClassificationQuery(t_corpus[0]))):
+        for call in (lambda: rt.submit(item), rt.drain):
+            with pytest.raises(RuntimeError, match="start_serving"):
+                call()
+    # a serving round trip: every item as a classification query, the same
+    # scores as the reference's round trip
+    results = []
+    for rt, corpus, pkg in ((r_rt, r_corpus, R), (t_rt, t_corpus, T)):
+        rt.start_serving()
+        try:
+            uids = [rt.submit(pkg.ClassificationQuery(item)) for item in corpus]
+            rt.flush(timeout=60.0)
+            done = rt.drain(timeout=60.0)
+        finally:
+            rt.stop_serving()
+        assert [r.uid for r in done] == uids and not any(r.error for r in done)
+        results.append(done)
+    r_done, t_done = results
+    _assert_same_outputs([r.scores for r in t_done], [r.scores for r in r_done])
+    assert [r.prediction for r in t_done] == [r.prediction for r in r_done]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fmt = TFormat(*FMT_ARGS["full"])
     corpus = [TStored.from_array(images[0], [fmt])]
