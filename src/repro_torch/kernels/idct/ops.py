@@ -16,6 +16,7 @@ reference package's public API.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -82,10 +83,12 @@ def idct_rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     status = lib.repro_idct_rows_f32(x.data_ptr(), m.data_ptr(), out.data_ptr(), n, p2, stream)
     _build.check(lib, status, "idct_rows")
     idct_rows.launches += 1
+    idct_rows.launches_by_point[math.isqrt(p2)] += 1
     return out
 
 
 idct_rows.launches = 0  # kernel launches (CPU calls do not count)
+idct_rows.launches_by_point = dict.fromkeys(SCALED_POINTS, 0)  # the same, by IDCT size
 
 
 def dequant_idct(

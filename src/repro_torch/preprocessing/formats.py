@@ -1,9 +1,10 @@
 """Natively-present visual data formats — the paper's ℱ.
 
-Image serving systems store multiple encodings of the same content
-(full-resolution JPEG, 161-px thumbnails in PNG/JPEG).  ``StoredImage``
-models exactly that: one logical asset, several physical encodings, so
-SMOL's planner can treat the *input format* as a plan dimension (§5.2).
+Image/video serving systems store multiple encodings of the same content
+(full-resolution JPEG, 161-px thumbnails in PNG/JPEG, multi-bitrate video
+renditions).  ``StoredImage`` / ``StoredVideo`` model exactly that: one
+logical asset, several physical encodings, so SMOL's planner can treat the
+*input format* as a plan dimension (§5.2).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.preprocessing import jpeg, png
+from repro_torch.preprocessing import jpeg, png, video
 from repro_torch.preprocessing.ops import ResizeShortSide
 
 
@@ -193,3 +194,63 @@ def _pil_jpeg_decode(
     if max_rows is not None:
         out = out[: max(1, int(np.ceil(max_rows * s)))]
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoFormat:
+    codec: str = "svid"
+    short_side: int | None = None  # None = native; 480 = the paper's low-res rendition
+    quality: int = 75
+
+    @property
+    def key(self) -> str:
+        res = "full" if self.short_side is None else f"{self.short_side}p"
+        return f"{self.codec}_{res}_q{self.quality}"
+
+    def __str__(self) -> str:
+        return self.key
+
+
+class StoredVideo:
+    """One logical video stored at several renditions (YouTube-style)."""
+
+    def __init__(self, variants: dict[VideoFormat, bytes], native_shape: tuple[int, ...]):
+        self.variants = variants
+        self.native_shape = native_shape
+
+    @classmethod
+    def from_frames(
+        cls,
+        frames: np.ndarray,
+        formats: list[VideoFormat] | None = None,
+        gop: int = 8,
+    ) -> "StoredVideo":
+        formats = formats or [VideoFormat(), VideoFormat(short_side=min(frames.shape[1:3]) // 2)]
+        variants: dict[VideoFormat, bytes] = {}
+        for fmt in formats:
+            src = frames
+            if fmt.short_side is not None and fmt.short_side < min(frames.shape[1:3]):
+                rs = ResizeShortSide(fmt.short_side)
+                src = np.stack([rs.apply_host(f) for f in frames])
+            variants[fmt] = video.encode(src, quality=fmt.quality, gop=gop)
+        return cls(variants, tuple(frames.shape))
+
+    def formats(self) -> list[VideoFormat]:
+        return list(self.variants)
+
+    def nbytes(self, fmt: VideoFormat) -> int:
+        return len(self.variants[fmt])
+
+    def decode(
+        self,
+        fmt: VideoFormat,
+        frame_indices: list[int] | None = None,
+        max_frames: int | None = None,
+        deblock: bool = True,
+    ) -> np.ndarray:
+        return video.decode(
+            self.variants[fmt],
+            frame_indices=frame_indices,
+            max_frames=max_frames,
+            deblock=deblock,
+        )

@@ -10,6 +10,7 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from conftest import smooth_image  # noqa: E402
 from repro.core import dag as ref_dag  # noqa: E402
 from repro.core.planner import standard_chain as ref_standard_chain  # noqa: E402
 from repro.preprocessing import ops as R  # noqa: E402
@@ -95,3 +96,19 @@ def test_host_halves_identical(name, args, x):
     assert t_op.flops(T.TensorMeta(x.shape, str(x.dtype), "HWC")) == ref_op.flops(
         R.TensorMeta(x.shape, str(x.dtype), "HWC")
     )
+
+
+# sizes where the reference's host and device ResizeShortSide put a .5 tie
+# of the uint8 re-quantize on different sides (tests/test_preproc_ops.py
+# test_chain_host_device_parity draws such sizes at random); the port's
+# device chain must equal the reference's device chain there, bitwise
+TIE_SIZES = [(136, 156), (190, 196), (120, 118), (174, 40), (87, 112)]
+
+
+@pytest.mark.parametrize("h,w", TIE_SIZES, ids=[f"{h}x{w}" for h, w in TIE_SIZES])
+def test_standard_resnet_chain_device_matches_jnp_at_tie_sizes(h, w):
+    img = smooth_image(np.random.default_rng(7), h, w)
+    ref = np.asarray(R.apply_chain_device(R.STANDARD_RESNET_CHAIN, jnp.asarray(img)))
+    out = T.apply_chain_device(T.STANDARD_RESNET_CHAIN, torch.from_numpy(img)).numpy()
+    assert out.shape == ref.shape == (3, 224, 224) and out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)
