@@ -11,17 +11,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. environment: torch/CUDA versions, the card's name and power limit, the
    build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
    and the redesigned kernels' SASS (tensor-core, TMA or ``cp.async``
-   instructions, no spills);
+   instructions in every instance of a template, no spills);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at ragged ones, then its median time (CUDA
-   events, cold L2) beside the plain version's, one library call's, and
-   the least time the card could take (the bound); for K4 also per layer,
-   beside the launch floor of an empty kernel;
+   the main path's shapes and at ragged ones (K1's int16 entry on views of
+   staged batches at points 8/4/2, K5 on 4:2:0 and 4:4:4 with odd crops),
+   then its median time (CUDA events, cold L2) beside the plain version's,
+   one library call's, and the least time the card could take (the
+   bound); K1 at phase 3's batch (point 8) and 6C's (point 4); for K4 also
+   per layer, beside the launch floor of an empty kernel;
 3. main path: ``SmolRuntime.run`` with split decode over a seeded SJPG
    corpus (384x512, 4:2:0, q90; 2 full batches of 64 + a ragged tail) into
    a full-width ResNet-50 with seeded random weights; checks the outputs,
-   the plan, the kernels' launch counts, and the first batch's logits
-   against a CPU run of the same program;
+   the plan, the kernels' launch counts (K1 x2, K5 x1, K2 x1 a dispatch),
+   and the first batch's logits against a CPU run of the same program;
 4. LM path: Gemma3-1B at full width (26 layers, bf16, seeded random
    weights): ``prefill`` of 4 x 2048 tokens, ``forward`` over the same
    prompts, 16 ``decode_step``s, and ``ServingEngine.serve`` of 16
@@ -37,7 +39,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    with a full-resolution refetch and one ``AggregationQuery``; checks the
    predictions against phase 3, that every bucket was captured before
    serving and nothing after, a ragged batch of 37 through bucket 64, the
-   K1/K2 kernels inside one replay (profiler), no warm failures, and a
+   K1/K5/K2 kernels inside one replay (profiler), no warm failures, and a
    ``run()`` with ``RecalConfig(every=64)``; prints serving items/s, p50/p99
    latency, capture seconds per bucket, the graph pool's memory and the
    program's time per batch eager and as a replay;
@@ -46,13 +48,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    a ``SmolRuntime`` over full-width ResNet-18/34/50 with seeded random
    weights, exec throughputs measured on the card (printed beside the
    paper's T4 figures) and a synthetic accuracy table, under two accuracy
-   floors: one selects the full JPEG on the split-decode program (K1 + K2),
+   floors: one selects the full JPEG on the split-decode program (K1, K5, K2),
    the other the 161-px PNG on the pixel program (K2); (B) each video
    dataset (night-street, taipei, amsterdam, rialto; 96 frames of 96 px,
    two renditions): encode and host decode times, then the full rendition
    deblocked and the low one without deblocking through the pixel program
    into TINY_RESNET; (C) scaled split decode: 16 smooth 768x1024 images at
-   factor 2, K1 at point 4, into phase 3's ResNet-50.  Each checks the
+   factor 2, K1 at point 4 and K5, into phase 3's ResNet-50.  Each checks the
    plan, the launches per dispatch, the outputs, and the logits against
    the CPU run of the same program;
 7. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
@@ -79,6 +81,7 @@ ROOT = Path(__file__).resolve().parent
 # FLOP/s — the denominators of every bound_ms below
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 
 SEED = 0
@@ -86,7 +89,7 @@ BATCH = 64
 N_ITEMS = 2 * BATCH + 22  # two full batches + a ragged tail
 IMG_H, IMG_W = 384, 512
 INPUT = 224
-K1_ATOL = 2e-2  # fp32 FMA order vs cuBLAS fp32: values reach the thousands
+K1_ATOL = 2e-2  # 3xTF32 sums vs cuBLAS fp32: values reach the thousands
 LOGIT_RTOL = 1e-3  # card vs CPU logits, relative to the largest |logit|
 
 # the LM path: Gemma3-1B at full width, bf16
@@ -116,6 +119,8 @@ RECAL_EVERY = 64
 RENDITION_CACHE_BYTES = 64 * 2**20
 SERVE_TIMEOUT_S = 300.0
 TIMED_BUCKETS = (1, 8, BATCH)  # eager vs replay per batch
+# kernel launches per split-decode dispatch, as a graph records them
+REPLAY_KERNELS = {"idct": 2, "blocks_to_rgb": 1, "fused_preproc": 1}
 
 # the paper's datasets (phase 6)
 PAPER_N, PAPER_BATCH = 64, 32  # images per image dataset, batch
@@ -133,6 +138,7 @@ VIDEO_FRAMES, VIDEO_SIZE = 96, 96
 VIDEO_INPUT, VIDEO_BATCH = 64, 32  # TINY_RESNET's input side, frames per dispatch
 VIDEO_CLASSES = 9  # object counts 0-8 (make_video caps them at 8)
 SCALED_N, SCALED_H, SCALED_W = 16, 768, 1024
+LONG_SPIN = 40_000_000  # clock cycles, ~23 ms: longer than a program's eager enqueue
 
 
 def log(msg: str) -> None:
@@ -154,19 +160,22 @@ def card_line() -> str:
     return out[0] if out else ""
 
 
-def median_ms(fn, flush: torch.Tensor | None, iters: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, flush: torch.Tensor | None, iters: int = 20, warmup: int = 3,
+              spin: int = 2_000_000) -> float:
     """Median time of ``fn()`` on the card (CUDA events).  With ``flush``,
     L2 is flushed before each launch so the operands come from device
-    memory, as on the main path.  A spin of ~1 ms on the card before the
-    start event keeps it busy while the host enqueues ``fn``'s launches,
-    so a small kernel's time is its own, not its wrapper's host time."""
+    memory, as on the main path.  A spin of ``spin`` clock cycles (~1 ms by
+    default) on the card before the start event keeps it busy while the
+    host enqueues ``fn``'s launches, so a small kernel's time is its own,
+    not its wrapper's host time; a program of hundreds of launches needs a
+    longer one."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(2_000_000)  # clock cycles
+        torch.cuda._sleep(spin)  # clock cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -197,18 +206,21 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 
 # ------------------------------------------------------------ phase 1: build
 # the redesigned kernels and the instruction their SASS must hold: tensor
-# cores (K3 bf16, K1 point 8), TMA bulk copies (K4), cp.async copies into
-# shared memory (K2)
+# cores (K3 bf16, K1 at every point), TMA bulk copies (K4), cp.async
+# copies into shared memory (K2)
 DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
                     "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS"}
+# instances a kernel template must have, where that is checked: K1's int16
+# zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1
+DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7}
 
 
 def check_kernel_code(build) -> None:
     """The redesigned kernels were compiled as designed: their SASS
     (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16,
-    ``wgmma``), HMMA (K1 point 8, ``mma.sync`` tf32), UBLKCP (K4, TMA bulk
-    copies) and LDGSTS (K2, ``cp.async``), and ptxas reports no spills for
-    them (when this process built the library)."""
+    ``wgmma``), HMMA (every instance of K1's template, ``mma.sync`` tf32),
+    UBLKCP (K4, TMA bulk copies) and LDGSTS (K2, ``cp.async``), and ptxas
+    reports no spills for them (when this process built the library)."""
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", build.build_info["path"]],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -231,6 +243,9 @@ def check_kernel_code(build) -> None:
         log(f"[env] sass: {key}: {op} instructions per instance {sorted(found.values())}")
         if not found or min(found.values()) == 0:
             raise AssertionError(f"{key}: no {op} in its SASS ({found})")
+        if key in DESIGNED_INSTANCES and len(found) != DESIGNED_INSTANCES[key]:
+            raise AssertionError(f"{key}: {len(found)} instances, expected "
+                                 f"{DESIGNED_INSTANCES[key]} ({sorted(found)})")
         for n, report in spills.items():
             if key in n and "0 bytes spill stores, 0 bytes spill loads" not in report:
                 raise AssertionError(f"{n} spills: {report}")
@@ -239,65 +254,128 @@ def check_kernel_code(build) -> None:
 
 
 # --------------------------------------------------------------- phase 2: K1
-def check_idct(dev, luma_rows: int) -> float:
-    """K1 against its plain version: every point, two qualities, the main
-    path's row count and ragged ones: 1, one tile of 128 rows less and more
-    one, 777, and a count past three sweeps of the point-8 kernel's
-    persistent grid (2 blocks x 8 warps x 16 rows per SM) that is no
-    multiple of it.  Returns the largest |kernel - plain|."""
+def check_idct(dev, luma_rows: int) -> dict:
+    """K1's f32 natural-order entry (``idct_rows``, the reference's
+    ``dequant_idct`` API) against its plain version: every point, two
+    qualities, the main path's luma row count and ragged ones: 1, one tile
+    of 128 rows less and more one, 777, and a count past three sweeps of
+    the largest persistent grid (4 blocks x 8 warps x 16 rows per SM) that
+    is no multiple of it.  Returns the largest |kernel - plain| per point."""
     from repro_torch.kernels.idct import ops as idct_ops
     from repro_torch.kernels.idct import plain as idct_plain
     from repro_torch.preprocessing import dct
 
     rng = np.random.default_rng(SEED)
-    sweep = 2 * 8 * 16 * torch.cuda.get_device_properties(dev).multi_processor_count
-    worst = 0.0
+    sweep = 4 * 8 * 16 * torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = {point: 0.0 for point in idct_ops.SCALED_POINTS}
     for point in idct_ops.SCALED_POINTS:
         for quality in (50, 95):
             q = dct.quality_scale(dct.QTABLE_LUMA, quality)
             m = torch.from_numpy(idct_ops.idct_matrix(q, point)).to(dev)
             for n in (1, 127, 129, 777, 3 * sweep + 37, luma_rows):
-                coeffs = rng.integers(-300, 300, size=(n, 64)).astype(np.float32)
-                x = torch.from_numpy(coeffs).to(dev)
-                got = idct_ops.idct_rows(x, m)
-                want = idct_plain.idct_rows(x, m)
-                err = (got - want).abs().max().item()
-                extra = ""
-                if n == luma_rows and point == 8:  # both against the exact (f64) product
-                    exact = x.double() @ m.double()
-                    extra = (f" (vs f64: kernel {(got.double() - exact).abs().max().item():.3e}, "
-                             f"plain {(want.double() - exact).abs().max().item():.3e}, "
-                             f"max|value| {exact.abs().max().item():.0f})")
-                log(f"  idct point={point} q={quality} n={n}: max|kernel-plain|={err:.3e}{extra}")
+                x = torch.from_numpy(rng.integers(-300, 300, size=(n, 64)).astype(np.float32)).to(dev)
+                err = (idct_ops.idct_rows(x, m) - idct_plain.idct_rows(x, m)).abs().max().item()
+                log(f"  idct f32 natural point={point} q={quality} n={n}: max|kernel-plain|={err:.3e}")
                 if not err <= K1_ATOL:
                     raise AssertionError(f"idct disagrees with its plain version: {err} > {K1_ATOL}")
-                worst = max(worst, err)
+                worst[point] = max(worst[point], err)
     return worst
 
 
-def time_idct(dev, luma_rows: int, chroma_rows: int, flush, point: int = 8) -> dict:
-    """The two launches of one batch (luma + chroma) at ``point``: 8 on the
-    main path, 4 in phase 6C's scaled split decode."""
-    from repro_torch.kernels.idct import ops as idct_ops
-    from repro_torch.kernels.idct import plain as idct_plain
+def staged_batch(rng, n: int, n_br: int, n_bc: int, subsample: bool, layout: str, dev):
+    """A staged int16 zigzag batch on the card in ``layout`` and the split-
+    decode program's (luma, chroma) views of it."""
+    cbr, cbc = ((n_br + 1) // 2, (n_bc + 1) // 2) if subsample else (n_br, n_bc)
+    n_luma = n_br * n_bc
+    shape = (n, 3, n_br, n_bc, 64) if layout == "padded" else (n, n_luma + 2 * cbr * cbc, 64)
+    zz = torch.from_numpy(rng.integers(-300, 300, size=shape, dtype=np.int16)).to(dev)
+    if layout == "padded":
+        return zz[:, 0], zz[:, 1:, :cbr, :cbc]
+    return zz[:, :n_luma], zz[:, n_luma:]
+
+
+def _qtables(quality: int = 90):
     from repro_torch.preprocessing import dct
 
+    return dct.quality_scale(dct.QTABLE_LUMA, quality), dct.quality_scale(dct.QTABLE_CHROMA, quality)
+
+
+# (images, luma block rows, block columns, 4:2:0) of the split-decode batches
+PHASE3_GRID = (BATCH, IMG_H // 8, IMG_W // 8, True)
+SCALED_GRID = (SCALED_N, SCALED_H // 8, SCALED_W // 8, True)
+
+
+def check_idct_zigzag(dev) -> dict:
+    """K1's int16 zigzag entry against its plain version, reading the staged
+    rows in place: points 8/4/2, both quant tables, both layouts' views, at
+    phase 3's and 6C's batches and at a ragged one (3 images of 13 x 17
+    blocks: 4-d chroma views, rows no multiple of a tile).  Returns the
+    largest |kernel - plain| at point 8 and at points 4/2."""
+    from repro_torch.kernels.idct import ops as idct_ops
+    from repro_torch.kernels.idct import plain as idct_plain
+
+    rng = np.random.default_rng(SEED + 6)
+    worst = {"idct": 0.0, "idct_scaled": 0.0}
+    for n, n_br, n_bc, sub in (PHASE3_GRID, SCALED_GRID, (3, 13, 17, True), (3, 13, 17, False)):
+        for layout in ("padded", "packed"):
+            views = staged_batch(rng, n, n_br, n_bc, sub, layout, dev)
+            for point in (8, 4, 2):
+                for plane, v, q in zip(("luma", "chroma"), views, _qtables()):
+                    m = torch.from_numpy(idct_ops.zigzag_matrix(q, point)).to(dev)
+                    got = idct_ops.idct_zigzag_rows(v, m)
+                    want = idct_plain.idct_zigzag_rows(v, m)
+                    err = (got - want).abs().max().item()
+                    extra = ""
+                    if (n, n_br, n_bc, sub) == PHASE3_GRID and point == 8:  # both against f64
+                        exact = v.reshape(-1, 64).double() @ m.double()
+                        extra = (f" (vs f64: kernel {(got.double() - exact).abs().max().item():.3e}, "
+                                 f"plain {(want.double() - exact).abs().max().item():.3e}, "
+                                 f"max|value| {exact.abs().max().item():.0f})")
+                    log(f"  idct int16 zigzag {n}x{n_br}x{n_bc} {'4:2:0' if sub else '4:4:4'} "
+                        f"{layout} {plane} view {tuple(v.shape)} point={point}: rows {got.shape[0]}, "
+                        f"max|kernel-plain|={err:.3e}{extra}")
+                    if got.shape != want.shape or not err <= K1_ATOL:
+                        raise AssertionError(f"idct int16 disagrees with its plain version: {err}")
+                    key = "idct" if point == 8 else "idct_scaled"
+                    worst[key] = max(worst[key], err)
+            del views
+    return worst
+
+
+def time_idct(dev, grid, point: int, flush) -> dict:
+    """K1's two launches of one split-decode batch (luma, chroma) at
+    ``point``, from the staged int16 batch (packed, as the planner stages
+    4:2:0): 8 at phase 3's batch, 4 at phase 6C's.  The library yardstick
+    is ``zz.to(float32) @ m_zz`` on the same views; the f32 natural-row
+    forms (K1's other entry and ``torch.matmul``) are printed beside it."""
+    from repro_torch.kernels.idct import ops as idct_ops
+    from repro_torch.kernels.idct import plain as idct_plain
+
     rng = np.random.default_rng(SEED)
-    q = dct.quality_scale(dct.QTABLE_LUMA, 90)
-    m = torch.from_numpy(idct_ops.idct_matrix(q, point)).to(dev)
-    xs = [
-        torch.from_numpy(rng.integers(-300, 300, size=(n, 64)).astype(np.float32)).to(dev)
-        for n in (luma_rows, chroma_rows)
-    ]
-    kernel = median_ms(lambda: [idct_ops.idct_rows(x, m) for x in xs], flush)
-    plain = median_ms(lambda: [idct_plain.idct_rows(x, m) for x in xs], flush)
-    library = median_ms(lambda: [torch.matmul(x, m) for x in xs], flush)
-    rows, p2 = luma_rows + chroma_rows, point * point
-    b_ms, b_by = bound_ms(rows * 64 * 4 + 2 * 64 * p2 * 4 + rows * p2 * 4, 2.0 * rows * 64 * p2)
-    log(f"  idct per batch ({luma_rows}+{chroma_rows} rows, point {point}): kernel {kernel:.4f} ms, "
-        f"plain {plain:.4f} ms, torch.matmul {library:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    n, n_br, n_bc, sub = grid
+    views = staged_batch(rng, n, n_br, n_bc, sub, "packed", dev)
+    m_zz = [torch.from_numpy(idct_ops.zigzag_matrix(q, point)).to(dev) for q in _qtables()]
+    m_nat = [torch.from_numpy(idct_ops.idct_matrix(q, point)).to(dev) for q in _qtables()]
+    pairs = list(zip(views, m_zz))
+    kernel = median_ms(lambda: [idct_ops.idct_zigzag_rows(v, m) for v, m in pairs], flush)
+    plain = median_ms(lambda: [idct_plain.idct_zigzag_rows(v, m) for v, m in pairs], flush)
+    library = median_ms(lambda: [v.to(torch.float32) @ m for v, m in pairs], flush)
+    rows_f32 = [torch.from_numpy(rng.integers(-300, 300, size=(v.numel() // 64, 64)).astype(np.float32))
+                .to(dev) for v in views]
+    nat = list(zip(rows_f32, m_nat))
+    f32_kernel = median_ms(lambda: [idct_ops.idct_rows(x, m) for x, m in nat], flush)
+    f32_matmul = median_ms(lambda: [torch.matmul(x, m) for x, m in nat], flush)
+    rows, p2, k = sum(v.numel() // 64 for v in views), point * point, idct_ops.K_ROWS["zigzag", point]
+    # each row's first K int16 in, P f32 out, the two matrices' K rows; three
+    # TF32 products per multiply-add (3xTF32)
+    b_ms, b_by = bound_ms(rows * (k * 2 + p2 * 4) + 2 * k * p2 * 4, 3 * 2.0 * rows * k * p2,
+                          PEAK_TF32_FLOPS)
+    log(f"  idct per batch ({rows} int16 zigzag rows, point {point}, K {k}): kernel {kernel:.4f} ms, "
+        f"plain {plain:.4f} ms, zz.to(float32) @ m_zz {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / kernel:.1%} of it; f32 natural rows: kernel {f32_kernel:.4f} ms, torch.matmul "
+        f"{f32_matmul:.4f} ms")
     return {
-        "name": "idct",
+        "name": "idct" if point == 8 else "idct_scaled",
         "route": "cuda",
         "source": "src/repro_torch/csrc/idct.cu",
         "replaces": "src/repro/kernels/idct/idct.py:41",
@@ -309,6 +387,122 @@ def time_idct(dev, luma_rows: int, chroma_rows: int, flush, point: int = 8) -> d
     }
 
 
+# --------------------------------------------------------------- phase 2: K5
+def _block_grid(n_br: int, n_bc: int, sub: bool, point: int, hs: int, ws: int):
+    from repro_torch.kernels.blocks_to_rgb.ops import BlockGrid
+
+    cbr, cbc = ((n_br + 1) // 2, (n_bc + 1) // 2) if sub else (n_br, n_bc)
+    return BlockGrid(n_br, n_bc, cbr, cbc, point, hs, ws, sub)
+
+
+def _decoded_blocks(rng, n: int, grid, dev):
+    """K1-like outputs: level-shifted pixels, some past both clamps, some on
+    .5 ties after the shift."""
+    p2 = grid.point**2
+    out = []
+    for rows in (n * grid.n_br * grid.n_bc, n * 2 * grid.cbr * grid.cbc):
+        v = rng.uniform(-200, 200, size=(rows, p2)).astype(np.float32)
+        ties = rng.random(size=v.shape) < 0.05
+        v[ties] = np.round(v[ties]) + 0.5
+        out.append(torch.from_numpy(v).to(dev))
+    return out
+
+
+def _ycbcr_to_rgb_matrix(dev):
+    from repro_torch.core.device_compiler import _YCBCR_TO_RGB
+
+    return torch.from_numpy(_YCBCR_TO_RGB).to(dev)
+
+
+def check_blocks_to_rgb(dev) -> float:
+    """K5 against its plain version, value for value (``torch.equal``):
+    phase 3's batch (point 8) and 6C's (point 4), 4:2:0 and 4:4:4 at
+    points 8/4/2 with crops that cut partial blocks (odd sizes, widths no
+    multiple of 4).  Returns the largest |kernel - plain|."""
+    from repro_torch.kernels.blocks_to_rgb import ops as b2r_ops
+    from repro_torch.kernels.blocks_to_rgb import plain as b2r_plain
+
+    rng = np.random.default_rng(SEED + 7)
+    mat = _ycbcr_to_rgb_matrix(dev)
+    cases = [(BATCH, _block_grid(IMG_H // 8, IMG_W // 8, True, 8, IMG_H, IMG_W)),
+             (SCALED_N, _block_grid(SCALED_H // 8, SCALED_W // 8, True, 4, SCALED_H // 2, SCALED_W // 2))]
+    for sub in (True, False):
+        for point in (8, 4, 2):  # 97 x 131 at factor 8 // point: 13 x 17 blocks
+            f = 8 // point
+            cases.append((3, _block_grid(13, 17, sub, point, -(-97 // f), -(-131 // f))))
+    worst = 0.0
+    for n, grid in cases:
+        luma, chroma = _decoded_blocks(rng, n, grid, dev)
+        got = b2r_ops.blocks_to_rgb(luma, chroma, mat, grid)
+        want = b2r_plain.blocks_to_rgb(luma, chroma, mat, grid)
+        if got.shape != want.shape:
+            raise AssertionError(f"blocks_to_rgb shape {tuple(got.shape)}, plain {tuple(want.shape)}")
+        same = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        log(f"  blocks_to_rgb {n} images {grid}: shape {tuple(got.shape)}, equal {same}, "
+            f"max|kernel-plain|={err:.3e}")
+        if not same:
+            raise AssertionError(f"blocks_to_rgb differs from its plain version by {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def eager_tail(luma, chroma, rgb_mat, grid):
+    """The eager torch ops K5 replaced in the split-decode program:
+    unblockify, repeat_interleave, cat, +128, einsum, round, clamp."""
+    p, n = grid.point, luma.shape[0] // (grid.n_br * grid.n_bc)
+    y = luma.reshape(n, grid.n_br, grid.n_bc, p, p).permute(0, 1, 3, 2, 4).reshape(
+        n, grid.n_br * p, grid.n_bc * p)
+    c = chroma.reshape(n, 2, grid.cbr, grid.cbc, p, p).permute(0, 1, 2, 4, 3, 5).reshape(
+        n, 2, grid.cbr * p, grid.cbc * p)
+    if grid.subsample:
+        c = c.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    ycc = torch.cat([y[:, None, :grid.hs, :grid.ws], c[:, :, :grid.hs, :grid.ws]], dim=1) + 128.0
+    shift = torch.tensor([0.0, 128.0, 128.0], device=luma.device)[:, None, None]
+    rgb = torch.einsum("rc,nchw->nrhw", rgb_mat, ycc - shift)
+    return torch.clamp(torch.round(rgb), 0.0, 255.0)
+
+
+def time_blocks_to_rgb(dev, flush) -> dict:
+    """K5 on one phase-3 batch (64 x 384 x 512, 4:2:0, point 8), and on
+    6C's (16 images at factor 2, point 4), beside its plain version and
+    the eager ops it replaced (the library yardstick)."""
+    from repro_torch.kernels.blocks_to_rgb import ops as b2r_ops
+    from repro_torch.kernels.blocks_to_rgb import plain as b2r_plain
+
+    rng = np.random.default_rng(SEED + 8)
+    mat = _ycbcr_to_rgb_matrix(dev)
+    row = None
+    for n, grid in ((BATCH, _block_grid(IMG_H // 8, IMG_W // 8, True, 8, IMG_H, IMG_W)),
+                    (SCALED_N, _block_grid(SCALED_H // 8, SCALED_W // 8, True, 4,
+                                           SCALED_H // 2, SCALED_W // 2))):
+        luma, chroma = _decoded_blocks(rng, n, grid, dev)
+        kernel = median_ms(lambda: b2r_ops.blocks_to_rgb(luma, chroma, mat, grid), flush)
+        plain = median_ms(lambda: b2r_plain.blocks_to_rgb(luma, chroma, mat, grid), flush)
+        library = median_ms(lambda: eager_tail(luma, chroma, mat, grid), flush)
+        pixels = n * grid.hs * grid.ws
+        nbytes = (luma.numel() + chroma.numel()) * 4 + 3 * pixels * 4
+        # per pixel: 5 level-shift adds, 3 x (3 multiplies + 2 adds), round, 2 clamps
+        b_ms, b_by = bound_ms(nbytes, 23.0 * pixels)
+        log(f"  blocks_to_rgb per batch ({n} x {grid.hs}x{grid.ws}, point {grid.point}, "
+            f"{'4:2:0' if grid.subsample else '4:4:4'}): kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+            f"the eager ops it replaced {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / kernel:.1%} of it, {nbytes / kernel / 1e9:.3f} TB/s")
+        if row is None:  # phase 3's batch is the kernels line's
+            row = {
+                "name": "blocks_to_rgb",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/blocks_to_rgb.cu",
+                "replaces": "src/repro/core/device_compiler.py:846",
+                "ms": kernel,
+                "plain_ms": plain,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": library,
+            }
+    return row
+
+
 # --------------------------------------------------------------- phase 2: K2
 def _taps(low, dev):
     from repro_torch.core.device_compiler import lowering_taps
@@ -316,12 +510,13 @@ def _taps(low, dev):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in lowering_taps(low)]
 
 
-def check_fused_preproc(dev, low) -> None:
+def check_fused_preproc(dev, low) -> float:
     """K2 against its plain version, bitwise, with and without the uint8
     re-quantize: the main path's crop windows, a non-square upsample, a
     crop at odd offsets, output widths that are no multiple of 4, two
     column tiles whose bands must be cut into sub-bands, and a downsample
-    so wide that not even two input rows fit the stage (direct reads)."""
+    so wide that not even two input rows fit the stage (direct reads).
+    Returns the largest |kernel - plain|."""
     from repro_torch.kernels.fused_preproc import ops as fp_ops
     from repro_torch.kernels.fused_preproc import plain as fp_plain
 
@@ -343,6 +538,7 @@ def check_fused_preproc(dev, low) -> None:
         ("two column tiles 50x3000->60x1100", 3, 50, 3000, bilinear((50, 60), (3000, 1100))),
         ("wide downsample 40x20000->30x1500", 3, 40, 20000, bilinear((40, 30), (20000, 1500))),
     ]
+    worst = 0.0
     for label, planes, ph, pw, taps in cases:
         x = torch.from_numpy(rng.uniform(0, 255, size=(planes, ph, pw)).astype(np.float32)).to(dev)
         s = torch.from_numpy(np.tile(scale, planes // 3)).to(dev)
@@ -351,11 +547,13 @@ def check_fused_preproc(dev, low) -> None:
             got = fp_ops.resize_affine_planar(x, *taps, s, b, round_uint8)
             want = fp_plain.resize_affine_planar(x, *taps, s, b, round_uint8)
             same = torch.equal(got, want)
+            err = (got - want).abs().max().item()
             log(f"  fused_preproc {label} round_uint8={round_uint8}: "
                 f"shape {tuple(got.shape)}, bitwise equal {same}")
             if not same:
-                err = (got - want).abs().max().item()
                 raise AssertionError(f"fused_preproc differs from its plain version by {err}")
+            worst = max(worst, err)
+    return worst
 
 
 def time_fused_preproc(dev, low, flush) -> dict:
@@ -397,7 +595,6 @@ def time_fused_preproc(dev, low, flush) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/csrc/fused_preproc.cu",
         "replaces": "src/repro/kernels/fused_preproc/fused_preproc.py:51",
-        "max_abs_err": 0.0,  # bitwise equal in every check above
         "ms": kernel,
         "plain_ms": plain,
         "bound_ms": b_ms,
@@ -771,8 +968,6 @@ def run_main_path(dev, corpus, full, thumb) -> dict:
     after; then the first batch again through the same program on the CPU."""
     from repro_torch.core import planner as planner_mod
     from repro_torch.core.planner import ModelSpec
-    from repro_torch.kernels.fused_preproc import ops as fp_ops
-    from repro_torch.kernels.idct import ops as idct_ops
     from repro_torch.models.resnet import RESNET50, ResNet
     from repro_torch.preprocessing import jpeg
     from repro_torch.runtime import DeviceCompilerConfig, RuntimeConfig, SmolRuntime
@@ -790,13 +985,12 @@ def run_main_path(dev, corpus, full, thumb) -> dict:
     )
     compiled = rt.compile()
     prog = compiled.device_program
-    log(f"[main] plan {compiled.plan.key}, impl {prog.impl}, stages {prog.stages}")
+    log(f"[main] plan {compiled.plan.key}, coefficient option {compiled.coeff}, impl {prog.impl}, "
+        f"stages {prog.stages}")
     dispatch_before = prog.dispatch_count
-    idct_ops.idct_rows.launches = 0
-    fp_ops.resize_affine_planar.launches = 0
+    _kernel_counts(zero=True)
     outs, report = rt.run(corpus)
-    launches = {"idct": idct_ops.idct_rows.launches,
-                "fused_preproc": fp_ops.resize_affine_planar.launches}
+    launches = _kernel_counts()
     dispatches = prog.dispatch_count - dispatch_before
 
     staged = np.stack([compiled.host_fn(item) for item in corpus[:BATCH]])
@@ -814,10 +1008,13 @@ def run_main_path(dev, corpus, full, thumb) -> dict:
     with torch.inference_mode():
         program_ms = median_ms(lambda: prog.fn(on_dev), None, iters=5, warmup=1)
         model_ms = median_ms(lambda: model(images), None, iters=5, warmup=1)
+        long_ms = [median_ms(f, None, iters=5, warmup=1, spin=LONG_SPIN)
+                   for f in (lambda: prog.fn(on_dev), lambda: model(images))]
     log(f"[main] per batch of {BATCH}: host entropy stage {entropy_s * BATCH * 1e3:.1f} ms "
         f"on one thread ({entropy_s * 1e3:.2f} ms/item); device program {program_ms:.3f} ms, "
         f"of which ResNet-50 {model_ms:.3f} ms and decode + preprocessing "
-        f"{program_ms - model_ms:.3f} ms (CUDA events)")
+        f"{program_ms - model_ms:.3f} ms (CUDA events; after a ~23 ms spin {long_ms[0]:.3f}, "
+        f"{long_ms[1]:.3f} and {long_ms[0] - long_ms[1]:.3f} ms)")
     return dict(compiled=compiled, prog=prog, outs=outs, report=report, launches=launches,
                 dispatches=dispatches, cpu_logits=cpu_logits, model=model, spec=spec)
 
@@ -834,21 +1031,37 @@ def _same_as_run(what: str, got: np.ndarray, want: np.ndarray) -> None:
 
 
 def _kernel_counts(zero: bool = False) -> dict:
-    """K1's and K2's wrapper launch counts (set to 0 first when ``zero``)."""
+    """The vision kernels' wrapper launch counts (set to 0 first when
+    ``zero``): K1 at point 8 ("idct") and at points 4/2/1 ("idct_scaled"),
+    K5, K2."""
+    from repro_torch.kernels.blocks_to_rgb import ops as b2r_ops
     from repro_torch.kernels.fused_preproc import ops as fp_ops
     from repro_torch.kernels.idct import ops as idct_ops
 
     if zero:
         idct_ops.idct_rows.launches = 0
         idct_ops.idct_rows.launches_by_point = dict.fromkeys(idct_ops.SCALED_POINTS, 0)
+        b2r_ops.blocks_to_rgb.launches = 0
         fp_ops.resize_affine_planar.launches = 0
-    return {"idct": idct_ops.idct_rows.launches,
+    by_point = idct_ops.idct_rows.launches_by_point
+    return {"idct": by_point[8], "idct_scaled": by_point[4] + by_point[2] + by_point[1],
+            "blocks_to_rgb": b2r_ops.blocks_to_rgb.launches,
             "fused_preproc": fp_ops.resize_affine_planar.launches}
+
+
+def _expect_vision_counts(what: str, got: dict, point: int, split: int, pixel: int = 0) -> None:
+    """Per split-decode dispatch K1 x2 (at ``point``), K5 x1, K2 x1; per
+    pixel-program dispatch K2 x1."""
+    want = {"idct": 2 * split if point == 8 else 0, "idct_scaled": 2 * split if point != 8 else 0,
+            "blocks_to_rgb": split, "fused_preproc": split + pixel}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
 def profile_replay(prog, batch, active: int = 3) -> dict:
     """torch.profiler over graph replays of ``prog``: the device launches of
-    K1 and K2 per replay, by their CUDA kernel names.  A schedule skips a
+    K1, K5 and K2 per replay, by their CUDA kernel names, and their device
+    time.  A schedule skips a
     wait step and a warm-up step first, so the profiler is fully on before
     the ``active`` replays it counts."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -864,12 +1077,15 @@ def profile_replay(prog, batch, active: int = 3) -> dict:
     # device rows only: the cudaGraphLaunch row also carries its kernels' time
     rows = [e for e in prof.key_averages()
             if getattr(e, "self_device_time_total", 0) > 0 and e.self_cpu_time_total == 0]
-    counts = {"idct": sum(e.count for e in rows if "idct_rows_tc_kernel" in e.key),
-              "fused_preproc": sum(e.count for e in rows if "resize_affine_band_kernel" in e.key)}
+    names = {"idct": "idct_rows_tc_kernel", "blocks_to_rgb": "blocks_to_rgb_kernel",
+             "fused_preproc": "resize_affine_band_kernel"}
+    per_replay = {k: sum(e.count for e in rows if n in e.key) / active for k, n in names.items()}
+    device_ms = {k: round(sum(e.self_device_time_total for e in rows if n in e.key) / 1e3 / active, 4)
+                 for k, n in names.items()}
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / active
-    per_replay = {k: v / active for k, v in counts.items()}
     log(f"[serve] profile of {active} replays: {len(rows)} kernel names, device busy "
-        f"{busy_ms:.3f} ms a replay, K1/K2 device launches a replay {per_replay}")
+        f"{busy_ms:.3f} ms a replay, K1/K5/K2 device launches a replay {per_replay}, "
+        f"their device ms a replay {device_ms}, all three {sum(device_ms.values()):.4f} ms")
     return per_replay
 
 
@@ -932,8 +1148,8 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
             raise AssertionError(f"{DC.capture_program.captures - captures0} captures at "
                                  f"startup, expected {len(want)}")
         per_graph = {b: g.kernel_launches for b, g in ps.graphs().items()}
-        if any(k != {"idct": 2, "fused_preproc": 1} for k in per_graph.values()):
-            raise AssertionError(f"kernels captured per graph {per_graph}, expected K1 x2, K2 x1")
+        if any(k != REPLAY_KERNELS for k in per_graph.values()):
+            raise AssertionError(f"kernels captured per graph {per_graph}, expected {REPLAY_KERNELS}")
 
         # every item as a ClassificationQuery, spread over both tenants
         captures1 = DC.capture_program.captures
@@ -1019,11 +1235,11 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
     # them); the replays launch each graph's captured kernels
     wrapper = _kernel_counts()
     via_replays = {k: sum(g.replays * g.kernel_launches.get(k, 0) for g in ps.graphs().values())
-                   for k in wrapper}
-    log(f"[serve] K1/K2 launches in the serving phase: through the wrappers {wrapper}, "
+                   for k in REPLAY_KERNELS}
+    log(f"[serve] K1/K5/K2 launches in the serving phase: through the wrappers {wrapper}, "
         f"in graph replays {via_replays}")
-    if min(wrapper.values()) == 0 or min(via_replays.values()) == 0:
-        raise AssertionError("the serving phase launched K1 or K2 no time")
+    if min(wrapper[k] for k in REPLAY_KERNELS) == 0 or min(via_replays.values()) == 0:
+        raise AssertionError("the serving phase launched K1, K5 or K2 no time")
     stats = rt.stats()
     log(f"[serve] warm failures {stats.warmup.failures}, programs compiled post warmup "
         f"{rt.programs_compiled_post_warmup}, program compile+capture seconds "
@@ -1053,10 +1269,10 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
     for i, o in enumerate(outs):
         _same_as_run(f"run() of the ragged batch, item {i}", o, ref[i])
 
-    # K1 twice and K2 once inside one replay, by their CUDA kernel names
+    # K1 twice, K5 and K2 once inside one replay, by their CUDA kernel names
     counts = profile_replay(prog, staged)
-    if counts != {"idct": 2, "fused_preproc": 1}:
-        raise AssertionError(f"a replay launched {counts}, expected K1 x2 and K2 x1")
+    if counts != REPLAY_KERNELS:
+        raise AssertionError(f"a replay launched {counts}, expected {REPLAY_KERNELS}")
 
     # the device program per batch, eager vs graph replay on a resident
     # batch: device time (CUDA events, host enqueue hidden) and wall time
@@ -1304,7 +1520,7 @@ def run_paper_images(dev, card: str) -> dict:
     keys = [f.key for f in PAPER_IMAGE_FORMATS]
     log(f"[paper] accuracy table (synthetic constants: random weights have no accuracy to "
         f"measure) over {keys}: {PAPER_ACCURACY}")
-    total = {"idct": 0, "fused_preproc": 0}
+    total = dict.fromkeys(_kernel_counts(), 0)
     for name, spec in datasets.IMAGE_DATASETS.items():
         t0 = time.perf_counter()
         stored, labels = datasets.image_dataset(name, PAPER_N, SEED)
@@ -1344,15 +1560,14 @@ def run_paper_images(dev, card: str) -> dict:
             launches = _kernel_counts()
             dispatches = prog.dispatch_count - before
             st = report.stats
-            want = {"idct": 2 * dispatches if split else 0, "fused_preproc": dispatches}
             log(f"{what}: {st.num_items} items in {st.batches} batches of {PAPER_BATCH}: "
                 f"{st.throughput:.2f} items/s, wall {st.wall_seconds:.3f} s, host busy "
                 f"{st.host_busy_seconds:.3f} s, device busy {st.device_busy_seconds:.3f} s; "
                 f"launches {launches} in {dispatches} dispatches [{card}]")
             if st.batches != -(-PAPER_N // PAPER_BATCH) or dispatches != st.batches + (before == 0):
                 raise AssertionError(f"{what}: {st.batches} batches, {dispatches} dispatches")
-            if launches != want:
-                raise AssertionError(f"{what}: launches {launches}, expected {want}")
+            _expect_vision_counts(what, launches, 8, dispatches if split else 0,
+                                  0 if split else dispatches)
             _check_outputs(what, outs, PAPER_N, spec.num_classes)
             for k in total:
                 total[k] += launches[k]
@@ -1382,7 +1597,7 @@ def run_paper_videos(dev, card: str) -> dict:
 
     model = ResNet(TINY_RESNET, num_classes=VIDEO_CLASSES,
                    generator=torch.Generator().manual_seed(SEED)).to(dev)
-    total = {"idct": 0, "fused_preproc": 0}
+    total = dict.fromkeys(_kernel_counts(), 0)
     for name in datasets.VIDEO_DATASETS:
         t0 = time.perf_counter()
         stored, counts = datasets.video_dataset(name, VIDEO_FRAMES, SEED, size=VIDEO_SIZE)
@@ -1425,7 +1640,7 @@ def run_paper_videos(dev, card: str) -> dict:
             log(f"{what}: pixel program stages {prog.stages}, {len(outs)} dispatches of "
                 f"{VIDEO_BATCH} frames in {prog_s * 1e3:.1f} ms (host clock, the first dispatch's "
                 f"cold start included), launches {launches} [{card}]")
-            if launches["fused_preproc"] < len(outs) or launches["idct"]:
+            if launches["fused_preproc"] < len(outs) or sum(launches.values()) != launches["fused_preproc"]:
                 raise AssertionError(f"{what}: launches {launches} over {len(outs)} dispatches")
             for k in total:
                 total[k] += launches[k]
@@ -1443,7 +1658,7 @@ def run_scaled_decode(dev, model, exec_tput: float, card: str) -> dict:
     """Phase 6C: split decode with ``split_decode="scaled"`` over SCALED_N
     smooth 768x1024 SJPG images (4:2:0 q90): factor 2 still covers
     ``ResizeShortSide(256)``, so K1 runs at point 4 inside the program
-    into phase 3's ResNet-50.  Returns the K1/K2 launches."""
+    into phase 3's ResNet-50.  Returns the kernels' launches."""
     from repro_torch.core.planner import ModelSpec
     from repro_torch.kernels.idct import ops as idct_ops
     from repro_torch.preprocessing import jpeg
@@ -1479,9 +1694,10 @@ def run_scaled_decode(dev, model, exec_tput: float, card: str) -> dict:
     log(f"[scaled] {st.num_items} items in {st.batches} batch: {st.throughput:.2f} items/s, wall "
         f"{st.wall_seconds:.3f} s; launches {launches}, K1 by point {by_point}, {dispatches} "
         f"dispatches [{card}]")
-    if by_point != {8: 0, 4: 2 * dispatches, 2: 0, 1: 0} or launches["fused_preproc"] != dispatches:
-        raise AssertionError(f"launches {launches}, K1 by point {by_point}; expected K1 x2 at "
-                             f"point 4 and K2 x1 in each of {dispatches} dispatches")
+    if by_point != {8: 0, 4: 2 * dispatches, 2: 0, 1: 0}:
+        raise AssertionError(f"K1 by point {by_point}; expected K1 x2 at point 4 in each of "
+                             f"{dispatches} dispatches")
+    _expect_vision_counts("[scaled]", launches, 4, dispatches)
     _check_outputs("[scaled]", outs, SCALED_N, 1000)
     staged = np.stack([compiled.host_fn(item) for item in corpus])
     header = jpeg.peek_header(corpus[0].variants[fmt])
@@ -1492,12 +1708,10 @@ def run_scaled_decode(dev, model, exec_tput: float, card: str) -> dict:
     on_dev = torch.from_numpy(staged).to(dev)
     with torch.inference_mode():
         program_ms = median_ms(lambda: prog.fn(on_dev), None, iters=5, warmup=1)
-    log(f"[scaled] device program per batch of {SCALED_N} at factor 2: {program_ms:.3f} ms "
-        f"(CUDA events) [{card}]")
-    # K1's two point-4 launches of this batch, alone (the SIMT kernel)
-    cbr, cbc = jpeg.chroma_grid(header)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    time_idct(dev, SCALED_N * header.n_br * header.n_bc, SCALED_N * 2 * cbr * cbc, flush, point=4)
+        device_ms = median_ms(lambda: prog.fn(on_dev), None, iters=5, warmup=1, spin=LONG_SPIN)
+    log(f"[scaled] device program per batch of {SCALED_N} at factor 2: {program_ms:.3f} ms after a "
+        f"~1 ms spin, {device_ms:.3f} ms after a ~23 ms spin (the host's enqueue hidden; CUDA "
+        f"events) [{card}]")
     return launches
 
 
@@ -1538,17 +1752,24 @@ def main() -> int:
     thumb = ImageFormat("jpeg", 161, 75, subsample=True)
     pixel_meta = TensorMeta((IMG_H, IMG_W, 3), "uint8", "HWC")
     low = DC.lower_device_ops(dag_mod.optimize(standard_chain(INPUT), pixel_meta).ops, pixel_meta)
-    probe = jpeg.peek_header(jpeg.encode(smooth_image(np.random.default_rng(1), IMG_H, IMG_W),
-                                         quality=90, subsample=True))
-    cbr, cbc = jpeg.chroma_grid(probe)
-    luma_rows, chroma_rows = BATCH * probe.n_br * probe.n_bc, BATCH * 2 * cbr * cbc
-    log("[kernels] idct vs plain (atol 2e-2), fused_preproc vs plain (bitwise)")
-    idct_err = check_idct(dev, luma_rows)
-    check_fused_preproc(dev, low)
+    for (n, n_br, n_bc, _), (h, w) in ((PHASE3_GRID, (IMG_H, IMG_W)), (SCALED_GRID, (SCALED_H, SCALED_W))):
+        probe = jpeg.peek_header(jpeg.encode(smooth_image(np.random.default_rng(1), h, w),
+                                             quality=90, subsample=True))
+        if (probe.n_br, probe.n_bc) != (n_br, n_bc):
+            raise AssertionError(f"{h}x{w} codes {probe.n_br}x{probe.n_bc} blocks, not {n_br}x{n_bc}")
+    log("[kernels] idct vs plain (atol 2e-2), blocks_to_rgb and fused_preproc vs plain (equal)")
+    idct_err = check_idct(dev, PHASE3_GRID[0] * PHASE3_GRID[1] * PHASE3_GRID[2])
+    zigzag_err = check_idct_zigzag(dev)
+    b2r_err = check_blocks_to_rgb(dev)
+    fp_err = check_fused_preproc(dev, low)
     torch.cuda.synchronize()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    rows = [time_idct(dev, luma_rows, chroma_rows, flush), time_fused_preproc(dev, low, flush)]
-    rows[0]["max_abs_err"] = idct_err
+    rows = [time_idct(dev, PHASE3_GRID, 8, flush), time_idct(dev, SCALED_GRID, 4, flush),
+            time_blocks_to_rgb(dev, flush), time_fused_preproc(dev, low, flush)]
+    rows[0]["max_abs_err"] = max(idct_err[8], zigzag_err["idct"])
+    rows[1]["max_abs_err"] = max(idct_err[4], idct_err[2], zigzag_err["idct_scaled"])
+    rows[2]["max_abs_err"] = b2r_err
+    rows[3]["max_abs_err"] = fp_err
     log(f"[kernels] flash_attention and decode_attention vs plain (f32 atol {ATTN_F32_ATOL}; "
         f"bf16 elementwise 2^-7 |plain| + {ATTN_BF16_ATOL})")
     attn_errs = {"flash_attention": check_flash_attention(dev),
@@ -1579,8 +1800,7 @@ def main() -> int:
     if st.batches != -(-N_ITEMS // BATCH) or dispatches != st.batches + 1:
         raise AssertionError(f"expected {-(-N_ITEMS // BATCH)} batches + warmup, "
                              f"got {st.batches} / {dispatches}")
-    if launches != {"idct": 2 * dispatches, "fused_preproc": dispatches}:
-        raise AssertionError(f"launch counts {launches} != 2 / 1 per dispatch ({dispatches})")
+    _expect_vision_counts("[main]", launches, 8, dispatches)
     _check_outputs("[main]", outs, N_ITEMS, 1000)
     hold_to_cpu("[main] first batch", np.stack(outs[:BATCH]), res["cpu_logits"])
 

@@ -29,12 +29,14 @@ into the graph's static input, one replay and one copy of its output.
 
 :func:`compile_coeff_program` extends the lowering upstream of pixels: the
 host stops after the entropy stage (``jpeg.decode_to_coefficients``) and
-the program runs dequantize+IDCT on the ``kernels/idct`` kernel, JFIF color
-conversion, then the fused preprocessing stage and the DNN — the paper's
-§6.4 split-decode placement.
+the program runs dequantize+IDCT on the ``kernels/idct`` kernel (K1, reading
+the staged int16 zigzag rows in place), unblockify + chroma upsample + JFIF
+color conversion on the ``kernels/blocks_to_rgb`` kernel (K5), then the
+fused preprocessing stage and the DNN — the paper's §6.4 split-decode
+placement.
 
-Every constant operand — the unzigzag index, the per-quant-table IDCT
-matrices, the bilinear tap tables, the folded scale/bias — is a device
+Every constant operand — the zigzag-ordered IDCT matrices, the colour
+matrix, the bilinear tap tables, the folded scale/bias — is a device
 tensor built once when the program is built, never per call.
 """
 
@@ -50,6 +52,7 @@ import torch
 
 from repro_torch.core import dag as dag_mod
 from repro_torch.device import resolve_device
+from repro_torch.kernels.blocks_to_rgb import ops as b2r_ops
 from repro_torch.kernels.fused_preproc import ops as fp_ops
 from repro_torch.kernels.fused_preproc import plain as fp_plain
 from repro_torch.kernels.idct import ops as idct_ops
@@ -505,7 +508,8 @@ class CapturedGraph:
 
 def _kernel_counters() -> dict[str, Any]:
     """The kernel wrappers a device program launches, by name."""
-    return {"idct": idct_ops.idct_rows, "fused_preproc": fp_ops.resize_affine_planar}
+    return {"idct": idct_ops.idct_rows, "blocks_to_rgb": b2r_ops.blocks_to_rgb,
+            "fused_preproc": fp_ops.resize_affine_planar}
 
 
 def capture_program(prog: DevicePreprocProgram, bucket: int, pool: _GraphPool) -> CapturedGraph:
@@ -835,13 +839,15 @@ def compile_coeff_program(
     The host stops after the entropy stage (``jpeg.decode_to_coefficients``)
     and stages one int16 zigzag-coefficient tensor per item
     (``jpeg.stage_coefficients``, padded or packed); this program runs the
-    dense remainder on the device in ONE dispatch: unzigzag -> fused
-    dequantize + (scaled) IDCT (``kernels/idct`` at ``point = 8 // factor``,
-    one launch per quant table) -> unblockify -> 2x2 nearest chroma
-    upsample (4:2:0) -> JFIF color conversion -> the fused resize/normalize
-    stage -> DNN.  ``factor > 1`` decodes straight to reduced resolution.
+    dense remainder on the device in ONE dispatch: unzigzag + fused
+    dequantize + (scaled) IDCT (K1, ``kernels/idct`` at ``point = 8 //
+    factor``, one launch per quant table over a view of the staged batch)
+    -> unblockify + 2x2 nearest chroma upsample (4:2:0) + JFIF color
+    conversion (K5, ``kernels/blocks_to_rgb``, one launch) -> the fused
+    resize/normalize stage (K2) -> DNN.  ``impl`` picks only the fused
+    stage; K1 and K5 run their plain versions on CPU tensors.  ``factor > 1``
+    decodes straight to reduced resolution.
     """
-    from repro_torch.preprocessing import dct as dct_np
     from repro_torch.preprocessing import jpeg as jpeg_mod
 
     if header.channels != 3:
@@ -871,12 +877,11 @@ def compile_coeff_program(
 
     t_build = time.perf_counter()
     # constant operands, on the device once per program
-    unzigzag = torch.from_numpy(np.asarray(dct_np.UNZIGZAG, np.int64)).to(dev)
     m_luma, m_chroma = (
-        torch.from_numpy(idct_ops.idct_matrix(q, point)).to(dev) for q in qtables[:2]
+        torch.from_numpy(idct_ops.zigzag_matrix(q, point)).to(dev) for q in qtables[:2]
     )
     rgb_mat = torch.from_numpy(_YCBCR_TO_RGB).to(dev)
-    ycc_shift = torch.tensor([0.0, 128.0, 128.0], device=dev)[:, None, None]
+    grid = b2r_ops.BlockGrid(n_br, n_bc, cbr, cbc, point, hs, ws, subsample)
     low = lower_device_ops(device_ops, pixel_meta)
     if low is not None:
         preproc = build_fused_stage(low, impl, dev, input_planar=True)
@@ -893,38 +898,17 @@ def compile_coeff_program(
         pre_stages = tuple(op.name for op in device_ops)
 
     n_luma = n_br * n_bc
-    n_chroma = cbr * cbc
 
     def raw(zz):  # one staged int16 zigzag-coefficient tensor per item
-        n = zz.shape[0]
-        if layout == "packed":  # (N, n_luma + 2*n_chroma, 64)
-            luma_zz = zz[:, :n_luma]
-            chroma_zz = zz[:, n_luma:]
+        if layout == "packed":  # (N, n_luma + 2 * cbr * cbc, 64)
+            luma_zz, chroma_zz = zz[:, :n_luma], zz[:, n_luma:]
         else:  # (N, 3, n_br, n_bc, 64); 4:2:0 chroma occupies the top-left
-            luma_zz = zz[:, 0].reshape(n, n_luma, 64)
-            chroma_zz = zz[:, 1:, :cbr, :cbc].reshape(n, 2 * n_chroma, 64)
-        # one fused dequant+(scaled-)IDCT kernel launch per quant table
-        luma = idct_ops.idct_rows(
-            luma_zz.index_select(-1, unzigzag).reshape(-1, 64).to(torch.float32), m_luma
-        )
-        chroma = idct_ops.idct_rows(
-            chroma_zz.index_select(-1, unzigzag).reshape(-1, 64).to(torch.float32), m_chroma
-        )
-        y = (
-            luma.reshape(n, n_br, n_bc, point, point)
-            .permute(0, 1, 3, 2, 4)
-            .reshape(n, n_br * point, n_bc * point)
-        )
-        c = (
-            chroma.reshape(n, 2, cbr, cbc, point, point)
-            .permute(0, 1, 2, 4, 3, 5)
-            .reshape(n, 2, cbr * point, cbc * point)
-        )
-        if subsample:  # 2x2 nearest upsample back to the (scaled) luma grid
-            c = c.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-        ycc = torch.cat([y[:, None, :hs, :ws], c[:, :, :hs, :ws]], dim=1) + 128.0
-        rgb = torch.einsum("rc,nchw->nrhw", rgb_mat, ycc - ycc_shift)
-        rgb = torch.clamp(torch.round(rgb), 0.0, 255.0)  # the decoded uint8 pixel grid
+            luma_zz, chroma_zz = zz[:, 0], zz[:, 1:, :cbr, :cbc]
+        # K1 once per quant table, reading the staged rows in place
+        luma = idct_ops.idct_zigzag_rows(luma_zz, m_luma)
+        chroma = idct_ops.idct_zigzag_rows(chroma_zz, m_chroma)
+        # K5: the decoded uint8 pixel grid, planar f32
+        rgb = b2r_ops.blocks_to_rgb(luma, chroma, rgb_mat, grid)
         return model_fn(preproc(rgb))
 
     idct_stage = "dequant_idct" if point == 8 else f"dequant_idct/{point}pt"

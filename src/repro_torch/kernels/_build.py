@@ -124,8 +124,18 @@ _F = ctypes.c_float
 def _declare(lib: ctypes.CDLL) -> None:
     """C signatures: every pointer and the stream as ``c_void_p`` (a bare
     Python int would be passed as a 32-bit int and cut the pointer)."""
-    lib.repro_idct_rows_f32.argtypes = [_P, _P, _P, _I, _I, _P]
-    lib.repro_idct_rows_f32.restype = _I
+    lib.repro_idct_rows.argtypes = [
+        _P, _I,  # x, x is int16 (zigzag) rather than f32 (natural)
+        _I, _I, _I, _I, _I, _I, _I, _I,  # the view's four row sizes, strides
+        _I, _P, _P, _I, _P,  # leading coefficients read, m, out, point^2, stream
+    ]
+    lib.repro_idct_rows.restype = _I
+    lib.repro_blocks_to_rgb.argtypes = [
+        _P, _P, _P, _P,  # luma, chroma, colour matrix, out
+        _I, _I, _I, _I, _I,  # images, luma block grid, chroma block grid
+        _I, _I, _I, _I, _P,  # point, hs, ws, 4:2:0, stream
+    ]
+    lib.repro_blocks_to_rgb.restype = _I
     lib.repro_resize_affine_planar_f32.argtypes = [
         _P, _I, _I, _I,  # x, planes, h, w
         _P, _P, _P, _I,  # y0, y1, wy, oh

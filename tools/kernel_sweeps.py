@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where K4's and K2's time goes on the card, beyond ``chip_smoke.py``.
+"""Where K4's, K2's and K1's time goes on the card, beyond ``chip_smoke.py``.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/kernel_sweeps.py
+    python3 tools/kernel_sweeps.py [k4] [k2] [k1]   (no argument: all three)
 
 1. K4 stages: builds a copy of ``src/repro_torch/csrc/decode_attention.cu``
    (under ``build/kernel_sweeps/``) with a timestamp (``clock64`` and
@@ -19,6 +19,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 3. K2 stage sizes: the shipped kernel's time at the main path's shape for
    other output rows per block and stage sizes, each checked bitwise
    against the plain version.
+4. K1 ablations: copies of ``src/repro_torch/csrc/idct.cu`` (under
+   ``build/kernel_sweeps/``) with one part of the int16 zigzag kernel taken
+   out (the tensor-core products, the output stores, the input loads) or
+   changed (the k-step loop unrolled; the a_lo products skipped when a
+   warp's low parts are all zero), each timed on packed staged batches:
+   phase 3's (64 x 384x512, point 8) and 6C's (16 x 768x1024, point 4),
+   and 4 times their rows, whole and per launch (luma, chroma).  The
+   variants that compute the same function are held to the plain version.
 
 Every line names the card and its power limit.  It exits non-zero without
 a card.
@@ -190,16 +198,111 @@ def k2_stages(dev, card: str, flush) -> None:
         fp.BAND_ROWS, fp.STAGE_BYTES = shipped
 
 
+K1_MMA = """        mma_tf32(c, lo, b.hi0, b.hi1);
+        mma_tf32(c, hi, b.lo0, b.lo1);
+        mma_tf32(c, hi, b.hi0, b.hi1);"""
+K1_LO = "        lo[e] = tf32(a[e] - hi[e]);\n      }\n"
+K1_STORES = "if (r{} < n) *reinterpret_cast<float2*>"
+K1_PREFETCH = ("      load_tile_async<T, K>(buf + ((it + 1) & 1) * L::kValues, x, view, "
+               "(tile + stride) * kTileRows, n, lane);")
+K1_UNROLL = "#pragma unroll 1  // unrolled, the k-steps' fragments outgrow the registers"
+K1_VOTE = ("      const bool any_lo = __any_sync(0xffffffffu, lo[0] != 0.0f || lo[1] != 0.0f || "
+           "lo[2] != 0.0f || lo[3] != 0.0f);\n")
+# name: (source edits, whether the variant still computes K1's function)
+K1_VARIANTS = {
+    "shipped": ((), True),
+    "no tensor-core products": (((K1_MMA, "        c[0] = hi[0] * b.hi0; c[1] = hi[1] * b.hi1; "
+                                          "c[2] = lo[2] * b.lo0; c[3] = lo[3] * b.lo1;"),), False),
+    "no output stores": (((K1_STORES.format(0), K1_STORES.format(0).replace("< n", "< -n")),
+                          (K1_STORES.format(1), K1_STORES.format(1).replace("< n", "< -n"))), False),
+    "no input loads": (((K1_PREFETCH, "      hopper::cp_async_commit();"),), False),
+    "k-steps unrolled": (((K1_UNROLL, "#pragma unroll"),), True),
+    "a_lo products skipped when zero": (((K1_LO, K1_LO + K1_VOTE),
+                                         ("        mma_tf32(c, lo, b.hi0, b.hi1);",
+                                          "        if (any_lo) mma_tf32(c, lo, b.hi0, b.hi1);")), True),
+}
+
+
+def k1_ablations(dev, card: str, flush) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.idct import ops as idct
+    from repro_torch.kernels.idct import plain as idct_plain
+
+    src = (_build.CSRC / "idct.cu").read_text()
+    nvcc, out_dir = _build.find_nvcc(), ROOT / "build" / "kernel_sweeps"
+    procs = {}
+    for i, (name, (edits, _)) in enumerate(K1_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"idct.cu changed: anchor {old[:50]!r} not found once")
+            text = text.replace(old, new)
+        cu = out_dir / f"idct_v{i}.cu"
+        cu.parent.mkdir(parents=True, exist_ok=True)
+        cu.write_text(text)
+        procs[name] = (out_dir / f"libidct_v{i}.so", subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
+             str(out_dir / f"libidct_v{i}.so"), str(cu), str(_build.CSRC / "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"K1 variant {name!r} failed to build:\n{log[-2000:]}")
+        lib = ctypes.CDLL(str(path))
+        lib.repro_idct_rows.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        libs[name] = lib
+
+    def launch(lib, v, m):
+        sizes, strides = idct.row_view(v)
+        point = int(round(m.shape[1] ** 0.5))
+        out = torch.empty((int(np.prod(sizes)), m.shape[1]), device=dev)
+        status = lib.repro_idct_rows(v.data_ptr(), 1, *sizes, *strides, idct.K_ROWS["zigzag", point],
+                                     m.data_ptr(), out.data_ptr(), m.shape[1],
+                                     torch.cuda.current_stream(dev).cuda_stream)
+        if status:
+            raise RuntimeError(f"K1 variant failed to launch: {status}")
+        return out
+
+    rng = np.random.default_rng(C.SEED)
+    for (n, n_br, n_bc, sub), point in ((C.PHASE3_GRID, 8), (C.SCALED_GRID, 4)):
+        for scale in (1, 4):
+            views = C.staged_batch(rng, n * scale, n_br, n_bc, sub, "packed", dev)
+            ms_ = [torch.from_numpy(idct.zigzag_matrix(q, point)).to(dev) for q in C._qtables()]
+            pairs = list(zip(views, ms_))
+            want = [idct_plain.idct_zigzag_rows(v, m) for v, m in pairs]
+            rows = sum(v.numel() // 64 for v in views)
+            for name, lib in libs.items():
+                same = K1_VARIANTS[name][1]
+                err = max((launch(lib, v, m) - w).abs().max().item() for (v, m), w in zip(pairs, want))
+                both = C.median_ms(lambda: [launch(lib, v, m) for v, m in pairs], flush)
+                alone = [C.median_ms(lambda: launch(lib, v, m), flush) for v, m in pairs]
+                check = f", max|variant-plain| {err:.3e}" if same else ""
+                print(f"K1 {name}, point {point}, {n * scale} images ({rows} rows): {both:.4f} ms "
+                      f"(luma alone {alone[0]:.4f}, chroma alone {alone[1]:.4f}){check} [{card}]",
+                      flush=True)
+                if same and not err <= C.K1_ATOL:
+                    raise AssertionError(f"K1 variant {name!r} disagrees with the plain version: {err}")
+            del views, pairs, want
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_sweeps: no CUDA device", file=sys.stderr)
         return 2
+    parts = set(sys.argv[1:]) or {"k4", "k2", "k1"}
     dev = torch.device("cuda")
     card = C.card_line()
-    k4_stages(dev, card)
+    if "k4" in parts:
+        k4_stages(dev, card)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    k4_plans(dev, card, flush)
-    k2_stages(dev, card, flush)
+    if "k4" in parts:
+        k4_plans(dev, card, flush)
+    if "k2" in parts:
+        k2_stages(dev, card, flush)
+    if "k1" in parts:
+        k1_ablations(dev, card, flush)
     return 0
 
 
