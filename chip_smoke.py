@@ -98,6 +98,13 @@ DECODE_STEPS = 16
 DECODE_MAX_LEN = PREFILL_S + 64  # cache length of the prefill + decode phases
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 16, 8, 256, 16
 GEMMA_WINDOW, N_GLOBAL, N_LOCAL = 512, 4, 22  # 26 layers, 5:1 local:global
+# phase 4B: OLMoE-1B-7B (full) and DeepSeek-V2 (full width, 1 dense + 3 MoE
+# layers), bf16
+MOE_PREFILL_B, MOE_PREFILL_S = 4, 1024
+MOE_MAX_LEN = MOE_PREFILL_S + 64
+DEEPSEEK_LAYERS = 4  # of 60: ~27 GB in bf16; all 60 (~470 GB) do not fit one card
+MLA_DIMS = (192, 128)  # DeepSeek-V2's q/k width (nope 128 + rope 64) and v width
+OLMOE_HEADS, OLMOE_HD = 16, 128
 # kernel vs plain on the card, both f32 inside: f32 outputs sum in another
 # order (the CPU tests' 2e-5 bound); bf16 outputs may round one bf16 step
 # apart, at most 2^-7 of the value, held elementwise (plus f32 noise)
@@ -211,8 +218,9 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
                     "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS"}
 # instances a kernel template must have, where that is checked: K1's int16
-# zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1
-DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7}
+# zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1; K3's
+# bf16 kernel at (q/k, v) widths (64, 64), (128, 128), (256, 256), (192, 128)
+DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4}
 
 
 def check_kernel_code(build) -> None:
@@ -617,15 +625,20 @@ def _attn_bound(got: torch.Tensor, want: torch.Tensor, dt: torch.dtype) -> tuple
     return d.max().item(), bool((d <= bound).all()), f"2^-7 |plain| + {ATTN_BF16_ATOL}"
 
 
-def check_flash_attention(dev) -> float:
+def check_flash_attention(dev) -> dict:
     """K3 against its plain version: head_dim 256 (MQA, the Gemma3 prefill
     shape 4 x 2048, window and none, in f32 and bf16) and 128/64 (GQA),
     ragged S, causal and not; for the bf16 tensor-core kernel also the
     edges of its 128-row query and 64-key tiles (S = 1, 63, 65, 127, 129,
     2049), windows that end inside a tile (64, 100), groups 1/4/8, D
-    64/128/256, causal off, and q/k/v as (B, H, S, D) views.  Returns the
-    largest |kernel - plain| over the f32 cases (the bf16 ones are held to
-    their own bound)."""
+    64/128/256, causal off, and q/k/v as (B, H, S, D) views; then the MLA
+    instance, q/k 192 and v 128: DeepSeek-V2's prefill shape (4 x 1024, 128
+    heads, group 1, causal) in bf16 and f32, OLMoE's (16 heads of 128),
+    and ragged and edge cases, v as a view of a wider (k_nope | v)
+    product as the model passes it.  Returns the largest |kernel - plain|
+    over the f32 cases per instance family ("flash_attention": D = DV,
+    "flash_attention_mla": 192/128; the bf16 ones are held to their own
+    bound)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
 
@@ -673,7 +686,86 @@ def check_flash_attention(dev) -> float:
             raise AssertionError(f"flash_attention disagrees with its plain version: {err}, bound {tol}")
         if dt == torch.float32:
             worst = max(worst, err)
-    return worst
+
+    dqk, dv = MLA_DIMS
+    b4, s4 = MOE_PREFILL_B, MOE_PREFILL_S
+    mla_cases = [  # B, S, H, KVH, causal, window, dtype (q/k 192, v 128)
+        (b4, s4, 128, 128, True, None, torch.bfloat16),  # DeepSeek-V2's prefill
+        (b4, s4, 128, 128, True, None, torch.float32),
+        (1, 1, 4, 4, True, None, torch.bfloat16),
+        (2, 63, 4, 4, True, None, torch.bfloat16),
+        (2, 300, 8, 8, True, None, torch.bfloat16),
+        (2, 300, 8, 8, True, None, torch.float32),
+        (1, 129, 4, 2, True, 64, torch.bfloat16),  # group 2, a window
+        (1, 777, 4, 4, True, 100, torch.float32),
+        (1, 200, 4, 4, False, None, torch.bfloat16),
+        (1, 2049, 2, 2, True, None, torch.bfloat16),  # the plain version's blockwise branch
+    ]
+    worst_mla = 0.0
+    for b, s, h, kvh, causal, window, dt in mla_cases:
+        q, k = (_randn(rng, (b, s, n, dqk), dt, dev) for n in (h, kvh))
+        v = _randn(rng, (b, s, kvh, 128 + dv), dt, dev)[..., 128:]  # the model's (k_nope | v) split
+        got = fa_ops.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=dqk**-0.5)
+        want = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=dqk**-0.5)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(got, want, dt)
+        log(f"  flash_attention (MLA) B={b} S={s} H={h} KVH={kvh} D={dqk}/{dv} causal={causal} "
+            f"window={window} {str(dt)[6:]}: max|kernel-plain|={err:.3e} (bound {tol})")
+        if not (got.dtype == dt and got.shape == (b, s, h, dv) and inside):
+            raise AssertionError(f"flash_attention (192/128) disagrees with its plain version: {err}, "
+                                 f"bound {tol}")
+        if dt == torch.float32:
+            worst_mla = max(worst_mla, err)
+    return {"flash_attention": worst, "flash_attention_mla": worst_mla}
+
+
+def time_flash_attention_mla(dev, flush) -> dict:
+    """K3's MLA instance (q/k 192, v 128) at DeepSeek-V2's prefill shape:
+    4 prompts x 1024 tokens, 128 heads, group 1, causal, bf16 — one launch
+    per layer, 4 layers (1 dense + 3 MoE) per prefill.  The library
+    yardstick is SDPA with ``is_causal=True`` (the backend that ran is
+    logged); the (256, 256) instance on zero-padded copies is logged as a
+    yardstick of what padding would cost."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 8)
+    dqk, dv = MLA_DIMS
+    b, s, h, dt = MOE_PREFILL_B, MOE_PREFILL_S, 128, torch.bfloat16
+    q, k = (_randn(rng, (b, s, h, dqk), dt, dev) for _ in range(2))
+    v = _randn(rng, (b, s, h, 128 + dv), dt, dev)[..., 128:]
+    scale = dqk**-0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kernel = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v, scale=scale), flush)
+    plain = median_ms(lambda: fa_plain.flash_attention_bshd(q, k, v, scale=scale), flush, iters=5, warmup=1)
+    library = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale),
+                        flush)
+    pad = lambda x: F.pad(x, (0, 256 - x.shape[-1]))  # noqa: E731
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    padded = median_ms(lambda: fa_ops.flash_attention_bshd(qp, kp, vp, scale=scale), flush)
+    pairs = attention_pairs(s, True, None) * b * h
+    flops = 2.0 * (dqk + dv) * pairs
+    nbytes = b * s * h * (2 * dqk + 2 * dv) * 2  # q, k, v, out once, bf16
+    layer_bound, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    log(f"  flash_attention MLA layer ({b}x{s}, {h} heads, q/k {dqk} v {dv}, causal, bf16): kernel "
+        f"{kernel:.4f} ms ({layer_bound / kernel:.1%} of its {layer_bound:.4f} ms bound, {by}), plain "
+        f"{plain:.4f} ms, SDPA is_causal {library:.4f} ms ({_sdpa_backend(qt, kt, vt, None, True)}); "
+        f"yardstick: the (256, 256) instance on zero-padded copies {padded:.4f} ms")
+    n = DEEPSEEK_LAYERS
+    b_ms, b_by = bound_ms(n * nbytes, n * flops, PEAK_BF16_FLOPS)
+    return {
+        "name": "flash_attention_mla",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:99",
+        "ms": n * kernel,
+        "plain_ms": n * plain,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": n * library,
+    }
 
 
 def attention_pairs(s: int, causal: bool, window: int | None) -> int:
@@ -741,6 +833,11 @@ def time_flash_attention(dev, flush) -> dict:
     log(f"  flash_attention per prefill ({N_GLOBAL} global + {N_LOCAL} local launches): "
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA (faster form) "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
+    # OLMoE's prefill layer (16 heads of 128, group 1), logged: the same instance family
+    q, k, v = (_randn(rng, (MOE_PREFILL_B, MOE_PREFILL_S, OLMOE_HEADS, OLMOE_HD), dt, dev) for _ in range(3))
+    olmoe = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v), flush)
+    log(f"  flash_attention OLMoE layer ({MOE_PREFILL_B}x{MOE_PREFILL_S}, {OLMOE_HEADS} heads of "
+        f"{OLMOE_HD}, causal, bf16): kernel {olmoe:.4f} ms")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -803,6 +900,14 @@ def check_decode_attention(dev) -> float:
          [0, SERVE_MAX_LEN + 40, 5, 296, 295, 1, 256, 0]),
         (5, 300, 16, 8, 128, 64, torch.float32, torch.float32, [364, 0, 363, 65, 300]),
         (3, 1000, 8, 1, 64, 100, torch.float32, torch.bfloat16, [0, 1100, 50]),
+        # OLMoE-1B-7B (16 heads of 128, group 1): phase 4B's decode (bf16
+        # cache, 1024.. keys) and serve (f32 cache, 8 slots of 256) shapes
+        (MOE_PREFILL_B, MOE_MAX_LEN, OLMOE_HEADS, OLMOE_HEADS, OLMOE_HD, None, torch.bfloat16,
+         torch.bfloat16, MOE_PREFILL_S + np.arange(MOE_PREFILL_B) * (DECODE_STEPS // MOE_PREFILL_B)),
+        (SERVE_SLOTS, SERVE_MAX_LEN, OLMOE_HEADS, OLMOE_HEADS, OLMOE_HD, None, torch.bfloat16,
+         torch.float32, None),
+        (SERVE_SLOTS, SERVE_MAX_LEN, OLMOE_HEADS, OLMOE_HEADS, OLMOE_HD, None, torch.bfloat16,
+         torch.float32, [0, 1, 30, 255, 256, 257, 300, 100]),
     ]
     worst = 0.0
     for i, (b, s_, h, kvh, d, window, qdt, cdt, lens_list) in enumerate(cases):
@@ -902,6 +1007,18 @@ def time_decode_attention(dev, flush) -> dict:
     log(f"  decode_attention per decode step ({N_GLOBAL} global + {N_LOCAL} local launches): "
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # OLMoE's decode layer (4 sequences at 1024.. keys, 16 heads of 128, group 1), logged
+    s, h, d = MOE_MAX_LEN, OLMOE_HEADS, OLMOE_HD
+    q = _randn(rng, (b, h, d), dt, dev)
+    kc, vc = (_randn(rng, (b, s, h, d), dt, dev) for _ in range(2))
+    lens_np = MOE_PREFILL_S + np.arange(b, dtype=np.int32) * (DECODE_STEPS // b)
+    lens = torch.from_numpy(lens_np).to(dev)
+    kernel = median_ms(lambda: da_ops.decode_attention_cache(q, kc, vc, lens), flush)
+    keys = int(np.minimum(lens_np, s).sum())
+    layer_bound, _ = bound_ms(h * keys * d * 2 * 2 + 2 * b * h * d * 2 + b * 4, 4.0 * h * d * keys,
+                              PEAK_BF16_FLOPS)
+    log(f"  decode_attention OLMoE layer ({b} seqs, cache {s}, {h} heads of {d}, bf16): kernel "
+        f"{kernel:.4f} ms, bytes bound {layer_bound:.4f} ms")
     return {
         "name": "decode_attention",
         "route": "cuda",
@@ -1304,10 +1421,13 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
 
 # ------------------------------------------------------------ phase 4: LM
 def _attention_counts() -> dict:
+    """K3's launches by instance family (D = DV; MLA's 192/128) and K4's."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    return {"flash_attention": fa_ops.flash_attention_bshd.launches,
+    by_dims = fa_ops.flash_attention_bshd.launches_by_dims
+    return {"flash_attention": sum(n for dims, n in by_dims.items() if dims != MLA_DIMS),
+            "flash_attention_mla": by_dims[MLA_DIMS],
             "decode_attention": da_ops.decode_attention_cache.launches}
 
 
@@ -1316,6 +1436,7 @@ def _zero_attention_counts() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     fa_ops.flash_attention_bshd.launches = 0
+    fa_ops.flash_attention_bshd.launches_by_dims = dict.fromkeys(fa_ops.HEAD_DIMS, 0)
     da_ops.decode_attention_cache.launches = 0
 
 
@@ -1336,6 +1457,47 @@ def _plain_attention():
     return stack
 
 
+def _recorded_routing(record: list):
+    """Record every MoE layer call's expert choices (top-k ids), in order."""
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+
+    gates = L.moe_gates
+
+    def recording(xt, router, k):
+        w, idx = gates(xt, router, k)
+        record.append(idx)
+        return w, idx
+
+    return mock.patch.object(L, "moe_gates", recording)
+
+
+def _pinned_routing(record: list, differ: list):
+    """Replay ``record``'s expert choices, in order, with this run's own
+    gate weights at them: the plain-attention model routes each token as
+    the kernel run did, so a gate that a bf16 step tips (top-8 of 64
+    near-equal random gates) does not swap a token's experts and hide the
+    kernels' own difference.  ``differ`` accumulates [tokens whose own
+    top-k set differs, tokens]."""
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+
+    replay = iter(record)
+
+    def pinned(xt, router, k):
+        gates = torch.softmax(xt.float() @ router.float(), dim=-1)
+        idx = next(replay)
+        own = torch.topk(gates, k, dim=-1).indices
+        differ[0] += (own.sort(-1).values != idx.sort(-1).values).any(-1).sum()
+        differ[1] += idx.shape[0]
+        w = gates.gather(-1, idx)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
+
+    return mock.patch.object(L, "moe_gates", pinned)
+
+
 def _rel_err(got: torch.Tensor, want: torch.Tensor, vocab: int) -> tuple[float, float]:
     got, want = got[..., :vocab].float(), want[..., :vocab].float()
     scale = want.abs().max().item()
@@ -1348,159 +1510,318 @@ def _expect_counts(phase: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{phase}: kernel launches {got}, expected {want}")
 
 
-def run_lm_path(dev, card: str) -> dict:
-    """Gemma3-1B at full width in bf16 (random weights from a seeded
-    generator on the card): ``prefill`` of 4 x 2048 tokens, ``forward`` over
-    the same prompts, 16 ``decode_step``s from the prefill's cache,
-    ``ServingEngine.serve`` of 16 requests over 8 slots.  Each phase runs
-    with the K3/K4 counters zeroed just before it and read just after;
-    prefill and decode logits are held against the same model with plain
-    attention, forward's last position against prefill.  Returns the
-    launches."""
-    from repro_torch import configs
+def _counts(**kw) -> dict:
+    return {"flash_attention": 0, "flash_attention_mla": 0, "decode_attention": 0, **kw}
+
+
+def _routing_note(differ: list) -> str:
+    if not differ[1]:
+        return ""
+    return (f"; the plain run's own gates would route {int(differ[0])} of {differ[1]} MoE "
+            f"token-layers to other experts (it takes the kernel run's)")
+
+
+def _add(total: dict, part: dict) -> dict:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def profile_steps(fn, n: int = 4) -> tuple[float, float, list]:
+    """torch.profiler over ``n`` calls of ``fn`` (after one unprofiled):
+    (wall ms per call, device busy ms per call, the device-kernel rows).
+    Device rows only: a graph replay's cudaGraphLaunch row also carries its
+    kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0 and e.self_cpu_time_total == 0]
+    return wall, sum(e.self_device_time_total for e in rows) / 1e3 / n, rows
+
+
+def decode_graph_vs_eager(model, cfg, tag: str, cache, lens, cache_g, lens0, tokens, kernel_logits,
+                          card: str) -> dict:
+    """``decode_step`` as one CUDA graph (``serving.engine.DecodeGraph``)
+    over ``cache_g``, a copy of the prefill's cache: its logits over the
+    eager run's tokens must equal the eager logits bitwise.  Then decode
+    ms/step eager against replay (host clock, 20 steps back to back) and
+    each one's device busy time per step (profiler, 4 steps), with K4's
+    device launches per step.  The idle share is printed twice: busy time
+    over the unprofiled step (the profiler's own cost left out; noise can
+    take it a little below 0) and over the profiled window (which holds
+    the profiler's cost, ~2 ms a replay).  Returns the launches (the wrappers' during
+    warm-up and capture, plus the replays')."""
     from repro_torch.models import decode as D
-    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as E
 
-    cfg = configs.get_config("gemma3-1b")
-    n_layers, vocab = cfg.num_layers, cfg.vocab_size
-    t0 = time.perf_counter()
-    model = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[lm] {cfg.name}: {n_layers} layers ({sum(model.is_local)} local, window "
-        f"{cfg.sliding_window}), d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {vocab}, {n_params / 1e9:.3f} B params "
-        f"{cfg.dtype}, built on the card in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED + 6)
-    prompts = torch.from_numpy(rng.integers(0, vocab, size=(PREFILL_B, PREFILL_S))).to(dev)
-
-    # ---- prefill (one warm-up call first: cuBLAS handles, allocator)
-    D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
-    torch.cuda.synchronize()
+    k4_per_step = 0 if cfg.attn_type == "mla" else cfg.num_layers
     _zero_attention_counts()
     t0 = time.perf_counter()
-    logits, cache, lens = D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
+    graph = E.DecodeGraph(model, cfg, cache_g)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launches = _attention_counts()
+    _expect_counts(f"{tag} decode graph warm-up + capture", launches, _counts(decode_attention=2 * k4_per_step))
+    if graph.kernel_launches != {"flash_attention": 0, "decode_attention": k4_per_step}:
+        raise AssertionError(f"the decode graph holds {graph.kernel_launches} launches")
+    lens_g, differ = lens0.clone(), 0
+    for tk, lg in zip(tokens, kernel_logits):
+        differ += not torch.equal(graph.run(tk, lens_g), lg)
+        lens_g += 1
+    log(f"[lm] {tag} decode graph: captured in {capture_s:.3f} s (warm-up run included), "
+        f"{graph.kernel_launches['decode_attention']} K4 launches a replay; {len(tokens)} replays vs "
+        f"eager steps: logits bitwise equal in {len(tokens) - differ} of {len(tokens)}")
+    if differ:
+        raise AssertionError(f"{tag}: {differ} replays' logits differ from the eager step's")
+    tok = tokens[-1]
+    eager_ms = wall_ms(lambda: D.decode_step(model, cfg, tok, cache, lens))
+    replay_ms = wall_ms(lambda: graph.run(tok, lens))
+    eager_wall, eager_busy, eager_rows = profile_steps(lambda: D.decode_step(model, cfg, tok, cache, lens))
+    replay_wall, replay_busy, replay_rows = profile_steps(lambda: graph.run(tok, lens))
+    k4 = [sum(e.count for e in rows if "flash_decode_kernel" in e.key) / 4 for rows in (eager_rows, replay_rows)]
+    log(f"[lm] {tag} decode ms/step ({lens.shape[0]} seqs, host clock, 20 steps back to back): eager "
+        f"{eager_ms:.3f}, graph replay {replay_ms:.3f} ({eager_ms / replay_ms:.2f}x); device busy per "
+        f"step (profiler, 4 steps) eager {eager_busy:.3f} ms, replay {replay_busy:.3f} ms; idle share "
+        f"over the unprofiled step eager {1 - eager_busy / eager_ms:.1%}, replay "
+        f"{1 - replay_busy / replay_ms:.1%}; over the profiled window ({eager_wall:.3f} / "
+        f"{replay_wall:.3f} ms a step) eager {1 - eager_busy / eager_wall:.1%}, replay "
+        f"{1 - replay_busy / replay_wall:.1%}; K4 device launches per step eager {k4[0]:g}, replay "
+        f"{k4[1]:g} [{card}]")
+    if k4 != [k4_per_step, k4_per_step]:
+        raise AssertionError(f"{tag}: K4 device launches per step {k4}, expected {k4_per_step}")
+    for e in sorted(replay_rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[lm]   replay device {e.self_device_time_total / 1e3 / 4:8.3f} ms/step  "
+            f"{e.count // 4:4d}x  {e.key[:80]}")
+    launches["decode_attention"] += graph.replays * k4_per_step
+    del graph
+    return launches
+
+
+def serve_graph_vs_eager(model, cfg, dev, tag: str, text: str, card: str) -> dict:
+    """``ServingEngine.serve`` of 16 requests over 8 slots, eagerly and on
+    the decode graph: the same greedy ids per request.  Returns the
+    launches."""
+    from repro_torch.serving import engine as E
+
+    k4_per_step = 0 if cfg.attn_type == "mla" else cfg.num_layers
+    vocab = cfg.vocab_size
+    runs = {}
+    for mode in ("eager", "graph"):
+        engine = E.ServingEngine(model, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev,
+                                 cuda_graph=mode == "graph")
+        reqs = [E.Request(uid=i, text=text.format(i=i), max_new_tokens=SERVE_MAX_NEW)
+                for i in range(SERVE_REQUESTS)]
+        _zero_attention_counts()
+        t0 = time.perf_counter()
+        graph = engine.warm()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        done, stats = engine.serve(reqs)
+        c = _attention_counts()
+        if graph is None:
+            _expect_counts(f"{tag} serve ({mode})", c, _counts(decode_attention=k4_per_step * engine.model_steps))
+        else:
+            _expect_counts(f"{tag} serve ({mode}) warm-up + capture", c, _counts(decode_attention=2 * k4_per_step))
+            if graph.replays != engine.model_steps:
+                raise AssertionError(f"{graph.replays} replays for {engine.model_steps} model steps")
+            c["decode_attention"] += graph.replays * graph.kernel_launches["decode_attention"]
+        if stats.completed != SERVE_REQUESTS or sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)):
+            raise AssertionError(f"served {stats.completed} of {SERVE_REQUESTS} requests")
+        if not all(1 <= len(r.output_ids) <= SERVE_MAX_NEW and all(0 <= t < vocab for t in r.output_ids)
+                   for r in done):
+            raise AssertionError("a request came back with no tokens or ids outside the vocabulary")
+        log(f"[lm] {tag} serve ({mode}) {SERVE_REQUESTS} requests over {SERVE_SLOTS} slots: "
+            f"{stats.tokens_generated} tokens in {stats.wall_seconds:.3f} s, "
+            f"{stats.tokens_per_second:.1f} tokens/s; {stats.decode_steps} serve steps + "
+            f"{engine.model_steps - stats.decode_steps} prompt steps, "
+            f"{stats.wall_seconds / engine.model_steps * 1e3:.3f} ms per model step"
+            f"{f'; graph captured in {warm_s:.3f} s before it' if graph is not None else ''} [{card}]")
+        runs[mode] = ({r.uid: r.output_ids for r in done}, stats, c)
+        del engine, graph
+    same = sum(runs["eager"][0][u] == runs["graph"][0][u] for u in range(SERVE_REQUESTS))
+    log(f"[lm] {tag} serve: graph {runs['graph'][1].tokens_per_second:.1f} tokens/s against eager "
+        f"{runs['eager'][1].tokens_per_second:.1f} "
+        f"({runs['graph'][1].tokens_per_second / runs['eager'][1].tokens_per_second:.2f}x); output ids "
+        f"equal for {same} of {SERVE_REQUESTS} requests")
+    if same != SERVE_REQUESTS:
+        raise AssertionError(f"{tag}: the graph engine's ids differ from the eager engine's")
+    return _add(dict(runs["eager"][2]), runs["graph"][2])
+
+
+def drive_lm(dev, card: str, cfg, model, tag: str, b: int, s: int, max_len: int, serve_text: str) -> dict:
+    """One LM through its serving path in bf16: ``prefill`` of b x s
+    tokens, ``forward`` over the same prompts, ``DECODE_STEPS``
+    ``decode_step``s, the decode graph against them, and ``serve`` eager
+    and on the graph.  Each phase runs with the K3/K4 counters zeroed just
+    before it and read just after; prefill and decode logits are held
+    against the same model with plain attention (an MoE model's plain run
+    routes every token to the kernel run's experts, and how many tokens
+    its own gates would send elsewhere is logged), forward's last position
+    against prefill.  Returns the launches."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    n_layers, vocab = cfg.num_layers, cfg.vocab_size
+    k3 = "flash_attention_mla" if cfg.attn_type == "mla" else "flash_attention"
+    k4_per_step = 0 if cfg.attn_type == "mla" else n_layers
+    rng = np.random.default_rng(SEED + 6)
+    prompts = torch.from_numpy(rng.integers(0, vocab, size=(b, s))).to(dev)
+
+    # ---- prefill (one warm-up call first: cuBLAS handles, allocator)
+    D.prefill(model, cfg, prompts, max_len=max_len)
+    torch.cuda.synchronize()
+    _zero_attention_counts()
+    routing, differ = [], [0, 0]
+    t0 = time.perf_counter()
+    with _recorded_routing(routing):
+        logits, cache, lens = D.prefill(model, cfg, prompts, max_len=max_len)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = _attention_counts()
-    _expect_counts("prefill", launches, {"flash_attention": n_layers, "decode_attention": 0})
-    if logits.shape != (PREFILL_B, cfg.padded_vocab_size) or not torch.isfinite(logits).all():
+    _expect_counts(f"{tag} prefill", launches, _counts(**{k3: n_layers}))
+    if logits.shape != (b, cfg.padded_vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite")
-    with _plain_attention():
-        plain_logits, plain_cache, _ = D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
+    with _plain_attention(), _pinned_routing(routing, differ):
+        plain_logits, plain_cache, _ = D.prefill(model, cfg, prompts, max_len=max_len)
     err, scale = _rel_err(logits, plain_logits, vocab)
-    log(f"[lm] prefill {PREFILL_B}x{PREFILL_S} tokens: {prefill_s * 1e3:.1f} ms, "
-        f"{PREFILL_B * PREFILL_S / prefill_s:.0f} tokens/s; last-token logits vs plain attention: "
-        f"max|d| / max|logit| {err:.3e} (max|logit| {scale:.3e}, tolerance {LM_LOGIT_RTOL}) [{card}]")
+    log(f"[lm] {tag} prefill {b}x{s} tokens: {prefill_s * 1e3:.1f} ms, {b * s / prefill_s:.0f} tokens/s; "
+        f"last-token logits vs plain attention: max|d| / max|logit| {err:.3e} (max|logit| {scale:.3e}, "
+        f"tolerance {LM_LOGIT_RTOL}){_routing_note(differ)} [{card}]")
     if not err <= LM_LOGIT_RTOL:
         raise AssertionError(f"prefill logits differ from the plain-attention model by {err}")
 
-    # ---- forward over the same prompts (its K3 call site is gqa_apply)
+    # ---- forward over the same prompts (its K3 call site is gqa_apply / mla_apply)
     _zero_attention_counts()
     t0 = time.perf_counter()
     all_logits = T.forward(model, cfg, prompts)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    _expect_counts("forward", _attention_counts(), {"flash_attention": n_layers, "decode_attention": 0})
-    launches["flash_attention"] += n_layers
-    if all_logits.shape != (PREFILL_B, PREFILL_S, cfg.padded_vocab_size):
+    _expect_counts(f"{tag} forward", _attention_counts(), _counts(**{k3: n_layers}))
+    launches[k3] += n_layers
+    if all_logits.shape != (b, s, cfg.padded_vocab_size):
         raise AssertionError(f"forward logits: shape {tuple(all_logits.shape)}")
     err, _ = _rel_err(all_logits[:, -1], logits, vocab)
     finite = bool(torch.isfinite(all_logits).all())
     del all_logits
-    log(f"[lm] forward {PREFILL_B}x{PREFILL_S} tokens: {forward_s * 1e3:.1f} ms (one call); "
-        f"last-position logits vs prefill's: max|d| / max|logit| {err:.3e} "
-        f"(tolerance {FORWARD_LOGIT_RTOL:.4g}), all finite {finite} [{card}]")
+    log(f"[lm] {tag} forward {b}x{s} tokens: {forward_s * 1e3:.1f} ms (one call); last-position logits "
+        f"vs prefill's: max|d| / max|logit| {err:.3e} (tolerance {FORWARD_LOGIT_RTOL:.4g}), all finite "
+        f"{finite} [{card}]")
     if not (finite and err <= FORWARD_LOGIT_RTOL):
         raise AssertionError(f"forward logits non-finite or differ from prefill's by {err}")
 
     # ---- decode: greedy tokens of the kernel path, fed to both paths
+    cache_g, lens0 = {k: v.clone() for k, v in cache.items()}, lens.clone()
     tok = logits.argmax(-1)
     tokens, kernel_logits, step_ms = [], [], []
+    routing, differ = [], [0, 0]
     _zero_attention_counts()
-    for _ in range(DECODE_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache, lens = D.decode_step(model, cfg, tok, cache, lens)
-        nxt = logits.argmax(-1)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        tokens.append(tok)
-        kernel_logits.append(logits)
-        tok = nxt
+    with _recorded_routing(routing):
+        for _ in range(DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache, lens = D.decode_step(model, cfg, tok, cache, lens)
+            nxt = logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(tok)
+            kernel_logits.append(logits)
+            tok = nxt
     c = _attention_counts()
-    _expect_counts("decode", c, {"flash_attention": 0, "decode_attention": n_layers * DECODE_STEPS})
-    launches["decode_attention"] += c["decode_attention"]
+    _expect_counts(f"{tag} decode", c, _counts(decode_attention=k4_per_step * DECODE_STEPS))
+    _add(launches, c)
     if not all(torch.isfinite(lg).all() for lg in kernel_logits):
         raise AssertionError("non-finite decode logits")
-    plain_lens = torch.full_like(lens, PREFILL_S)
+    plain_lens = lens0.clone()
     worst = 0.0
-    with _plain_attention():
+    with _plain_attention(), _pinned_routing(routing, differ):
         for tk, lg in zip(tokens, kernel_logits):
             plain_lg, plain_cache, plain_lens = D.decode_step(model, cfg, tk, plain_cache, plain_lens)
             worst = max(worst, _rel_err(lg, plain_lg, vocab)[0])
-    log(f"[lm] decode {DECODE_STEPS} steps x {PREFILL_B} sequences from {PREFILL_S} tokens: "
+    log(f"[lm] {tag} decode {DECODE_STEPS} steps x {b} sequences from {s} tokens: "
         f"{statistics.median(step_ms):.3f} ms/step median, {statistics.mean(step_ms):.3f} mean "
         f"(host clock, synchronised); logits vs plain attention: max|d| / max|logit| {worst:.3e} "
-        f"(tolerance {LM_LOGIT_RTOL}) [{card}]")
+        f"(tolerance {LM_LOGIT_RTOL}){_routing_note(differ)} [{card}]")
     if not worst <= LM_LOGIT_RTOL:
         raise AssertionError(f"decode logits differ from the plain-attention model by {worst}")
-    del cache, plain_cache, kernel_logits
-
-    # ---- where one decode step's time goes (torch.profiler, 4 steps)
-    profile_decode(model, cfg, D, prompts)
+    del plain_cache
+    _add(launches, decode_graph_vs_eager(model, cfg, tag, cache, lens, cache_g, lens0, tokens,
+                                         kernel_logits, card))
+    del cache, cache_g, kernel_logits
 
     # ---- serving: 16 requests, 8 slots, f32 cache (the engine's default)
-    engine = E.ServingEngine(model, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev)
-    reqs = [E.Request(uid=i, text=f"request {i}: the quick brown fox jumps over the lazy dog",
-                      max_new_tokens=SERVE_MAX_NEW) for i in range(SERVE_REQUESTS)]
-    _zero_attention_counts()
-    done, stats = engine.serve(reqs)
-    c = _attention_counts()
-    _expect_counts("serve", c, {"flash_attention": 0, "decode_attention": n_layers * engine.model_steps})
-    launches["decode_attention"] += c["decode_attention"]
-    if stats.completed != SERVE_REQUESTS or sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)):
-        raise AssertionError(f"served {stats.completed} of {SERVE_REQUESTS} requests")
-    if not all(1 <= len(r.output_ids) <= SERVE_MAX_NEW and all(0 <= t < vocab for t in r.output_ids)
-               for r in done):
-        raise AssertionError("a request came back with no tokens or ids outside the vocabulary")
-    log(f"[lm] serve {SERVE_REQUESTS} requests over {SERVE_SLOTS} slots: {stats.tokens_generated} "
-        f"tokens in {stats.wall_seconds:.3f} s, {stats.tokens_per_second:.1f} tokens/s; "
-        f"{stats.decode_steps} serve steps + {engine.model_steps - stats.decode_steps} prompt steps, "
-        f"{stats.wall_seconds / engine.model_steps * 1e3:.3f} ms per model step [{card}]")
+    _add(launches, serve_graph_vs_eager(model, cfg, dev, tag, serve_text, card))
     return launches
 
 
-def profile_decode(model, cfg, D, prompts) -> None:
-    """torch.profiler over 4 decode steps after a short prefill: device
-    busy share, the kernels that take the device time, and K4's device
-    launches per step (one per layer)."""
-    from torch.profiler import ProfilerActivity, profile
+def run_lm_path(dev, card: str) -> dict:
+    """Phase 4: Gemma3-1B at full width in bf16 (random weights from a
+    seeded generator on the card) through :func:`drive_lm`: prefill and
+    forward of 4 x 2048 tokens, decode from a 2112-key cache.  Returns the
+    launches."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
 
-    _, cache, lens = D.prefill(model, cfg, prompts[:, :PREFILL_S // 4], max_len=DECODE_MAX_LEN)
-    tok = torch.zeros(PREFILL_B, dtype=torch.long, device=prompts.device)
-    D.decode_step(model, cfg, tok, cache, lens)
+    cfg = configs.get_config("gemma3-1b")
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({sum(model.is_local)} local, window "
+        f"{cfg.sliding_window}), d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
+        f"{cfg.dtype}, built on the card in {time.perf_counter() - t0:.1f} s")
+    return drive_lm(dev, card, cfg, model, cfg.name, PREFILL_B, PREFILL_S, DECODE_MAX_LEN,
+                    "request {i}: the quick brown fox jumps over the lazy dog")
+
+
+def run_moe_mla_path(dev, card: str) -> dict:
+    """Phase 4B: OLMoE-1B-7B at full width and depth, then DeepSeek-V2 at
+    full width and 1 dense + 3 MoE layers, each in bf16 with random weights
+    from a seeded generator on the card, through :func:`drive_lm`: prefill
+    and forward of 4 x 1024 tokens, decode from a 1088-key cache, serve.
+    The first model is freed before the second is built.  Returns the
+    launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    launches = {}
+    for arch, layers in (("olmoe-1b-7b", None), ("deepseek-v2-236b", DEEPSEEK_LAYERS)):
+        cfg = configs.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for _ in range(4):
-            _, cache, lens = D.decode_step(model, cfg, tok, cache, lens)
+        model = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    k4_launches = sum(e.count for e in rows if "flash_decode_kernel" in e.key) / 4
-    log(f"[lm] profile of 4 decode steps ({PREFILL_B} seqs at {PREFILL_S // 4} tokens): wall "
-        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), "
-        f"{len(rows)} kernel names; K4 device launches per step {k4_launches:g}")
-    if k4_launches != cfg.num_layers:
-        raise AssertionError(f"K4 launched {k4_launches} kernels per decode step, "
-                             f"expected one per layer ({cfg.num_layers})")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[lm]   device {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:90]}")
-    for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]:
-        log(f"[lm]   host {e.self_cpu_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:90]}")
+        n_params = sum(p.numel() for p in model.parameters())
+        attn = (f"MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank}, {cfg.num_heads} heads of "
+                f"{cfg.nope_head_dim}+{cfg.rope_head_dim}/{cfg.v_head_dim}" if cfg.attn_type == "mla"
+                else f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, qk-norm {cfg.qk_norm}")
+        log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({cfg.first_dense_layers} dense prefix, d_ff "
+            f"{cfg.dense_d_ff}) of {configs.get_config(arch).num_layers}, d_model {cfg.d_model}, {attn}; "
+            f"{cfg.num_experts} experts top-{cfg.experts_per_token} + {cfg.num_shared_experts} shared, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params {cfg.dtype}, built "
+            f"on the card in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _add(launches, drive_lm(dev, card, cfg, model, cfg.name, MOE_PREFILL_B, MOE_PREFILL_S,
+                                MOE_MAX_LEN, "request {i}: the quick brown fox"))
+        log(f"[lm] {cfg.name} took {time.perf_counter() - t0:.1f} s; memory reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------- phase 6: paper datasets
@@ -1772,9 +2093,9 @@ def main() -> int:
     rows[3]["max_abs_err"] = fp_err
     log(f"[kernels] flash_attention and decode_attention vs plain (f32 atol {ATTN_F32_ATOL}; "
         f"bf16 elementwise 2^-7 |plain| + {ATTN_BF16_ATOL})")
-    attn_errs = {"flash_attention": check_flash_attention(dev),
-                 "decode_attention": check_decode_attention(dev)}
-    for timed in (time_flash_attention(dev, flush), time_decode_attention(dev, flush)):
+    attn_errs = {**check_flash_attention(dev), "decode_attention": check_decode_attention(dev)}
+    for timed in (time_flash_attention(dev, flush), time_flash_attention_mla(dev, flush),
+                  time_decode_attention(dev, flush)):
         timed["max_abs_err"] = attn_errs[timed["name"]]
         rows.append(timed)
     del flush
@@ -1805,8 +2126,14 @@ def main() -> int:
     hold_to_cpu("[main] first batch", np.stack(outs[:BATCH]), res["cpu_logits"])
 
     del compiled, prog, outs
-    # ---- phase 4: the LM serving path
+    # ---- phase 4: the LM serving path (Gemma3-1B)
+    t0 = time.perf_counter()
     launches.update(run_lm_path(dev, card))
+    log(f"[lm] phase 4 took {time.perf_counter() - t0:.1f} s")
+    # ---- phase 4B: the MoE and MLA decoders (OLMoE-1B-7B, DeepSeek-V2 at 1 + 3 layers)
+    t0 = time.perf_counter()
+    _add(launches, run_moe_mla_path(dev, card))
+    log(f"[lm] phase 4B took {time.perf_counter() - t0:.1f} s")
     # ---- phase 5: the vision serving path over phase 3's model and corpus
     t0 = time.perf_counter()
     run_vision_serving(dev, corpus, full, thumb, res, card)

@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
-The names are ``repro.configs``' ten; only the dense-GQA configurations
-whose every layer the port runs are copied here.  The others raise
+The names are ``repro.configs``' ten; only the configurations whose every
+layer the port runs and that a slice drives are copied here (dense GQA,
+OLMoE's MoE, DeepSeek-V2's MLA + MoE).  The others raise
 :class:`NotImplementedError` naming the ROADMAP item that ports them.
 """
 
@@ -14,6 +15,8 @@ from repro_torch.models.config import ModelConfig
 ARCH_MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 # the reference's other architectures and what they still need
@@ -24,8 +27,6 @@ NOT_PORTED = {
     "xlstm-125m": "xLSTM blocks (models/ssm.py)",
     "whisper-large-v3": "encoder-decoder and cross attention",
     "hymba-1.5b": "hybrid attention + Mamba blocks (models/ssm.py)",
-    "deepseek-v2-236b": "MLA attention and MoE",
-    "olmoe-1b-7b": "MoE",
 }
 
 ARCH_NAMES = list(ARCH_MODULES) + list(NOT_PORTED)

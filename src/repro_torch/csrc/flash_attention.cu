@@ -62,6 +62,15 @@
 // shuffles.  GQA reads KV head h / group in place, with no repeat, in both
 // kernels.  Ragged S is masked; nothing is padded.
 //
+// Both kernels are templates on <DQK, DV>: q and k are DQK wide, v and the
+// output DV.  The instances are (64, 64), (128, 128), (256, 256) and MLA's
+// (192, 128) (DeepSeek-V2: nope 128 + rope 64 for q and k, v 128).  At 192,
+// which is not a power of two, the bf16 kernel's S = Q K^T runs 12 k-steps
+// of 16 over three 128-byte swizzle chunks, P V is m64n128k16, the Q tile is
+// 48 KB, each K stage 24 KB and each V stage 16 KB (129 KB in all); a
+// 384-byte row is three TMA boxes of 64 columns.  No width is padded: the
+// (256, 256) instance would do a third more Q K^T work and twice the P V.
+//
 // Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
 // bf16 per Gemma3-1B prefill (4 x 2048, 4 global + 22 local layers)
 // 2.0729 ms against the SIMT form's 30.31 ms, SDPA's faster form 6.7385 ms
@@ -84,9 +93,12 @@ struct Strides {
   long long b, s, h;
 };
 
-constexpr int smem_bytes(int d) { return ((kBQ + 2 * kBK) * (d + 1) + kBQ * (kBK + 1)) * 4; }
+constexpr int smem_bytes(int dqk, int dv) {
+  return (kBQ * (dqk + 1) + kBK * (dqk + 1) + kBK * (dv + 1) + kBQ * (kBK + 1)) * 4;
+}
 
-// rows [row0, row0 + 64) of head `head` into a (64, D + 1) f32 tile; rows >= S read 0
+// rows [row0, row0 + 64) of head `head` into a (64, D + 1) f32 tile (D: the
+// tile's width, DQK for q and k, DV for v); rows >= S read 0
 static_assert(kBQ == kBK, "one tile loader serves q, k and v");
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, Strides st, int b,
@@ -99,24 +111,24 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int S, int H, int group, Strides qs, Strides ks,
                        Strides vs, Strides os, float scale, int causal, int window) {
   extern __shared__ float smem[];
-  float* qt = smem;                  // (BQ, D + 1)
-  float* kt = qt + kBQ * (D + 1);    // (BK, D + 1)
-  float* vt = kt + kBK * (D + 1);    // (BK, D + 1)
-  float* pt = vt + kBK * (D + 1);    // (BQ, BK + 1)
-  constexpr int kJ = D / 16;
+  float* qt = smem;                    // (BQ, DQK + 1)
+  float* kt = qt + kBQ * (DQK + 1);    // (BK, DQK + 1)
+  float* vt = kt + kBK * (DQK + 1);    // (BK, DV + 1)
+  float* pt = vt + kBK * (DV + 1);     // (BQ, BK + 1)
+  constexpr int kJ = DV / 16;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H, kvh = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest causal tiles first
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(qt, q, qs, b, h, q0, S);
+  load_tile<DQK>(qt, q, qs, b, h, q0, S);
 
   const int q_last = min(q0 + kBQ, S) - 1;
   int k_begin = 0, k_end = S;
@@ -137,8 +149,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(kt, k, ks, b, kvh, k0, S);
-    load_tile<D>(vt, v, vs, b, kvh, k0, S);
+    load_tile<DQK>(kt, k, ks, b, kvh, k0, S);
+    load_tile<DV>(vt, v, vs, b, kvh, k0, S);
     __syncthreads();
 
     float s[4][4];
@@ -147,12 +159,12 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float a[4], c[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qt[(ty + 16 * i) * (D + 1) + d];
+      for (int i = 0; i < 4; ++i) a[i] = qt[(ty + 16 * i) * (DQK + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = kt[(tx + 16 * j) * (D + 1) + d];
+      for (int j = 0; j < 4; ++j) c[j] = kt[(tx + 16 * j) * (DQK + 1) + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -199,7 +211,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = pt[(ty + 16 * i) * (kBK + 1) + c];
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
-        const float vv = vt[c * (D + 1) + tx + 16 * jj];
+        const float vv = vt[c * (DV + 1) + tx + 16 * jj];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(p[i], vv, acc[i][jj]);
       }
@@ -227,16 +239,19 @@ constexpr int kChunk = 64;           // bf16 columns in one 128-byte swizzle row
 constexpr int kRowBytes = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared memory, from a 1024-byte aligned base: Q as D / 64 chunks of
-// (128 rows x 128 B), then K[2] and V[2] as D / 64 chunks of (64 x 128 B),
-// then the barriers q_full, full[2], empty[2]
-template <int D>
+// shared memory, from a 1024-byte aligned base: Q as DQK / 64 chunks of
+// (128 rows x 128 B), then K[2] as DQK / 64 and V[2] as DV / 64 chunks of
+// (64 x 128 B), then the barriers q_full, full[2], empty[2].  Every chunk
+// is a multiple of 1024 bytes, as the 128-byte swizzle needs.
+template <int DQK, int DV>
 struct TcLayout {
-  static constexpr int kQ = kTcBQ * D * 2;
-  static constexpr int kKV = kTcBK * D * 2;
+  static_assert(DQK % kChunk == 0 && DV % kChunk == 0, "widths are whole 128-byte swizzle rows");
+  static constexpr int kQ = kTcBQ * DQK * 2;
+  static constexpr int kKTile = kTcBK * DQK * 2;
+  static constexpr int kVTile = kTcBK * DV * 2;
   static constexpr int kK = kQ;
-  static constexpr int kV = kK + 2 * kKV;
-  static constexpr int kBar = kV + 2 * kKV;
+  static constexpr int kV = kK + 2 * kKTile;
+  static constexpr int kBar = kV + 2 * kVTile;
   static constexpr int kBytes = kBar + 5 * 8 + 1024;  // + slack for the alignment
 };
 
@@ -252,15 +267,15 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
   if constexpr (D == 256) hopper::wgmma_rs_m64n256k16(o, a, desc, 1);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                           int S, int H, int group, Strides os, float scale_log2, int causal,
                           int window) {
-  using L = TcLayout<D>;
-  constexpr int kChunks = D / kChunk;
+  using L = TcLayout<DQK, DV>;
+  constexpr int kQkChunks = DQK / kChunk, kVChunks = DV / kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base, k_s = base + L::kK, v_s = base + L::kV;
@@ -294,19 +309,21 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 2 * 128) {
       hopper::mbar_arrive_expect_tx(bar_q, L::kQ);
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c)
+      for (int c = 0; c < kQkChunks; ++c)
         hopper::tma_load_4d(q_s + c * kTcBQ * kRowBytes, &qmap, bar_q, c * kChunk, q0, h, b);
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int st = i & 1;
         hopper::mbar_wait(bar_empty + 8 * st, ((i >> 1) & 1) ^ 1);  // the stage's last use is done
         const uint32_t full = bar_full + 8 * st;
-        hopper::mbar_arrive_expect_tx(full, 2 * L::kKV);
+        hopper::mbar_arrive_expect_tx(full, L::kKTile + L::kVTile);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          const uint32_t off = st * L::kKV + c * kTcBK * kRowBytes;
-          hopper::tma_load_4d(k_s + off, &kmap, full, c * kChunk, t * kTcBK, kvh, b);
-          hopper::tma_load_4d(v_s + off, &vmap, full, c * kChunk, t * kTcBK, kvh, b);
-        }
+        for (int c = 0; c < kQkChunks; ++c)
+          hopper::tma_load_4d(k_s + st * L::kKTile + c * kTcBK * kRowBytes, &kmap, full, c * kChunk,
+                              t * kTcBK, kvh, b);
+#pragma unroll
+        for (int c = 0; c < kVChunks; ++c)
+          hopper::tma_load_4d(v_s + st * L::kVTile + c * kTcBK * kRowBytes, &vmap, full, c * kChunk,
+                              t * kTcBK, kvh, b);
       }
     }
   } else {
@@ -318,9 +335,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int col = 2 * (lane & 3);
     const uint32_t qa = q_s + wg * 64 * kRowBytes;
 
-    float o[D / 2], s[32];
+    float o[DV / 2], s[32];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
@@ -332,12 +349,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::mbar_wait(bar_full + 8 * st, (i >> 1) & 1);
       const bool none = (causal && k0 > rw0 + 63) || (window > 0 && k0 + kTcBK - 1 <= rw0 - window);
       if (!none) {
-        const uint32_t ka = k_s + st * L::kKV, va = v_s + st * L::kKV;
-        // S = Q K^T: D / 16 steps of 16 columns, 4 in each 128-byte chunk
+        const uint32_t ka = k_s + st * L::kKTile, va = v_s + st * L::kVTile;
+        // S = Q K^T: DQK / 16 steps of 16 columns, 4 in each 128-byte chunk
+        // (12 at DQK 192: three chunks)
         hopper::fence_regs(s);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DQK / 16; ++kk) {
           const uint32_t c = kk >> 2, e = (kk & 3) * 32;
           hopper::wgmma_ss_m64n64k16(s, hopper::desc_b128(qa + c * kTcBQ * kRowBytes + e, 16, 1024),
                                      hopper::desc_b128(ka + c * kTcBK * kRowBytes + e, 16, 1024),
@@ -398,9 +416,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         l0 = corr0 * l0 + sum0;
         l1 = corr1 * l1 + sum1;
 #pragma unroll
-        for (int i2 = 0; i2 < D / 2; ++i2) o[i2] *= (i2 & 2) ? corr1 : corr0;
+        for (int i2 = 0; i2 < DV / 2; ++i2) o[i2] *= (i2 & 2) ? corr1 : corr0;
 
-        // O += P_hi V + P_lo V: 4 k-steps of 16 keys each
+        // O += P_hi V + P_lo V: 4 k-steps of 16 keys each, N = DV
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           hopper::fence_regs(phi[kk]);
@@ -410,10 +428,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_pv<D>(o, phi[kk], hopper::desc_b128(va + kk * 16 * kRowBytes, kTcBK * kRowBytes, 1024));
+          wgmma_pv<DV>(o, phi[kk], hopper::desc_b128(va + kk * 16 * kRowBytes, kTcBK * kRowBytes, 1024));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_pv<D>(o, plo[kk], hopper::desc_b128(va + kk * 16 * kRowBytes, kTcBK * kRowBytes, 1024));
+          wgmma_pv<DV>(o, plo[kk], hopper::desc_b128(va + kk * 16 * kRowBytes, kTcBK * kRowBytes, 1024));
         hopper::wgmma_commit();
         hopper::wgmma_wait_all();
         hopper::fence_regs(o);
@@ -431,7 +449,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     __nv_bfloat16* o0 = out + b * os.b + row * os.s + h * os.h + col;
     __nv_bfloat16* o1 = o0 + 8 * os.s;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       if (row < S)
         *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
       if (row + 8 < S)
@@ -480,16 +498,16 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int KVH,
                 Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                 cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, D, S, H, B, qs, kTcBQ) || !make_map(&kmap, k, D, S, KVH, B, ks, kTcBK) ||
-      !make_map(&vmap, v, D, S, KVH, B, vs, kTcBK))
+  if (!make_map(&qmap, q, DQK, S, H, B, qs, kTcBQ) || !make_map(&kmap, k, DQK, S, KVH, B, ks, kTcBK) ||
+      !make_map(&vmap, v, DV, S, KVH, B, vs, kTcBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_attention_tc_kernel<D>;
-  const int bytes = TcLayout<D>::kBytes;
+  auto kernel = flash_attention_tc_kernel<DQK, DV>;
+  const int bytes = TcLayout<DQK, DV>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kTcBQ - 1) / kTcBQ);
@@ -498,12 +516,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int KVH,
                Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<D>;
-  const int bytes = smem_bytes(D);
+  auto kernel = flash_attention_kernel<DQK, DV>;
+  const int bytes = smem_bytes(DQK, DV);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
@@ -513,23 +531,27 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int S, int H,
            int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, stream);
-  if (dtype == 1) return launch_bf16<D>(q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, stream);
+  if (dtype == 0)
+    return launch_f32<DQK, DV>(q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, stream);
+  if (dtype == 1)
+    return launch_bf16<DQK, DV>(q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 float32 (SIMT kernel), 1 bfloat16 (tensor-core kernel; base
-// pointers and strides 16-byte aligned), q, k, v and out alike.  q/out
-// (B, S, H, D), k/v (B, S, KVH, D), each with its own (batch, seq, head)
-// strides in elements and a contiguous D.  window < 0: no window.
+// pointers and strides 16-byte aligned), q, k, v and out alike.  q
+// (B, S, H, D), k (B, S, KVH, D), v (B, S, KVH, DV), out (B, S, H, DV),
+// each with its own (batch, seq, head) strides in elements and a
+// contiguous last dimension.  (D, DV): (64, 64), (128, 128), (256, 256) or
+// MLA's (192, 128).  window < 0: no window.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* out, int B, int S, int H, int KVH, int D,
+                                     void* out, int B, int S, int H, int KVH, int D, int DV,
                                      long long qsb, long long qss, long long qsh, long long ksb,
                                      long long kss, long long ksh, long long vsb, long long vss,
                                      long long vsh, long long osb, long long oss, long long osh,
@@ -539,14 +561,13 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   auto st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
-    case 128:
-      return launch<128>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
-    case 256:
-      return launch<256>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D == 64 && DV == 64)
+    return launch<64, 64>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
+  if (D == 128 && DV == 128)
+    return launch<128, 128>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
+  if (D == 256 && DV == 256)
+    return launch<256, 256>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
+  if (D == 192 && DV == 128)  // MLA: nope 128 + rope 64 for q and k, v 128
+    return launch<192, 128>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 """Flash attention (K3): the wrapper around ``csrc/flash_attention.cu``.
 
 :func:`flash_attention_bshd` takes the model's layout — q (B, S, H, D),
-k/v (B, S, KVH, D) — and is what ``models/layers.attention_scores_blockwise``
-calls.  The reference wrapper's (B, H, S, D) layout is the same call on
+k (B, S, KVH, D), v (B, S, KVH, DV) — and is what
+``models/layers.attention_scores_blockwise`` calls.  DV is D everywhere
+but MLA, whose q/k are 192 wide (nope 128 + rope 64) and v 128.  The reference wrapper's (B, H, S, D) layout is the same call on
 ``transpose(1, 2)`` views: the kernel takes any strides.
 
 The reference wrapper pads S up to its block size and crops back
@@ -16,7 +17,8 @@ The kernel is fixed by dtype: float32 runs the SIMT kernel (full fp32,
 any strides), bfloat16 the tensor-core kernel, whose TMA loads need
 16-byte aligned base pointers and (batch, seq, head) strides; a bf16
 tensor that breaks that raises here, before any launch.  Nothing switches
-kernels at run time.
+kernels at run time.  The kernels are templates on (D, DV):
+:data:`HEAD_DIMS` lists their instances.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import plain
 
-HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
+# the kernels' template instances, (q/k width, v width)
+HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 # the C entry point's dtype code: 0 the SIMT fp32 kernel, 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16  # bytes: TMA base pointers and strides
@@ -38,7 +41,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q/k/v must be (B, S, heads, D), got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, s, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads are not a multiple of {k.shape[2]} KV heads")
@@ -69,45 +72,50 @@ def _check_tma(*xs: torch.Tensor) -> None:
 def flash_attention_bshd(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S, KVH, D)
-    v: torch.Tensor,  # (B, S, KVH, D)
+    v: torch.Tensor,  # (B, S, KVH, DV)
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
     """Causal / sliding-window (``kpos > qpos - window``) GQA attention ->
-    (B, S, H, D) in q's dtype, f32 softmax and accumulation.
+    (B, S, H, DV) in q's dtype, f32 softmax and accumulation; ``scale``
+    defaults to D^-0.5.
 
     On a CUDA tensor this launches ``csrc/flash_attention.cu`` on the
     current stream (and raises if it cannot); on a CPU tensor it runs the
     plain version."""
     _check(q, k, v, window)
     b, s, h, d = q.shape
+    dv = v.shape[3]
     scale = float(d) ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, got {d}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take (q/k, v) head widths in {HEAD_DIMS}, got {(d, dv)}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q/k/v need a contiguous head_dim")
     if q.dtype == torch.bfloat16:
         _check_tma(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.repro_flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, k.shape[2], d,
+        b, s, h, k.shape[2], d, dv,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         scale, int(causal), -1 if window is None else int(window), stream,
     )
     _build.check(lib, status, "flash_attention")
     flash_attention_bshd.launches += 1
+    flash_attention_bshd.launches_by_dims[(d, dv)] += 1
     return out
 
 
 flash_attention_bshd.launches = 0  # kernel launches (CPU calls do not count)
+# the same launches by instance, (q/k width, v width)
+flash_attention_bshd.launches_by_dims = dict.fromkeys(HEAD_DIMS, 0)
 

@@ -7,6 +7,9 @@ with the padded tail masked.  Scores, softmax and the value sum are f32;
 the result is cast to q's dtype.  The CPU path and the card check in
 ``chip_smoke.py`` use it.
 
+The value width may differ from the query/key width (MLA's 192/128), as
+the reference's ``dv = v.shape[-1]``.
+
 Fully masked rows: here (as in the reference) a row whose every key is
 masked gets the mean of V, the CUDA kernel gives 0 (``l == 0`` guard, as
 the Pallas kernel's finalize).  No such row is ever read: a causal row
@@ -34,16 +37,16 @@ def _mask(s: int, kpos: torch.Tensor, causal: bool, window: int | None) -> torch
 def flash_attention_bshd(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S, KVH, D)
-    v: torch.Tensor,  # (B, S, KVH, D)
+    v: torch.Tensor,  # (B, S, KVH, DV)
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
     block: int = 1024,
 ) -> torch.Tensor:
-    """(B, S, H, D) attention in the model's layout; GQA in grouped form
+    """(B, S, H, DV) attention in the model's layout; GQA in grouped form
     (query heads ``h`` read KV head ``h // group``, no repeat)."""
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[3]
     group = h // kvh
     scale = scale if scale is not None else d**-0.5
     qg = q.reshape(b, s, kvh, group, d).float()
@@ -53,7 +56,7 @@ def flash_attention_bshd(
         sc = sc.masked_fill(~mask, NEG_INF)
         p = torch.softmax(sc, dim=-1)
         out = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
-        return out.reshape(b, s, h, d).to(q.dtype)
+        return out.reshape(b, s, h, dv).to(q.dtype)
 
     nb = -(-s // block)
     pad = nb * block - s
@@ -61,7 +64,7 @@ def flash_attention_bshd(
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
     m = torch.full((b, kvh, group, s), NEG_INF, device=q.device)
     l = torch.zeros((b, kvh, group, s), device=q.device)
-    acc = torch.zeros((b, kvh, group, s, d), device=q.device)
+    acc = torch.zeros((b, kvh, group, s, dv), device=q.device)
     for bi in range(nb):
         kb = kf[:, bi * block:(bi + 1) * block]
         vb = vf[:, bi * block:(bi + 1) * block]
@@ -76,5 +79,5 @@ def flash_attention_bshd(
         acc = corr[..., None] * acc + torch.einsum("bkgqm,bmkd->bkgqd", p, vb)
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4)  # (B, S, K, G, D)
-    return out.reshape(b, s, h, d).to(q.dtype)
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4)  # (B, S, K, G, DV)
+    return out.reshape(b, s, h, dv).to(q.dtype)

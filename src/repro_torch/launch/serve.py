@@ -2,15 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \
         --requests 8 --max-new 16 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
 
 Runs the batched serving engine (tokenize on host threads + decode on the
-card) with weights drawn at random from a seeded ``torch.Generator``.
-``--restore`` (loading a checkpoint) is not ported.
+card, each model step one CUDA graph replay) with weights drawn at random
+from a seeded ``torch.Generator``.  ``--layers`` cuts the depth (dense
+prefix included): DeepSeek-V2's 60 layers (~470 GB in bf16) do not fit one
+80 GB card, 4 (1 dense + 3 MoE, ~27 GB) do.  ``--restore`` (loading a
+checkpoint) is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -29,6 +34,7 @@ def main(argv: list[str] | None = None) -> tuple[list[Request], object]:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--restore", default=None, help="checkpoint dir to load params from")
     args = ap.parse_args(argv)
@@ -39,6 +45,8 @@ def main(argv: list[str] | None = None) -> tuple[list[Request], object]:
             "repro_torch yet: ROADMAP port queue item 25 (LLM side stack)"
         )
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     dev = resolve_device(args.device)
     params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     engine = ServingEngine(params, cfg, batch_slots=args.slots, max_len=args.max_len, device=dev)

@@ -1,7 +1,13 @@
 """Serving paths of the port: cache init, prefill, and single-token decode.
 
-``repro.models.decode`` for the dense-GQA family.  The cache is a dict
-of layer-stacked tensors, k/v (L, B, S, KVH, hd), as in the reference.
+``repro.models.decode`` for the dense-GQA, MoE and MLA families.  The
+cache is a dict of layer-stacked tensors, as in the reference:
+
+  gqa : k/v (L, B, S, KVH, hd)
+  mla : c_kv (L, B, S, R), k_rope (L, B, S, rope_hd) over the main layers,
+        prefix_c_kv / prefix_k_rope over the dense-FFN prefix — the
+        compressed cache, decoded in the absorbed form (:func:`_mla_decode`)
+
 What differs:
 
 * **In place.**  The reference's cache is immutable: the decode scan
@@ -11,8 +17,13 @@ What differs:
   :func:`prefill` writes each layer's rows into one cache allocated up
   front.  A write at a position past the cache is dropped, as JAX drops an
   out-of-bounds scatter (an idle serving slot's length keeps counting).
-* **Kernels.**  Prefill attention is K3 and decode attention is K4, which
-  reads each layer slice through its strides: no step copies the cache.
+* **Kernels.**  Prefill attention is K3 and GQA decode attention is K4,
+  which reads each layer slice through its strides: no step copies the
+  cache.  MLA's absorbed decode is plain torch in f32, as the reference
+  computes it in jnp.
+* **Capturable.**  :func:`decode_step` makes no host sync and keeps every
+  buffer it reads in place, so ``serving/engine.py`` captures it as one
+  CUDA graph.
 * ``lax.scan`` over layers and ``lax.cond`` on ``is_local`` become a
   Python loop and a Python branch.
 """
@@ -39,9 +50,29 @@ def init_cache(
     """Zero-filled cache for ``batch`` sequences of up to ``max_len``."""
     T.check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.attn_type != "mla":
+        shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
+    cache = {}
+    for prefix, n in (("", cfg.num_layers - n_prefix), ("prefix_", n_prefix)):
+        if n:
+            cache[prefix + "c_kv"] = torch.zeros((n, batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=dev)
+            cache[prefix + "k_rope"] = torch.zeros((n, batch, max_len, cfg.rope_head_dim), dtype=dtype,
+                                                   device=dev)
+    return cache
+
+
+def _layer_caches(params: T.TransformerLM, cfg: ModelConfig, cache: dict):
+    """(block, is_local, its two cache slices) for every layer in order:
+    the dense prefix (MLA's prefix_c_kv / prefix_k_rope), then the main
+    layers (k / v, or c_kv / k_rope)."""
+    names = ("c_kv", "k_rope") if cfg.attn_type == "mla" else ("k", "v")
+    for i, blk in enumerate(params.dense_prefix or ()):
+        yield blk, None, cache["prefix_" + names[0]][i], cache["prefix_" + names[1]][i]
+    for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
+        yield blk, is_local, cache[names[0]][i], cache[names[1]][i]
 
 
 # ------------------------------------------------------------------ helpers
@@ -80,6 +111,35 @@ def _gqa_decode(p_attn, cfg, x, k_cache, v_cache, lengths, window, kv_repeat):
     return out @ p_attn.wo.to(dt)
 
 
+def _mla_decode(p_attn, cfg, x, ckv_cache, krope_cache, lengths):
+    """Absorbed-form MLA decode (DeepSeek-V2 inference scheme): scores
+    combine q_nope·W_uk against c_kv and q_rope against k_rope, values are
+    (probs @ c_kv)·W_uv, all in f32.  x: (B, D); the caches are this
+    layer's (B, S, R) / (B, S, rope_hd) views, updated in place."""
+    bsz, _ = x.shape
+    dt = x.dtype
+    nope, vd = cfg.nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = L.mla_queries(p_attn, cfg, x[:, None, :], lengths[:, None])
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]  # (B, H, nope) / (B, H, rd)
+    c_kv_new, k_rope_new = L.mla_compress(p_attn, cfg, x[:, None, :], lengths[:, None])
+    _scatter_rows_(ckv_cache, c_kv_new[:, 0], lengths)
+    _scatter_rows_(krope_cache, k_rope_new[:, 0], lengths)
+
+    w_b = p_attn.wkv_b.to(dt).reshape(cfg.kv_lora_rank, cfg.num_heads, nope + vd)
+    w_uk, w_uv = w_b[..., :nope].float(), w_b[..., nope:].float()  # (R, H, nope) / (R, H, v)
+    ckv = ckv_cache.float()
+    q_c = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_uk)
+    scores = torch.einsum("bhr,bsr->bhs", q_c, ckv)
+    scores = scores + torch.einsum("bhr,bsr->bhs", q_rope.float(), krope_cache.float())
+    scores = scores * (nope + cfg.rope_head_dim) ** -0.5
+    pos = torch.arange(ckv.shape[1], device=x.device)
+    scores = scores.masked_fill(pos[None, None, :] >= (lengths + 1)[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    o_c = torch.einsum("bhs,bsr->bhr", probs, ckv)
+    out = torch.einsum("bhr,rhv->bhv", o_c, w_uv).to(dt)
+    return out.reshape(bsz, cfg.num_heads * vd) @ p_attn.wo.to(dt)
+
+
 def _window(cfg: ModelConfig, is_local) -> int | None:
     """The reference's choice: with a local/global pattern the flag picks;
     without one every layer takes ``cfg.sliding_window``."""
@@ -88,13 +148,16 @@ def _window(cfg: ModelConfig, is_local) -> int | None:
     return cfg.sliding_window
 
 
-def _block_decode(p, cfg, x, cache, l_idx, is_local, lengths, kv_repeat):
-    """One block, one token.  x: (B, D)."""
+def _block_decode(p, cfg, x, cache_a, cache_b, is_local, lengths, kv_repeat):
+    """One block, one token.  x: (B, D); cache_a / cache_b: this layer's
+    k / v (GQA) or c_kv / k_rope (MLA) slices."""
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
-    x = x + _gqa_decode(p.attn, cfg, h, cache["k"][l_idx], cache["v"][l_idx], lengths,
-                        _window(cfg, is_local), kv_repeat)
+    if cfg.attn_type == "mla":
+        x = x + _mla_decode(p.attn, cfg, h, cache_a, cache_b, lengths)
+    else:
+        x = x + _gqa_decode(p.attn, cfg, h, cache_a, cache_b, lengths, _window(cfg, is_local), kv_repeat)
     h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
-    return x + L.mlp_apply(p.mlp, h2, cfg.mlp_act)
+    return x + T.ffn(p, cfg, h2)
 
 
 @torch.no_grad()
@@ -111,28 +174,33 @@ def decode_step(
     token = T.as_tokens(params, token)
     lengths = torch.as_tensor(lengths, device=token.device)
     x = T.embed_tokens(params, cfg, token[:, None])[:, 0]  # (B, D)
-    for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
-        x = _block_decode(blk, cfg, x, cache, i, is_local, lengths, kv_repeat)
+    for blk, is_local, cache_a, cache_b in _layer_caches(params, cfg, cache):
+        x = _block_decode(blk, cfg, x, cache_a, cache_b, is_local, lengths, kv_repeat)
     logits = T.logits_from(params, cfg, x[:, None, :])[:, 0]
     return logits, cache, lengths + 1
 
 
 # ------------------------------------------------------------------ prefill
-def _block_prefill(p, cfg, x, positions, is_local, cache, l_idx, kv_repeat):
-    """One block over the full prompt; writes this layer's cache rows."""
+def _block_prefill(p, cfg, x, positions, is_local, cache_a, cache_b, kv_repeat):
+    """One block over the full prompt; writes this layer's cache rows:
+    k / v (GQA) or c_kv / k_rope (MLA) into cache_a / cache_b."""
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     b, s, _ = h.shape
-    q, k, v = L.gqa_project_qkv(p.attn, cfg, h, positions)
-    out = L.attention_scores_blockwise(q, k, v, causal=True, window=_window(cfg, is_local))
-    out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    x = x + out @ p.attn.wo.to(h.dtype)
-    if kv_repeat > 1:
-        k = k.repeat_interleave(kv_repeat, dim=2)
-        v = v.repeat_interleave(kv_repeat, dim=2)
-    cache["k"][l_idx, :, :s] = k
-    cache["v"][l_idx, :, :s] = v
+    if cfg.attn_type == "mla":
+        out, row_a, row_b = L.mla_apply_with_latent(p.attn, cfg, h, positions, causal=True)
+        x = x + out
+    else:
+        q, row_a, row_b = L.gqa_project_qkv(p.attn, cfg, h, positions)
+        out = L.attention_scores_blockwise(q, row_a, row_b, causal=True, window=_window(cfg, is_local))
+        out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+        x = x + out @ p.attn.wo.to(h.dtype)
+        if kv_repeat > 1:
+            row_a = row_a.repeat_interleave(kv_repeat, dim=2)
+            row_b = row_b.repeat_interleave(kv_repeat, dim=2)
+    cache_a[:, :s] = row_a
+    cache_b[:, :s] = row_b
     h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
-    return x + L.mlp_apply(p.mlp, h2, cfg.mlp_act)
+    return x + T.ffn(p, cfg, h2)
 
 
 @torch.no_grad()
@@ -158,8 +226,8 @@ def prefill(
     x = T.embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, bsz, max_len, kv_repeat, cache_dtype, device=x.device)
-    for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
-        x = _block_prefill(blk, cfg, x, positions, is_local, cache, i, kv_repeat)
+    for blk, is_local, cache_a, cache_b in _layer_caches(params, cfg, cache):
+        x = _block_prefill(blk, cfg, x, positions, is_local, cache_a, cache_b, kv_repeat)
     logits = T.logits_from(params, cfg, x[:, -1:, :])[:, 0]
     lengths = torch.full((bsz,), s, dtype=torch.int32, device=x.device)
     return logits, cache, lengths

@@ -1,8 +1,9 @@
-"""Core layers of the port: norms, RoPE, GQA attention, SwiGLU MLP.
+"""Core layers of the port: norms, RoPE, GQA and MLA attention, SwiGLU MLP,
+MoE.
 
-The dense subset of ``repro.models.layers``, as functions over the
-parameter modules of ``models/transformer.py`` (``p.wq`` where the
-reference reads ``params["wq"]``).  Compute runs in the config dtype with
+``repro.models.layers`` as functions over the parameter modules of
+``models/transformer.py`` (``p.wq`` where the reference reads
+``params["wq"]``).  Compute runs in the config dtype with
 f32 norms, rope and softmax, at the reference's rounding points:
 
 * norms upcast to f32 and cast back (``rmsnorm``, ``layernorm``);
@@ -10,14 +11,25 @@ f32 norms, rope and softmax, at the reference's rounding points:
 * a projection is ``x @ w.to(x.dtype)``.  The reference keeps f32 weights
   and casts them at the call site; the port holds them in the config
   dtype already, which rounds them the same way once, so the result is
-  the same — the cast is then a no-op.
+  the same — the cast is then a no-op.  The MoE router is the exception:
+  the reference multiplies f32 activations by its f32 router, so the
+  port keeps the router in f32.
 
 Attention is the kernels: :func:`attention_scores_blockwise` keeps the
 reference's name and calls K3 (``kernels/flash_attention``); the
 reference's ``decode_attention_jnp`` has its counterpart in K4's wrapper,
 ``kernels.decode_attention.ops.decode_attention_cache``, which
 ``models/decode.py`` calls.  On CPU tensors each runs its plain version.
-MLA and MoE are not ported (ROADMAP port queue item 25).
+MLA's full-sequence attention is K3 at q/k width 192 and v width 128; its
+absorbed decode (``models/decode.py``) is plain torch, as the reference
+computes it in jnp.
+
+MoE is the reference's single-device dispatch (:func:`moe_apply`); its
+expert-parallel ``shard_map`` branch belongs to the mesh (ROADMAP item
+23), and ``moe_aux_loss`` to training.  The dispatch makes no host sync,
+so a decode step with MoE layers can be captured as one CUDA graph
+(``serving/engine.py``): no ``bincount``, ``nonzero``, boolean-mask
+indexing, ``repeat_interleave`` with tensor repeats or ``.item()``.
 """
 
 from __future__ import annotations
@@ -85,21 +97,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def attention_scores_blockwise(
     q: torch.Tensor,  # (B, S, H, hd)
     k: torch.Tensor,  # (B, S, KVH, hd)
-    v: torch.Tensor,  # (B, S, KVH, hd)
+    v: torch.Tensor,  # (B, S, KVH, dv) — dv != hd for MLA
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Flash attention over the model's layout -> (B, S, H, hd) in q's dtype.
+    """Flash attention over the model's layout -> (B, S, H, dv) in q's dtype.
 
     K3 (``csrc/flash_attention.cu``) on the card; on the CPU its plain
     version, which mirrors the reference's dense / blockwise branches.  The
     reference's ``block`` (its KV block) has no counterpart: the kernel has
     its own tiles, and every choice computes the same function."""
-    if k.shape[1] != q.shape[1] or v.shape[-1] != q.shape[-1]:
-        # cross attention (S_k != S_q) and MLA's value width belong to the
-        # enc-dec and MLA paths
-        raise NotImplementedError(f"attention with S_k != S_q or dv != hd is {_NOT_PORTED}")
+    if k.shape[1] != q.shape[1]:
+        # cross attention belongs to the enc-dec path
+        raise NotImplementedError(f"attention with S_k != S_q is {_NOT_PORTED}")
     return flash_ops.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
 
 
@@ -131,8 +142,62 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = T
     return out @ p.wo.to(x.dtype)
 
 
-def mla_apply(*args, **kwargs):
-    raise NotImplementedError(f"MLA attention is {_NOT_PORTED}")
+# ---------------------------------------------------------------- MLA (DSv2)
+def mla_compress(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Host of the MLA cache: x -> (c_kv (B,S,R), k_rope (B,S,rope_hd))."""
+    dt = x.dtype
+    kv = x @ p.wkv_a.to(dt)
+    c_kv, k_rope = kv.split([cfg.kv_lora_rank, cfg.rope_head_dim], dim=-1)
+    c_kv = rmsnorm(c_kv, p.kv_norm.scale)
+    cos, sin = rope_cos_sin(positions, cfg.rope_head_dim, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[..., None, :], cos, sin)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x (B,S,D) -> q_nope (B,S,H,nope_hd), q_rope (B,S,H,rope_hd)."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    if cfg.q_lora_rank:
+        q = rmsnorm(x @ p.wq_a.to(dt), p.q_norm.scale) @ p.wq_b.to(dt)
+    else:
+        q = x @ p.wq.to(dt)
+    q = q.reshape(b, s, cfg.num_heads, cfg.nope_head_dim + cfg.rope_head_dim)
+    q_nope, q_rope = q.split([cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
+    cos, sin = rope_cos_sin(positions, cfg.rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def mla_expand_kv(p, cfg, c_kv: torch.Tensor):
+    """c_kv (B,S,R) -> k_nope (B,S,H,nope_hd), v (B,S,H,v_hd), views of one
+    product."""
+    b, s, _ = c_kv.shape
+    kv = (c_kv @ p.wkv_b.to(c_kv.dtype)).reshape(b, s, cfg.num_heads, cfg.nope_head_dim + cfg.v_head_dim)
+    return kv.split([cfg.nope_head_dim, cfg.v_head_dim], dim=-1)
+
+
+def mla_apply_with_latent(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
+                          window: int | None = None):
+    """Full-sequence MLA attention -> (output (B,S,D), c_kv, k_rope): the
+    output of :func:`mla_apply` and the compressed rows prefill caches.
+    Attention is K3 at q/k width nope + rope (192 at full width) and v
+    width v_hd (128)."""
+    b, s, _ = x.shape
+    q_nope, q_rope = mla_queries(p, cfg, x, positions)
+    c_kv, k_rope = mla_compress(p, cfg, x, positions)
+    k_nope, v = mla_expand_kv(p, cfg, c_kv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
+    scale = (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
+    out = attention_scores_blockwise(q, k, v, causal=causal, window=window, scale=scale)
+    out = out.reshape(b, s, cfg.num_heads * cfg.v_head_dim)
+    return out @ p.wo.to(x.dtype), c_kv, k_rope
+
+
+def mla_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
+              window: int | None = None) -> torch.Tensor:
+    """Full-sequence MLA attention (forward / prefill)."""
+    return mla_apply_with_latent(p, cfg, x, positions, causal, window)[0]
 
 
 # ----------------------------------------------------------------------- MLP
@@ -145,5 +210,81 @@ def mlp_apply(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return (g * u) @ p.w_down.to(dt)
 
 
-def moe_apply(*args, **kwargs):
-    raise NotImplementedError(f"MoE is {_NOT_PORTED}")
+# ----------------------------------------------------------------------- MoE
+def moe_capacity(cfg, t: int) -> int:
+    """Slots per expert for ``t`` tokens (the reference's formula)."""
+    k = cfg.experts_per_token
+    return max(int(cfg.moe_capacity_factor * t * k / cfg.num_experts), min(t * k, 8))
+
+
+def moe_gates(xt: torch.Tensor, router: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each token's experts: f32 router softmax, top-k, the k weights
+    renormalised by max(sum, 1e-9), as the reference -> (w (T, k) f32,
+    idx (T, k))."""
+    gates = torch.softmax(xt.float() @ router.float(), dim=-1)  # (T, E)
+    w, idx = torch.topk(gates, k, dim=-1)
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def moe_route(xt: torch.Tensor, router: torch.Tensor, e: int, k: int, cap: int):
+    """Token-choice top-k routing of ``xt`` (T, D) over ``e`` experts.
+
+    Returns (flat_w (T·k,) f32 gate weights, keep (T·k,) bool, slot (T·k,)
+    int64): assignment ``n = t·k + j`` is token t's j-th expert
+    (:func:`moe_gates`); it is kept when it ranks below ``cap`` among its
+    expert's assignments in that order (a stable argsort), and then fills
+    row ``slot`` of the expert buffer (expert · cap + rank); a dropped one
+    points at row e · cap, one past the buffer."""
+    n = xt.shape[0] * k
+    w, idx = moe_gates(xt, router, k)
+    flat_e, flat_w = idx.reshape(n), w.reshape(n)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    # counts by scatter_add_ (torch.bincount reads its max on the host)
+    counts = torch.zeros(e, dtype=torch.int64, device=xt.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    ranks_sorted = torch.arange(n, device=xt.device) - starts[sorted_e]
+    pos = torch.empty_like(ranks_sorted).scatter_(0, order, ranks_sorted)
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos, torch.full_like(pos, e * cap))
+    return flat_w, keep, slot
+
+
+def _moe_dispatch_compute(xt: torch.Tensor, router: torch.Tensor, experts, e: int, k: int, cap: int,
+                          act: str, dt: torch.dtype) -> torch.Tensor:
+    """Dispatch ``xt`` (T, D) into an (E·cap, D) buffer, run every expert's
+    FFN as three batched products, and combine -> (T, D) in ``dt``.
+
+    The buffer has one row more, row E·cap, where every dropped assignment
+    writes (the reference's ``mode="drop"`` scatter); it is sliced off
+    before the products, so its value (written by colliding indices) is
+    never read."""
+    t, d = xt.shape
+    flat_w, keep, slot = moe_route(xt, router, e, k, cap)
+    token_of = torch.arange(t * k, device=xt.device) // k
+    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=xt.device)
+    buf.index_copy_(0, slot, xt[token_of].to(dt))
+    buf = buf[: e * cap].view(e, cap, d)
+    g = torch.bmm(buf, experts.w_gate.to(dt))
+    u = torch.bmm(buf, experts.w_up.to(dt))
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    out_buf = torch.bmm(g * u, experts.w_down.to(dt)).view(e * cap, d)
+    zero = torch.zeros((), dtype=dt, device=xt.device)
+    gathered = torch.where(keep[:, None], out_buf[slot.clamp(max=e * cap - 1)], zero)
+    return (gathered * flat_w[:, None].to(dt)).view(t, k, d).sum(dim=1)
+
+
+def moe_apply(p, cfg, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Token-choice top-k MoE with per-expert capacity (Switch-style), the
+    reference's single-device path: every expert's FFN runs over its
+    ``cap`` buffer rows, and the shared experts (``n_shared · d_ff`` wide)
+    are one more MLP over every token."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    y = _moe_dispatch_compute(xt, p.router, p.experts, cfg.num_experts, cfg.experts_per_token,
+                              moe_capacity(cfg, t), act, x.dtype)
+    if p.shared is not None:
+        y = y + mlp_apply(p.shared, xt, act)
+    return y.reshape(b, s, d)

@@ -1,17 +1,24 @@
-"""Dense transformer LM of the port: ``repro.models.transformer`` for the
-dense-GQA family (gemma3's local:global stacks included).
+"""Transformer LM of the port: ``repro.models.transformer`` for the dense
+GQA family (gemma3's local:global stacks included), MoE (OLMoE) and MLA +
+MoE with a dense-FFN prefix (DeepSeek-V2).
 
 The reference stacks every layer's parameters under a leading L axis and
 runs the layers under ``lax.scan``, choosing the local or global variant
 with ``lax.cond``.  Here :class:`TransformerLM` holds one submodule per
 layer and the layers run as a Python loop; the local/global choice is a
-Python branch on the static ``layer_flags``.  Parameters are inference
-weights (no gradients): matrices and the embedding in the config dtype,
-norm scales in f32 (see ``models/layers.py`` on why that matches the
-reference's cast-at-the-call-site).
+Python branch on the static ``layer_flags``.  DeepSeek-V2's leading
+dense-FFN layers, a separately scanned group in the reference
+(``params["dense_prefix"]``), are ``TransformerLM.dense_prefix``.
+Parameters are inference weights (no gradients): matrices and the
+embedding in the config dtype, norm scales and the MoE router in f32 (see
+``models/layers.py`` on why that matches the reference's
+cast-at-the-call-site).  Each submodule is named as the reference's
+pytree leaf it holds (``moe.experts.w_gate`` is
+``params["layers"]["moe"]["experts"]["w_gate"][i]``), which is how
+:func:`from_jax_params` carries weights across.
 
-MoE, MLA, SSM, hybrid, encoder-decoder and VLM stacks are not ported
-(ROADMAP port queue item 25) and raise ``NotImplementedError``.
+SSM, hybrid, encoder-decoder and VLM stacks are not ported (ROADMAP port
+queue item 25) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,11 +71,16 @@ def main_block_kind(cfg: ModelConfig) -> str:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the stacks the port does not run yet."""
+    """Raise for the stacks the port does not run yet: SSM, hybrid,
+    encoder-decoder and VLM; and a dense-FFN prefix under GQA, which no
+    configuration has (the reference's prefill and decode disagree on
+    its cache)."""
     kind = main_block_kind(cfg)
-    if kind != "dense" or cfg.attn_type != "gqa" or cfg.is_encdec or cfg.frontend is not None:
+    gqa_prefix = cfg.is_moe and cfg.first_dense_layers and cfg.attn_type != "mla"
+    if kind not in ("dense", "moe") or cfg.is_encdec or cfg.frontend is not None or gqa_prefix:
         raise NotImplementedError(
             f"{cfg.name}: the {kind}/{cfg.attn_type} stack"
+            f"{' with a dense prefix' if gqa_prefix else ''}"
             f"{' with encoder' if cfg.is_encdec else ''}"
             f"{' with ' + cfg.frontend if cfg.frontend else ''} is not ported to repro_torch yet: "
             "ROADMAP port queue item 25 (LLM side stack)"
@@ -105,6 +117,27 @@ class Attention(nn.Module):
             self.k_norm = Norm(hd, "rmsnorm", device)
 
 
+class MLAAttention(nn.Module):
+    """MLA projections (DeepSeek-V2): the compressed KV path ``wkv_a`` ->
+    ``kv_norm`` -> ``wkv_b``, queries through ``wq_a`` -> ``q_norm`` ->
+    ``wq_b`` (or ``wq`` without a q LoRA rank), output ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.num_heads
+        qd = cfg.nope_head_dim + cfg.rope_head_dim
+        self.wkv_a = _weight((d, cfg.kv_lora_rank + cfg.rope_head_dim), dtype, device)
+        self.kv_norm = Norm(cfg.kv_lora_rank, "rmsnorm", device)
+        self.wkv_b = _weight((cfg.kv_lora_rank, h * (cfg.nope_head_dim + cfg.v_head_dim)), dtype, device)
+        self.wo = _weight((h * cfg.v_head_dim, d), dtype, device)
+        if cfg.q_lora_rank:
+            self.wq_a = _weight((d, cfg.q_lora_rank), dtype, device)
+            self.q_norm = Norm(cfg.q_lora_rank, "rmsnorm", device)
+            self.wq_b = _weight((cfg.q_lora_rank, h * qd), dtype, device)
+        else:
+            self.wq = _weight((d, h * qd), dtype, device)
+
+
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype, device=None):
         super().__init__()
@@ -113,50 +146,77 @@ class MLP(nn.Module):
         self.w_down = _weight((d_ff, d_model), dtype, device)
 
 
-class Block(nn.Module):
+class Experts(nn.Module):
+    """Every routed expert's SwiGLU weights, stacked: (E, D, F) / (E, F, D)."""
+
+    def __init__(self, n: int, d_model: int, d_ff: int, dtype, device=None):
+        super().__init__()
+        self.w_gate = _weight((n, d_model, d_ff), dtype, device)
+        self.w_up = _weight((n, d_model, d_ff), dtype, device)
+        self.w_down = _weight((n, d_ff, d_model), dtype, device)
+
+
+class MoE(nn.Module):
+    """f32 router, routed experts, and the shared experts as one MLP of
+    width ``n_shared · d_ff`` (or None)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device=None):
         super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.router = _weight((d, cfg.num_experts), torch.float32, device)
+        self.experts = Experts(cfg.num_experts, d, f, dtype, device)
+        n_shared = cfg.num_shared_experts
+        self.shared = MLP(d, n_shared * f, dtype, device) if n_shared else None
+
+
+class Block(nn.Module):
+    """One layer: attention (GQA or MLA) and an FFN — ``mlp`` for kind
+    "dense" (width d_ff) and "dense_ffn" (DeepSeek's prefix, width
+    dense_d_ff), ``moe`` for kind "moe"; the other is None."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None, kind: str = "dense"):
+        super().__init__()
         self.attn_norm = Norm(cfg.d_model, cfg.norm_type, device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = (MLAAttention if cfg.attn_type == "mla" else Attention)(cfg, dtype, device)
         self.mlp_norm = Norm(cfg.d_model, cfg.norm_type, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.moe = MoE(cfg, dtype, device) if kind == "moe" else None
+        d_ff = (cfg.dense_d_ff or cfg.d_ff) if kind == "dense_ffn" else cfg.d_ff
+        self.mlp = MLP(cfg.d_model, d_ff, dtype, device) if kind != "moe" else None
 
 
 class TransformerLM(nn.Module):
-    """Embedding, one :class:`Block` per layer, final norm and (untied) LM
-    head.  Built uninitialised: fill it with :func:`init_lm` or
-    :func:`from_jax_params`."""
+    """Embedding, the dense-FFN prefix (MoE configs with
+    ``first_dense_layers``; else None), one :class:`Block` per main layer,
+    final norm and (untied) LM head.  Built uninitialised: fill it with
+    :func:`init_lm` or :func:`from_jax_params`."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
+        kind = main_block_kind(cfg)
+        n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
         self.embed = _weight((cfg.padded_vocab_size, cfg.d_model), dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, dtype, device) for _ in range(cfg.num_layers))
+        self.dense_prefix = nn.ModuleList(
+            Block(cfg, dtype, device, "dense_ffn") for _ in range(n_prefix)) if n_prefix else None
+        self.layers = nn.ModuleList(Block(cfg, dtype, device, kind) for _ in range(cfg.num_layers - n_prefix))
         self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
         self.lm_head = None if cfg.tie_embeddings else _weight((cfg.d_model, cfg.padded_vocab_size), dtype, device)
         flags = layer_flags(cfg)
         # per layer: True local, False global, None no local/global pattern
-        self.is_local = [bool(f) for f in flags["is_local"]] if "is_local" in flags else [None] * cfg.num_layers
+        self.is_local = [bool(f) for f in flags["is_local"]] if "is_local" in flags else [None] * len(self.layers)
 
-
-def _dense_matrices(model: TransformerLM):
-    """(parameter, fan-in scale) in the reference's draw order."""
-    for blk in model.layers:
-        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-                  blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down):
-            yield w, w.shape[0] ** -0.5
-    if model.lm_head is not None:
-        yield model.lm_head, model.lm_head.shape[0] ** -0.5
 
 
 @torch.no_grad()
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
             device: str | torch.device | None = "cuda") -> TransformerLM:
     """Random weights with the reference's distributions (``init_lm``):
-    embedding N(0, 1) * d_model^-0.5, each matrix N(0, 1) * fan_in^-0.5,
-    norms at 1 (and 0).  Drawn in f32 on ``device`` from ``generator``
+    embedding N(0, 1) * d_model^-0.5, each matrix N(0, 1) * fan_in^-0.5 —
+    the router and every projection (in, out) over its first dimension, an
+    expert stack (E, in, out) over its second — norms at 1 (and 0).  Drawn
+    in f32 on ``device`` from ``generator``
     (a generator on that device; default: seed 0) and stored in the config
     dtype.  The numbers differ from the JAX ones for the same seed — load
     those with :func:`from_jax_params`."""
@@ -166,10 +226,16 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} but weights on {dev}")
     model = TransformerLM(cfg, dev)
-    draws = [(model.embed, cfg.d_model**-0.5), *_dense_matrices(model)]
-    for w, scale in draws:
+    for name, w in model.named_parameters():
+        if name == "embed":
+            scale = cfg.d_model**-0.5
+        elif w.dim() >= 2:
+            scale = w.shape[-2] ** -0.5
+        else:
+            continue  # norms keep their 1 (and 0)
         noise = torch.empty(w.shape, dtype=torch.float32, device=dev).normal_(generator=generator)
         w.copy_(noise.mul_(scale))
+        del noise
     return model
 
 
@@ -182,48 +248,58 @@ def from_jax_params(params: dict, cfg: ModelConfig) -> TransformerLM:
     """A CPU :class:`TransformerLM` holding the reference's parameters.
 
     ``params`` is ``repro.models.transformer.init_lm``'s pytree with numpy
-    (or array-like) leaves; the leaves under ``layers`` carry a leading L
-    axis, which is unstacked into one :class:`Block` per layer."""
+    (or array-like) leaves.  Each parameter's dotted name is its path in
+    the pytree; the leaves under ``layers`` and ``dense_prefix`` carry a
+    leading layer axis, which the index in the name (``layers.3.attn.wq``)
+    picks.  Raises if a leaf of ``params`` has no parameter."""
     model = TransformerLM(cfg, "cpu")
-    model.embed.copy_(_np(params["embed"]))
-    model.final_norm.scale.copy_(_np(params["final_norm"]["scale"]))
-    if model.final_norm.bias is not None:
-        model.final_norm.bias.copy_(_np(params["final_norm"]["bias"]))
-    if model.lm_head is not None:
-        model.lm_head.copy_(_np(params["lm_head"]))
-    stacked = params["layers"]
-    for i, blk in enumerate(model.layers):
-        for norm_name in ("attn_norm", "mlp_norm"):
-            norm = getattr(blk, norm_name)
-            norm.scale.copy_(_np(stacked[norm_name]["scale"][i]))
-            if norm.bias is not None:
-                norm.bias.copy_(_np(stacked[norm_name]["bias"][i]))
-        pa = stacked["attn"]
-        for name in ("wq", "wk", "wv", "wo"):
-            getattr(blk.attn, name).copy_(_np(pa[name][i]))
-        if cfg.qk_norm:
-            blk.attn.q_norm.scale.copy_(_np(pa["q_norm"]["scale"][i]))
-            blk.attn.k_norm.scale.copy_(_np(pa["k_norm"]["scale"][i]))
-        for name in ("w_gate", "w_up", "w_down"):
-            getattr(blk.mlp, name).copy_(_np(stacked["mlp"][name][i]))
+    carried = set()
+    for name, w in model.named_parameters():
+        parts = name.split(".")
+        index = int(parts.pop(1)) if parts[0] in ("layers", "dense_prefix") else None
+        leaf = params
+        for part in parts:
+            leaf = leaf[part]
+        w.copy_(_np(leaf if index is None else leaf[index]))
+        carried.add(tuple(parts))
+    missing = set(_leaf_paths(params)) - carried
+    if missing:
+        raise ValueError(f"{cfg.name}: reference leaves with no parameter in the port: {sorted(missing)}")
     return model
+
+
+def _leaf_paths(tree: dict, prefix: tuple = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaf_paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
 
 
 # ---------------------------------------------------------- full-seq blocks
 def _attn_full(p_attn, cfg: ModelConfig, x, positions, is_local, causal=True):
     """Attention with the per-layer sliding window (the reference's lax.cond)."""
+    if cfg.attn_type == "mla":
+        return L.mla_apply(p_attn, cfg, x, positions, causal=causal)
     if cfg.sliding_window is None or is_local is None:
         return L.gqa_apply(p_attn, cfg, x, positions, causal=causal)
     window = cfg.sliding_window if is_local else None
     return L.gqa_apply(p_attn, cfg, x, positions, causal=causal, window=window)
 
 
+def ffn(p: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The block's FFN over h (..., D): its MoE, or its MLP."""
+    if p.moe is not None:
+        return L.moe_apply(p.moe, cfg, h.reshape(-1, 1, h.shape[-1]), cfg.mlp_act).reshape(h.shape)
+    return L.mlp_apply(p.mlp, h, cfg.mlp_act)
+
+
 def _block_full(p: Block, cfg: ModelConfig, x, positions, is_local, causal=True):
-    """One dense block, full sequence, no cache."""
+    """One block, full sequence, no cache."""
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     x = x + _attn_full(p.attn, cfg, h, positions, is_local, causal)
     h = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
-    return x + L.mlp_apply(p.mlp, h, cfg.mlp_act)
+    return x + ffn(p, cfg, h)
 
 
 # ------------------------------------------------------------------ forward
@@ -270,6 +346,8 @@ def forward(
     tokens = as_tokens(params, tokens)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    for blk in params.dense_prefix or ():
+        x = _block_full(blk, cfg, x, positions, None)
     for blk, is_local in zip(params.layers, params.is_local):
         x = _block_full(blk, cfg, x, positions, is_local)
     return logits_from(params, cfg, x)

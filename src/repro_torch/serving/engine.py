@@ -16,6 +16,16 @@ reference's, step for step:
 
 The lengths live on the host (one small copy per step) and the cache on
 the card, updated in place by ``decode_step``.
+
+On the card every model step is one replay of a CUDA graph
+(:class:`DecodeGraph`), the counterpart of the reference's ``jax.jit``
+over its decode step: one per (slots, max_len, cache dtype), captured at
+the engine's first serve (or :meth:`ServingEngine.warm`), over a cache
+the engine keeps and zeroes in place at each serve.  A step is one
+pinned copy in, one replay, and — where the serve loop reads the next
+tokens — one copy of the B greedy ids out (the argmax runs on the card).
+``cuda_graph=False`` runs the same steps eagerly; ``device="cpu"`` is
+always eager.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import decode as D
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import tokenizer as tok
@@ -58,9 +70,97 @@ class ServeStats:
         return self.tokens_generated / self.wall_seconds if self.wall_seconds else 0.0
 
 
+class DecodeGraph:
+    """``decode_step`` over one cache, captured as one CUDA graph.
+
+    Static tensors, each at one address for the graph's lifetime: ``inp``
+    (2, B) int32, the token ids and the cache lengths; the cache, which
+    every replay updates in place; the outputs ``logits`` (B, V) and
+    ``ids`` (B,), the greedy argmax taken on the card.  ``kernel_launches``
+    holds the K3/K4 launches the graph recorded: what one replay launches,
+    since a replay bypasses the wrappers' counters.
+
+    The hazards of capturing a decode step, and where they are handled:
+
+    * No host sync inside the step: ``decode_step`` and the MoE dispatch
+      (``models/layers.py``) make none.
+    * K4's arrival counters are kept per (device, stream)
+      (``kernels/decode_attention/ops.py``): the graph is captured on a
+      stream of its own, on which nothing else launches, and holds that
+      stream, so no eager K4 call shares the counters a replay uses and
+      they are never replaced.
+    * Frozen host state: K4 builds the TMA bulk copies' addresses from the
+      cache slices at capture, so the cache is never reallocated, only
+      written in place (and zeroed in place between serves).
+    * The eager run before the capture (cuBLAS handles and workspaces, the
+      kernel library, K4's counters — none of which may be created inside
+      a capture) runs with every length at the cache's end, where
+      ``decode_step`` drops the row it would write: it leaves the cache as
+      it was.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, cache: dict, kv_repeat: int = 1):
+        leaf = next(iter(cache.values()))
+        dev = leaf.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a cache on the card, got {dev}")
+        b, s = leaf.shape[1], leaf.shape[2]
+        self.cache = cache
+        self.inp = torch.zeros((2, b), dtype=torch.int32, device=dev)
+        self.inp[1].fill_(s)  # past the cache: the warm-up writes no row
+
+        def step():
+            logits, _, _ = D.decode_step(params, cfg, self.inp[0], cache, self.inp[1], kv_repeat)
+            return logits, torch.argmax(logits, dim=-1)
+
+        counters = {"flash_attention": flash_ops.flash_attention_bshd,
+                    "decode_attention": decode_ops.decode_attention_cache}
+        self.stream = torch.cuda.Stream(dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            step()
+        self.stream.synchronize()
+        before = {name: fn.launches for name, fn in counters.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=self.stream, capture_error_mode="thread_local"):
+            self.logits, self.ids = step()
+        self.capture_seconds = time.perf_counter() - t0
+        self.kernel_launches = {name: fn.launches - before[name] for name, fn in counters.items()}
+        self.replays = 0
+        self._ids_host = torch.empty(b, dtype=torch.int64, pin_memory=True)
+        self._ids_ready = torch.cuda.Event()
+
+    def run(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """One replay on tensors (on the card or the host): the static
+        logits, which the next replay overwrites."""
+        self.inp[0].copy_(tokens)
+        self.inp[1].copy_(lengths)
+        self.graph.replay()
+        self.replays += 1
+        return self.logits
+
+    def step(self, tokens: np.ndarray, lengths: np.ndarray, read_ids: bool = True) -> np.ndarray | None:
+        """One replay on host arrays: one pinned copy in (the pinned block
+        is not reused before the copy has run), the replay, and with
+        ``read_ids`` the greedy ids copied out."""
+        src = torch.from_numpy(np.stack([tokens, lengths]).astype(np.int32)).pin_memory()
+        self.inp.copy_(src, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        if not read_ids:
+            return None
+        self._ids_host.copy_(self.ids, non_blocking=True)
+        self._ids_ready.record()
+        self._ids_ready.synchronize()
+        return self._ids_host.numpy().copy()
+
+
 class ServingEngine:
     """Slot-based batched serving for one model on one device
-    (``"cuda"`` by default; the model is moved there), greedy sampling."""
+    (``"cuda"`` by default; the model is moved there), greedy sampling.
+    On the card each model step is a replay of a :class:`DecodeGraph`
+    unless ``cuda_graph`` is False; a capture that fails raises."""
 
     def __init__(
         self,
@@ -71,6 +171,7 @@ class ServingEngine:
         num_workers: int = 2,
         cache_dtype: torch.dtype = torch.float32,
         device: str | torch.device | None = "cuda",
+        cuda_graph: bool = True,
     ):
         self.device = resolve_device(device)
         self.params = params.to(self.device)
@@ -79,16 +180,40 @@ class ServingEngine:
         self.max_len = max_len
         self.num_workers = num_workers
         self.cache_dtype = cache_dtype
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        # the step captured at this engine's (slots, max_len, cache dtype), with its cache
+        self.decode_graph: DecodeGraph | None = None
         # forward passes of the model (serve steps + prompt steps) of the last serve()
         self.model_steps = 0
 
-    def _decode(self, tok_ids: np.ndarray, cache: dict, lens: np.ndarray) -> torch.Tensor:
+    def warm(self) -> DecodeGraph | None:
+        """Capture this engine's decode graph now (a no-op when eager)."""
+        if self.cuda_graph and self.decode_graph is None:
+            cache = D.init_cache(self.cfg, self.slots, self.max_len, dtype=self.cache_dtype,
+                                 device=self.device)
+            self.decode_graph = DecodeGraph(self.params, self.cfg, cache)
+        return self.decode_graph
+
+    def _fresh_cache(self) -> dict:
+        graph = self.warm()
+        if graph is None:
+            return D.init_cache(self.cfg, self.slots, self.max_len, dtype=self.cache_dtype,
+                                device=self.device)
+        for buf in graph.cache.values():
+            buf.zero_()
+        return graph.cache
+
+    def _decode(self, tok_ids: np.ndarray, cache: dict, lens: np.ndarray,
+                read_ids: bool = True) -> np.ndarray | None:
+        """One model step; with ``read_ids`` the greedy next ids (B,)."""
         self.model_steps += 1
+        if self.cuda_graph:
+            return self.warm().step(tok_ids, lens, read_ids)
         logits, _, _ = D.decode_step(
             self.params, self.cfg, torch.from_numpy(tok_ids).to(self.device), cache,
             torch.from_numpy(lens).to(self.device),
         )
-        return logits
+        return torch.argmax(logits, dim=-1).cpu().numpy() if read_ids else None
 
     # --------------------------------------------------------------- public
     def serve(self, requests: list[Request]) -> tuple[list[Request], ServeStats]:
@@ -112,8 +237,7 @@ class ServingEngine:
             t.start()
 
         # slot state
-        cache = D.init_cache(self.cfg, self.slots, self.max_len, dtype=self.cache_dtype,
-                             device=self.device)
+        cache = self._fresh_cache()
         lens = np.zeros((self.slots,), np.int32)
         cur_tok = np.zeros((self.slots,), np.int32)
         slot_req: list[Request | None] = [None] * self.slots
@@ -139,10 +263,9 @@ class ServingEngine:
             if all(r is None for r in slot_req):
                 time.sleep(0.001)
                 continue
-            logits = self._decode(cur_tok, cache, lens)
+            nxt = self._decode(cur_tok, cache, lens)
             lens += 1
             decode_steps += 1
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             for s in range(self.slots):
                 r = slot_req[s]
                 if r is None:
@@ -180,6 +303,6 @@ class ServingEngine:
         for t in range(max(0, len(prompt) - 1)):
             one = np.zeros((self.slots,), np.int32)
             one[slot] = prompt[t]
-            self._decode(one, cache, lens)
+            self._decode(one, cache, lens, read_ids=False)
             lens[slot] += 1
         return int(prompt[-1]) if len(prompt) else tok.BOS

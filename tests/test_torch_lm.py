@@ -67,7 +67,7 @@ CASES = ["gemma3-1b", "internlm2-1.8b", "dense_gqa_qknorm", "local_global_tied"]
 
 
 def test_configs_are_the_reference_configs():
-    for arch in ("gemma3-1b", "internlm2-1.8b"):
+    for arch in ("gemma3-1b", "internlm2-1.8b", "olmoe-1b-7b", "deepseek-v2-236b"):
         for get, ref_get in ((configs.get_config, ref_configs.get_config),
                              (configs.get_smoke_config, ref_configs.get_smoke_config)):
             assert dataclasses.asdict(get(arch)) == dataclasses.asdict(ref_get(arch))
@@ -208,12 +208,19 @@ def test_init_lm_is_seeded_with_the_reference_scales():
     assert n == ref_n
 
 
-def test_unported_stacks_raise():
-    moe = ModelConfig("t", "moe", 3, 48, 4, 4, 32, 61, head_dim=12, num_experts=8,
-                      experts_per_token=2, dtype="float32")
+# the stacks still to port (ROADMAP item 25): SSM, hybrid, encoder-decoder,
+# VLM, and a dense-FFN prefix under GQA (no configuration has one)
+UNPORTED = ["xlstm-125m", "hymba-1.5b", "whisper-large-v3", "internvl2-26b", "gqa-dense-prefix"]
+
+
+@pytest.mark.parametrize("which", UNPORTED)
+def test_unported_stacks_raise(which):
+    if which == "gqa-dense-prefix":
+        cfg = ModelConfig("t", "moe", 3, 48, 4, 4, 32, 61, head_dim=12, num_experts=8,
+                          experts_per_token=2, first_dense_layers=1, dense_d_ff=64, dtype="float32")
+    else:
+        cfg = ModelConfig(**dataclasses.asdict(ref_configs.get_smoke_config(which)))
     with pytest.raises(NotImplementedError, match="item 25"):
-        T.TransformerLM(moe, "cpu")
-    mla = ModelConfig("t", "dense", 2, 64, 4, 4, 32, 61, attn_type="mla", kv_lora_rank=16,
-                      rope_head_dim=8, nope_head_dim=16, v_head_dim=16, dtype="float32")
+        T.TransformerLM(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="item 25"):
-        D.init_cache(mla, 1, 8, device="cpu")
+        D.init_cache(cfg, 1, 8, device="cpu")

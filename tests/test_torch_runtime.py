@@ -74,7 +74,12 @@ def _runtimes(images, extra=None, **device_cfg):
         fns = {}
         for name, seed in (("fast", 0), ("slow", 1)):
             w = to_model(_weights(seed))
-            fns[name] = lambda x, w=w: x.reshape(x.shape[0], -1) @ w
+            if Runtime is TRuntime:
+                # row by row: a CPU matmul's bits can depend on a row's
+                # position in the batch (MKL), and tests compare runs bitwise
+                fns[name] = lambda x, w=w: torch.stack([r.reshape(-1) @ w for r in x])
+            else:
+                fns[name] = lambda x, w=w: x.reshape(x.shape[0], -1) @ w
         kw = {"device": "cpu"} if Runtime is TRuntime else {}
         rt = Runtime(
             models, [full, thumb], fns, calibration=corpus[:3],

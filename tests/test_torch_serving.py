@@ -108,4 +108,4 @@ def test_serve_cli_on_the_cpu(capsys):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--restore", "ckpt"])
     with pytest.raises(NotImplementedError, match="item 25"):
-        serve_cli.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu"])
+        serve_cli.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu"])
