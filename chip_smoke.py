@@ -228,7 +228,8 @@ def check_kernel_code(build) -> None:
     (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16,
     ``wgmma``), HMMA (every instance of K1's template, ``mma.sync`` tf32),
     UBLKCP (K4, TMA bulk copies) and LDGSTS (K2, ``cp.async``), and ptxas
-    reports no spills for them (when this process built the library)."""
+    reports no spills for them and serialises no ``wgmma`` (when this
+    process built the library)."""
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", build.build_info["path"]],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -240,12 +241,14 @@ def check_kernel_code(build) -> None:
         elif name is not None:
             for op in counts[name]:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
-    spills, entry = {}, None
+    spills, entry, serialized = {}, None, []
     for line in build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "spill stores" in line and entry is not None:
             spills[entry] = line.strip()
+        if "wgmma" in line and "serialized" in line:
+            serialized.append(line.strip())
     for key, op in DESIGNED_KERNELS.items():
         found = {n: c[op] for n, c in counts.items() if key in n}
         log(f"[env] sass: {key}: {op} instructions per instance {sorted(found.values())}")
@@ -257,6 +260,8 @@ def check_kernel_code(build) -> None:
         for n, report in spills.items():
             if key in n and "0 bytes spill stores, 0 bytes spill loads" not in report:
                 raise AssertionError(f"{n} spills: {report}")
+    if serialized:  # ptxas waits after every wgmma where it cannot prove the overlap safe
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     if not spills:
         log("[env] ptxas report: none (the library was built by an earlier process)")
 
@@ -634,8 +639,12 @@ def check_flash_attention(dev) -> dict:
     64/128/256, causal off, and q/k/v as (B, H, S, D) views; then the MLA
     instance, q/k 192 and v 128: DeepSeek-V2's prefill shape (4 x 1024, 128
     heads, group 1, causal) in bf16 and f32, OLMoE's (16 heads of 128),
-    and ragged and edge cases, v as a view of a wider (k_nope | v)
-    product as the model passes it.  Returns the largest |kernel - plain|
+    and ragged and edge cases: S where the 3-stage ring and the tiles wrap
+    (193, 257, 1025), a window ending inside a tile, more (batch, head)
+    pairs than SMs at groups 1 and 2 (tile groups that end inside a batch
+    row), v as a view of a wider (k_nope | v) product as the model passes
+    it and once contiguous; the work-tile counters are back at 0 after all
+    the launches.  Returns the largest |kernel - plain|
     over the f32 cases per instance family ("flash_attention": D = DV,
     "flash_attention_mla": 192/128; the bf16 ones are held to their own
     bound)."""
@@ -700,11 +709,21 @@ def check_flash_attention(dev) -> dict:
         (1, 777, 4, 4, True, 100, torch.float32),
         (1, 200, 4, 4, False, None, torch.bfloat16),
         (1, 2049, 2, 2, True, None, torch.bfloat16),  # the plain version's blockwise branch
+        # the 3-stage ring and the 64-key tiles wrap at these S
+        (2, 193, 4, 4, True, None, torch.bfloat16),
+        (1, 257, 4, 2, True, None, torch.bfloat16),
+        (1, 1025, 8, 8, True, None, torch.bfloat16),
+        (1, 1025, 4, 4, True, 100, torch.bfloat16),  # a window ending inside a tile
+        # more (batch, head) pairs than SMs: tile groups end inside a batch row
+        (1, 300, 136, 136, True, None, torch.bfloat16),
+        (2, 300, 136, 68, True, 100, torch.bfloat16),  # group 2
     ]
     worst_mla = 0.0
-    for b, s, h, kvh, causal, window, dt in mla_cases:
+    for i, (b, s, h, kvh, causal, window, dt) in enumerate(mla_cases):
         q, k = (_randn(rng, (b, s, n, dqk), dt, dev) for n in (h, kvh))
         v = _randn(rng, (b, s, kvh, 128 + dv), dt, dev)[..., 128:]  # the model's (k_nope | v) split
+        if i == len(mla_cases) - 1:
+            v = v.contiguous()  # and once a tensor of its own
         got = fa_ops.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=dqk**-0.5)
         want = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=dqk**-0.5)
         torch.cuda.synchronize()
@@ -716,6 +735,7 @@ def check_flash_attention(dev) -> dict:
                                  f"bound {tol}")
         if dt == torch.float32:
             worst_mla = max(worst_mla, err)
+    _expect_zero_counters("flash_attention", f"after {len(cases) + len(mla_cases)} launches")
     return {"flash_attention": worst, "flash_attention_mla": worst_mla}
 
 
@@ -834,10 +854,17 @@ def time_flash_attention(dev, flush) -> dict:
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA (faster form) "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
     # OLMoE's prefill layer (16 heads of 128, group 1), logged: the same instance family
-    q, k, v = (_randn(rng, (MOE_PREFILL_B, MOE_PREFILL_S, OLMOE_HEADS, OLMOE_HD), dt, dev) for _ in range(3))
+    b, s, h, d = MOE_PREFILL_B, MOE_PREFILL_S, OLMOE_HEADS, OLMOE_HD
+    q, k, v = (_randn(rng, (b, s, h, d), dt, dev) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     olmoe = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v), flush)
-    log(f"  flash_attention OLMoE layer ({MOE_PREFILL_B}x{MOE_PREFILL_S}, {OLMOE_HEADS} heads of "
-        f"{OLMOE_HD}, causal, bf16): kernel {olmoe:.4f} ms")
+    plain = median_ms(lambda: fa_plain.flash_attention_bshd(q, k, v), flush, iters=5, warmup=1)
+    library = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush)
+    layer_bound, by = bound_ms(b * s * h * 4 * d * 2, 4.0 * d * attention_pairs(s, True, None) * b * h,
+                               PEAK_BF16_FLOPS)
+    log(f"  flash_attention OLMoE layer ({b}x{s}, {h} heads of {d}, causal, bf16): kernel "
+        f"{olmoe:.4f} ms ({layer_bound / olmoe:.1%} of its {layer_bound:.4f} ms bound, {by}), plain "
+        f"{plain:.4f} ms, SDPA is_causal {library:.4f} ms ({_sdpa_backend(qt, kt, vt, None, True)})")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -937,11 +964,20 @@ def check_decode_attention(dev) -> float:
             raise AssertionError(f"decode_attention disagrees with its plain version: {err}, bound {tol}")
         if qdt == torch.float32:
             worst = max(worst, err)
-    left = sum(int(c.count_nonzero()) for c in da_ops._arrivals.values())
-    log(f"  decode_attention arrival counters after {len(cases)} launches: {left} non-zero")
-    if left:
-        raise AssertionError(f"{left} arrival counters were left non-zero")
+    _expect_zero_counters("decode_attention", f"after {len(cases)} launches")
     return worst
+
+
+def _expect_zero_counters(kernel: str, when: str) -> None:
+    """The kernel's per-stream counters (K4's arrivals, K3's work tiles) are
+    back at 0 once its launches are done, as the next launch needs them."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    left = sum(int(c.count_nonzero()) for key, c in _build._counters.items() if key[0] == kernel)
+    log(f"  {kernel} counters {when}: {left} non-zero")
+    if left:
+        raise AssertionError(f"{left} {kernel} counters were left non-zero")
 
 
 def time_decode_attention(dev, flush) -> dict:
@@ -2064,7 +2100,7 @@ def main() -> int:
     log(f"[env] kernels ready in {time.perf_counter() - t0:.2f} s (nvcc "
         f"{_build.build_info['seconds']:.2f} s, {_build.build_info['path']})")
     for line in _build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line or "warning" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning", "wgmma")):
             log(f"[env] ptxas: {line.strip()}")
     check_kernel_code(_build)
 

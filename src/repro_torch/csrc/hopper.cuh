@@ -65,6 +65,19 @@ inline cudaError_t raise_smem_limit(Kernel* kernel, int bytes, int (&limit)[kMax
   return err;
 }
 
+// the current device's SM count (0 if it cannot be read), looked up once
+// per device
+inline int sm_count() {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && sms[dev] > 0) return sms[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) sms[dev] = n;
+  return n;
+}
+
 // ---------------------------------------------------------------- cp.async
 // copies into shared memory that bypass the registers (LDGSTS): 16 bytes
 // (both addresses 16-byte aligned, L1 bypassed) or 4 bytes; a group is
@@ -127,8 +140,11 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups are pending: groups complete in
+// the order they were committed
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // pin registers at this point of the instruction order: the compiler may

@@ -242,17 +242,6 @@ idct_rows_tc_kernel(const T* __restrict__ x, const RowView view, const float* __
   hopper::cp_async_wait<0>();
 }
 
-int sm_count() {
-  static const int count = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    return sms;
-  }();
-  return count;
-}
-
 template <typename T, int KS, int P2, int MinBlocks>
 cudaError_t launch(const void* x, const RowView& view, const void* m, void* out, int n,
                    cudaStream_t st) {
@@ -261,7 +250,7 @@ cudaError_t launch(const void* x, const RowView& view, const void* m, void* out,
   const auto kernel = idct_rows_tc_kernel<T, KS, P2, MinBlocks>;
   cudaError_t err = hopper::raise_smem_limit(kernel, bytes, limit);
   if (err != cudaSuccess) return err;
-  const int sms = sm_count();
+  const int sms = hopper::sm_count();
   if (sms <= 0) return cudaErrorNoDevice;
   const int tiles = (n + kTileRows - 1) / kTileRows;
   const int wanted = (tiles + kWarps - 1) / kWarps;

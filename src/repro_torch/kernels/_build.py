@@ -149,7 +149,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         _I, _I, _I, _I, _I, _I,  # B, S, H, KVH, D (q/k width), DV (v width)
         _L, _L, _L, _L, _L, _L,  # q / k strides (batch, seq, head)
         _L, _L, _L, _L, _L, _L,  # v / out strides
-        _F, _I, _I, _P,  # scale, causal, window (-1 = none), stream
+        _F, _I, _I, _I,  # scale, causal, window (-1 = none), heads per tile group
+        _P, _P,  # work-tile counters, stream
     ]
     lib.repro_flash_attention.restype = _I
     lib.repro_decode_attention.argtypes = [
@@ -166,6 +167,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_empty_kernel.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+_counters: dict = {}
+
+
+def stream_counters(kernel: str, device, stream: int, n: int):
+    """At least ``n`` zeroed int32 counters of one kernel in device memory,
+    kept per (device, stream): the kernel sets them back to 0 before it
+    ends, and launches on one stream run in order, so they are zero at
+    every launch.  Two streams get two sets, so their launches may
+    overlap."""
+    import torch
+
+    key = (kernel, device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
 
 
 def check(lib: ctypes.CDLL, status: int, name: str) -> None:

@@ -55,21 +55,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_arrivals: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """Zeroed int32 counters, one per sequence·KV head, kept per (device,
-    stream): the kernel's last block of each sets its counter back to 0, and
-    launches on one stream run in order, so they are zero at every launch.
-    Two streams get two sets, so their launches may overlap."""
-    key = (device.index, stream)
-    buf = _arrivals.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _arrivals[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-    return buf
-
-
 def _check_alignment(*caches: torch.Tensor) -> None:
     """The kernel copies each cache row with one TMA bulk copy: the base
     pointer and every stepped (batch, seq, head) stride must be 16-byte
@@ -146,7 +131,7 @@ def decode_attention_cache(
         k_cache.data_ptr(), k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.data_ptr(), v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-        _arrival_counters(q.device, stream, b * kvh).data_ptr(),
+        _build.stream_counters("decode_attention", q.device, stream, b * kvh).data_ptr(),
         b, s, kvh, group, d, chunk, n_split, scale, -1 if window is None else int(window), stream,
     )
     _build.check(lib, status, "decode_attention")

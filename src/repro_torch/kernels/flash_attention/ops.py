@@ -19,6 +19,15 @@ any strides), bfloat16 the tensor-core kernel, whose TMA loads need
 tensor that breaks that raises here, before any launch.  Nothing switches
 kernels at run time.  The kernels are templates on (D, DV):
 :data:`HEAD_DIMS` lists their instances.
+
+The bf16 kernel is persistent (one block per SM) and takes its work tiles
+(128 query rows of one batch and head) in one order: (batch, head) pairs
+in groups of :func:`tile_group`, so that a head's query tiles run close
+together in time and re-read its K/V from L2 rather than device memory (a
+group's K/V fit :data:`KV_L2_BYTES`), heaviest causal tile first within a
+group.  Blocks take the next tile from a counter in device memory, kept
+per device and stream like K4's arrival counters: the kernel leaves it at
+zero.
 """
 
 from __future__ import annotations
@@ -35,6 +44,9 @@ HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 # the C entry point's dtype code: 0 the SIMT fp32 kernel, 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16  # bytes: TMA base pointers and strides
+# K/V bytes one group of the bf16 kernel's tile order may hold, a sixth of
+# the H100's 50 MB L2: the q and out streams pass through it too
+KV_L2_BYTES = 8 * 2**20
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
@@ -67,6 +79,15 @@ def _check_tma(*xs: torch.Tensor) -> None:
                 f"the bf16 kernel's TMA loads need 16-byte aligned pointers and (batch, seq, head) "
                 f"strides: pointer offset {x.data_ptr() % _TMA_ALIGN} B, strides {_strides(x)} elements"
             )
+
+
+def tile_group(b: int, h: int, kvh: int, s: int, d: int, dv: int) -> int:
+    """(batch, head) pairs per group of the bf16 kernel's tile order: whole
+    KV heads (``h // kvh`` query heads each) whose bf16 K and V, S keys of
+    D + DV, fit :data:`KV_L2_BYTES` — at least one KV head, at most all
+    ``b * h`` pairs (one group: every head's heaviest tile first)."""
+    kv_heads = max(1, KV_L2_BYTES // (s * (d + dv) * 2))
+    return min(b * h, kv_heads * (h // kvh))
 
 
 def flash_attention_bshd(
@@ -107,7 +128,9 @@ def flash_attention_bshd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, h, k.shape[2], d, dv,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        scale, int(causal), -1 if window is None else int(window), stream,
+        scale, int(causal), -1 if window is None else int(window),
+        tile_group(b, h, k.shape[2], s, d, dv),
+        _build.stream_counters("flash_attention", q.device, stream, 2).data_ptr(), stream,
     )
     _build.check(lib, status, "flash_attention")
     flash_attention_bshd.launches += 1

@@ -418,6 +418,31 @@ def test_wrappers_check_dtype_and_shape():
         da.decode_attention_cache(q, kc.half(), kc.half(), torch.ones(1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize(
+    "b,h,kvh,s,d,dv,want",
+    [
+        (4, 4, 1, 2048, 256, 256, 16),  # Gemma3-1B's prefill: one group, every head's heaviest tile first
+        (4, 16, 16, 1024, 128, 128, 16),  # OLMoE's: 512 KiB of K/V a head
+        (4, 128, 128, 1024, 192, 128, 12),  # DeepSeek-V2's: 640 KiB a head
+        (2, 8, 2, 65536, 128, 128, 4),  # one KV head past the budget: a group is still whole
+    ],
+)
+def test_k3_tile_groups_hold_whole_kv_heads_within_the_l2_budget(b, h, kvh, s, d, dv, want):
+    got = fa.tile_group(b, h, kvh, s, d, dv)
+    assert got == want
+    group, kv_bytes = h // kvh, s * (d + dv) * 2
+    assert got == b * h or got % group == 0
+    assert got // group == 1 or got // group * kv_bytes <= fa.KV_L2_BYTES
+
+
+def test_k3_tile_groups_without_a_budget_are_head_major(monkeypatch):
+    monkeypatch.setattr(fa, "KV_L2_BYTES", 0)
+    assert fa.tile_group(4, 128, 128, 1024, 192, 128) == 1
+    assert fa.tile_group(4, 8, 2, 1024, 128, 128) == 4  # the query heads of one KV head
+    monkeypatch.setattr(fa, "KV_L2_BYTES", 1 << 60)
+    assert fa.tile_group(4, 128, 128, 1024, 192, 128) == 512  # one group: every head's heaviest tile first
+
+
 def test_launch_counters_ignore_cpu_calls():
     before = (fa.flash_attention_bshd.launches, da.decode_attention_cache.launches)
     x = torch.zeros((1, 8, 2, 16))

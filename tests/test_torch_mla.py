@@ -23,6 +23,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as ref_configs  # noqa: E402
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.models import decode as RD  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
@@ -79,6 +81,37 @@ def test_plain_flash_attention_takes_a_value_width(s, kvh, causal, window, block
     got = L.attention_scores_blockwise(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                        causal=causal, window=window, scale=scale)
     np.testing.assert_allclose(got.numpy(), want, atol=ATTN_ATOL, rtol=0)
+
+
+def _bhsd(x):
+    return jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("kvh", [4, 2])
+@pytest.mark.parametrize("s", [1, 127, 129, 193, 1025])
+def test_k3_mla_instance_at_the_tile_edges(s, kvh, window):
+    # K3's wrapper at MLA's widths (q/k 192, v 128; on the CPU its plain
+    # version) where the bf16 kernel's 128-row query tiles, 64-key tiles and
+    # 3-stage ring wrap, GQA groups 1 and 2, causal with and without a
+    # 64-key window, v a strided view of the (k_nope | v) product as the
+    # model passes it: against the reference's oracle and, up to S 129, its
+    # Pallas kernel in interpret mode (v zero-padded to 192, the output
+    # cropped: the kernel takes one width).  f32, within ATTN_ATOL.
+    b, h, d, dv = (2 if s < 1025 else 1), 4, 192, 128
+    q, k = _normal(11, b, s, h, d), _normal(12, b, s, kvh, d)
+    kv = _normal(13, b, s, kvh, 128 + dv)  # (k_nope | v)
+    v = torch.from_numpy(kv)[..., 128:]
+    assert not v.is_contiguous()
+    got = fa.flash_attention_bshd(torch.from_numpy(q), torch.from_numpy(k), v, window=window, scale=d**-0.5)
+    assert got.shape == (b, s, h, dv)
+    want = np.asarray(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v.numpy()), window=window, scale=d**-0.5))
+    np.testing.assert_allclose(got.numpy(), want.transpose(0, 2, 1, 3), atol=ATTN_ATOL, rtol=0)
+    if s <= 129:  # interpret mode is slow at long S
+        vp = np.concatenate([v.numpy(), np.zeros((b, s, kvh, d - dv), np.float32)], axis=-1)
+        pallas = np.asarray(ref_flash(_bhsd(q), _bhsd(k), _bhsd(vp), window=window, scale=d**-0.5,
+                                      bq=64, bk=64))[..., :dv]
+        np.testing.assert_allclose(got.numpy(), pallas.transpose(0, 2, 1, 3), atol=ATTN_ATOL, rtol=0)
 
 
 def test_flash_attention_wrapper_knows_the_mla_instance(monkeypatch):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where K4's, K2's and K1's time goes on the card, beyond ``chip_smoke.py``.
+"""Where K4's, K2's, K1's and K3's time goes on the card, beyond ``chip_smoke.py``.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/kernel_sweeps.py [k4] [k2] [k1]   (no argument: all three)
+    python3 tools/kernel_sweeps.py [k4] [k2] [k1] [k3 [PARENT]]   (no argument: k4, k2, k1)
 
 1. K4 stages: builds a copy of ``src/repro_torch/csrc/decode_attention.cu``
    (under ``build/kernel_sweeps/``) with a timestamp (``clock64`` and
@@ -27,6 +27,29 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    phase 3's (64 x 384x512, point 8) and 6C's (16 x 768x1024, point 4),
    and 4 times their rows, whole and per launch (luma, chroma).  The
    variants that compute the same function are held to the plain version.
+5. K3 (``k3``): first the overlapped loop's steps, from a copy of
+   ``src/repro_torch/csrc/flash_attention.cu`` (under
+   ``build/kernel_sweeps/``) with a ``clock64`` stamp by thread 0 of each
+   consumer warpgroup at each step (wait for the K/V tile, issue S(t) and
+   P V(t - 1), wait for S(t), softmax, wait for P V(t - 1), rescale O and
+   split P): median cycles per step at OLMoE's and DeepSeek-V2's shapes,
+   with the SM clock from ``%globaltimer``, for the shipped kernel and with
+   the products taken out (the raw stamps of the shipped one go to
+   ``build/kernel_sweeps/k3_stamps_*.npz``).  Then the design steps and ablations:
+   copies with the ring depth or the schedule changed (one product in
+   flight; 2, 3 or 4 stages; (256, 256) overlapped too) or one part taken
+   out (the P_lo V products, all P V, S, the softmax, every product, the
+   K/V loads), each under several tile orders (one group of every head;
+   head-major; groups whose K/V fit 8 or 16 MiB), at each bf16 instance's
+   path shape: Gemma3-1B's global and local layer (4 x 2048, 4 heads over 1
+   of 256), OLMoE's (4 x 1024, 16 heads of 128) and DeepSeek-V2's (4 x 1024,
+   128 heads, q/k 192, v 128), beside SDPA (``is_causal``; the local layer
+   with its mask); the variants that compute K3's function are held to the
+   plain version at ``chip_smoke``'s bf16 bound.  With ``PARENT``, a
+   directory holding another checkout (``git archive <commit> | tar -x -C
+   build/parent``), the shipped kernels of that checkout and this one are
+   then timed at the same shapes in turns (other, this, this, other; one
+   process each, each building its own kernels).
 
 Every line names the card and its power limit.  It exits non-zero without
 a card.
@@ -287,11 +310,336 @@ def k1_ablations(dev, card: str, flush) -> None:
             del views, pairs, want
 
 
+# K3: each bf16 instance at its path shape: label, B, S, H, KVH, q/k width, v width, window
+K3_SHAPES = (("Gemma3-1B global", 4, 2048, 4, 1, 256, 256, None),
+             ("Gemma3-1B local", 4, 2048, 4, 1, 256, 256, 512),
+             ("OLMoE", 4, 1024, 16, 16, 128, 128, None),
+             ("DeepSeek-V2", 4, 1024, 128, 128, 192, 128, None))
+K3_STAGES = "constexpr int kMaxStages = 3;"
+K3_OVERLAP = "static constexpr bool kOverlap = DV <= 128;"
+K3_LO = """#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<DV>(o, plo[kk], hopper::desc_b128(va + kk * 16 * kRowBytes, kTcBK * kRowBytes, 1024));
+"""
+K3_PV = "                                         const uint32_t (&plo)[4][4], uint32_t va) {\n"
+K3_QK = "__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa, uint32_t ka) {\n"
+K3_SOFTMAX = "                                             int window, float scale_log2) {\n"
+K3_NO_LOADS = (("          hopper::mbar_arrive_expect_tx(full, L::kKTile + L::kVTile);\n",
+                "          hopper::mbar_arrive(full);\n          continue;\n"),)
+K3_NO_PRODUCTS = ((K3_PV, K3_PV + "  return;\n"), (K3_QK, K3_QK + "  return;\n"))
+K3_NO_SOFTMAX = ((K3_SOFTMAX, K3_SOFTMAX + "  corr0 = corr1 = 1.0f;\n  return;\n"),)
+K3_SERIAL = (K3_OVERLAP, "static constexpr bool kOverlap = false;")
+
+
+def _stages(n: int) -> tuple:
+    return (K3_STAGES, f"constexpr int kMaxStages = {n};")
+
+
+# name: (source edits, whether the variant still computes K3's function):
+# the design steps, the shipped kernel, then ablations that take one part
+# of the shipped kernel out (their outputs are not K3's)
+K3_VARIANTS = {
+    "one product in flight, 2 stages": ((_stages(2), K3_SERIAL), True),
+    "one product in flight, 3 stages": ((K3_SERIAL,), True),
+    "shipped": ((), True),
+    "shipped at 2 stages": ((_stages(2),), True),
+    "shipped at 4 stages": ((_stages(4),), True),
+    "(256, 256) overlapped too": (((K3_OVERLAP, "static constexpr bool kOverlap = true;"),), True),
+    "no P_lo V products": (((K3_LO, ""),), False),
+    "no P V products": (((K3_PV, K3_PV + "  return;\n"),), False),
+    "no S = Q K^T products": (((K3_QK, K3_QK + "  return;\n"),), False),
+    "no softmax": (K3_NO_SOFTMAX, False),
+    "no products": (K3_NO_PRODUCTS, False),
+    "K/V loads and barriers only": (K3_NO_PRODUCTS + K3_NO_SOFTMAX, False),
+    "no K/V loads": (K3_NO_LOADS, False),
+    "no K/V loads, no products": (K3_NO_LOADS + K3_NO_PRODUCTS, False),
+}
+# tile orders: K/V bytes a group of heads may hold (ops.KV_L2_BYTES); the
+# ablations run at the shipped one only
+K3_ORDERS = (("one group of all heads", 1 << 60), ("head-major", 0), ("8 MiB groups", 8 << 20),
+             ("16 MiB groups", 16 << 20))
+
+
+def ptxas_summary(log: str, key: str = "flash_attention_tc_kernel") -> str:
+    """Registers and spills of each instance of kernel ``key`` in a ptxas
+    report, and any line where ptxas serialises its ``wgmma``s."""
+    parts, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name[name.index(key) + len(key):][:14] if key in name else None
+        elif entry and ("registers" in line or "spill stores" in line):
+            parts.append(f"{entry} {line.split(':', 1)[-1].strip()}")
+        if "wgmma" in line and key in line:
+            parts.append(line.strip())
+    return " | ".join(parts)
+
+
+K3_STAMP_BLOCKS, K3_STAMP_TILES = 160, 256  # blocks (one per SM), loop iterations of a warpgroup
+K3_STAGE_NAMES = ("wait for the K/V tile", "issue S(t), P V(t - 1)", "wait for S(t)", "softmax",
+                  "wait for P V(t - 1)", "rescale O, split P")
+
+
+def k3_stamped_source(edits=()) -> str:
+    """flash_attention.cu with ``edits`` made (a K3_VARIANTS entry's), a
+    clock64 stamp, by thread 0 of each consumer warpgroup, at each step of
+    the overlapped schedule's loop (blocks below K3_STAMP_BLOCKS, a
+    warpgroup's first K3_STAMP_TILES iterations), and a C function that
+    copies the stamps out (clear: zero them instead)."""
+    src = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"flash_attention.cu changed: anchor {old[:50]!r} not found once")
+        src = src.replace(old, new)
+    head = '#include "hopper.cuh"\n'
+    counter = "    Ring ring;\n    for (int r = 0;; ++r) {\n"
+    for anchor in (head, counter):
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"flash_attention.cu changed: anchor {anchor[:50]!r} not found once")
+    src = src.replace(counter, "    int k3_it = 0;\n" + counter)
+
+    def stamp(k: int) -> str:
+        slot = f"k3_stamps[((blockIdx.x * 2 + wg) * {K3_STAMP_TILES} + k3_it) * 10 + {{}}]"
+        timer = ""
+        if k in (0, 6):  # and the global timer (ns), for the SM clock rate
+            timer = (f" unsigned long long g; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g)); "
+                     f"{slot.format(8 + k // 6)} = g;")
+        step = " ++k3_it;" if k == 6 else ""
+        return (f"            if ((threadIdx.x & 127) == 0 && blockIdx.x < {K3_STAMP_BLOCKS} && "
+                f"k3_it < {K3_STAMP_TILES}) {{ {slot.format(k)} = clock64();{timer}{step} }}\n")
+
+    full = "            hopper::mbar_wait(bar_full + 8 * ring.stage, ring.phase);\n"
+    fence = "            fence_softmax(s, rs, corr0, corr1);\n"
+    wait0 = "            hopper::wgmma_wait<0>();\n"
+    edits = [  # each once in the overlapped schedule's loop
+        ("          for (++t; t < w_end; ++t) {\n",
+         "          for (++t; t < w_end; ++t) {\n" + stamp(0)),
+        (full + "            hopper::fence_regs(s);\n", full + stamp(1) + "            hopper::fence_regs(s);\n"),
+        ("            hopper::wgmma_commit();\n            hopper::wgmma_wait<1>();",
+         "            hopper::wgmma_commit();\n" + stamp(2) + "            hopper::wgmma_wait<1>();"),
+        ("            hopper::wgmma_wait<1>();  // S(t) is done; P V(t - 1) may still run\n",
+         "            hopper::wgmma_wait<1>();  // S(t) is done; P V(t - 1) may still run\n" + stamp(3)),
+        (fence + wait0, fence + stamp(4) + wait0 + stamp(5)),
+        ("            split_p(s, phi, plo);\n            pv_stage = ring.stage;\n",
+         "            split_p(s, phi, plo);\n" + stamp(6) + "            pv_stage = ring.stage;\n"),
+    ]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"flash_attention.cu changed: anchor {old[:50]!r} not found once")
+        src = src.replace(old, new)
+    n = K3_STAMP_BLOCKS * 2 * K3_STAMP_TILES * 10
+    return src.replace(head, head + f"""
+__device__ unsigned long long k3_stamps[{n}];
+extern "C" int repro_k3_stamps(void* dst, int clear) {{
+  static unsigned long long zeros[{n}];
+  return static_cast<int>(clear ? cudaMemcpyToSymbol(k3_stamps, zeros, sizeof(zeros))
+                                : cudaMemcpyFromSymbol(dst, k3_stamps, sizeof(zeros)));
+}}
+""")
+
+
+# the shipped kernel's loop, and the same with one part taken out
+K3_STAMPED = ("shipped", "no products")
+
+
+def k3_stages(dev, card: str, flush) -> None:
+    """Median cycles of each step of the overlapped loop, per warpgroup and
+    tile, at OLMoE's and DeepSeek-V2's shapes (the second launch is read),
+    for the shipped kernel and the K3_STAMPED ablations."""
+    from repro_torch.kernels import _build
+
+    out_dir = ROOT / "build" / "kernel_sweeps"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = _build.find_nvcc(), {}
+    for i, name in enumerate(K3_STAMPED):
+        cu, lib_path = out_dir / f"flash_stamped{i}.cu", out_dir / f"libflash_stamped{i}.so"
+        cu.write_text(k3_stamped_source(K3_VARIANTS[name][0]))
+        procs[name] = (lib_path, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", str(lib_path), str(cu),
+             str(_build.CSRC / "errors.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (lib_path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"stamped K3 {name!r} failed to build:\n{log[-3000:]}")
+        k3_stage_profile(dev, card, flush, k3_variant_lib(lib_path), name)
+
+
+def k3_variant_lib(path: Path) -> ctypes.CDLL:
+    """A copy of the kernel library built from edited sources, declared as
+    the shipped one (its flash-attention entry and error text)."""
+    from repro_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(path))
+    lib.repro_flash_attention.argtypes = _build.load_library().repro_flash_attention.argtypes
+    lib.repro_flash_attention.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def k3_stage_profile(dev, card: str, flush, lib, name: str) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    lib.repro_k3_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.repro_k3_stamps.restype = ctypes.c_int
+    load = _build.load_library
+    stamps = np.zeros(K3_STAMP_BLOCKS * 2 * K3_STAMP_TILES * 10, np.uint64)
+    try:
+        _build.load_library = lambda: lib
+        for shape in K3_SHAPES[2:]:
+            label, b, s, h, kvh, dqk, dv, window = shape
+            q, k, v = k3_inputs(dev, shape)
+            for _ in range(2):  # the second launch is read
+                if lib.repro_k3_stamps(None, 1):
+                    raise RuntimeError("stamps could not be cleared")
+                flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                fa.flash_attention_bshd(q, k, v, window=window, scale=dqk**-0.5)
+                torch.cuda.synchronize()
+            if lib.repro_k3_stamps(stamps.ctypes.data, 0):
+                raise RuntimeError("stamps could not be read")
+            if name == K3_STAMPED[0]:  # the raw stamps, for timelines of the two warpgroups
+                np.savez_compressed(ROOT / "build" / "kernel_sweeps" / f"k3_stamps_{label.split()[0]}.npz",
+                                    stamps=stamps)
+            rec = stamps.reshape(-1, K3_STAMP_TILES, 10).astype(np.float64)  # (block, warpgroup), tile, slot
+            t, ns = rec[..., :7], rec[..., 8:]
+            full = (t > 0).all(axis=2)
+            d = np.diff(t, axis=2)[full]
+            period = (t[:, 1:, 0] - t[:, :-1, 0])[full[:, 1:] & full[:, :-1]]
+            span = ns[..., 1][full] - ns[..., 0][full]
+            ghz = np.median((t[..., 6][full] - t[..., 0][full])[span > 0] / span[span > 0])
+            print(f"K3 loop steps, {name}, {label} ({b}x{s}, {h} heads, q/k {dqk} v {dv}): {len(d)} "
+                  f"iterations of a warpgroup, median {np.median(period):.0f} cycles from one to the next, "
+                  f"SM clock {ghz:.3f} GHz [{card}]", flush=True)
+            for step, col in zip(K3_STAGE_NAMES, d.T):
+                print(f"  {step:>22}: median {np.median(col):6.0f}, mean {col.mean():7.1f} cycles", flush=True)
+            del q, k, v
+    finally:
+        _build.load_library = load
+
+
+def k3_inputs(dev, shape):
+    """q, k, v at a K3 shape, v a view of a wider (k_nope | v) product where
+    it is narrower than q/k, as DeepSeek-V2 passes it."""
+    _, b, s, h, kvh, dqk, dv, _ = shape
+    rng = np.random.default_rng(C.SEED + 9)
+    q, k = (C._randn(rng, (b, s, n, dqk), torch.bfloat16, dev) for n in (h, kvh))
+    if dv == dqk:
+        return q, k, C._randn(rng, (b, s, kvh, dv), torch.bfloat16, dev)
+    return q, k, C._randn(rng, (b, s, kvh, 128 + dv), torch.bfloat16, dev)[..., 128:]
+
+
+def k3_sdpa_ms(q, k, v, window, scale, flush) -> float:
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window is None:
+        return C.median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                                                  enable_gqa=True), flush)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    return C.median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
+                                                              enable_gqa=True), flush)
+
+
+def k3_design_steps(dev, card: str, flush) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    nvcc, out_dir = _build.find_nvcc(), ROOT / "build" / "kernel_sweeps"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (edits, _)) in enumerate(K3_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"flash_attention.cu changed: anchor {old[:50]!r} not found once")
+            text = text.replace(old, new)
+        cu = out_dir / f"flash_v{i}.cu"
+        cu.write_text(text)
+        procs[name] = (out_dir / f"libflash_v{i}.so", subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
+             str(out_dir / f"libflash_v{i}.so"), str(cu), str(_build.CSRC / "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"K3 variant {name!r} failed to build:\n{log[-3000:]}")
+        print(f"K3 variant {name!r}, ptxas per bf16 instance: {ptxas_summary(log)} [{card}]", flush=True)
+        libs[name] = k3_variant_lib(path)
+
+    load, budget = _build.load_library, fa.KV_L2_BYTES
+    try:
+        for shape in K3_SHAPES:
+            label, b, s, h, kvh, dqk, dv, window = shape
+            q, k, v = k3_inputs(dev, shape)
+            scale = dqk**-0.5
+            want = fa_plain.flash_attention_bshd(q, k, v, window=window, scale=scale)
+            sdpa = k3_sdpa_ms(q, k, v, window, scale, flush)
+            print(f"K3 {label} ({b}x{s}, {h} heads over {kvh}, q/k {dqk} v {dv}, window {window}): "
+                  f"SDPA {sdpa:.4f} ms [{card}]", flush=True)
+            for name, lib in libs.items():
+                _build.load_library = lambda lib=lib: lib
+                same = K3_VARIANTS[name][1]
+                for order, kv_bytes in K3_ORDERS if same else (("shipped order", budget),):
+                    fa.KV_L2_BYTES = kv_bytes
+                    got = fa.flash_attention_bshd(q, k, v, window=window, scale=scale)
+                    err, inside, tol = C._attn_bound(got, want, torch.bfloat16)
+                    ms = C.median_ms(lambda: fa.flash_attention_bshd(q, k, v, window=window, scale=scale),
+                                     flush)
+                    check = f", max|kernel-plain| {err:.3e} (inside {tol}: {inside})" if same else ""
+                    print(f"  {name}, {order} ({fa.tile_group(b, h, kvh, s, dqk, dv)} heads a group): "
+                          f"{ms:.4f} ms, {sdpa / ms:.2f}x SDPA{check} [{card}]", flush=True)
+                    if same and not inside:
+                        raise AssertionError(f"K3 variant {name!r} disagrees with the plain version")
+            del q, k, v, want
+    finally:
+        _build.load_library, fa.KV_L2_BYTES = load, budget
+
+
+def k3_shipped(tree: Path, label: str) -> None:
+    """One checkout's shipped K3 at each shape (run in a process of its own)."""
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev, card = torch.device("cuda"), C.card_line()
+    _build.load_library()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    for shape in K3_SHAPES:
+        name, b, s, h, kvh, dqk, dv, window = shape
+        q, k, v = k3_inputs(dev, shape)
+        scale = dqk**-0.5
+        ms = C.median_ms(lambda: fa.flash_attention_bshd(q, k, v, window=window, scale=scale), flush)
+        sdpa = k3_sdpa_ms(q, k, v, window, scale, flush)
+        print(f"[{label}] K3 {name}: kernel {ms:.4f} ms, SDPA {sdpa:.4f} ms ({tree}) [{card}]", flush=True)
+        del q, k, v
+
+
+def k3_ab(parent: Path) -> int:
+    for tree, label in ((parent, "other"), (ROOT, "this"), (ROOT, "this"), (parent, "other")):
+        proc = subprocess.run([sys.executable, __file__, "k3-child", str(tree), label], timeout=600)
+        if proc.returncode:
+            return proc.returncode
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_sweeps: no CUDA device", file=sys.stderr)
         return 2
-    parts = set(sys.argv[1:]) or {"k4", "k2", "k1"}
+    if sys.argv[1:2] == ["k3-child"]:
+        k3_shipped(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    parts = {a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3")} or {"k4", "k2", "k1"}
+    others = [Path(a).resolve() for a in sys.argv[1:] if a not in parts]
+    if others and (parts != {"k3"} or len(others) > 1 or not others[0].is_dir()):
+        print(__doc__, file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     card = C.card_line()
     if "k4" in parts:
@@ -303,6 +651,12 @@ def main() -> int:
         k2_stages(dev, card, flush)
     if "k1" in parts:
         k1_ablations(dev, card, flush)
+    if "k3" in parts:
+        k3_stages(dev, card, flush)
+        k3_design_steps(dev, card, flush)
+        del flush
+        if others:
+            return k3_ab(others[0])
     return 0
 
 
