@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    staged batches at points 8/4/2, K5 on 4:2:0 and 4:4:4 with odd crops),
    then its median time (CUDA events, cold L2) beside the plain version's,
    one library call's, and the least time the card could take (the
-   bound); K1 at phase 3's batch (point 8) and 6C's (point 4); for K4 also
-   per layer, beside the launch floor of an empty kernel;
+   bound); K1 at phase 3's batch (point 8) and 6C's (point 4); K3 also
+   with S_k != S_q (whisper's cross attention); for K4 also per layer,
+   beside the launch floor of an empty kernel;
 3. main path: ``SmolRuntime.run`` with split decode over a seeded SJPG
    corpus (384x512, 4:2:0, q90; 2 full batches of 64 + a ragged tail) into
    a full-width ResNet-50 with seeded random weights; checks the outputs,
@@ -31,7 +32,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    finite logits, prefill and decode logits against the same model with
    plain attention and forward's last position against prefill's; prints
    prefill tokens/s, decode ms/step, serve tokens/s and a profile of
-   decode steps (K4 must launch one kernel per layer there);
+   decode steps (K4 must launch one kernel per layer there); phase 4B
+   does the same for OLMoE-1B-7B and DeepSeek-V2 (1 + 3 layers); phase
+   4C for whisper-large-v3 (full: ``encode`` of 4 x 1500 stub frames,
+   prefill of 4 x 224 over them into a 448-token cache, K3 over 1500 keys
+   for cross attention, K4 over the cross cache, serve of 8 over 4 slots)
+   and internvl2-26b (full: 256 stub vision tokens + 768 text), then
+   qwen3-32b and internlm2-20b at full width and 4 layers (prefill of
+   4 x 512, 4 decode steps), each model freed before the next;
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -105,6 +113,15 @@ MOE_MAX_LEN = MOE_PREFILL_S + 64
 DEEPSEEK_LAYERS = 4  # of 60: ~27 GB in bf16; all 60 (~470 GB) do not fit one card
 MLA_DIMS = (192, 128)  # DeepSeek-V2's q/k width (nope 128 + rope 64) and v width
 OLMOE_HEADS, OLMOE_HD = 16, 128
+# phase 4C: whisper-large-v3 (full), internvl2-26b (full), qwen3-32b and
+# internlm2-20b (full width, 4 layers), bf16
+WHISPER_B, WHISPER_PROMPT, WHISPER_MAX_LEN = 4, 224, 448  # 448: whisper's decoder ceiling
+WHISPER_FRAMES, WHISPER_HEADS, WHISPER_HD = 1500, 20, 64  # 30 s of audio after the conv frontend
+VLM_B, VLM_TEXT = 4, 768  # + the config's 256 vision tokens
+DENSE_CUT_LAYERS, DENSE_B, DENSE_S = 4, 4, 512  # qwen3-32b whole is ~65 GB in bf16
+CUT_DECODE_STEPS = 4
+SERVE_4C_REQUESTS, SERVE_4C_SLOTS = 8, 4
+SERVE_4C_TEXT = "request {i}"  # ~11 tokens: the eager serve's token-by-token prompt steps stay short
 # kernel vs plain on the card, both f32 inside: f32 outputs sum in another
 # order (the CPU tests' 2e-5 bound); bf16 outputs may round one bf16 step
 # apart, at most 2^-7 of the value, held elementwise (plus f32 noise)
@@ -675,6 +692,9 @@ def check_flash_attention(dev) -> dict:
         (2, 300, 4, 1, 256, True, 100, torch.bfloat16),
         (1, 300, 2, 2, 128, True, None, torch.bfloat16),  # group 1
         (1, 300, 8, 1, 64, True, 100, torch.bfloat16),  # group 8
+        (1, 300, 48, 8, 128, True, None, torch.bfloat16),  # group 6 (internvl2-26b, internlm2-20b)
+        (1, 300, 64, 8, 128, True, None, torch.bfloat16),  # group 8 at D 128 (qwen3-32b)
+        (1, 1500, 20, 20, 64, False, None, torch.bfloat16),  # whisper's encoder
         (1, 200, 4, 1, 64, False, None, torch.bfloat16),
         (1, 200, 4, 2, 128, False, 100, torch.bfloat16),
         (1, 129, 4, 1, 256, False, None, torch.bfloat16),
@@ -777,6 +797,110 @@ def time_flash_attention_mla(dev, flush) -> dict:
     b_ms, b_by = bound_ms(n * nbytes, n * flops, PEAK_BF16_FLOPS)
     return {
         "name": "flash_attention_mla",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:99",
+        "ms": n * kernel,
+        "plain_ms": n * plain,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": n * library,
+    }
+
+
+def check_flash_attention_cross(dev) -> float:
+    """K3 with a key length other than the query length: whisper's cross
+    attention (20 heads of 64, group 1, non-causal) at its prefill shape
+    (4 x 224 decoder rows over 1500 encoder frames) and at ragged Sq (1, 63,
+    129, 224) x Sk (1, 100, 1500), in f32 and bf16; then GQA groups 4 and
+    6, causal (both positions from 0: ``kpos <= qpos``) with Sk below and
+    above Sq, and a window.  Sk 1500 takes the plain version's blockwise
+    branch (Sk > 1024).  Returns the largest |kernel - plain| over the f32
+    cases."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 10)
+    h, d = WHISPER_HEADS, WHISPER_HD
+    cases = [(WHISPER_B, WHISPER_PROMPT, WHISPER_FRAMES, h, h, d, False, None, dt)
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(2, sq, sk, h, h, d, False, None, dt) for dt in (torch.float32, torch.bfloat16)
+              for sq in (1, 63, 129, 224) for sk in (1, 100, WHISPER_FRAMES)]
+    cases += [  # B, Sq, Sk, H, KVH, D, causal, window, dtype
+        (1, 130, 1500, 8, 2, 128, False, None, torch.bfloat16),
+        (1, 130, 300, 48, 8, 128, False, None, torch.bfloat16),  # group 6
+        (1, 300, 130, 8, 2, 128, True, None, torch.bfloat16),  # causal, Sk < Sq
+        (1, 130, 300, 8, 2, 128, True, None, torch.bfloat16),  # causal, Sk > Sq
+        (1, 300, 130, 4, 1, 64, True, None, torch.float32),
+        (1, 200, 1100, 4, 4, 64, True, 64, torch.bfloat16),
+        (1, 200, 1100, 4, 4, 64, True, 64, torch.float32),
+    ]
+    worst = 0.0
+    for b, sq, sk, h_, kvh, d_, causal, window, dt in cases:
+        q = _randn(rng, (b, sq, h_, d_), dt, dev)
+        k, v = (_randn(rng, (b, sk, kvh, d_), dt, dev) for _ in range(2))
+        got = fa_ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
+        want = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(got, want, dt)
+        log(f"  flash_attention (cross) B={b} Sq={sq} Sk={sk} H={h_} KVH={kvh} D={d_} causal={causal} "
+            f"window={window} {str(dt)[6:]}: max|kernel-plain|={err:.3e} (bound {tol})")
+        if not (got.dtype == dt and got.shape == q.shape and inside):
+            raise AssertionError(f"flash_attention (Sk != Sq) disagrees with its plain version: {err}, "
+                                 f"bound {tol}")
+        if dt == torch.float32:
+            worst = max(worst, err)
+    _expect_zero_counters("flash_attention", f"after {len(cases)} cross launches")
+    return worst
+
+
+def time_flash_attention_cross(dev, flush) -> dict:
+    """K3's cross attention at whisper-large-v3's prefill: 4 x 224 decoder
+    rows over 1500 encoder frames, 20 heads of 64, non-causal, bf16 — one
+    launch per decoder layer, 32 per prefill.  The library yardstick is
+    SDPA with no mask (the backend that ran is logged).  Also K4 over
+    whisper's cross cache (4 sequences, every one of the 1500 keys valid):
+    logged beside its bytes bound and SDPA, one launch per decoder layer
+    and decode step."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plain as da_plain
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 11)
+    b, sq, sk, h, d, dt = WHISPER_B, WHISPER_PROMPT, WHISPER_FRAMES, WHISPER_HEADS, WHISPER_HD, torch.bfloat16
+    q = _randn(rng, (b, sq, h, d), dt, dev)
+    k, v = (_randn(rng, (b, sk, h, d), dt, dev) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kernel = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v, causal=False), flush)
+    plain = median_ms(lambda: fa_plain.flash_attention_bshd(q, k, v, causal=False), flush, iters=5, warmup=1)
+    library = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), flush)
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * 2  # q, out, k, v once, bf16
+    flops = 4.0 * d * sq * sk * b * h
+    layer_bound, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    log(f"  flash_attention cross layer (whisper: {b}x{sq} rows over {sk} frames, {h} heads of {d}, "
+        f"non-causal, bf16): kernel {kernel:.4f} ms ({layer_bound / kernel:.1%} of its {layer_bound:.4f} ms "
+        f"bound, {by}), plain {plain:.4f} ms, SDPA no mask {library:.4f} ms "
+        f"({_sdpa_backend(qt, kt, vt, None, False)})")
+    n = 32  # decoder layers of whisper-large-v3
+    b_ms, b_by = bound_ms(n * nbytes, n * flops, PEAK_BF16_FLOPS)
+    # K4 over the cross cache: one query token per sequence, all 1500 keys valid
+    qd = _randn(rng, (b, h, d), dt, dev)
+    kc, vc = (_randn(rng, (b, sk, h, d), dt, dev) for _ in range(2))
+    lens = torch.full((b,), sk, dtype=torch.int32, device=dev)
+    k4 = median_ms(lambda: da_ops.decode_attention_cache(qd, kc, vc, lens), flush)
+    k4_plain = median_ms(lambda: da_plain.decode_attention(qd, kc, vc, lens), flush)
+    k4_lib = median_ms(lambda: F.scaled_dot_product_attention(qd[:, :, None], kc.transpose(1, 2),
+                                                              vc.transpose(1, 2)), flush)
+    k4_bound, k4_by = bound_ms(h * b * sk * d * 2 * 2 + 2 * b * h * d * 2 + b * 4, 4.0 * h * d * b * sk,
+                               PEAK_BF16_FLOPS)
+    log(f"  decode_attention cross layer (whisper: {b} seqs over {sk} frames, {h} heads of {d}, bf16): "
+        f"kernel {k4:.4f} ms ({k4_bound / k4:.1%} of its {k4_bound:.4f} ms bound, {k4_by}), plain "
+        f"{k4_plain:.4f} ms, SDPA no mask {k4_lib:.4f} ms")
+    return {
+        "name": "flash_attention_cross",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:99",
@@ -935,6 +1059,14 @@ def check_decode_attention(dev) -> float:
          torch.float32, None),
         (SERVE_SLOTS, SERVE_MAX_LEN, OLMOE_HEADS, OLMOE_HEADS, OLMOE_HD, None, torch.bfloat16,
          torch.float32, [0, 1, 30, 255, 256, 257, 300, 100]),
+        # internvl2-26b's decode (48 heads over 8 of 128: group 6), and
+        # whisper's cross cache (20 heads of 64, group 1, every key valid)
+        (VLM_B, 1088, 48, 8, 128, None, torch.bfloat16, torch.bfloat16, [1024, 1028, 1032, 1036]),
+        (SERVE_4C_SLOTS, SERVE_MAX_LEN, 48, 8, 128, None, torch.bfloat16, torch.float32, None),
+        (WHISPER_B, WHISPER_FRAMES, WHISPER_HEADS, WHISPER_HEADS, WHISPER_HD, None, torch.bfloat16,
+         torch.bfloat16, [WHISPER_FRAMES] * WHISPER_B),
+        (SERVE_4C_SLOTS, WHISPER_FRAMES, WHISPER_HEADS, WHISPER_HEADS, WHISPER_HD, None, torch.bfloat16,
+         torch.float32, [WHISPER_FRAMES] * SERVE_4C_SLOTS),
     ]
     worst = 0.0
     for i, (b, s_, h, kvh, d, window, qdt, cdt, lens_list) in enumerate(cases):
@@ -1457,12 +1589,14 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
 
 # ------------------------------------------------------------ phase 4: LM
 def _attention_counts() -> dict:
-    """K3's launches by instance family (D = DV; MLA's 192/128) and K4's."""
+    """K3's launches by instance family (D = DV with S_k = S_q; S_k != S_q,
+    cross attention; MLA's 192/128) and K4's."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    by_dims = fa_ops.flash_attention_bshd.launches_by_dims
-    return {"flash_attention": sum(n for dims, n in by_dims.items() if dims != MLA_DIMS),
+    by_dims, cross = fa_ops.flash_attention_bshd.launches_by_dims, fa_ops.flash_attention_bshd.launches_cross
+    return {"flash_attention": sum(n for dims, n in by_dims.items() if dims != MLA_DIMS) - cross,
+            "flash_attention_cross": cross,
             "flash_attention_mla": by_dims[MLA_DIMS],
             "decode_attention": da_ops.decode_attention_cache.launches}
 
@@ -1473,6 +1607,7 @@ def _zero_attention_counts() -> None:
 
     fa_ops.flash_attention_bshd.launches = 0
     fa_ops.flash_attention_bshd.launches_by_dims = dict.fromkeys(fa_ops.HEAD_DIMS, 0)
+    fa_ops.flash_attention_bshd.launches_cross = 0
     da_ops.decode_attention_cache.launches = 0
 
 
@@ -1547,7 +1682,26 @@ def _expect_counts(phase: str, got: dict, want: dict) -> None:
 
 
 def _counts(**kw) -> dict:
-    return {"flash_attention": 0, "flash_attention_mla": 0, "decode_attention": 0, **kw}
+    return {"flash_attention": 0, "flash_attention_cross": 0, "flash_attention_mla": 0, "decode_attention": 0,
+            **kw}
+
+
+def _k3_per_pass(cfg) -> dict:
+    """K3 launches of one prefill or forward: a layer's each (MLA's
+    instance under MLA); an encoder-decoder's encoder layers and decoder
+    layers, and a cross launch (S_k = S_enc) per decoder layer."""
+    if cfg.attn_type == "mla":
+        return {"flash_attention_mla": cfg.num_layers}
+    if cfg.is_encdec:
+        return {"flash_attention": cfg.encoder_layers + cfg.num_layers, "flash_attention_cross": cfg.num_layers}
+    return {"flash_attention": cfg.num_layers}
+
+
+def _k4_per_step(cfg) -> int:
+    """K4 launches of one decode step: one per GQA layer, and one more per
+    decoder layer over an encoder-decoder's cross cache; none under MLA
+    (its absorbed decode is plain torch)."""
+    return 0 if cfg.attn_type == "mla" else cfg.num_layers * (2 if cfg.is_encdec else 1)
 
 
 def _routing_note(differ: list) -> str:
@@ -1598,7 +1752,7 @@ def decode_graph_vs_eager(model, cfg, tag: str, cache, lens, cache_g, lens0, tok
     from repro_torch.models import decode as D
     from repro_torch.serving import engine as E
 
-    k4_per_step = 0 if cfg.attn_type == "mla" else cfg.num_layers
+    k4_per_step = _k4_per_step(cfg)
     _zero_attention_counts()
     t0 = time.perf_counter()
     graph = E.DecodeGraph(model, cfg, cache_g)
@@ -1641,20 +1795,21 @@ def decode_graph_vs_eager(model, cfg, tag: str, cache, lens, cache_g, lens0, tok
     return launches
 
 
-def serve_graph_vs_eager(model, cfg, dev, tag: str, text: str, card: str) -> dict:
-    """``ServingEngine.serve`` of 16 requests over 8 slots, eagerly and on
-    the decode graph: the same greedy ids per request.  Returns the
-    launches."""
+def serve_graph_vs_eager(model, cfg, dev, tag: str, text: str, card: str, n_requests: int = SERVE_REQUESTS,
+                         slots: int = SERVE_SLOTS) -> dict:
+    """``ServingEngine.serve`` of ``n_requests`` requests over ``slots``
+    slots, eagerly and on the decode graph: the same greedy ids per
+    request.  Returns the launches."""
     from repro_torch.serving import engine as E
 
-    k4_per_step = 0 if cfg.attn_type == "mla" else cfg.num_layers
+    k4_per_step = _k4_per_step(cfg)
     vocab = cfg.vocab_size
     runs = {}
     for mode in ("eager", "graph"):
-        engine = E.ServingEngine(model, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev,
+        engine = E.ServingEngine(model, cfg, batch_slots=slots, max_len=SERVE_MAX_LEN, device=dev,
                                  cuda_graph=mode == "graph")
         reqs = [E.Request(uid=i, text=text.format(i=i), max_new_tokens=SERVE_MAX_NEW)
-                for i in range(SERVE_REQUESTS)]
+                for i in range(n_requests)]
         _zero_attention_counts()
         t0 = time.perf_counter()
         graph = engine.warm()
@@ -1669,12 +1824,12 @@ def serve_graph_vs_eager(model, cfg, dev, tag: str, text: str, card: str) -> dic
             if graph.replays != engine.model_steps:
                 raise AssertionError(f"{graph.replays} replays for {engine.model_steps} model steps")
             c["decode_attention"] += graph.replays * graph.kernel_launches["decode_attention"]
-        if stats.completed != SERVE_REQUESTS or sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)):
-            raise AssertionError(f"served {stats.completed} of {SERVE_REQUESTS} requests")
+        if stats.completed != n_requests or sorted(r.uid for r in done) != list(range(n_requests)):
+            raise AssertionError(f"served {stats.completed} of {n_requests} requests")
         if not all(1 <= len(r.output_ids) <= SERVE_MAX_NEW and all(0 <= t < vocab for t in r.output_ids)
                    for r in done):
             raise AssertionError("a request came back with no tokens or ids outside the vocabulary")
-        log(f"[lm] {tag} serve ({mode}) {SERVE_REQUESTS} requests over {SERVE_SLOTS} slots: "
+        log(f"[lm] {tag} serve ({mode}) {n_requests} requests over {slots} slots: "
             f"{stats.tokens_generated} tokens in {stats.wall_seconds:.3f} s, "
             f"{stats.tokens_per_second:.1f} tokens/s; {stats.decode_steps} serve steps + "
             f"{engine.model_steps - stats.decode_steps} prompt steps, "
@@ -1682,85 +1837,98 @@ def serve_graph_vs_eager(model, cfg, dev, tag: str, text: str, card: str) -> dic
             f"{f'; graph captured in {warm_s:.3f} s before it' if graph is not None else ''} [{card}]")
         runs[mode] = ({r.uid: r.output_ids for r in done}, stats, c)
         del engine, graph
-    same = sum(runs["eager"][0][u] == runs["graph"][0][u] for u in range(SERVE_REQUESTS))
+    same = sum(runs["eager"][0][u] == runs["graph"][0][u] for u in range(n_requests))
     log(f"[lm] {tag} serve: graph {runs['graph'][1].tokens_per_second:.1f} tokens/s against eager "
         f"{runs['eager'][1].tokens_per_second:.1f} "
         f"({runs['graph'][1].tokens_per_second / runs['eager'][1].tokens_per_second:.2f}x); output ids "
-        f"equal for {same} of {SERVE_REQUESTS} requests")
-    if same != SERVE_REQUESTS:
+        f"equal for {same} of {n_requests} requests")
+    if same != n_requests:
         raise AssertionError(f"{tag}: the graph engine's ids differ from the eager engine's")
     return _add(dict(runs["eager"][2]), runs["graph"][2])
 
 
-def drive_lm(dev, card: str, cfg, model, tag: str, b: int, s: int, max_len: int, serve_text: str) -> dict:
+def drive_lm(dev, card: str, cfg, model, tag: str, b: int, s: int, max_len: int, serve_text: str,
+             inputs: dict | None = None, steps: int = DECODE_STEPS, serve: tuple | None = (SERVE_REQUESTS,
+                                                                                         SERVE_SLOTS),
+             full: bool = True) -> dict:
     """One LM through its serving path in bf16: ``prefill`` of b x s
-    tokens, ``forward`` over the same prompts, ``DECODE_STEPS``
-    ``decode_step``s, the decode graph against them, and ``serve`` eager
-    and on the graph.  Each phase runs with the K3/K4 counters zeroed just
-    before it and read just after; prefill and decode logits are held
-    against the same model with plain attention (an MoE model's plain run
-    routes every token to the kernel run's experts, and how many tokens
-    its own gates would send elsewhere is logged), forward's last position
-    against prefill.  Returns the launches."""
+    tokens (after the VLM's vision tokens, or over the encoder-decoder's
+    frames: ``inputs``, prefill's and forward's keyword arguments),
+    ``forward`` over the same prompts, ``steps`` ``decode_step``s, the
+    decode graph against them, and ``serve`` (``serve``: requests, slots)
+    eager and on the graph; with ``full`` False only prefill and decode.
+    Each phase runs with the K3/K4 counters zeroed just before it and read
+    just after; prefill and decode logits are held against the same model
+    with plain attention (an MoE model's plain run routes every token to
+    the kernel run's experts, and how many tokens its own gates would send
+    elsewhere is logged), forward's last position against prefill.
+    Returns the launches."""
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
 
-    n_layers, vocab = cfg.num_layers, cfg.vocab_size
-    k3 = "flash_attention_mla" if cfg.attn_type == "mla" else "flash_attention"
-    k4_per_step = 0 if cfg.attn_type == "mla" else n_layers
+    inputs = inputs or {}
+    vocab = cfg.vocab_size
+    k3_per_pass, k4_per_step = _k3_per_pass(cfg), _k4_per_step(cfg)
     rng = np.random.default_rng(SEED + 6)
     prompts = torch.from_numpy(rng.integers(0, vocab, size=(b, s))).to(dev)
+    n_vis = inputs["vision_embeds"].shape[1] if "vision_embeds" in inputs else 0
+    s_total = n_vis + s
 
     # ---- prefill (one warm-up call first: cuBLAS handles, allocator)
-    D.prefill(model, cfg, prompts, max_len=max_len)
+    D.prefill(model, cfg, prompts, max_len=max_len, **inputs)
     torch.cuda.synchronize()
     _zero_attention_counts()
     routing, differ = [], [0, 0]
     t0 = time.perf_counter()
     with _recorded_routing(routing):
-        logits, cache, lens = D.prefill(model, cfg, prompts, max_len=max_len)
+        logits, cache, lens = D.prefill(model, cfg, prompts, max_len=max_len, **inputs)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = _attention_counts()
-    _expect_counts(f"{tag} prefill", launches, _counts(**{k3: n_layers}))
+    _expect_counts(f"{tag} prefill", launches, _counts(**k3_per_pass))
     if logits.shape != (b, cfg.padded_vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite")
+    if lens.tolist() != [s_total] * b:
+        raise AssertionError(f"prefill lengths {lens.tolist()}, expected {s_total}")
     with _plain_attention(), _pinned_routing(routing, differ):
-        plain_logits, plain_cache, _ = D.prefill(model, cfg, prompts, max_len=max_len)
+        plain_logits, plain_cache, _ = D.prefill(model, cfg, prompts, max_len=max_len, **inputs)
     err, scale = _rel_err(logits, plain_logits, vocab)
-    log(f"[lm] {tag} prefill {b}x{s} tokens: {prefill_s * 1e3:.1f} ms, {b * s / prefill_s:.0f} tokens/s; "
+    what = (f"{b}x({n_vis} vision + {s} text)" if n_vis else f"{b}x{s}") + " tokens" + (
+        f" over {b}x{cfg.encoder_seq_len} frames" if cfg.is_encdec else "")
+    log(f"[lm] {tag} prefill {what}: {prefill_s * 1e3:.1f} ms, {b * s_total / prefill_s:.0f} tokens/s; "
         f"last-token logits vs plain attention: max|d| / max|logit| {err:.3e} (max|logit| {scale:.3e}, "
         f"tolerance {LM_LOGIT_RTOL}){_routing_note(differ)} [{card}]")
     if not err <= LM_LOGIT_RTOL:
         raise AssertionError(f"prefill logits differ from the plain-attention model by {err}")
 
-    # ---- forward over the same prompts (its K3 call site is gqa_apply / mla_apply)
-    _zero_attention_counts()
-    t0 = time.perf_counter()
-    all_logits = T.forward(model, cfg, prompts)
-    torch.cuda.synchronize()
-    forward_s = time.perf_counter() - t0
-    _expect_counts(f"{tag} forward", _attention_counts(), _counts(**{k3: n_layers}))
-    launches[k3] += n_layers
-    if all_logits.shape != (b, s, cfg.padded_vocab_size):
-        raise AssertionError(f"forward logits: shape {tuple(all_logits.shape)}")
-    err, _ = _rel_err(all_logits[:, -1], logits, vocab)
-    finite = bool(torch.isfinite(all_logits).all())
-    del all_logits
-    log(f"[lm] {tag} forward {b}x{s} tokens: {forward_s * 1e3:.1f} ms (one call); last-position logits "
-        f"vs prefill's: max|d| / max|logit| {err:.3e} (tolerance {FORWARD_LOGIT_RTOL:.4g}), all finite "
-        f"{finite} [{card}]")
-    if not (finite and err <= FORWARD_LOGIT_RTOL):
-        raise AssertionError(f"forward logits non-finite or differ from prefill's by {err}")
+    if full:
+        # ---- forward over the same prompts (its K3 call site is gqa_apply / mla_apply)
+        _zero_attention_counts()
+        t0 = time.perf_counter()
+        all_logits = T.forward(model, cfg, prompts, **inputs)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        _expect_counts(f"{tag} forward", _attention_counts(), _counts(**k3_per_pass))
+        _add(launches, k3_per_pass)
+        if all_logits.shape != (b, s_total, cfg.padded_vocab_size):
+            raise AssertionError(f"forward logits: shape {tuple(all_logits.shape)}")
+        err, _ = _rel_err(all_logits[:, -1], logits, vocab)
+        finite = bool(torch.isfinite(all_logits).all())
+        del all_logits
+        log(f"[lm] {tag} forward {what}: {forward_s * 1e3:.1f} ms (one call); last-position logits vs "
+            f"prefill's: max|d| / max|logit| {err:.3e} (tolerance {FORWARD_LOGIT_RTOL:.4g}), all finite "
+            f"{finite} [{card}]")
+        if not (finite and err <= FORWARD_LOGIT_RTOL):
+            raise AssertionError(f"forward logits non-finite or differ from prefill's by {err}")
 
     # ---- decode: greedy tokens of the kernel path, fed to both paths
-    cache_g, lens0 = {k: v.clone() for k, v in cache.items()}, lens.clone()
+    cache_g, lens0 = ({k: v.clone() for k, v in cache.items()}, lens.clone()) if full else (None, lens.clone())
     tok = logits.argmax(-1)
     tokens, kernel_logits, step_ms = [], [], []
     routing, differ = [], [0, 0]
     _zero_attention_counts()
     with _recorded_routing(routing):
-        for _ in range(DECODE_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache, lens = D.decode_step(model, cfg, tok, cache, lens)
@@ -1771,7 +1939,7 @@ def drive_lm(dev, card: str, cfg, model, tag: str, b: int, s: int, max_len: int,
             kernel_logits.append(logits)
             tok = nxt
     c = _attention_counts()
-    _expect_counts(f"{tag} decode", c, _counts(decode_attention=k4_per_step * DECODE_STEPS))
+    _expect_counts(f"{tag} decode", c, _counts(decode_attention=k4_per_step * steps))
     _add(launches, c)
     if not all(torch.isfinite(lg).all() for lg in kernel_logits):
         raise AssertionError("non-finite decode logits")
@@ -1781,19 +1949,21 @@ def drive_lm(dev, card: str, cfg, model, tag: str, b: int, s: int, max_len: int,
         for tk, lg in zip(tokens, kernel_logits):
             plain_lg, plain_cache, plain_lens = D.decode_step(model, cfg, tk, plain_cache, plain_lens)
             worst = max(worst, _rel_err(lg, plain_lg, vocab)[0])
-    log(f"[lm] {tag} decode {DECODE_STEPS} steps x {b} sequences from {s} tokens: "
+    log(f"[lm] {tag} decode {steps} steps x {b} sequences from {s_total} tokens: "
         f"{statistics.median(step_ms):.3f} ms/step median, {statistics.mean(step_ms):.3f} mean "
         f"(host clock, synchronised); logits vs plain attention: max|d| / max|logit| {worst:.3e} "
         f"(tolerance {LM_LOGIT_RTOL}){_routing_note(differ)} [{card}]")
     if not worst <= LM_LOGIT_RTOL:
         raise AssertionError(f"decode logits differ from the plain-attention model by {worst}")
     del plain_cache
-    _add(launches, decode_graph_vs_eager(model, cfg, tag, cache, lens, cache_g, lens0, tokens,
-                                         kernel_logits, card))
+    if full:
+        _add(launches, decode_graph_vs_eager(model, cfg, tag, cache, lens, cache_g, lens0, tokens,
+                                             kernel_logits, card))
     del cache, cache_g, kernel_logits
 
-    # ---- serving: 16 requests, 8 slots, f32 cache (the engine's default)
-    _add(launches, serve_graph_vs_eager(model, cfg, dev, tag, serve_text, card))
+    # ---- serving (f32 cache, the engine's default)
+    if full and serve is not None:
+        _add(launches, serve_graph_vs_eager(model, cfg, dev, tag, serve_text, card, *serve))
     return launches
 
 
@@ -1855,6 +2025,114 @@ def run_moe_mla_path(dev, card: str) -> dict:
         log(f"[lm] {cfg.name} took {time.perf_counter() - t0:.1f} s; memory reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _build_lm(dev, cfg, tag: str) -> tuple:
+    """A model of ``cfg`` with random weights from a seeded generator on
+    the card (peak memory counted from here); logs its size."""
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {tag}: {cfg.num_layers} layers{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''}, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} of {cfg.resolved_head_dim}"
+        f"{', qk-norm' if cfg.qk_norm else ''}, d_ff {cfg.d_ff} ({cfg.mlp_act}, {cfg.norm_type}), vocab "
+        f"{cfg.vocab_size}{f', {cfg.num_vision_tokens} vision tokens' if cfg.num_vision_tokens else ''}; "
+        f"{n_params / 1e9:.3f} B params {cfg.dtype}, built on the card in {time.perf_counter() - t0:.1f} s")
+    return model, n_params
+
+
+def _memory_line(tag: str, t0: float, card: str) -> None:
+    log(f"[lm] {tag} took {time.perf_counter() - t0:.1f} s; memory reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+
+def run_encdec_vlm_path(dev, card: str) -> dict:
+    """Phase 4C, each model bf16 with random weights from a seeded
+    generator on the card, freed before the next is built:
+    whisper-large-v3 at full width and depth (``encode`` of 4 x 1500
+    frames from ``conv_stub_frames``, then :func:`drive_lm`: prefill of
+    4 x 224 prompt tokens over them into a 448-token cache, forward, 16
+    decode steps eager and as graph replays, serve of 8 requests over 4
+    slots); internvl2-26b at full width and depth (4 x (256 vision tokens
+    from ``vit_stub_embeddings`` + 768 text) into a 1088-token cache, the
+    same steps); qwen3-32b and internlm2-20b at full width and 4 layers
+    (prefill of 4 x 512 and 4 decode steps).  Returns the launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as T
+
+    launches = {}
+    # ---- whisper-large-v3: encoder-decoder, K3 cross attention
+    cfg = configs.get_config("whisper-large-v3")
+    t0 = time.perf_counter()
+    model, _ = _build_lm(dev, cfg, cfg.name)
+    frames = frontends.conv_stub_frames(torch.Generator(device=dev).manual_seed(SEED + 1), WHISPER_B,
+                                        frontends.audio_frames_for_seconds(30), cfg.d_model, device=dev)
+    if frames.shape[1] != cfg.encoder_seq_len or frames.shape[1] != WHISPER_FRAMES:
+        raise AssertionError(f"30 s of audio gave {frames.shape[1]} frames, not {cfg.encoder_seq_len}")
+    T.encode(model, cfg, frames)
+    torch.cuda.synchronize()
+    _zero_attention_counts()
+    t1 = time.perf_counter()
+    enc = T.encode(model, cfg, frames)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t1
+    c = _attention_counts()
+    _expect_counts(f"{cfg.name} encode", c, _counts(flash_attention=cfg.encoder_layers))
+    _add(launches, c)
+    with _plain_attention():
+        plain_enc = T.encode(model, cfg, frames)
+    err = ((enc.float() - plain_enc.float()).abs().max() / plain_enc.float().abs().max()).item()
+    log(f"[lm] {cfg.name} encode {WHISPER_B}x{frames.shape[1]} frames: {enc_s * 1e3:.1f} ms, "
+        f"{WHISPER_B * frames.shape[1] / enc_s:.0f} frames/s; vs plain attention: max|d| / max|x| {err:.3e} "
+        f"(tolerance {LM_LOGIT_RTOL}), finite {bool(torch.isfinite(enc).all())} [{card}]")
+    if not (torch.isfinite(enc).all() and err <= LM_LOGIT_RTOL):
+        raise AssertionError(f"encoder output non-finite or differs from plain attention by {err}")
+    del enc, plain_enc
+    _add(launches, drive_lm(dev, card, cfg, model, cfg.name, WHISPER_B, WHISPER_PROMPT, WHISPER_MAX_LEN,
+                            SERVE_4C_TEXT, inputs={"encoder_frames": frames},
+                            serve=(SERVE_4C_REQUESTS, SERVE_4C_SLOTS)))
+    _memory_line(cfg.name, t0, card)
+    del model, frames
+
+    # ---- internvl2-26b: the VLM backbone, K3/K4 at group 6
+    cfg = configs.get_config("internvl2-26b")
+    t0 = time.perf_counter()
+    model, _ = _build_lm(dev, cfg, cfg.name)
+    vis = frontends.vit_stub_embeddings(torch.Generator(device=dev).manual_seed(SEED + 2), VLM_B,
+                                        frontends.num_patches_for_resolution(448), cfg.d_model, device=dev)
+    if vis.shape[1] != cfg.num_vision_tokens:
+        raise AssertionError(f"448 px gave {vis.shape[1]} patches, not {cfg.num_vision_tokens}")
+    _add(launches, drive_lm(dev, card, cfg, model, cfg.name, VLM_B, VLM_TEXT,
+                            cfg.num_vision_tokens + VLM_TEXT + 64, SERVE_4C_TEXT,
+                            inputs={"vision_embeds": vis}, serve=(SERVE_4C_REQUESTS, SERVE_4C_SLOTS)))
+    _memory_line(cfg.name, t0, card)
+    del model, vis
+
+    # ---- the dense configurations at full width, depth cut
+    for arch in ("qwen3-32b", "internlm2-20b"):
+        full_cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(full_cfg, num_layers=DENSE_CUT_LAYERS)
+        why = ("do not fit the 80 GB card beside its activations and caches" if arch == "qwen3-32b" else
+               "are internvl2-26b's backbone, which runs whole above; cut for the run's time")
+        log(f"[lm] reduced: {arch} depth {full_cfg.num_layers} -> {DENSE_CUT_LAYERS} layers at full width: "
+            f"all {full_cfg.num_layers} ({full_cfg.param_count() * 2 / 1e9:.0f} GB of bf16 weights) {why}")
+        t0 = time.perf_counter()
+        model, _ = _build_lm(dev, cfg, f"{cfg.name} ({DENSE_CUT_LAYERS} layers)")
+        _add(launches, drive_lm(dev, card, cfg, model, f"{cfg.name} ({DENSE_CUT_LAYERS} layers)", DENSE_B,
+                                DENSE_S, DENSE_S + 64, "", steps=CUT_DECODE_STEPS, full=False))
+        _memory_line(cfg.name, t0, card)
         del model
     torch.cuda.empty_cache()
     return launches
@@ -2129,9 +2407,10 @@ def main() -> int:
     rows[3]["max_abs_err"] = fp_err
     log(f"[kernels] flash_attention and decode_attention vs plain (f32 atol {ATTN_F32_ATOL}; "
         f"bf16 elementwise 2^-7 |plain| + {ATTN_BF16_ATOL})")
-    attn_errs = {**check_flash_attention(dev), "decode_attention": check_decode_attention(dev)}
+    attn_errs = {**check_flash_attention(dev), "flash_attention_cross": check_flash_attention_cross(dev),
+                 "decode_attention": check_decode_attention(dev)}
     for timed in (time_flash_attention(dev, flush), time_flash_attention_mla(dev, flush),
-                  time_decode_attention(dev, flush)):
+                  time_flash_attention_cross(dev, flush), time_decode_attention(dev, flush)):
         timed["max_abs_err"] = attn_errs[timed["name"]]
         rows.append(timed)
     del flush
@@ -2170,6 +2449,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_moe_mla_path(dev, card))
     log(f"[lm] phase 4B took {time.perf_counter() - t0:.1f} s")
+    # ---- phase 4C: encoder-decoder and VLM (whisper-large-v3, internvl2-26b), and the dense configurations
+    t0 = time.perf_counter()
+    _add(launches, run_encdec_vlm_path(dev, card))
+    log(f"[lm] phase 4C took {time.perf_counter() - t0:.1f} s")
     # ---- phase 5: the vision serving path over phase 3's model and corpus
     t0 = time.perf_counter()
     run_vision_serving(dev, corpus, full, thumb, res, card)

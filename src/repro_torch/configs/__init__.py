@@ -1,9 +1,10 @@
 """Architecture registry of the port.
 
 The names are ``repro.configs``' ten; only the configurations whose every
-layer the port runs and that a slice drives are copied here (dense GQA,
-OLMoE's MoE, DeepSeek-V2's MLA + MoE).  The others raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them.
+layer the port runs are copied here (dense GQA, OLMoE's MoE, DeepSeek-V2's
+MLA + MoE, whisper's encoder-decoder and internvl2's VLM backbone).  The
+others raise :class:`NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -13,19 +14,19 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
-    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
-    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
 }
 
 # the reference's other architectures and what they still need
 NOT_PORTED = {
-    "qwen3-32b": "dense GQA; config not copied until a slice runs it",
-    "internlm2-20b": "dense GQA; config not copied until a slice runs it",
-    "internvl2-26b": "VLM frontend and decode",
     "xlstm-125m": "xLSTM blocks (models/ssm.py)",
-    "whisper-large-v3": "encoder-decoder and cross attention",
     "hymba-1.5b": "hybrid attention + Mamba blocks (models/ssm.py)",
 }
 

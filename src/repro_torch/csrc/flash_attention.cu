@@ -5,9 +5,11 @@
 // `_flash_kernel` :33), whose grid (B*H, S/bq, S/bk) walks the KV blocks as
 // its sequential third axis with m, l and acc in VMEM scratch.
 //
-// Function: out[b, q, h] = softmax_k(scale * q . k[b, k, h / group]) @ v,
-// keys masked where kpos >= S, (causal) kpos > qpos, (window)
-// kpos <= qpos - window; m starts at -1e30 (finite, so a tile with every key
+// Function: out[b, q, h] = softmax_k(scale * q . k[b, k, h / group]) @ v
+// over Sq query rows and Sk keys (Sk = Sq but in cross attention: whisper's
+// decoder rows over its 1500 encoder frames), keys masked where kpos >= Sk,
+// (causal) kpos > qpos, (window) kpos <= qpos - window, both positions
+// counted from 0, as the reference's mask; m starts at -1e30 (finite, so a tile with every key
 // masked gives exp(0) terms that a later valid tile wipes through corr, never
 // exp(-inf - -inf) = NaN); l == 0 at the end gives 0, not NaN.  f32 scores,
 // softmax and accumulation; q/k/v/out float32 or bfloat16, one kernel each,
@@ -123,7 +125,8 @@ constexpr int smem_bytes(int dqk, int dv) {
 }
 
 // rows [row0, row0 + 64) of head `head` into a (64, D + 1) f32 tile (D: the
-// tile's width, DQK for q and k, DV for v); rows >= S read 0
+// tile's width, DQK for q and k, DV for v); rows >= S (Sq for q, Sk for k
+// and v) read 0
 static_assert(kBQ == kBK, "one tile loader serves q, k and v");
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, Strides st, int b,
@@ -139,8 +142,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int S, int H, int group, Strides qs, Strides ks,
-                       Strides vs, Strides os, float scale, int causal, int window) {
+                       const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk, int H, int group,
+                       Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qt = smem;                    // (BQ, DQK + 1)
   float* kt = qt + kBQ * (DQK + 1);    // (BK, DQK + 1)
@@ -153,14 +156,14 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest causal tiles first
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<DQK>(qt, q, qs, b, h, q0, S);
+  load_tile<DQK>(qt, q, qs, b, h, q0, Sq);
 
-  const int q_last = min(q0 + kBQ, S) - 1;
-  int k_begin = 0, k_end = S;
-  if (causal) k_end = q_last + 1;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q_last + 1);
   if (window > 0) k_begin = max(0, q0 - window + 1);
-  const int t_begin = k_begin / kBK;
-  const int t_end = (k_end + kBK - 1) / kBK;
+  const int t_begin = k_begin < k_end ? k_begin / kBK : 0;  // no key: no tile, and out 0
+  const int t_end = k_begin < k_end ? (k_end + kBK - 1) / kBK : 0;
 
   float m[4], l[4], acc[4][kJ];
 #pragma unroll
@@ -174,8 +177,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<DQK>(kt, k, ks, b, kvh, k0, S);
-    load_tile<DV>(vt, v, vs, b, kvh, k0, S);
+    load_tile<DQK>(kt, k, ks, b, kvh, k0, Sk);
+    load_tile<DV>(vt, v, vs, b, kvh, k0, Sk);
     __syncthreads();
 
     float s[4][4];
@@ -203,7 +206,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < S;
+        bool ok = kpos < Sk;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
@@ -246,7 +249,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float li = l[i] == 0.0f ? 1.0f : l[i];
     float* o = out + b * os.b + qpos * os.s + h * os.h;
 #pragma unroll
@@ -424,17 +427,17 @@ __device__ __forceinline__ void softmax_rows(float (&s)[32], RowStats& rs, float
 }
 
 // softmax_rows for the tile at key k0: masked only where the tile crosses
-// the causal diagonal, the window edge or S
+// the causal diagonal, the window edge or Sk
 __device__ __forceinline__ void softmax_tile(float (&s)[32], RowStats& rs, float& corr0, float& corr1,
-                                             int k0, int row, int col, int rw0, int S, int causal,
+                                             int k0, int row, int col, int rw0, int Sk, int causal,
                                              int window, float scale_log2) {
-  const bool edge = k0 + kTcBK > S || (causal && k0 + kTcBK - 1 > rw0) ||
+  const bool edge = k0 + kTcBK > Sk || (causal && k0 + kTcBK - 1 > rw0) ||
                     (window > 0 && k0 <= rw0 + 63 - window);
   if (edge) {
-    // row r's valid keys [max(0, r - window + 1), min(S, r + 1)) as
+    // row r's valid keys [max(0, r - window + 1), min(Sk, r + 1)) as
     // columns 8 j + e % 2 of this thread (its key k0 + col + 8 j + e % 2)
     const int base = k0 + col, r1 = row + 8;
-    const int hi0 = (causal ? min(S, row + 1) : S) - base, hi1 = (causal ? min(S, r1 + 1) : S) - base;
+    const int hi0 = (causal ? min(Sk, row + 1) : Sk) - base, hi1 = (causal ? min(Sk, r1 + 1) : Sk) - base;
     const int lo0 = window > 0 ? row - window + 1 - base : -kTcBK;
     const int lo1 = window > 0 ? r1 - window + 1 - base : -kTcBK;
     softmax_rows<true>(s, rs, corr0, corr1, scale_log2, lo0, hi0, lo1, hi1);
@@ -484,9 +487,9 @@ struct TcTile {
 // group_heads, whose K/V stay in L2 while the group runs; within a group
 // the heaviest causal query tile of every pair first, then the next
 // heaviest
-__device__ __forceinline__ TcTile tc_tile(int index, int S, int H, int n_bh, int group_heads, int causal,
-                                          int window) {
-  const int nq = (S + kTcBQ - 1) / kTcBQ, per_group = group_heads * nq;
+__device__ __forceinline__ TcTile tc_tile(int index, int Sq, int Sk, int H, int n_bh, int group_heads,
+                                          int causal, int window) {
+  const int nq = (Sq + kTcBQ - 1) / kTcBQ, per_group = group_heads * nq;
   const int g = index / per_group, r = index - g * per_group;
   const int heads = min(group_heads, n_bh - g * group_heads);
   const int tile = r / heads;
@@ -495,12 +498,12 @@ __device__ __forceinline__ TcTile tc_tile(int index, int S, int H, int n_bh, int
   tl.b = bh / H;
   tl.h = bh - tl.b * H;
   tl.q0 = (nq - 1 - tile) * kTcBQ;
-  const int q_last = min(tl.q0 + kTcBQ, S) - 1;
-  int k_begin = 0, k_end = S;
-  if (causal) k_end = q_last + 1;
+  const int q_last = min(tl.q0 + kTcBQ, Sq) - 1;
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q_last + 1);
   if (window > 0) k_begin = max(0, tl.q0 - window + 1);
-  tl.t_begin = k_begin / kTcBK;
-  tl.t_end = (k_end + kTcBK - 1) / kTcBK;
+  tl.t_begin = k_begin < k_end ? k_begin / kTcBK : 0;  // no key: no KV tile, and out 0
+  tl.t_end = k_begin < k_end ? (k_end + kTcBK - 1) / kTcBK : 0;
   return tl;
 }
 
@@ -514,7 +517,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                          int S, int H, int group, Strides os, float scale_log2, int causal,
+                          int Sq, int Sk, int H, int group, Strides os, float scale_log2, int causal,
                           int window, int group_heads, int n_tiles, int* __restrict__ counters) {
   using L = TcLayout<DQK, DV>;
   constexpr int kQkChunks = DQK / kChunk, kVChunks = DV / kChunk, kStages = L::kStages;
@@ -526,7 +529,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // the work tile in each Q buffer (n_tiles or more: none left)
   volatile int* tile_of =
       reinterpret_cast<int*>(smem_raw + (base - hopper::smem_u32(smem_raw)) + L::kBar + L::kBarBytes - 8);
-  const int n_bh = n_tiles / ((S + kTcBQ - 1) / kTcBQ);
+  const int n_bh = n_tiles / ((Sq + kTcBQ - 1) / kTcBQ);
 
   if (threadIdx.x == 0) {
     for (int qb = 0; qb < 2; ++qb) {
@@ -557,7 +560,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           hopper::mbar_arrive(bar_q_full + 8 * qb);
           break;
         }
-        const TcTile tl = tc_tile(index, S, H, n_bh, group_heads, causal, window);
+        const TcTile tl = tc_tile(index, Sq, Sk, H, n_bh, group_heads, causal, window);
         const int kvh = tl.h / group;
         hopper::mbar_arrive_expect_tx(bar_q_full + 8 * qb, L::kQ);
 #pragma unroll
@@ -598,7 +601,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::mbar_wait(bar_q_full + 8 * qb, (r / L::kQBufs) & 1);
       const int index = tile_of[qb];
       if (index >= n_tiles) break;
-      const TcTile tl = tc_tile(index, S, H, n_bh, group_heads, causal, window);
+      const TcTile tl = tc_tile(index, Sq, Sk, H, n_bh, group_heads, causal, window);
       const int rw0 = tl.q0 + wg * 64;
       const int row = rw0 + warp * 16 + (lane >> 2);  // and row + 8
       const uint32_t qa = q_s + qb * L::kQ + wg * 64 * kRowBytes;
@@ -633,7 +636,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
           hopper::fence_regs(s);
-          softmax_tile(s, rs, corr0, corr1, t * kTcBK, row, col, rw0, S, causal, window, scale_log2);
+          softmax_tile(s, rs, corr0, corr1, t * kTcBK, row, col, rw0, Sk, causal, window, scale_log2);
           split_p(s, phi, plo);
           int pv_stage = ring.stage;
           ring.advance<kStages>();
@@ -649,7 +652,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             hopper::wgmma_commit();
             hopper::wgmma_wait<1>();  // S(t) is done; P V(t - 1) may still run
             hopper::fence_regs(s);
-            softmax_tile(s, rs, corr0, corr1, t * kTcBK, row, col, rw0, S, causal, window, scale_log2);
+            softmax_tile(s, rs, corr0, corr1, t * kTcBK, row, col, rw0, Sk, causal, window, scale_log2);
             fence_softmax(s, rs, corr0, corr1);
             hopper::wgmma_wait<0>();
             hopper::fence_regs(o);
@@ -680,7 +683,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
           hopper::fence_regs(s);
-          softmax_tile(s, rs, corr0, corr1, t * kTcBK, row, col, rw0, S, causal, window, scale_log2);
+          softmax_tile(s, rs, corr0, corr1, t * kTcBK, row, col, rw0, Sk, causal, window, scale_log2);
           split_p(s, phi, plo);
           rescale<DV>(o, corr0, corr1);
           fence_p(phi, plo);
@@ -711,9 +714,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       __nv_bfloat16* o1 = o0 + 8 * os.s;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j) {
-        if (row < S)
+        if (row < Sq)
           *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-        if (row + 8 < S)
+        if (row + 8 < Sq)
           *reinterpret_cast<uint32_t*>(o1 + 8 * j) = pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
     }
@@ -761,12 +764,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
 }
 
 template <int DQK, int DV>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int KVH,
-                Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+                int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                 int group_heads, int* counters, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, DQK, S, H, B, qs, kTcBQ) || !make_map(&kmap, k, DQK, S, KVH, B, ks, kTcBK) ||
-      !make_map(&vmap, v, DV, S, KVH, B, vs, kTcBK))
+  if (!make_map(&qmap, q, DQK, Sq, H, B, qs, kTcBQ) || !make_map(&kmap, k, DQK, Sk, KVH, B, ks, kTcBK) ||
+      !make_map(&vmap, v, DV, Sk, KVH, B, vs, kTcBK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = TcLayout<DQK, DV>::kBytes;
   static int limit[hopper::kMaxDevices] = {};
@@ -776,39 +779,40 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   const int sms = hopper::sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
   if (group_heads < 1 || group_heads > B * H) group_heads = B * H;
-  const long long tiles = static_cast<long long>(B) * H * ((S + kTcBQ - 1) / kTcBQ);
+  const long long tiles = static_cast<long long>(B) * H * ((Sq + kTcBQ - 1) / kTcBQ);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = tiles < sms ? static_cast<int>(tiles) : sms;  // one per SM, each walks its tiles
-  kernel<<<blocks, kTcThreads, bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H,
-                                                H / KVH, os, scale * kLog2e, causal, window, group_heads,
+  kernel<<<blocks, kTcThreads, bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Sq, Sk,
+                                                H, H / KVH, os, scale * kLog2e, causal, window, group_heads,
                                                 static_cast<int>(tiles), counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DQK, int DV>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int KVH,
-               Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+               int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                cudaStream_t stream) {
   constexpr int bytes = smem_bytes(DQK, DV);
   static int limit[hopper::kMaxDevices] = {};
   const auto kernel = flash_attention_kernel<DQK, DV>;
   const cudaError_t err = hopper::raise_smem_limit(kernel, bytes, limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, H, H / KVH, qs, ks, vs, os, scale, causal, window);
+      static_cast<float*>(out), Sq, Sk, H, H / KVH, qs, ks, vs, os, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DQK, int DV>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-           int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
-           int group_heads, int* counters, cudaStream_t stream) {
+int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+           int H, int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+           int window, int group_heads, int* counters, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<DQK, DV>(q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, stream);
+    return launch_f32<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+                               stream);
   if (dtype == 1 && counters != nullptr)
-    return launch_bf16<DQK, DV>(q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window,
+    return launch_bf16<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
                                 group_heads, counters, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -817,7 +821,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out, in
 
 // dtype: 0 float32 (SIMT kernel), 1 bfloat16 (tensor-core kernel; base
 // pointers and strides 16-byte aligned), q, k, v and out alike.  q
-// (B, S, H, D), k (B, S, KVH, D), v (B, S, KVH, DV), out (B, S, H, DV),
+// (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, DV), out (B, Sq, H, DV),
 // each with its own (batch, seq, head) strides in elements and a
 // contiguous last dimension.  (D, DV): (64, 64), (128, 128), (256, 256) or
 // MLA's (192, 128).  window < 0: no window.  group_heads: (batch, head)
@@ -827,30 +831,30 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out, in
 // pair per stream that launches it, as launches on one stream run in
 // order; unused by float32).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* out, int B, int S, int H, int KVH, int D, int DV,
+                                     void* out, int B, int Sq, int Sk, int H, int KVH, int D, int DV,
                                      long long qsb, long long qss, long long qsh, long long ksb,
                                      long long kss, long long ksh, long long vsb, long long vss,
                                      long long vsh, long long osb, long long oss, long long osh,
                                      float scale, int causal, int window, int group_heads,
                                      void* counters, void* stream) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (KVH <= 0 || H % KVH != 0 || (S + kBQ - 1) / kBQ > 65535)
+  if (B <= 0 || Sq <= 0) return static_cast<int>(cudaSuccess);
+  if (Sk <= 0 || KVH <= 0 || H % KVH != 0 || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   auto st = static_cast<cudaStream_t>(stream);
   const int gh = group_heads;
   int* const ctr = static_cast<int*>(counters);
   if (D == 64 && DV == 64)
-    return launch<64, 64>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, gh, ctr,
-                          st);
+    return launch<64, 64>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window, gh,
+                          ctr, st);
   if (D == 128 && DV == 128)
-    return launch<128, 128>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, gh, ctr,
-                            st);
+    return launch<128, 128>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+                            gh, ctr, st);
   if (D == 256 && DV == 256)
-    return launch<256, 256>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, gh, ctr,
-                            st);
+    return launch<256, 256>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+                            gh, ctr, st);
   if (D == 192 && DV == 128)  // MLA: nope 128 + rope 64 for q and k, v 128
-    return launch<192, 128>(dtype, q, k, v, out, B, S, H, KVH, qs, ks, vs, os, scale, causal, window, gh, ctr,
-                            st);
+    return launch<192, 128>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+                            gh, ctr, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -146,7 +146,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_resize_affine_planar_f32.restype = _I
     lib.repro_flash_attention.argtypes = [
         _I, _P, _P, _P, _P,  # dtype, q, k, v, out
-        _I, _I, _I, _I, _I, _I,  # B, S, H, KVH, D (q/k width), DV (v width)
+        _I, _I, _I, _I, _I, _I, _I,  # B, Sq, Sk, H, KVH, D (q/k width), DV (v width)
         _L, _L, _L, _L, _L, _L,  # q / k strides (batch, seq, head)
         _L, _L, _L, _L, _L, _L,  # v / out strides
         _F, _I, _I, _I,  # scale, causal, window (-1 = none), heads per tile group

@@ -1,17 +1,19 @@
 """Flash attention (K3): the wrapper around ``csrc/flash_attention.cu``.
 
-:func:`flash_attention_bshd` takes the model's layout — q (B, S, H, D),
-k (B, S, KVH, D), v (B, S, KVH, DV) — and is what
+:func:`flash_attention_bshd` takes the model's layout — q (B, Sq, H, D),
+k (B, Sk, KVH, D), v (B, Sk, KVH, DV) — and is what
 ``models/layers.attention_scores_blockwise`` calls.  DV is D everywhere
-but MLA, whose q/k are 192 wide (nope 128 + rope 64) and v 128.  The reference wrapper's (B, H, S, D) layout is the same call on
-``transpose(1, 2)`` views: the kernel takes any strides.
+but MLA, whose q/k are 192 wide (nope 128 + rope 64) and v 128.  Sk is Sq
+everywhere but cross attention (whisper's decoder over its 1500 encoder
+frames, non-causal).  The reference wrapper's (B, H, S, D) layout is the
+same call on ``transpose(1, 2)`` views: the kernel takes any strides.
 
 The reference wrapper pads S up to its block size and crops back
 (``repro/kernels/flash_attention/ops.py``), because a Pallas grid needs
 whole blocks.  The CUDA kernel instead masks the ragged tail itself
-(query rows past S are not stored, keys past S are masked as the padded
+(query rows past Sq are not stored, keys past Sk are masked as the padded
 keys are), so nothing is copied: the kernel reads q, k and v in place
-through their strides and writes one new (B, S, H, D) tensor.
+through their strides and writes one new (B, Sq, H, DV) tensor.
 
 The kernel is fixed by dtype: float32 runs the SIMT kernel (full fp32,
 any strides), bfloat16 the tensor-core kernel, whose TMA loads need
@@ -52,9 +54,11 @@ KV_L2_BYTES = 8 * 2**20
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q/k/v must be (B, S, heads, D), got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    b, s, h, d = q.shape
-    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+    b, _, h, d = q.shape
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if k.shape[1] == 0 and q.shape[1] > 0:
+        raise ValueError("attention over no keys")
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads are not a multiple of {k.shape[2]} KV heads")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -81,33 +85,33 @@ def _check_tma(*xs: torch.Tensor) -> None:
             )
 
 
-def tile_group(b: int, h: int, kvh: int, s: int, d: int, dv: int) -> int:
+def tile_group(b: int, h: int, kvh: int, sk: int, d: int, dv: int) -> int:
     """(batch, head) pairs per group of the bf16 kernel's tile order: whole
-    KV heads (``h // kvh`` query heads each) whose bf16 K and V, S keys of
+    KV heads (``h // kvh`` query heads each) whose bf16 K and V, Sk keys of
     D + DV, fit :data:`KV_L2_BYTES` — at least one KV head, at most all
     ``b * h`` pairs (one group: every head's heaviest tile first)."""
-    kv_heads = max(1, KV_L2_BYTES // (s * (d + dv) * 2))
+    kv_heads = max(1, KV_L2_BYTES // (sk * (d + dv) * 2))
     return min(b * h, kv_heads * (h // kvh))
 
 
 def flash_attention_bshd(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KVH, D)
-    v: torch.Tensor,  # (B, S, KVH, DV)
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KVH, D)
+    v: torch.Tensor,  # (B, Sk, KVH, DV)
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Causal / sliding-window (``kpos > qpos - window``) GQA attention ->
-    (B, S, H, DV) in q's dtype, f32 softmax and accumulation; ``scale``
-    defaults to D^-0.5.
+    """Causal (``kpos <= qpos``) / sliding-window (``kpos > qpos - window``)
+    GQA attention, both positions counted from 0, -> (B, Sq, H, DV) in q's
+    dtype, f32 softmax and accumulation; ``scale`` defaults to D^-0.5.
 
     On a CUDA tensor this launches ``csrc/flash_attention.cu`` on the
     current stream (and raises if it cannot); on a CPU tensor it runs the
     plain version."""
     _check(q, k, v, window)
     b, s, h, d = q.shape
-    dv = v.shape[3]
+    sk, dv = k.shape[1], v.shape[3]
     scale = float(d) ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
@@ -126,19 +130,22 @@ def flash_attention_bshd(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.repro_flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, k.shape[2], d, dv,
+        b, s, sk, h, k.shape[2], d, dv,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         scale, int(causal), -1 if window is None else int(window),
-        tile_group(b, h, k.shape[2], s, d, dv),
+        tile_group(b, h, k.shape[2], sk, d, dv),
         _build.stream_counters("flash_attention", q.device, stream, 2).data_ptr(), stream,
     )
     _build.check(lib, status, "flash_attention")
     flash_attention_bshd.launches += 1
     flash_attention_bshd.launches_by_dims[(d, dv)] += 1
+    flash_attention_bshd.launches_cross += sk != s
     return out
 
 
 flash_attention_bshd.launches = 0  # kernel launches (CPU calls do not count)
 # the same launches by instance, (q/k width, v width)
 flash_attention_bshd.launches_by_dims = dict.fromkeys(HEAD_DIMS, 0)
+# the launches with a key length other than the query length (cross attention)
+flash_attention_bshd.launches_cross = 0
 

@@ -8,13 +8,18 @@ the result is cast to q's dtype.  The CPU path and the card check in
 ``chip_smoke.py`` use it.
 
 The value width may differ from the query/key width (MLA's 192/128), as
-the reference's ``dv = v.shape[-1]``.
+the reference's ``dv = v.shape[-1]``, and the key length from the query
+length (cross attention: whisper's decoder over 1500 encoder frames); the
+branch is chosen by the key length, as the reference's ``sk <= block``.
+Both positions count from 0: causal keeps ``kpos <= qpos``, the window
+``kpos > qpos - window``.
 
 Fully masked rows: here (as in the reference) a row whose every key is
 masked gets the mean of V, the CUDA kernel gives 0 (``l == 0`` guard, as
 the Pallas kernel's finalize).  No such row is ever read: a causal row
-always sees its own key, a windowed row (``kpos > qpos - window``) too,
-and padded query rows are cropped.
+always sees key 0, a windowed row of a square call (``kpos > qpos -
+window``) its own key, a non-causal unwindowed row every key, and padded
+query rows are cropped.
 """
 
 from __future__ import annotations
@@ -35,31 +40,31 @@ def _mask(s: int, kpos: torch.Tensor, causal: bool, window: int | None) -> torch
 
 
 def flash_attention_bshd(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KVH, D)
-    v: torch.Tensor,  # (B, S, KVH, DV)
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KVH, D)
+    v: torch.Tensor,  # (B, Sk, KVH, DV)
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
     block: int = 1024,
 ) -> torch.Tensor:
-    """(B, S, H, DV) attention in the model's layout; GQA in grouped form
+    """(B, Sq, H, DV) attention in the model's layout; GQA in grouped form
     (query heads ``h`` read KV head ``h // group``, no repeat)."""
     b, s, h, d = q.shape
-    kvh, dv = k.shape[2], v.shape[3]
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     group = h // kvh
     scale = scale if scale is not None else d**-0.5
     qg = q.reshape(b, s, kvh, group, d).float()
-    if s <= block:
+    if sk <= block:
         sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, k.float()) * scale
-        mask = _mask(s, torch.arange(s, device=q.device), causal, window)
+        mask = _mask(s, torch.arange(sk, device=q.device), causal, window)
         sc = sc.masked_fill(~mask, NEG_INF)
         p = torch.softmax(sc, dim=-1)
         out = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
         return out.reshape(b, s, h, dv).to(q.dtype)
 
-    nb = -(-s // block)
-    pad = nb * block - s
+    nb = -(-sk // block)
+    pad = nb * block - sk
     kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
     m = torch.full((b, kvh, group, s), NEG_INF, device=q.device)
@@ -70,7 +75,7 @@ def flash_attention_bshd(
         vb = vf[:, bi * block:(bi + 1) * block]
         sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, kb) * scale
         kpos = bi * block + torch.arange(block, device=q.device)
-        mask = _mask(s, kpos, causal, window) & (kpos < s)[None, :]
+        mask = _mask(s, kpos, causal, window) & (kpos < sk)[None, :]
         sc = sc.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])

@@ -1,12 +1,19 @@
 """Serving paths of the port: cache init, prefill, and single-token decode.
 
-``repro.models.decode`` for the dense-GQA, MoE and MLA families.  The
-cache is a dict of layer-stacked tensors, as in the reference:
+``repro.models.decode`` for the dense-GQA, MoE, MLA, encoder-decoder and
+VLM families.  The cache is a dict of layer-stacked tensors, as in the
+reference:
 
-  gqa : k/v (L, B, S, KVH, hd)
-  mla : c_kv (L, B, S, R), k_rope (L, B, S, rope_hd) over the main layers,
-        prefix_c_kv / prefix_k_rope over the dense-FFN prefix — the
-        compressed cache, decoded in the absorbed form (:func:`_mla_decode`)
+  gqa    : k/v (L, B, S, KVH, hd)
+  mla    : c_kv (L, B, S, R), k_rope (L, B, S, rope_hd) over the main
+           layers, prefix_c_kv / prefix_k_rope over the dense-FFN prefix —
+           the compressed cache, decoded in the absorbed form
+           (:func:`_mla_decode`)
+  encdec : the gqa self-attention cache + the encoder's cross K/V,
+           cross_k/cross_v (L, B, S_enc, KVH, hd), written by prefill and
+           read-only in decode
+  vlm    : the gqa cache; prefill runs the projected patch embeddings
+           ahead of the prompt, so they fill its first rows
 
 What differs:
 
@@ -17,10 +24,11 @@ What differs:
   :func:`prefill` writes each layer's rows into one cache allocated up
   front.  A write at a position past the cache is dropped, as JAX drops an
   out-of-bounds scatter (an idle serving slot's length keeps counting).
-* **Kernels.**  Prefill attention is K3 and GQA decode attention is K4,
-  which reads each layer slice through its strides: no step copies the
-  cache.  MLA's absorbed decode is plain torch in f32, as the reference
-  computes it in jnp.
+* **Kernels.**  Prefill attention is K3 (the encoder's non-causal, the
+  cross attention's with S_k = S_enc) and GQA decode attention is K4
+  (the cross attention's with every length S_enc), which reads each layer
+  slice through its strides: no step copies the cache.  MLA's absorbed
+  decode is plain torch in f32, as the reference computes it in jnp.
 * **Capturable.**  :func:`decode_step` makes no host sync and keeps every
   buffer it reads in place, so ``serving/engine.py`` captures it as one
   CUDA graph.
@@ -46,14 +54,22 @@ def kv_cache_heads(cfg: ModelConfig, kv_repeat: int = 1) -> int:
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, kv_repeat: int = 1,
     dtype: torch.dtype = torch.bfloat16, device: str | torch.device | None = "cuda",
+    cross_dtype: torch.dtype | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Zero-filled cache for ``batch`` sequences of up to ``max_len``."""
+    """Zero-filled cache for ``batch`` sequences of up to ``max_len``; the
+    cross K/V of an encoder-decoder in ``cross_dtype`` (default ``dtype``)."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     if cfg.attn_type != "mla":
-        shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        hd = cfg.resolved_head_dim
+        shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), hd)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if cfg.is_encdec:
+            cross = (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads, hd)
+            for name in ("cross_k", "cross_v"):
+                cache[name] = torch.zeros(cross, dtype=cross_dtype or dtype, device=dev)
+        return cache
     n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
     cache = {}
     for prefix, n in (("", cfg.num_layers - n_prefix), ("prefix_", n_prefix)):
@@ -148,6 +164,19 @@ def _window(cfg: ModelConfig, is_local) -> int | None:
     return cfg.sliding_window
 
 
+def _cross_decode(p_cross, cfg, x, cross_k, cross_v):
+    """One cross-attention insertion, one token: K4 over this layer's
+    (B, S_enc, KVH, hd) cross cache with every length S_enc, made on the
+    device (no host copy: the step stays capturable)."""
+    h = L.apply_norm(p_cross.norm, x, cfg.norm_type)
+    bsz, _ = h.shape
+    hd, dt = cfg.resolved_head_dim, h.dtype
+    q = (h @ p_cross.attn.wq.to(dt)).reshape(bsz, cfg.num_heads, hd)
+    lens = torch.full((bsz,), cross_k.shape[1], dtype=torch.int32, device=x.device)
+    out = decode_ops.decode_attention_cache(q, cross_k, cross_v, lens)
+    return x + out.reshape(bsz, cfg.num_heads * hd) @ p_cross.attn.wo.to(dt)
+
+
 def _block_decode(p, cfg, x, cache_a, cache_b, is_local, lengths, kv_repeat):
     """One block, one token.  x: (B, D); cache_a / cache_b: this layer's
     k / v (GQA) or c_kv / k_rope (MLA) slices."""
@@ -174,8 +203,10 @@ def decode_step(
     token = T.as_tokens(params, token)
     lengths = torch.as_tensor(lengths, device=token.device)
     x = T.embed_tokens(params, cfg, token[:, None])[:, 0]  # (B, D)
-    for blk, is_local, cache_a, cache_b in _layer_caches(params, cfg, cache):
+    for i, (blk, is_local, cache_a, cache_b) in enumerate(_layer_caches(params, cfg, cache)):
         x = _block_decode(blk, cfg, x, cache_a, cache_b, is_local, lengths, kv_repeat)
+        if params.cross is not None:  # each decoder layer, then its cross layer
+            x = _cross_decode(params.cross[i], cfg, x, cache["cross_k"][i], cache["cross_v"][i])
     logits = T.logits_from(params, cfg, x[:, None, :])[:, 0]
     return logits, cache, lengths + 1
 
@@ -215,19 +246,28 @@ def prefill(
     vision_embeds=None,
 ) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """Run the prompt, build the cache.  Returns (last-token logits, cache,
-    lengths)."""
-    if vision_embeds is not None or encoder_frames is not None:
-        raise NotImplementedError("VLM and encoder-decoder prefill are not ported to repro_torch yet: "
-                                  "ROADMAP port queue item 25 (LLM side stack)")
+    lengths).  A VLM's ``vision_embeds`` (B, N_vis, D) run ahead of the
+    prompt and count in the lengths; an encoder-decoder's
+    ``encoder_frames`` (B, S_enc, D) go through the encoder, and its cross
+    K/V are stored in the model's dtype, as the reference stores them."""
     tokens = T.as_tokens(params, tokens)
-    bsz, s = tokens.shape
+    x = T.embed_inputs(params, cfg, tokens, vision_embeds)
+    bsz, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
-    x = T.embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)
-    cache = init_cache(cfg, bsz, max_len, kv_repeat, cache_dtype, device=x.device)
-    for blk, is_local, cache_a, cache_b in _layer_caches(params, cfg, cache):
+    cache = init_cache(cfg, bsz, max_len, kv_repeat, cache_dtype, device=x.device, cross_dtype=x.dtype)
+    if cfg.is_encdec:
+        if encoder_frames is None:
+            raise ValueError("encoder-decoder prefill needs encoder_frames")
+        enc_out = T.encode(params, cfg, encoder_frames)
+        for i, cross in enumerate(params.cross):
+            cache["cross_k"][i], cache["cross_v"][i] = T._encoder_kv(cross, cfg, enc_out)
+        del enc_out
+    for i, (blk, is_local, cache_a, cache_b) in enumerate(_layer_caches(params, cfg, cache)):
         x = _block_prefill(blk, cfg, x, positions, is_local, cache_a, cache_b, kv_repeat)
+        if params.cross is not None:
+            x = T._cross_attend(params.cross[i], cfg, x, (cache["cross_k"][i], cache["cross_v"][i]))
     logits = T.logits_from(params, cfg, x[:, -1:, :])[:, 0]
     lengths = torch.full((bsz,), s, dtype=torch.int32, device=x.device)
     return logits, cache, lengths

@@ -39,9 +39,6 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
-_NOT_PORTED = "not ported to repro_torch yet: ROADMAP port queue item 25 (LLM side stack)"
-
-
 # --------------------------------------------------------------------- norms
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
@@ -96,8 +93,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ----------------------------------------------------------------- attention
 def attention_scores_blockwise(
     q: torch.Tensor,  # (B, S, H, hd)
-    k: torch.Tensor,  # (B, S, KVH, hd)
-    v: torch.Tensor,  # (B, S, KVH, dv) — dv != hd for MLA
+    k: torch.Tensor,  # (B, S_k, KVH, hd)
+    v: torch.Tensor,  # (B, S_k, KVH, dv) — dv != hd for MLA
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
@@ -106,11 +103,10 @@ def attention_scores_blockwise(
 
     K3 (``csrc/flash_attention.cu``) on the card; on the CPU its plain
     version, which mirrors the reference's dense / blockwise branches.  The
-    reference's ``block`` (its KV block) has no counterpart: the kernel has
-    its own tiles, and every choice computes the same function."""
-    if k.shape[1] != q.shape[1]:
-        # cross attention belongs to the enc-dec path
-        raise NotImplementedError(f"attention with S_k != S_q is {_NOT_PORTED}")
+    key length S_k is S but in cross attention (whisper's decoder over its
+    encoder frames).  The reference's ``block`` (its KV block) has no
+    counterpart: the kernel has its own tiles, and every choice computes
+    the same function."""
     return flash_ops.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
 
 

@@ -1,6 +1,9 @@
 """Transformer LM of the port: ``repro.models.transformer`` for the dense
-GQA family (gemma3's local:global stacks included), MoE (OLMoE) and MLA +
-MoE with a dense-FFN prefix (DeepSeek-V2).
+GQA family (gemma3's local:global stacks included), MoE (OLMoE), MLA +
+MoE with a dense-FFN prefix (DeepSeek-V2), the encoder-decoder (whisper:
+a non-causal encoder over stub frame embeddings, and a cross-attention
+insertion after every decoder layer) and the VLM backbone (internvl2:
+stub patch embeddings through ``vis_proj``, prepended to the text).
 
 The reference stacks every layer's parameters under a leading L axis and
 runs the layers under ``lax.scan``, choosing the local or global variant
@@ -8,17 +11,20 @@ with ``lax.cond``.  Here :class:`TransformerLM` holds one submodule per
 layer and the layers run as a Python loop; the local/global choice is a
 Python branch on the static ``layer_flags``.  DeepSeek-V2's leading
 dense-FFN layers, a separately scanned group in the reference
-(``params["dense_prefix"]``), are ``TransformerLM.dense_prefix``.
+(``params["dense_prefix"]``), are ``TransformerLM.dense_prefix``; whisper's
+``params["encoder"]`` and ``params["cross"]`` are ``TransformerLM.encoder``
+and ``TransformerLM.cross``.
 Parameters are inference weights (no gradients): matrices and the
 embedding in the config dtype, norm scales and the MoE router in f32 (see
 ``models/layers.py`` on why that matches the reference's
 cast-at-the-call-site).  Each submodule is named as the reference's
 pytree leaf it holds (``moe.experts.w_gate`` is
 ``params["layers"]["moe"]["experts"]["w_gate"][i]``), which is how
-:func:`from_jax_params` carries weights across.
+:func:`from_jax_params` carries weights across and :func:`to_jax_layout`
+carries them back.
 
-SSM, hybrid, encoder-decoder and VLM stacks are not ported (ROADMAP port
-queue item 25) and raise ``NotImplementedError``.
+SSM and hybrid stacks are not ported (ROADMAP port queue item 25) and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,18 +77,15 @@ def main_block_kind(cfg: ModelConfig) -> str:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the stacks the port does not run yet: SSM, hybrid,
-    encoder-decoder and VLM; and a dense-FFN prefix under GQA, which no
-    configuration has (the reference's prefill and decode disagree on
-    its cache)."""
+    """Raise for the stacks the port does not run yet: SSM and hybrid; and
+    a dense-FFN prefix under GQA, which no configuration has (the
+    reference's prefill and decode disagree on its cache)."""
     kind = main_block_kind(cfg)
     gqa_prefix = cfg.is_moe and cfg.first_dense_layers and cfg.attn_type != "mla"
-    if kind not in ("dense", "moe") or cfg.is_encdec or cfg.frontend is not None or gqa_prefix:
+    if kind not in ("dense", "moe") or gqa_prefix:
         raise NotImplementedError(
             f"{cfg.name}: the {kind}/{cfg.attn_type} stack"
-            f"{' with a dense prefix' if gqa_prefix else ''}"
-            f"{' with encoder' if cfg.is_encdec else ''}"
-            f"{' with ' + cfg.frontend if cfg.frontend else ''} is not ported to repro_torch yet: "
+            f"{' with a dense prefix' if gqa_prefix else ''} is not ported to repro_torch yet: "
             "ROADMAP port queue item 25 (LLM side stack)"
         )
 
@@ -184,11 +187,34 @@ class Block(nn.Module):
         self.mlp = MLP(cfg.d_model, d_ff, dtype, device) if kind != "moe" else None
 
 
+class Encoder(nn.Module):
+    """Whisper's encoder: dense blocks run non-causally over the frame
+    embeddings, and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(Block(cfg, dtype, device) for _ in range(cfg.encoder_layers))
+        self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
+
+
+class CrossBlock(nn.Module):
+    """One decoder layer's cross-attention insertion: a norm and GQA
+    projections (no rope), queries from the decoder, keys and values from
+    the encoder's output."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        self.norm = Norm(cfg.d_model, cfg.norm_type, device)
+        self.attn = Attention(cfg, dtype, device)
+
+
 class TransformerLM(nn.Module):
     """Embedding, the dense-FFN prefix (MoE configs with
     ``first_dense_layers``; else None), one :class:`Block` per main layer,
-    final norm and (untied) LM head.  Built uninitialised: fill it with
-    :func:`init_lm` or :func:`from_jax_params`."""
+    final norm and (untied) LM head; with an encoder (``is_encdec``) the
+    :class:`Encoder` and one :class:`CrossBlock` per main layer, with the
+    ViT stub frontend the (D, D) ``vis_proj``; else None.  Built
+    uninitialised: fill it with :func:`init_lm` or :func:`from_jax_params`."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -203,10 +229,12 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dtype, device, kind) for _ in range(cfg.num_layers - n_prefix))
         self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
         self.lm_head = None if cfg.tie_embeddings else _weight((cfg.d_model, cfg.padded_vocab_size), dtype, device)
+        self.encoder = Encoder(cfg, dtype, device) if cfg.is_encdec else None
+        self.cross = nn.ModuleList(CrossBlock(cfg, dtype, device) for _ in self.layers) if cfg.is_encdec else None
+        self.vis_proj = _weight((cfg.d_model, cfg.d_model), dtype, device) if cfg.frontend == "vit_stub" else None
         flags = layer_flags(cfg)
         # per layer: True local, False global, None no local/global pattern
         self.is_local = [bool(f) for f in flags["is_local"]] if "is_local" in flags else [None] * len(self.layers)
-
 
 
 @torch.no_grad()
@@ -243,29 +271,63 @@ def _np(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))  # a writable copy
 
 
+def _jax_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """A parameter's path in the reference's pytree and its layer index:
+    the leaves under ``layers``, ``dense_prefix``, ``encoder.layers`` and
+    ``cross`` carry a leading layer axis, which the index in the name picks
+    (``encoder.layers.3.attn.wq`` is ``params["encoder"]["layers"]["attn"]
+    ["wq"][3]``)."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return tuple(parts[:i] + parts[i + 1:]), int(part)
+    return tuple(parts), None
+
+
 @torch.no_grad()
 def from_jax_params(params: dict, cfg: ModelConfig) -> TransformerLM:
     """A CPU :class:`TransformerLM` holding the reference's parameters.
 
     ``params`` is ``repro.models.transformer.init_lm``'s pytree with numpy
     (or array-like) leaves.  Each parameter's dotted name is its path in
-    the pytree; the leaves under ``layers`` and ``dense_prefix`` carry a
-    leading layer axis, which the index in the name (``layers.3.attn.wq``)
-    picks.  Raises if a leaf of ``params`` has no parameter."""
+    the pytree, the layer index taken out (:func:`_jax_path`).  Raises if
+    a leaf of ``params`` has no parameter."""
     model = TransformerLM(cfg, "cpu")
     carried = set()
     for name, w in model.named_parameters():
-        parts = name.split(".")
-        index = int(parts.pop(1)) if parts[0] in ("layers", "dense_prefix") else None
+        path, index = _jax_path(name)
         leaf = params
-        for part in parts:
+        for part in path:
             leaf = leaf[part]
         w.copy_(_np(leaf if index is None else leaf[index]))
-        carried.add(tuple(parts))
+        carried.add(path)
     missing = set(_leaf_paths(params)) - carried
     if missing:
         raise ValueError(f"{cfg.name}: reference leaves with no parameter in the port: {sorted(missing)}")
     return model
+
+
+@torch.no_grad()
+def to_jax_layout(model: TransformerLM) -> dict:
+    """The inverse of :func:`from_jax_params`: the parameters as the
+    reference's nested pytree (``init_lm``'s keys), each layer group's
+    leaves stacked under a leading layer axis; torch tensors on the model's
+    device in its dtypes (a model on the ``meta`` device gives the layout's
+    shapes alone)."""
+    groups: dict[tuple[str, ...], list] = {}  # path -> its layers' weights, in layer order
+    stacked = set()
+    for name, w in model.named_parameters():
+        path, index = _jax_path(name)
+        groups.setdefault(path, []).append(w.detach())
+        if index is not None:
+            stacked.add(path)
+    tree: dict = {}
+    for path, ws in groups.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.stack(ws) if path in stacked else ws[0]
+    return tree
 
 
 def _leaf_paths(tree: dict, prefix: tuple = ()):
@@ -331,21 +393,74 @@ def as_tokens(params: TransformerLM, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.embed.device).long()
 
 
+def embed_inputs(params: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
+                 vision_embeds=None) -> torch.Tensor:
+    """The token embeddings, with the VLM's projected patch embeddings
+    (B, N_vis, D) prepended: (B, N_vis + S, D)."""
+    x = embed_tokens(params, cfg, tokens)
+    if vision_embeds is None:
+        return x
+    if params.vis_proj is None:
+        raise ValueError(f"{cfg.name} has no vision frontend for vision_embeds")
+    dt = x.dtype
+    vis = torch.as_tensor(vision_embeds, device=x.device).to(dt) @ params.vis_proj.to(dt)
+    return torch.cat([vis, x], dim=1)
+
+
+def encode(params: TransformerLM, cfg: ModelConfig, frames) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings (B, S_enc, D)
+    (the stub frontend's output), non-causal (K3 with causal off)."""
+    x = torch.as_tensor(frames, device=params.embed.device).to(torch_dtype(cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for blk in params.encoder.layers:
+        x = _block_full(blk, cfg, x, positions, None, causal=False)
+    return L.apply_norm(params.encoder.final_norm, x, cfg.norm_type)
+
+
+def _encoder_kv(p_cross: CrossBlock, cfg: ModelConfig, enc_out: torch.Tensor):
+    """One decoder layer's cross-attention K/V (B, S_enc, KVH, hd) from the
+    encoder's output, in its dtype (the reference computes every layer's at
+    once, the same products)."""
+    b, se, _ = enc_out.shape
+    hd, dt = cfg.resolved_head_dim, enc_out.dtype
+    k = (enc_out @ p_cross.attn.wk.to(dt)).reshape(b, se, cfg.num_kv_heads, hd)
+    v = (enc_out @ p_cross.attn.wv.to(dt)).reshape(b, se, cfg.num_kv_heads, hd)
+    return k, v
+
+
+def _cross_attend(p_cross: CrossBlock, cfg: ModelConfig, x: torch.Tensor, enc_kv) -> torch.Tensor:
+    """One cross-attention insertion (decoder side): K3 with S_k = S_enc,
+    non-causal, no rope."""
+    h = L.apply_norm(p_cross.norm, x, cfg.norm_type)
+    b, s, _ = h.shape
+    hd, dt = cfg.resolved_head_dim, h.dtype
+    q = (h @ p_cross.attn.wq.to(dt)).reshape(b, s, cfg.num_heads, hd)
+    k, v = enc_kv
+    out = L.attention_scores_blockwise(q, k, v, causal=False)
+    return x + out.reshape(b, s, cfg.num_heads * hd) @ p_cross.attn.wo.to(dt)
+
+
 @torch.no_grad()
 def forward(
     params: TransformerLM,
     cfg: ModelConfig,
     tokens,  # (B, S) int
-    vision_embeds=None,
-    encoder_frames=None,
+    vision_embeds=None,  # (B, N_vis, D) for the VLM
+    encoder_frames=None,  # (B, S_enc, D) for the encoder-decoder
 ) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
-    if vision_embeds is not None or encoder_frames is not None:
-        raise NotImplementedError("VLM and encoder-decoder inputs are not ported to repro_torch yet: "
-                                  "ROADMAP port queue item 25 (LLM side stack)")
+    """Full-sequence forward -> logits (B, S_total, V); S_total counts the
+    vision tokens."""
     tokens = as_tokens(params, tokens)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_inputs(params, cfg, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.is_encdec:
+        if encoder_frames is None:
+            raise ValueError("encoder-decoder model needs encoder_frames")
+        enc_out = encode(params, cfg, encoder_frames)
+        for blk, cross in zip(params.layers, params.cross):
+            x = _block_full(blk, cfg, x, positions, None)
+            x = _cross_attend(cross, cfg, x, _encoder_kv(cross, cfg, enc_out))
+        return logits_from(params, cfg, x)
     for blk in params.dense_prefix or ():
         x = _block_full(blk, cfg, x, positions, None)
     for blk, is_local in zip(params.layers, params.is_local):

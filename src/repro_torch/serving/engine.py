@@ -70,6 +70,14 @@ class ServeStats:
         return self.tokens_generated / self.wall_seconds if self.wall_seconds else 0.0
 
 
+def slots_and_length(cache: dict) -> tuple[int, int]:
+    """(batch slots, max_len) of a decode cache: the self-attention
+    cache's, whatever the dict's order (the cross K/V of an
+    encoder-decoder are S_enc long, not max_len)."""
+    leaf = next(v for name, v in cache.items() if not name.startswith("cross_"))
+    return leaf.shape[1], leaf.shape[2]
+
+
 class DecodeGraph:
     """``decode_step`` over one cache, captured as one CUDA graph.
 
@@ -94,17 +102,19 @@ class DecodeGraph:
       written in place (and zeroed in place between serves).
     * The eager run before the capture (cuBLAS handles and workspaces, the
       kernel library, K4's counters — none of which may be created inside
-      a capture) runs with every length at the cache's end, where
-      ``decode_step`` drops the row it would write: it leaves the cache as
-      it was.
+      a capture) runs with every length at the cache's end
+      (:func:`slots_and_length`: the self-attention cache's, not an
+      encoder's S_enc), where ``decode_step`` drops the row it would
+      write: it leaves the cache as it was.
+    * An encoder-decoder's cross K/V are read in place, at the addresses
+      they had at capture (zeroed in place between serves like the rest).
     """
 
     def __init__(self, params, cfg: ModelConfig, cache: dict, kv_repeat: int = 1):
-        leaf = next(iter(cache.values()))
-        dev = leaf.device
+        b, s = slots_and_length(cache)
+        dev = next(iter(cache.values())).device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a cache on the card, got {dev}")
-        b, s = leaf.shape[1], leaf.shape[2]
         self.cache = cache
         self.inp = torch.zeros((2, b), dtype=torch.int32, device=dev)
         self.inp[1].fill_(s)  # past the cache: the warm-up writes no row

@@ -318,6 +318,43 @@ def test_attention_scores_blockwise_matches_reference(block, b, s, h, kvh, hd, w
     np.testing.assert_allclose(plain.numpy(), ref, atol=F32_ATOL)
 
 
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kvh,causal,window,block",
+    [
+        (2, 12, 30, 4, 4, False, None, 1024),  # cross attention (whisper: non-causal, group 1)
+        (2, 12, 30, 4, 2, False, None, 8),  # the blockwise branch at a small block
+        (2, 7, 1500, 4, 4, False, None, 1024),  # whisper's 1500 frames: blockwise past 1024 keys
+        (1, 9, 1100, 4, 2, True, None, 1024),  # causal, Sk > Sq, blockwise
+        (2, 12, 30, 4, 2, True, None, 1024),  # causal, Sk > Sq: kpos <= qpos from 0
+        (2, 30, 12, 4, 2, True, None, 1024),  # causal, Sk < Sq
+        (1, 20, 40, 4, 1, True, 6, 1024),  # a window
+        (1, 20, 40, 4, 1, True, 6, 16),
+    ],
+)
+def test_k3_takes_a_key_length_other_than_the_query_length(b, sq, sk, h, kvh, causal, window, block):
+    hd = 16
+    q, k, v = _normal(b, sq, h, hd), _normal(b, sk, kvh, hd), _normal(b, sk, kvh, hd)
+    ref = np.asarray(RL.attention_scores_blockwise(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                                   window=window, block=block))
+    plain = fa_plain.flash_attention_bshd(*_t(q, k, v), causal=causal, window=window, block=block)
+    assert plain.shape == ref.shape == (b, sq, h, hd)
+    np.testing.assert_allclose(plain.numpy(), ref, atol=F32_ATOL)
+    if block == 1024:  # the layer and the wrapper: the plain version at its default block
+        before = fa.flash_attention_bshd.launches_cross
+        out = L.attention_scores_blockwise(*_t(q, k, v), causal=causal, window=window)
+        np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
+        assert fa.flash_attention_bshd.launches_cross == before  # CPU calls launch nothing
+
+
+def test_k3_checks_the_key_and_value_lengths():
+    q, k = torch.zeros((1, 8, 2, 16)), torch.zeros((1, 5, 2, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention_bshd(q, k, torch.zeros((1, 6, 2, 16)))
+    with pytest.raises(ValueError, match="no keys"):
+        fa.flash_attention_bshd(q, k[:, :0], k[:, :0])
+    assert fa.flash_attention_bshd(q, k, k).shape == (1, 8, 2, 16)
+
+
 @pytest.mark.parametrize("window", [None, 24])
 def test_decode_attention_jnp_matches_reference_bf16_q_f32_cache(window):
     # the serving engine's mix: bf16 activations against an f32 cache,

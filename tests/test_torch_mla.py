@@ -129,8 +129,9 @@ def test_flash_attention_wrapper_knows_the_mla_instance(monkeypatch):
         fa.flash_attention_bshd(q, q, torch.empty((1, 8, 2, 64), device="meta"))
     with pytest.raises(ValueError, match="do not match"):
         fa.flash_attention_bshd(q, q, torch.empty((1, 7, 2, 128), device="meta"))
-    with pytest.raises(NotImplementedError, match="S_k != S_q"):  # cross attention stays unported
-        L.attention_scores_blockwise(torch.zeros(1, 4, 2, 8), torch.zeros(1, 5, 2, 8), torch.zeros(1, 5, 2, 8))
+    # a key length other than the query length is cross attention, which the layer takes
+    out = L.attention_scores_blockwise(torch.zeros(1, 4, 2, 8), torch.zeros(1, 5, 2, 8), torch.zeros(1, 5, 2, 8))
+    assert out.shape == (1, 4, 2, 8)
 
 
 @pytest.mark.parametrize("q_lora", [True, False])

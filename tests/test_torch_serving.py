@@ -8,6 +8,10 @@ exactly: the f32 logits agree to ~1e-6 relative (``test_torch_lm.py``),
 far inside the gap between the two largest logits at these seeds.
 """
 
+import io
+import sys
+from contextlib import redirect_stdout
+
 import numpy as np
 import pytest
 
@@ -17,6 +21,8 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 
 from repro import configs as ref_configs  # noqa: E402
+from repro.distributed import checkpoint as ref_ckpt  # noqa: E402
+from repro.launch import serve as ref_serve_cli  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
 from repro.models.config import ModelConfig as RefConfig  # noqa: E402
 from repro.serving import engine as ref_engine  # noqa: E402
@@ -105,7 +111,33 @@ def test_serve_cli_on_the_cpu(capsys):
                                   "--max-len", "48"])
     assert stats.completed == 3 and all(1 <= len(r.output_ids) <= 3 for r in done)
     assert "completed 3 requests" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--restore", "ckpt"])
     with pytest.raises(NotImplementedError, match="item 25"):
         serve_cli.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internlm2-1.8b"])
+def test_serve_cli_restores_a_reference_checkpoint(monkeypatch, tmp_path, arch):
+    """``--restore DIR`` serves the weights of a checkpoint the reference's
+    ``save`` wrote: the port's CLI gives the reference CLI's ids per uid on
+    the same checkpoint."""
+    params = RT.init_lm(ref_configs.get_smoke_config(arch), jax.random.PRNGKey(5))
+    ref_ckpt.save(str(tmp_path), 2, {"params": params})
+    argv = ["--arch", arch, "--smoke", "--requests", "3", "--max-new", "4", "--slots", "2",
+            "--max-len", "32", "--restore", str(tmp_path)]
+    served = {}
+
+    class Recording(ref_engine.ServingEngine):
+        def serve(self, requests):
+            done, stats = super().serve(requests)
+            served.update({r.uid: r.output_ids for r in done})
+            return done, stats
+
+    monkeypatch.setattr(ref_serve_cli, "ServingEngine", Recording)
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    with redirect_stdout(io.StringIO()):
+        ref_serve_cli.main()
+    out = io.StringIO()
+    with redirect_stdout(out):
+        done, stats = serve_cli.main([*argv, "--device", "cpu"])
+    assert "restored params from step 2" in out.getvalue()
+    assert stats.completed == 3 and {r.uid: r.output_ids for r in done} == served
