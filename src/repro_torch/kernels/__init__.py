@@ -17,4 +17,7 @@ loaded with ``ctypes``).
                      window, GQA (the LM's prefill and forward)
 * decode_attention — flash-decoding of one token per sequence against the
                      KV cache in its own layout (every decode step)
+* blocks_to_rgb    — decoded blocks to RGB pixels (the split-decode tail)
+* selective_scan   — Mamba's selective scan with its state in registers
+                     (hymba's prefill, and each decode step at S = 1)
 """

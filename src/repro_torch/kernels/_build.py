@@ -163,6 +163,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         _F, _I, _P,  # scale, window (-1 = none), stream
     ]
     lib.repro_decode_attention.restype = _I
+    lib.repro_selective_scan.argtypes = [
+        _I, _P, _P, _P, _P,  # xc is bf16 (else f32), xc, dt, bmat, cmat
+        _P, _P, _P, _P, _P,  # a, d_skip, h0 (null: zeros), y, h_last
+        _I, _I, _I, _I, _P,  # B, S, D, N, stream
+    ]
+    lib.repro_selective_scan.restype = _I
     lib.repro_empty_kernel.argtypes = [_I, _I, _P]  # blocks, threads, stream
     lib.repro_empty_kernel.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]

@@ -4,6 +4,7 @@
         --requests 8 --max-new 16 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --restore DIR
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
 
 Runs the batched serving engine (tokenize on host threads + decode on the
 card, each model step one CUDA graph replay) with weights drawn at random
@@ -13,7 +14,9 @@ reference's format, a ``{"params": ...}`` tree, so a checkpoint that
 ``repro`` wrote serves here).  ``--layers`` cuts the depth (dense prefix
 included): DeepSeek-V2's 60 layers (~470 GB in bf16) do not fit one 80 GB
 card, 4 (1 dense + 3 MoE, ~27 GB) do.  As in the reference, whisper
-serves over a zero cross cache (no audio) and internvl2 text only.
+serves over a zero cross cache (no audio) and internvl2 text only; the
+recurrent stacks (hymba-1.5b, xlstm-125m) keep the reference's slot
+prefill, which steps every slot's state.
 """
 
 from __future__ import annotations

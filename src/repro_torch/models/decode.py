@@ -1,8 +1,9 @@
 """Serving paths of the port: cache init, prefill, and single-token decode.
 
-``repro.models.decode`` for the dense-GQA, MoE, MLA, encoder-decoder and
-VLM families.  The cache is a dict of layer-stacked tensors, as in the
-reference:
+``repro.models.decode`` for the dense-GQA, MoE, MLA, encoder-decoder,
+VLM, hybrid and xLSTM families.  The cache is a dict of layer-stacked
+tensors, as in the reference (:data:`CACHE_DIM_SEMANTICS` names each
+leaf's axes):
 
   gqa    : k/v (L, B, S, KVH, hd)
   mla    : c_kv (L, B, S, R), k_rope (L, B, S, rope_hd) over the main
@@ -14,6 +15,11 @@ reference:
            read-only in decode
   vlm    : the gqa cache; prefill runs the projected patch embeddings
            ahead of the prompt, so they fill its first rows
+  hybrid : the gqa cache + Mamba's ssm (L, B, D_in, N) f32 and conv
+           (L, B, conv - 1, D_in) states
+  xlstm  : mlstm_c (L, B, H, hd, hd), mlstm_n (L, B, H, hd) and
+           slstm_h/c/n/m (L, B, D), all f32 and with no sequence axis: an
+           mLSTM layer leaves its sLSTM state at zero and the other way
 
 What differs:
 
@@ -24,11 +30,14 @@ What differs:
   :func:`prefill` writes each layer's rows into one cache allocated up
   front.  A write at a position past the cache is dropped, as JAX drops an
   out-of-bounds scatter (an idle serving slot's length keeps counting).
+  The recurrent states (:data:`RECURRENT`) are written in place too
+  (``copy_``), every step, whatever the lengths.
 * **Kernels.**  Prefill attention is K3 (the encoder's non-causal, the
   cross attention's with S_k = S_enc) and GQA decode attention is K4
   (the cross attention's with every length S_enc), which reads each layer
-  slice through its strides: no step copies the cache.  MLA's absorbed
-  decode is plain torch in f32, as the reference computes it in jnp.
+  slice through its strides: no step copies the cache.  Mamba's scan is
+  K6 (``models/ssm.py``).  MLA's absorbed decode, the mLSTM and the sLSTM
+  are plain torch in f32, as the reference computes them in jnp.
 * **Capturable.**  :func:`decode_step` makes no host sync and keeps every
   buffer it reads in place, so ``serving/engine.py`` captures it as one
   CUDA graph.
@@ -43,6 +52,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -51,20 +61,60 @@ def kv_cache_heads(cfg: ModelConfig, kv_repeat: int = 1) -> int:
     return cfg.num_kv_heads * kv_repeat
 
 
+# Semantic dimension labels per cache leaf (the reference's).
+CACHE_DIM_SEMANTICS: dict[str, tuple[str, ...]] = {
+    "k": ("layers", "batch", "seq", "kv_heads", "head"),
+    "v": ("layers", "batch", "seq", "kv_heads", "head"),
+    "c_kv": ("layers", "batch", "seq", "rank"),
+    "k_rope": ("layers", "batch", "seq", "rank"),
+    "prefix_c_kv": ("layers", "batch", "seq", "rank"),
+    "prefix_k_rope": ("layers", "batch", "seq", "rank"),
+    "ssm": ("layers", "batch", "inner", "state"),
+    "conv": ("layers", "batch", "window", "inner"),
+    "mlstm_c": ("layers", "batch", "rec_heads", "hd", "hd"),
+    "mlstm_n": ("layers", "batch", "rec_heads", "hd"),
+    "slstm_h": ("layers", "batch", "inner"),
+    "slstm_c": ("layers", "batch", "inner"),
+    "slstm_n": ("layers", "batch", "inner"),
+    "slstm_m": ("layers", "batch", "inner"),
+    "cross_k": ("layers", "batch", "enc_seq", "kv_heads", "head"),
+    "cross_v": ("layers", "batch", "enc_seq", "kv_heads", "head"),
+}
+
+# the leaves every decode step rewrites whole, whatever the lengths
+RECURRENT = frozenset(k for k, dims in CACHE_DIM_SEMANTICS.items() if "seq" not in dims and "enc_seq" not in dims)
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, kv_repeat: int = 1,
     dtype: torch.dtype = torch.bfloat16, device: str | torch.device | None = "cuda",
     cross_dtype: torch.dtype | None = None,
 ) -> dict[str, torch.Tensor]:
     """Zero-filled cache for ``batch`` sequences of up to ``max_len``; the
-    cross K/V of an encoder-decoder in ``cross_dtype`` (default ``dtype``)."""
+    cross K/V of an encoder-decoder in ``cross_dtype`` (default ``dtype``);
+    the recurrent states in f32, but the hybrid's conv window in ``dtype``
+    (the xLSTM's take neither ``max_len`` nor ``dtype``)."""
     T.check_supported(cfg)
     dev = resolve_device(device)
+    kind = T.main_block_kind(cfg)
+    n, f32 = cfg.num_layers, dict(dtype=torch.float32, device=dev)
+    if kind == "xlstm":
+        d, mh = cfg.d_model, cfg.num_heads
+        mhd = 2 * d // mh
+        cache = {"mlstm_c": torch.zeros((n, batch, mh, mhd, mhd), **f32),
+                 "mlstm_n": torch.zeros((n, batch, mh, mhd), **f32)}
+        for name in ssm.SLSTM_STATE:
+            cache[name] = torch.zeros((n, batch, d), **f32)
+        return cache
     if cfg.attn_type != "mla":
         hd = cfg.resolved_head_dim
         shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), hd)
         cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if kind == "hybrid":
+            d_in = 2 * cfg.d_model
+            cache["ssm"] = torch.zeros((n, batch, d_in, cfg.ssm_state), **f32)
+            cache["conv"] = torch.zeros((n, batch, cfg.ssm_conv - 1, d_in), dtype=dtype, device=dev)
         if cfg.is_encdec:
             cross = (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads, hd)
             for name in ("cross_k", "cross_v"):
@@ -80,15 +130,17 @@ def init_cache(
     return cache
 
 
-def _layer_caches(params: T.TransformerLM, cfg: ModelConfig, cache: dict):
-    """(block, is_local, its two cache slices) for every layer in order:
-    the dense prefix (MLA's prefix_c_kv / prefix_k_rope), then the main
-    layers (k / v, or c_kv / k_rope)."""
-    names = ("c_kv", "k_rope") if cfg.attn_type == "mla" else ("k", "v")
+def _layer_caches(params: T.TransformerLM, cache: dict):
+    """(block, is_local, its cache slices by leaf name) for every layer in
+    order: the dense prefix (MLA's prefix_c_kv / prefix_k_rope, named
+    c_kv / k_rope), then the main layers (every leaf but the prefix's and
+    the cross K/V)."""
+    prefix = {k.removeprefix("prefix_"): v for k, v in cache.items() if k.startswith("prefix_")}
+    main = {k: v for k, v in cache.items() if not k.startswith(("prefix_", "cross_"))}
     for i, blk in enumerate(params.dense_prefix or ()):
-        yield blk, None, cache["prefix_" + names[0]][i], cache["prefix_" + names[1]][i]
+        yield blk, None, {k: v[i] for k, v in prefix.items()}
     for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
-        yield blk, is_local, cache[names[0]][i], cache[names[1]][i]
+        yield blk, is_local, {k: v[i] for k, v in main.items()}
 
 
 # ------------------------------------------------------------------ helpers
@@ -177,14 +229,33 @@ def _cross_decode(p_cross, cfg, x, cross_k, cross_v):
     return x + out.reshape(bsz, cfg.num_heads * hd) @ p_cross.attn.wo.to(dt)
 
 
-def _block_decode(p, cfg, x, cache_a, cache_b, is_local, lengths, kv_repeat):
-    """One block, one token.  x: (B, D); cache_a / cache_b: this layer's
-    k / v (GQA) or c_kv / k_rope (MLA) slices."""
+def _write_(cache_l: dict, names, values) -> None:
+    for name, value in zip(names, values):
+        cache_l[name].copy_(value)
+
+
+def _block_decode(p, cfg, x, cache_l, is_local, lengths, kv_repeat):
+    """One block, one token.  x: (B, D); cache_l: this layer's slices by
+    leaf name, updated in place."""
+    if p.kind == "xlstm":
+        h = L.apply_norm(p.pre_norm, x, cfg.norm_type)
+        if p.is_slstm:
+            y, state = ssm.slstm_step(p.slstm, h, tuple(cache_l[k] for k in ssm.SLSTM_STATE))
+            _write_(cache_l, ssm.SLSTM_STATE, state)
+        else:
+            y, state = ssm.mlstm_step(p.mlstm, h, cache_l["mlstm_c"], cache_l["mlstm_n"], cfg.num_heads)
+            _write_(cache_l, ("mlstm_c", "mlstm_n"), state)
+        return x + y
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     if cfg.attn_type == "mla":
-        x = x + _mla_decode(p.attn, cfg, h, cache_a, cache_b, lengths)
+        y = _mla_decode(p.attn, cfg, h, cache_l["c_kv"], cache_l["k_rope"], lengths)
     else:
-        x = x + _gqa_decode(p.attn, cfg, h, cache_a, cache_b, lengths, _window(cfg, is_local), kv_repeat)
+        y = _gqa_decode(p.attn, cfg, h, cache_l["k"], cache_l["v"], lengths, _window(cfg, is_local), kv_repeat)
+    if p.kind == "hybrid":
+        m_out, state = ssm.mamba_step(p.mamba, h, cache_l["ssm"], cache_l["conv"].to(h.dtype), cfg.ssm_state)
+        _write_(cache_l, ("ssm", "conv"), state)
+        y = T.hybrid_mix(p, cfg, y, m_out)
+    x = x + y
     h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
     return x + T.ffn(p, cfg, h2)
 
@@ -203,8 +274,8 @@ def decode_step(
     token = T.as_tokens(params, token)
     lengths = torch.as_tensor(lengths, device=token.device)
     x = T.embed_tokens(params, cfg, token[:, None])[:, 0]  # (B, D)
-    for i, (blk, is_local, cache_a, cache_b) in enumerate(_layer_caches(params, cfg, cache)):
-        x = _block_decode(blk, cfg, x, cache_a, cache_b, is_local, lengths, kv_repeat)
+    for i, (blk, is_local, cache_l) in enumerate(_layer_caches(params, cache)):
+        x = _block_decode(blk, cfg, x, cache_l, is_local, lengths, kv_repeat)
         if params.cross is not None:  # each decoder layer, then its cross layer
             x = _cross_decode(params.cross[i], cfg, x, cache["cross_k"][i], cache["cross_v"][i])
     logits = T.logits_from(params, cfg, x[:, None, :])[:, 0]
@@ -212,24 +283,39 @@ def decode_step(
 
 
 # ------------------------------------------------------------------ prefill
-def _block_prefill(p, cfg, x, positions, is_local, cache_a, cache_b, kv_repeat):
-    """One block over the full prompt; writes this layer's cache rows:
-    k / v (GQA) or c_kv / k_rope (MLA) into cache_a / cache_b."""
+def _block_prefill(p, cfg, x, positions, is_local, cache_l, kv_repeat):
+    """One block over the full prompt; writes this layer's cache: k / v
+    (GQA) or c_kv / k_rope (MLA) rows, the hybrid's Mamba states, the
+    xLSTM layer's mLSTM or sLSTM state (the other stays at zero)."""
+    if p.kind == "xlstm":
+        h = L.apply_norm(p.pre_norm, x, cfg.norm_type)
+        if p.is_slstm:
+            y, state = ssm.slstm_apply(p.slstm, h, cfg.num_heads)
+            _write_(cache_l, ssm.SLSTM_STATE, state)
+        else:
+            y, state = ssm.mlstm_apply(p.mlstm, h, cfg.num_heads)
+            _write_(cache_l, ("mlstm_c", "mlstm_n"), state)
+        return x + y
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     b, s, _ = h.shape
     if cfg.attn_type == "mla":
-        out, row_a, row_b = L.mla_apply_with_latent(p.attn, cfg, h, positions, causal=True)
-        x = x + out
+        y, row_a, row_b = L.mla_apply_with_latent(p.attn, cfg, h, positions, causal=True)
+        names = ("c_kv", "k_rope")
     else:
         q, row_a, row_b = L.gqa_project_qkv(p.attn, cfg, h, positions)
         out = L.attention_scores_blockwise(q, row_a, row_b, causal=True, window=_window(cfg, is_local))
-        out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-        x = x + out @ p.attn.wo.to(h.dtype)
+        y = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim) @ p.attn.wo.to(h.dtype)
         if kv_repeat > 1:
             row_a = row_a.repeat_interleave(kv_repeat, dim=2)
             row_b = row_b.repeat_interleave(kv_repeat, dim=2)
-    cache_a[:, :s] = row_a
-    cache_b[:, :s] = row_b
+        names = ("k", "v")
+    cache_l[names[0]][:, :s] = row_a
+    cache_l[names[1]][:, :s] = row_b
+    if p.kind == "hybrid":
+        m_out, state = ssm.mamba_apply(p.mamba, h, cfg.ssm_state)
+        _write_(cache_l, ("ssm", "conv"), state)
+        y = T.hybrid_mix(p, cfg, y, m_out)
+    x = x + y
     h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
     return x + T.ffn(p, cfg, h2)
 
@@ -264,8 +350,8 @@ def prefill(
         for i, cross in enumerate(params.cross):
             cache["cross_k"][i], cache["cross_v"][i] = T._encoder_kv(cross, cfg, enc_out)
         del enc_out
-    for i, (blk, is_local, cache_a, cache_b) in enumerate(_layer_caches(params, cfg, cache)):
-        x = _block_prefill(blk, cfg, x, positions, is_local, cache_a, cache_b, kv_repeat)
+    for i, (blk, is_local, cache_l) in enumerate(_layer_caches(params, cache)):
+        x = _block_prefill(blk, cfg, x, positions, is_local, cache_l, kv_repeat)
         if params.cross is not None:
             x = T._cross_attend(params.cross[i], cfg, x, (cache["cross_k"][i], cache["cross_v"][i]))
     logits = T.logits_from(params, cfg, x[:, -1:, :])[:, 0]

@@ -3,13 +3,17 @@ GQA family (gemma3's local:global stacks included), MoE (OLMoE), MLA +
 MoE with a dense-FFN prefix (DeepSeek-V2), the encoder-decoder (whisper:
 a non-causal encoder over stub frame embeddings, and a cross-attention
 insertion after every decoder layer) and the VLM backbone (internvl2:
-stub patch embeddings through ``vis_proj``, prepended to the text).
+stub patch embeddings through ``vis_proj``, prepended to the text), the
+xLSTM stack (xlstm-125m: mLSTM layers with sLSTM ones at
+``is_slstm``) and the hybrid (hymba-1.5b: attention and Mamba heads side by
+side in each block; ``models/ssm.py``).
 
 The reference stacks every layer's parameters under a leading L axis and
 runs the layers under ``lax.scan``, choosing the local or global variant
 with ``lax.cond``.  Here :class:`TransformerLM` holds one submodule per
 layer and the layers run as a Python loop; the local/global choice is a
-Python branch on the static ``layer_flags``.  DeepSeek-V2's leading
+Python branch on the static ``layer_flags`` (as is an xLSTM layer's
+mLSTM/sLSTM choice, held on its block).  DeepSeek-V2's leading
 dense-FFN layers, a separately scanned group in the reference
 (``params["dense_prefix"]``), are ``TransformerLM.dense_prefix``; whisper's
 ``params["encoder"]`` and ``params["cross"]`` are ``TransformerLM.encoder``
@@ -23,8 +27,8 @@ pytree leaf it holds (``moe.experts.w_gate`` is
 :func:`from_jax_params` carries weights across and :func:`to_jax_layout`
 carries them back.
 
-SSM and hybrid stacks are not ported (ROADMAP port queue item 25) and
-raise ``NotImplementedError``.
+A GQA dense-FFN prefix, which no configuration has, is not ported (ROADMAP
+§3) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -77,16 +82,13 @@ def main_block_kind(cfg: ModelConfig) -> str:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the stacks the port does not run yet: SSM and hybrid; and
-    a dense-FFN prefix under GQA, which no configuration has (the
-    reference's prefill and decode disagree on its cache)."""
-    kind = main_block_kind(cfg)
-    gqa_prefix = cfg.is_moe and cfg.first_dense_layers and cfg.attn_type != "mla"
-    if kind not in ("dense", "moe") or gqa_prefix:
+    """Raise for the one stack the port does not run: a dense-FFN prefix
+    under GQA, which no configuration has (the reference's prefill and
+    decode disagree on its cache, ROADMAP §3)."""
+    if cfg.is_moe and cfg.first_dense_layers and cfg.attn_type != "mla":
         raise NotImplementedError(
-            f"{cfg.name}: the {kind}/{cfg.attn_type} stack"
-            f"{' with a dense prefix' if gqa_prefix else ''} is not ported to repro_torch yet: "
-            "ROADMAP port queue item 25 (LLM side stack)"
+            f"{cfg.name}: the {main_block_kind(cfg)}/{cfg.attn_type} stack with a dense prefix "
+            "is not ported to repro_torch yet: ROADMAP port queue item 25 (LLM side stack)"
         )
 
 
@@ -172,19 +174,89 @@ class MoE(nn.Module):
         self.shared = MLP(d, n_shared * f, dtype, device) if n_shared else None
 
 
-class Block(nn.Module):
-    """One layer: attention (GQA or MLA) and an FFN — ``mlp`` for kind
-    "dense" (width d_ff) and "dense_ffn" (DeepSeek's prefix, width
-    dense_d_ff), ``moe`` for kind "moe"; the other is None."""
+def _fixed(t: torch.Tensor) -> nn.Parameter:
+    """A parameter :func:`init_lm` leaves at its construction value."""
+    return nn.Parameter(t, requires_grad=False)
 
-    def __init__(self, cfg: ModelConfig, dtype, device=None, kind: str = "dense"):
+
+class Mamba(nn.Module):
+    """Mamba's selective SSM (the reference's ``mamba_init``): ``in_proj``,
+    ``x_proj`` and ``out_proj`` in the config dtype; the depthwise conv
+    ``conv_w`` (conv, 1, d_inner), ``dt_bias`` (0), ``a_log`` (log 1..N per
+    channel) and ``d_skip`` (1) in f32, as the reference computes with them."""
+
+    def __init__(self, d_model: int, d_inner: int, state: int, conv: int, dtype, device=None):
         super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.in_proj = _weight((d_model, 2 * d_inner), dtype, device)
+        self.conv_w = _weight((conv, 1, d_inner), torch.float32, device)
+        self.x_proj = _weight((d_inner, 2 * state + 1), dtype, device)
+        self.dt_bias = _fixed(torch.zeros(d_inner, **f32))
+        self.a_log = _fixed(torch.log(torch.arange(1, state + 1, **f32)).expand(d_inner, state).contiguous())
+        self.d_skip = _fixed(torch.ones(d_inner, **f32))
+        self.out_proj = _weight((d_inner, d_model), dtype, device)
+
+
+class MLSTM(nn.Module):
+    """The mLSTM's projections (the reference's ``mlstm_init``, projection
+    factor 2): ``up_proj``, ``wq``/``wk``/``wv``, ``w_gates`` (input and
+    forget gate per head), ``o_gate``, ``down_proj`` and ``out_norm``."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype, device=None):
+        super().__init__()
+        d_in = 2 * d_model
+        self.up_proj = _weight((d_model, d_in), dtype, device)
+        self.wq = _weight((d_in, d_in), dtype, device)
+        self.wk = _weight((d_in, d_in), dtype, device)
+        self.wv = _weight((d_in, d_in), dtype, device)
+        self.w_gates = _weight((d_in, 2 * num_heads), dtype, device)
+        self.o_gate = _weight((d_model, d_in), dtype, device)
+        self.down_proj = _weight((d_in, d_model), dtype, device)
+        self.out_norm = Norm(d_in, "rmsnorm", device)
+
+
+class SLSTM(nn.Module):
+    """The sLSTM's weights (the reference's ``slstm_init``): ``w_in`` and
+    ``w_rec`` (the i, f, z, o pre-activations), ``down_proj``, ``out_norm``."""
+
+    def __init__(self, d_model: int, dtype, device=None):
+        super().__init__()
+        self.w_in = _weight((d_model, 4 * d_model), dtype, device)
+        self.w_rec = _weight((d_model, 4 * d_model), dtype, device)
+        self.down_proj = _weight((d_model, d_model), dtype, device)
+        self.out_norm = Norm(d_model, "rmsnorm", device)
+
+
+class Block(nn.Module):
+    """One layer of ``kind``:
+
+    * "dense", "dense_ffn", "moe", "hybrid": attention (GQA or MLA) and an
+      FFN — ``mlp`` (width d_ff; DeepSeek's prefix "dense_ffn": dense_d_ff)
+      or, for "moe", ``moe``; the other is None.  "hybrid" adds the
+      :class:`Mamba` heads beside the attention and a norm on each output;
+    * "xlstm": ``pre_norm`` and both an :class:`MLSTM` and an
+      :class:`SLSTM`, as the reference stacks every layer;
+      ``is_slstm`` picks the one the layer runs."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None, kind: str = "dense", is_slstm: bool = False):
+        super().__init__()
+        self.kind = kind
+        self.is_slstm = is_slstm
+        if kind == "xlstm":
+            self.pre_norm = Norm(cfg.d_model, cfg.norm_type, device)
+            self.mlstm = MLSTM(cfg.d_model, cfg.num_heads, dtype, device)
+            self.slstm = SLSTM(cfg.d_model, dtype, device)
+            return
         self.attn_norm = Norm(cfg.d_model, cfg.norm_type, device)
         self.attn = (MLAAttention if cfg.attn_type == "mla" else Attention)(cfg, dtype, device)
         self.mlp_norm = Norm(cfg.d_model, cfg.norm_type, device)
         self.moe = MoE(cfg, dtype, device) if kind == "moe" else None
         d_ff = (cfg.dense_d_ff or cfg.d_ff) if kind == "dense_ffn" else cfg.d_ff
         self.mlp = MLP(cfg.d_model, d_ff, dtype, device) if kind != "moe" else None
+        if kind == "hybrid":
+            self.mamba = Mamba(cfg.d_model, 2 * cfg.d_model, cfg.ssm_state, cfg.ssm_conv, dtype, device)
+            self.attn_out_norm = Norm(cfg.d_model, cfg.norm_type, device)
+            self.mamba_out_norm = Norm(cfg.d_model, cfg.norm_type, device)
 
 
 class Encoder(nn.Module):
@@ -224,15 +296,17 @@ class TransformerLM(nn.Module):
         kind = main_block_kind(cfg)
         n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
         self.embed = _weight((cfg.padded_vocab_size, cfg.d_model), dtype, device)
+        flags = layer_flags(cfg)
+        is_slstm = flags.get("is_slstm", np.zeros(cfg.num_layers, bool))
         self.dense_prefix = nn.ModuleList(
             Block(cfg, dtype, device, "dense_ffn") for _ in range(n_prefix)) if n_prefix else None
-        self.layers = nn.ModuleList(Block(cfg, dtype, device, kind) for _ in range(cfg.num_layers - n_prefix))
+        self.layers = nn.ModuleList(Block(cfg, dtype, device, kind, bool(is_slstm[i]))
+                                    for i in range(n_prefix, cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
         self.lm_head = None if cfg.tie_embeddings else _weight((cfg.d_model, cfg.padded_vocab_size), dtype, device)
         self.encoder = Encoder(cfg, dtype, device) if cfg.is_encdec else None
         self.cross = nn.ModuleList(CrossBlock(cfg, dtype, device) for _ in self.layers) if cfg.is_encdec else None
         self.vis_proj = _weight((cfg.d_model, cfg.d_model), dtype, device) if cfg.frontend == "vit_stub" else None
-        flags = layer_flags(cfg)
         # per layer: True local, False global, None no local/global pattern
         self.is_local = [bool(f) for f in flags["is_local"]] if "is_local" in flags else [None] * len(self.layers)
 
@@ -243,7 +317,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random weights with the reference's distributions (``init_lm``):
     embedding N(0, 1) * d_model^-0.5, each matrix N(0, 1) * fan_in^-0.5 —
     the router and every projection (in, out) over its first dimension, an
-    expert stack (E, in, out) over its second — norms at 1 (and 0).  Drawn
+    expert stack (E, in, out) over its second — with the sLSTM's ``w_rec``
+    at a tenth of that and Mamba's ``conv_w`` N(0, 1) * 0.2; norms at 1
+    (and 0), Mamba's ``dt_bias``, ``a_log`` and ``d_skip`` as built.  Drawn
     in f32 on ``device`` from ``generator``
     (a generator on that device; default: seed 0) and stored in the config
     dtype.  The numbers differ from the JAX ones for the same seed — load
@@ -255,12 +331,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
         raise ValueError(f"generator on {generator.device} but weights on {dev}")
     model = TransformerLM(cfg, dev)
     for name, w in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
         if name == "embed":
             scale = cfg.d_model**-0.5
-        elif w.dim() >= 2:
-            scale = w.shape[-2] ** -0.5
+        elif leaf == "conv_w":
+            scale = 0.2
+        elif w.dim() >= 2 and leaf != "a_log":
+            scale = w.shape[-2] ** -0.5 * (0.1 if leaf == "w_rec" else 1.0)
         else:
-            continue  # norms keep their 1 (and 0)
+            continue  # norms keep their 1 (and 0), Mamba's fixed leaves their values
         noise = torch.empty(w.shape, dtype=torch.float32, device=dev).normal_(generator=generator)
         w.copy_(noise.mul_(scale))
         del noise
@@ -356,10 +435,25 @@ def ffn(p: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return L.mlp_apply(p.mlp, h, cfg.mlp_act)
 
 
+def hybrid_mix(p: Block, cfg: ModelConfig, attn_out: torch.Tensor, mamba_out: torch.Tensor) -> torch.Tensor:
+    """A hybrid block's fusion: the mean of the normed attention and Mamba
+    outputs."""
+    return 0.5 * (L.apply_norm(p.attn_out_norm, attn_out, cfg.norm_type)
+                  + L.apply_norm(p.mamba_out_norm, mamba_out, cfg.norm_type))
+
+
 def _block_full(p: Block, cfg: ModelConfig, x, positions, is_local, causal=True):
     """One block, full sequence, no cache."""
+    if p.kind == "xlstm":
+        h = L.apply_norm(p.pre_norm, x, cfg.norm_type)
+        if p.is_slstm:
+            return x + ssm.slstm_apply(p.slstm, h, cfg.num_heads)[0]
+        return x + ssm.mlstm_apply(p.mlstm, h, cfg.num_heads)[0]
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
-    x = x + _attn_full(p.attn, cfg, h, positions, is_local, causal)
+    y = _attn_full(p.attn, cfg, h, positions, is_local, causal)
+    if p.kind == "hybrid":
+        y = hybrid_mix(p, cfg, y, ssm.mamba_apply(p.mamba, h, cfg.ssm_state)[0])
+    x = x + y
     h = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
     return x + ffn(p, cfg, h)
 

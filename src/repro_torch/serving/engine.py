@@ -41,6 +41,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models import decode as D
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import tokenizer as tok
@@ -70,12 +71,15 @@ class ServeStats:
         return self.tokens_generated / self.wall_seconds if self.wall_seconds else 0.0
 
 
-def slots_and_length(cache: dict) -> tuple[int, int]:
-    """(batch slots, max_len) of a decode cache: the self-attention
-    cache's, whatever the dict's order (the cross K/V of an
-    encoder-decoder are S_enc long, not max_len)."""
-    leaf = next(v for name, v in cache.items() if not name.startswith("cross_"))
-    return leaf.shape[1], leaf.shape[2]
+def slots_and_length(cache: dict) -> tuple[int, int | None]:
+    """(batch slots, max_len) of a decode cache: the slots from axis 1 of
+    any leaf; the length from a leaf whose axis 2 is the self-attention
+    sequence (``decode.CACHE_DIM_SEMANTICS``; an encoder-decoder's cross
+    K/V are S_enc long, not max_len), None where no leaf has one (the
+    xLSTM's recurrent state)."""
+    slots = next(iter(cache.values())).shape[1]
+    length = next((v.shape[2] for name, v in cache.items() if D.CACHE_DIM_SEMANTICS[name][2] == "seq"), None)
+    return slots, length
 
 
 class DecodeGraph:
@@ -85,7 +89,7 @@ class DecodeGraph:
     (2, B) int32, the token ids and the cache lengths; the cache, which
     every replay updates in place; the outputs ``logits`` (B, V) and
     ``ids`` (B,), the greedy argmax taken on the card.  ``kernel_launches``
-    holds the K3/K4 launches the graph recorded: what one replay launches,
+    holds the K3/K4/K6 launches the graph recorded: what one replay launches,
     since a replay bypasses the wrappers' counters.
 
     The hazards of capturing a decode step, and where they are handled:
@@ -105,7 +109,11 @@ class DecodeGraph:
       a capture) runs with every length at the cache's end
       (:func:`slots_and_length`: the self-attention cache's, not an
       encoder's S_enc), where ``decode_step`` drops the row it would
-      write: it leaves the cache as it was.
+      write.  It still advances the recurrent states
+      (``decode.RECURRENT``: Mamba's, the mLSTM's and sLSTM's), so they are
+      copied before it and written back in place after it: the run leaves
+      the cache as it was, and a graph built over a prefilled cache
+      replays from the prefill's state.
     * An encoder-decoder's cross K/V are read in place, at the addresses
       they had at capture (zeroed in place between serves like the rest).
     """
@@ -117,19 +125,24 @@ class DecodeGraph:
             raise ValueError(f"a CUDA graph needs a cache on the card, got {dev}")
         self.cache = cache
         self.inp = torch.zeros((2, b), dtype=torch.int32, device=dev)
-        self.inp[1].fill_(s)  # past the cache: the warm-up writes no row
+        self.inp[1].fill_(s or 0)  # past the cache: the warm-up writes no row
+        saved = {name: buf.clone() for name, buf in cache.items() if name in D.RECURRENT}
 
         def step():
             logits, _, _ = D.decode_step(params, cfg, self.inp[0], cache, self.inp[1], kv_repeat)
             return logits, torch.argmax(logits, dim=-1)
 
         counters = {"flash_attention": flash_ops.flash_attention_bshd,
-                    "decode_attention": decode_ops.decode_attention_cache}
+                    "decode_attention": decode_ops.decode_attention_cache,
+                    "selective_scan": scan_ops.selective_scan}
         self.stream = torch.cuda.Stream(dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
             step()
         self.stream.synchronize()
+        for name, buf in saved.items():
+            cache[name].copy_(buf)
+        del saved
         before = {name: fn.launches for name, fn in counters.items()}
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()

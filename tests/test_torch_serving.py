@@ -105,24 +105,24 @@ def test_engine_default_device_is_the_card(monkeypatch):
         engine.ServingEngine(model, cfg)
 
 
-def test_serve_cli_on_the_cpu(capsys):
+def test_serve_cli_on_the_cpu(monkeypatch, tmp_path, capsys):
     done, stats = serve_cli.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu",
                                   "--requests", "3", "--max-new", "3", "--slots", "2",
                                   "--max-len", "48"])
     assert stats.completed == 3 and all(1 <= len(r.output_ids) <= 3 for r in done)
     assert "completed 3 requests" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 25"):
-        serve_cli.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu"])
+    # the xLSTM stack serves too, with the reference CLI's ids on the same weights
+    got, want = _serve_cli_both(monkeypatch, tmp_path, "xlstm-125m", requests=3)
+    assert got == want
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "internlm2-1.8b"])
-def test_serve_cli_restores_a_reference_checkpoint(monkeypatch, tmp_path, arch):
-    """``--restore DIR`` serves the weights of a checkpoint the reference's
-    ``save`` wrote: the port's CLI gives the reference CLI's ids per uid on
-    the same checkpoint."""
+def _serve_cli_both(monkeypatch, tmp_path, arch: str, requests: int) -> tuple[dict, dict]:
+    """The port's and the reference's CLI over one checkpoint that the
+    reference's ``save`` wrote: their ids per uid (the port's checks that
+    it restored the checkpoint)."""
     params = RT.init_lm(ref_configs.get_smoke_config(arch), jax.random.PRNGKey(5))
     ref_ckpt.save(str(tmp_path), 2, {"params": params})
-    argv = ["--arch", arch, "--smoke", "--requests", "3", "--max-new", "4", "--slots", "2",
+    argv = ["--arch", arch, "--smoke", "--requests", str(requests), "--max-new", "4", "--slots", "2",
             "--max-len", "32", "--restore", str(tmp_path)]
     served = {}
 
@@ -140,4 +140,14 @@ def test_serve_cli_restores_a_reference_checkpoint(monkeypatch, tmp_path, arch):
     with redirect_stdout(out):
         done, stats = serve_cli.main([*argv, "--device", "cpu"])
     assert "restored params from step 2" in out.getvalue()
-    assert stats.completed == 3 and {r.uid: r.output_ids for r in done} == served
+    assert stats.completed == requests
+    return {r.uid: r.output_ids for r in done}, served
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internlm2-1.8b", "hymba-1.5b"])
+def test_serve_cli_restores_a_reference_checkpoint(monkeypatch, tmp_path, arch):
+    """``--restore DIR`` serves the weights of a checkpoint the reference's
+    ``save`` wrote: the port's CLI gives the reference CLI's ids per uid on
+    the same checkpoint."""
+    got, want = _serve_cli_both(monkeypatch, tmp_path, arch, requests=3)
+    assert got == want
