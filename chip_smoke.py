@@ -19,8 +19,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    one library call's, and the least time the card could take (the
    bound); K1 at phase 3's batch (point 8) and 6C's (point 4); K3 also
    with S_k != S_q (whisper's cross attention); for K4 also per layer,
-   beside the launch floor of an empty kernel; K6 (the selective scan)
-   at hymba-1.5b's layer, S = 1, 37 and 2048, with and without h0;
+   beside the launch floor of an empty kernel; K6 (the selective scan,
+   from the x_proj output to the gated rows) at hymba-1.5b's layer, S =
+   1, 37 and 2048, with and without h0, ``z=None`` (y in f32) and gated,
+   timed at the prefill layer and at a decode step;
 3. main path: ``SmolRuntime.run`` with split decode over a seeded SJPG
    corpus (384x512, 4:2:0, q90; 2 full batches of 64 + a ragged tail) into
    a full-width ResNet-50 with seeded random weights; checks the outputs,
@@ -138,6 +140,9 @@ HYMBA_LAYERS, HYMBA_D_INNER, HYMBA_STATE = 32, 3200, 16
 # K6 vs its plain version, f32 state both: the kernel walks time in order,
 # the plain version scans chunks as a tree; relative to the largest |value|
 SCAN_RTOL = 1e-4
+# K6's bf16(y), which its gate multiplies: one bf16 step apart at most
+# (K3's bf16 rule, the constant term relative to the largest |value|)
+SCAN_BF16_RTOL, SCAN_BF16_ATOL = 2**-7, 1e-4
 # kernel vs plain on the card, both f32 inside: f32 outputs sum in another
 # order (the CPU tests' 2e-5 bound); bf16 outputs may round one bf16 step
 # apart, at most 2^-7 of the value, held elementwise (plus f32 noise)
@@ -251,14 +256,14 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 # ------------------------------------------------------------ phase 1: build
 # the redesigned kernels and the instruction their SASS must hold: tensor
 # cores (K3 bf16, K1 at every point), TMA bulk copies (K4), cp.async
-# copies into shared memory (K2), warp shuffles (K6's sum over states)
+# copies into shared memory (K2; K6's double-buffered rows)
 DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
                     "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS",
-                    "selective_scan_kernel": "SHFL"}
+                    "selective_scan_kernel": "LDGSTS"}
 # instances a kernel template must have, where that is checked: K1's int16
 # zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1; K3's
 # bf16 kernel at (q/k, v) widths (64, 64), (128, 128), (256, 256), (192, 128);
-# K6 at 8 and 16 states, xc in f32 and bf16
+# K6 at 8 and 16 states, the model dtype (xc, proj, z, the gated out) f32 and bf16
 DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4, "selective_scan_kernel": 4}
 
 
@@ -266,8 +271,8 @@ def check_kernel_code(build) -> None:
     """The redesigned kernels were compiled as designed: their SASS
     (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16,
     ``wgmma``), HMMA (every instance of K1's template, ``mma.sync`` tf32),
-    UBLKCP (K4, TMA bulk copies), LDGSTS (K2, ``cp.async``) and SHFL (every
-    instance of K6, the sum over states), and ptxas reports no spills for
+    UBLKCP (K4, TMA bulk copies) and LDGSTS (``cp.async``: K2, and every
+    instance of K6, its staged rows), and ptxas reports no spills for
     them and serialises no ``wgmma`` (when this process built the
     library)."""
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
@@ -1225,33 +1230,46 @@ def time_decode_attention(dev, flush) -> dict:
 
 # ------------------------------------------------------------ phase 2: K6
 def _scan_inputs(rng, b: int, s: int, d: int, n: int, x_dtype, dev) -> dict:
-    """K6's operands as hymba's Mamba makes them: xc in the model dtype, dt
-    = softplus(N(0, 1)) one per token, B and C N(0, 1), a = -(1..N) per
-    channel (``-exp(a_log)`` at init), d_skip 1, h0 N(0, 1)."""
-    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(d, n).contiguous()
+    """K6's operands as hymba's Mamba hands them over, in the model dtype:
+    the x_proj output ``proj`` (B, C, dt_raw: N(0, 1)), the conv output
+    ``xc``, and ``z`` as the second half of the in_proj output's rows (a
+    strided view); ``a_log`` = log(1..N) per channel (its init) plus
+    N(0, 0.1), ``dt_bias`` N(0, 0.1), ``d_skip`` 1, h0 N(0, 1)."""
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev)).expand(d, n)
     return {"xc": _randn(rng, (b, s, d), x_dtype, dev),
-            "dt": torch.nn.functional.softplus(_randn(rng, (b, s), torch.float32, dev)),
-            "bmat": _randn(rng, (b, s, n), torch.float32, dev),
-            "cmat": _randn(rng, (b, s, n), torch.float32, dev),
-            "a": a, "d_skip": torch.ones(d, dtype=torch.float32, device=dev),
+            "proj": _randn(rng, (b, s, 2 * n + 1), x_dtype, dev),
+            "z": _randn(rng, (b, s, 2 * d), x_dtype, dev)[..., d:],
+            "a_log": (a_log + 0.1 * _randn(rng, (d, n), torch.float32, dev)).contiguous(),
+            "dt_bias": 0.1 * _randn(rng, (d,), torch.float32, dev),
+            "d_skip": torch.ones(d, dtype=torch.float32, device=dev),
             "h0": _randn(rng, (b, d, n), torch.float32, dev)}
 
 
-def _scan_args(t: dict, with_h0: bool) -> tuple:
-    return (t["xc"], t["dt"], t["bmat"], t["cmat"], t["a"], t["d_skip"], t["h0"] if with_h0 else None)
+def _scan_args(t: dict, with_h0: bool, gated: bool) -> tuple:
+    return (t["xc"], t["proj"], t["a_log"], t["dt_bias"], t["d_skip"], t["h0"] if with_h0 else None,
+            t["z"] if gated else None)
 
 
 def check_selective_scan(dev) -> float:
     """K6 against its plain version: hymba-1.5b's layer (4 sequences, 3200
     channels, 16 states) at S = 1 (a decode step), 37 (ragged against the
-    kernel's 64-step chunks) and 2048 (the prefill), with and without h0,
-    xc in bf16 (the model's) and f32; then the 8-state instance over 80
-    channels (the smoke config's: a ragged last block).  Holds y and h_last
-    to ``SCAN_RTOL`` of the plain version's largest |value|.  Returns the
-    largest |kernel - plain| of y over the cases."""
+    kernel's 32-step chunks) and 2048 (the prefill), with and without h0,
+    the model dtype bf16 and f32; then the 8-state instance over 80
+    channels (the smoke config's: a ragged last block).  With ``z=None``
+    y and h_last are held to ``SCAN_RTOL`` of the plain version's largest
+    |value| (the recurrence in f32).  The gated output (the main path's
+    form) rounds twice in bf16, bf16(bf16(y) bf16(silu(z))): bf16(y) is
+    held elementwise to the rule K3's bf16 kernel is held to, 2^-7 |plain|
+    + 1e-4 max|plain| (one bf16 step), and the gated output to the eager
+    gate on the kernel's own y, bit for bit; so it differs from the plain
+    gated output only where bf16(y) does, by one step of bf16(y), which the
+    second rounding can make two steps of out (counted and logged).  In f32
+    the gated output is held to ``SCAN_RTOL`` too.  Returns the largest
+    |kernel - plain| of y."""
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import plain as scan_plain
 
+    silu = torch.nn.functional.silu
     rng = np.random.default_rng(SEED + 12)
     b, d, n = PREFILL_B, HYMBA_D_INNER, HYMBA_STATE
     cases = [(b, s, d, n, dt, h0) for s in (1, 37, PREFILL_S) for h0 in (False, True)
@@ -1260,51 +1278,78 @@ def check_selective_scan(dev) -> float:
     worst = 0.0
     for bb, s, dd, nn, dt, with_h0 in cases:
         t = _scan_inputs(rng, bb, s, dd, nn, dt, dev)
-        y, h = scan_ops.selective_scan(*_scan_args(t, with_h0))
-        y_want, h_want = scan_plain.selective_scan(*_scan_args(t, with_h0))
+        y, h = scan_ops.selective_scan(*_scan_args(t, with_h0, False))
+        out, h_g = scan_ops.selective_scan(*_scan_args(t, with_h0, True))
+        y_want, h_want = scan_plain.selective_scan(*_scan_args(t, with_h0, False))
+        out_want = y_want.to(dt) * silu(t["z"])  # the plain version's gate
         torch.cuda.synchronize()
         errs = [(got - want).abs().max().item() / want.abs().max().item() for got, want in ((y, y_want),
                                                                                           (h, h_want))]
-        abs_err = (y - y_want).abs().max().item()
-        log(f"  selective_scan B={bb} S={s} D={dd} N={nn} xc {str(dt)[6:]} h0={with_h0}: max|kernel-plain| / "
-            f"max|plain| y {errs[0]:.3e}, h_last {errs[1]:.3e} (tolerance {SCAN_RTOL:g})")
-        if not (y.shape == (bb, s, dd) and h.shape == (bb, dd, nn) and max(errs) <= SCAN_RTOL):
-            raise AssertionError(f"selective_scan disagrees with its plain version: {errs}")
-        worst = max(worst, abs_err)
-        del t, y, h, y_want, h_want
+        own = torch.equal(out, y.to(dt) * silu(t["z"]))  # the eager gate on the kernel's own y
+        gap = (out.float() - out_want.float()).abs()
+        scale = out_want.float().abs().max().item()
+        if dt == torch.bfloat16:
+            yb, yb_want = y.to(dt).float(), y_want.to(dt).float()
+            y_out = int(((yb - yb_want).abs() > SCAN_BF16_RTOL * yb_want.abs()
+                         + SCAN_BF16_ATOL * yb_want.abs().max()).sum())
+            out_out = int((gap > SCAN_BF16_RTOL * out_want.float().abs() + SCAN_BF16_ATOL * scale).sum())
+            gated = (f"bf16(y): {y_out} elements outside 2^-7 |plain| + {SCAN_BF16_ATOL:g} max|plain|; "
+                     f"gated out max|kernel-plain| {gap.max().item():.3e} of max|plain| {scale:.3e}, "
+                     f"{out_out} of {gap.numel()} elements outside the same rule (two roundings)")
+            inside = not y_out
+        else:
+            inside = gap.max().item() <= SCAN_RTOL * scale
+            gated = (f"gated out max|kernel-plain| {gap.max().item():.3e} of max|plain| {scale:.3e} "
+                     f"(tolerance {SCAN_RTOL:g} of it)")
+        log(f"  selective_scan B={bb} S={s} D={dd} N={nn} {str(dt)[6:]} h0={with_h0}: max|kernel-plain| / "
+            f"max|plain| y {errs[0]:.3e}, h_last {errs[1]:.3e} (tolerance {SCAN_RTOL:g}); {gated}; gated out "
+            f"equal to the eager gate on the kernel's y: {own}")
+        if not (y.shape == out.shape == (bb, s, dd) and out.dtype == dt and h.shape == (bb, dd, nn)
+                and max(errs) <= SCAN_RTOL and inside and own and torch.equal(h, h_g)):
+            raise AssertionError(f"selective_scan disagrees with its plain version: {errs}, gated inside "
+                                 f"{inside}, own gate {own}")
+        worst = max(worst, (y - y_want).abs().max().item())
+        del t, y, h, out, h_g, y_want, h_want, out_want, gap
     return worst
 
 
-def time_selective_scan(dev, flush) -> dict:
-    """K6 at one hymba-1.5b prefill layer (4 x 2048 tokens, 3200 channels,
-    16 states, xc bf16, no h0) beside its plain version and its bound, and
-    at a decode step's (S = 1 with h0).  The bound is the larger of the
-    bytes (each operand read once, y and h_last written once, at 3.35 TB/s)
-    and the operations: one exp per (b, t, d, n) on the SFUs (16 a clock
-    per SM) and 6 f32 flops (dt a, B x, the h FMA, h C and its sum) on the
-    f32 pipes.  No single PyTorch call computes this function."""
+def time_selective_scan(dev, flush) -> list:
+    """K6 as the main path runs it, gated, the model dtype bf16: at one
+    hymba-1.5b prefill layer (4 x 2048 tokens, 3200 channels, 16 states,
+    no h0) and at a decode step's (S = 1, with h0), beside its plain
+    version and its bound.  The bound is the larger of the bytes (proj,
+    xc and the z half of the in_proj rows read once; a_log, dt_bias,
+    d_skip and h0 read once; out and h_last written once; at 3.35 TB/s)
+    and the operations: on the SFUs (16 a clock per SM) one exp per (b,
+    t, d, n), the gate's exp and reciprocal per (b, t, d), softplus's exp
+    and log per (b, t); on the f32 pipes 6 flops per (b, t, d, n) (dt a,
+    B x, the h FMA, h C).  No single PyTorch call computes this function.
+    Returns the two rows: ``selective_scan`` (the prefill layer) and
+    ``selective_scan_step``."""
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import plain as scan_plain
 
     rng = np.random.default_rng(SEED + 13)
-    rows = {}
-    for s, with_h0 in ((PREFILL_S, False), (1, True)):
-        t = _scan_inputs(rng, PREFILL_B, s, HYMBA_D_INNER, HYMBA_STATE, torch.bfloat16, dev)
-        args = _scan_args(t, with_h0)
+    rows = []
+    b, d, n = PREFILL_B, HYMBA_D_INNER, HYMBA_STATE
+    for s, with_h0, name in ((PREFILL_S, False, "selective_scan"), (1, True, "selective_scan_step")):
+        t = _scan_inputs(rng, b, s, d, n, torch.bfloat16, dev)
+        args = _scan_args(t, with_h0, True)
         kernel = median_ms(lambda: scan_ops.selective_scan(*args), flush)
         plain = median_ms(lambda: scan_plain.selective_scan(*args), flush, iters=5, warmup=1)
-        elems = PREFILL_B * s * HYMBA_D_INNER * HYMBA_STATE
-        nbytes = sum(x.numel() * x.element_size() for x in args if x is not None)
-        nbytes += (PREFILL_B * s * HYMBA_D_INNER + PREFILL_B * HYMBA_D_INNER * HYMBA_STATE) * 4  # y, h_last
-        t_bytes, t_sfu, t_f32 = nbytes / PEAK_BYTES_S, elems / PEAK_SFU_OPS, 6.0 * elems / PEAK_FP32_FLOPS
+        elems, rows_, nbytes = b * s * d * n, b * s * d, 0
+        for x in (t["xc"], t["proj"], t["a_log"], t["dt_bias"], t["d_skip"]) + ((t["h0"],) if with_h0 else ()):
+            nbytes += x.numel() * x.element_size()
+        nbytes += 2 * rows_ * 2 + b * d * n * 4  # z read, out written (bf16); h_last (f32)
+        sfu = elems + 2 * rows_ + 2 * b * s
+        t_bytes, t_sfu, t_f32 = nbytes / PEAK_BYTES_S, sfu / PEAK_SFU_OPS, 6.0 * elems / PEAK_FP32_FLOPS
         b_ms, b_by = max(t_bytes, t_sfu, t_f32) * 1e3, "bytes" if t_bytes >= max(t_sfu, t_f32) else "operations"
-        log(f"  selective_scan {'prefill layer' if s > 1 else 'decode step layer'} ({PREFILL_B}x{s}, "
-            f"{HYMBA_D_INNER} channels x {HYMBA_STATE} states, xc bf16): kernel {kernel:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: bytes {t_bytes * 1e3:.4f}, exps on the SFUs "
-            f"{t_sfu * 1e3:.4f}, f32 flops {t_f32 * 1e3:.4f}), {b_ms / kernel:.1%} of it; x {HYMBA_LAYERS} "
-            f"layers: {HYMBA_LAYERS * kernel:.3f} ms")
-        rows[s] = {
-            "name": "selective_scan",
+        log(f"  {name} {'prefill layer' if s > 1 else 'decode step layer'} ({b}x{s}, {d} channels x {n} "
+            f"states, bf16, gated): kernel {kernel:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"bytes {t_bytes * 1e3:.4f}, SFU ops {t_sfu * 1e3:.4f}, f32 flops {t_f32 * 1e3:.4f}), "
+            f"{b_ms / kernel:.1%} of it; x {HYMBA_LAYERS} layers: {HYMBA_LAYERS * kernel:.3f} ms")
+        rows.append({
+            "name": name,
             "route": "cuda",
             "source": "src/repro_torch/csrc/selective_scan.cu",
             "replaces": "src/repro/models/ssm.py:39",
@@ -1313,9 +1358,9 @@ def time_selective_scan(dev, flush) -> dict:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
-        }
+        })
         del t, args
-    return rows[PREFILL_S]  # the prefill layer is the kernels line's
+    return rows
 
 
 # ------------------------------------------------------------ phase 3: main
@@ -1708,7 +1753,8 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
 # ------------------------------------------------------------ phase 4: LM
 def _attention_counts() -> dict:
     """The LM kernels' launches: K3's by instance family (D = DV with
-    S_k = S_q; S_k != S_q, cross attention; MLA's 192/128), K4's and K6's."""
+    S_k = S_q; S_k != S_q, cross attention; MLA's 192/128), K4's, and K6's
+    over a prompt (S > 1) and at a decode step (S = 1)."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.selective_scan import ops as scan_ops
@@ -1718,7 +1764,8 @@ def _attention_counts() -> dict:
             "flash_attention_cross": cross,
             "flash_attention_mla": by_dims[MLA_DIMS],
             "decode_attention": da_ops.decode_attention_cache.launches,
-            "selective_scan": scan_ops.selective_scan.launches}
+            "selective_scan": scan_ops.selective_scan.launches - scan_ops.selective_scan.launches_step,
+            "selective_scan_step": scan_ops.selective_scan.launches_step}
 
 
 def _zero_attention_counts() -> None:
@@ -1731,6 +1778,7 @@ def _zero_attention_counts() -> None:
     fa_ops.flash_attention_bshd.launches_cross = 0
     da_ops.decode_attention_cache.launches = 0
     scan_ops.selective_scan.launches = 0
+    scan_ops.selective_scan.launches_step = 0
 
 
 def _plain_kernels():
@@ -1808,7 +1856,7 @@ def _expect_counts(phase: str, got: dict, want: dict) -> None:
 
 def _counts(**kw) -> dict:
     return {"flash_attention": 0, "flash_attention_cross": 0, "flash_attention_mla": 0, "decode_attention": 0,
-            "selective_scan": 0, **kw}
+            "selective_scan": 0, "selective_scan_step": 0, **kw}
 
 
 def _times(per: dict, n: int) -> dict:
@@ -1837,7 +1885,15 @@ def _per_step(cfg) -> dict:
     under MLA (its absorbed decode is plain torch) or for the xLSTM; K6
     one per hybrid layer (the scan at S = 1)."""
     k4 = 0 if cfg.attn_type == "mla" or cfg.family == "ssm" else cfg.num_layers * (2 if cfg.is_encdec else 1)
-    return {"decode_attention": k4, "selective_scan": cfg.num_layers if cfg.family == "hybrid" else 0}
+    return {"decode_attention": k4, "selective_scan_step": cfg.num_layers if cfg.family == "hybrid" else 0}
+
+
+def _graph_counts(graph) -> dict:
+    """A decode graph's launches a replay under ``_attention_counts``'
+    names: every K6 launch of a decode step is one at S = 1."""
+    counts = dict(graph.kernel_launches)
+    counts["selective_scan_step"] = counts.pop("selective_scan")
+    return counts
 
 
 def _routing_note(differ: list) -> str:
@@ -1896,7 +1952,7 @@ def decode_graph_vs_eager(model, cfg, tag: str, cache, lens, cache_g, lens0, tok
     capture_s = time.perf_counter() - t0
     launches = _attention_counts()
     _expect_counts(f"{tag} decode graph warm-up + capture", launches, _counts(**_times(per_step, 2)))
-    if graph.kernel_launches != {"flash_attention": 0, **per_step}:
+    if _graph_counts(graph) != {"flash_attention": 0, **per_step}:
         raise AssertionError(f"the decode graph holds {graph.kernel_launches} launches")
     lens_g, differ = lens0.clone(), 0
     for tk, lg in zip(tokens, kernel_logits):
@@ -1911,7 +1967,7 @@ def decode_graph_vs_eager(model, cfg, tag: str, cache, lens, cache_g, lens0, tok
     tok = tokens[-1]
     eager_ms = wall_ms(lambda: D.decode_step(model, cfg, tok, cache, lens))
     replay_ms = wall_ms(lambda: graph.run(tok, lens))
-    want = [[per_step["decode_attention"]] * 2, [per_step["selective_scan"]] * 2]
+    want = [[per_step["decode_attention"]] * 2, [per_step["selective_scan_step"]] * 2]
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         eager_wall, eager_busy, eager_rows = profile_steps(lambda: D.decode_step(model, cfg, tok, cache, lens))
         replay_wall, replay_busy, replay_rows = profile_steps(lambda: graph.run(tok, lens))
@@ -1930,8 +1986,9 @@ def decode_graph_vs_eager(model, cfg, tag: str, cache, lens, cache_g, lens0, tok
         f"{1 - replay_busy / replay_ms:.1%}; over the profiled window ({eager_wall:.3f} / "
         f"{replay_wall:.3f} ms a step) eager {1 - eager_busy / eager_wall:.1%}, replay "
         f"{1 - replay_busy / replay_wall:.1%}; K4 device launches per step eager {k4[0]:g}, replay "
-        f"{k4[1]:g}; K6 eager {k6[0]:g}, replay {k6[1]:g} [{card}]")
-    if k4 != [per_step["decode_attention"]] * 2 or k6 != [per_step["selective_scan"]] * 2:
+        f"{k4[1]:g}; K6 eager {k6[0]:g}, replay {k6[1]:g}; device kernels per step eager "
+        f"{sum(e.count for e in eager_rows) / 4:g}, replay {sum(e.count for e in replay_rows) / 4:g} [{card}]")
+    if k4 != [per_step["decode_attention"]] * 2 or k6 != [per_step["selective_scan_step"]] * 2:
         raise AssertionError(f"{tag}: K4 / K6 device launches per step {k4} / {k6}, expected {per_step}")
     for e in sorted(replay_rows, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[lm]   replay device {e.self_device_time_total / 1e3 / 4:8.3f} ms/step  "
@@ -1969,7 +2026,7 @@ def serve_graph_vs_eager(model, cfg, dev, tag: str, text: str, card: str, n_requ
             _expect_counts(f"{tag} serve ({mode}) warm-up + capture", c, _counts(**_times(per_step, 2)))
             if graph.replays != engine.model_steps:
                 raise AssertionError(f"{graph.replays} replays for {engine.model_steps} model steps")
-            _add(c, _times({k: graph.kernel_launches[k] for k in per_step}, graph.replays))
+            _add(c, _times({k: _graph_counts(graph)[k] for k in per_step}, graph.replays))
         if stats.completed != n_requests or sorted(r.uid for r in done) != list(range(n_requests)):
             raise AssertionError(f"served {stats.completed} of {n_requests} requests")
         if not all(1 <= len(r.output_ids) <= SERVE_MAX_NEW and all(0 <= t < vocab for t in r.output_ids)
@@ -2664,9 +2721,10 @@ def main() -> int:
                   time_flash_attention_cross(dev, flush), time_decode_attention(dev, flush)):
         timed["max_abs_err"] = attn_errs[timed["name"]]
         rows.append(timed)
-    log(f"[kernels] selective_scan vs plain (f32 state; {SCAN_RTOL:g} of max|plain|)")
+    log(f"[kernels] selective_scan vs plain (f32 state; {SCAN_RTOL:g} of max|plain|; bf16(y) 2^-7 |plain| + "
+        f"{SCAN_BF16_ATOL:g} max|plain|; the gate bitwise the eager gate on the kernel's y)")
     scan_err = check_selective_scan(dev)
-    rows.append({**time_selective_scan(dev, flush), "max_abs_err": scan_err})
+    rows += [{**row, "max_abs_err": scan_err} for row in time_selective_scan(dev, flush)]
     del flush
 
     # ---- phase 3: the main path
@@ -2727,6 +2785,9 @@ def main() -> int:
     del model
     for row in rows:
         row["launches"] = launches[row["name"]]
+    idle = [row["name"] for row in rows if not row["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the path never launched: {idle}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",

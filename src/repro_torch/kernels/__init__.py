@@ -18,6 +18,7 @@ loaded with ``ctypes``).
 * decode_attention — flash-decoding of one token per sequence against the
                      KV cache in its own layout (every decode step)
 * blocks_to_rgb    — decoded blocks to RGB pixels (the split-decode tail)
-* selective_scan   — Mamba's selective scan with its state in registers
-                     (hymba's prefill, and each decode step at S = 1)
+* selective_scan   — Mamba's selective scan with its state in registers,
+                     from the x_proj output to the gated rows (hymba's
+                     prefill, and each decode step at S = 1)
 """

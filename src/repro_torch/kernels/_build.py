@@ -164,8 +164,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.repro_decode_attention.restype = _I
     lib.repro_selective_scan.argtypes = [
-        _I, _P, _P, _P, _P,  # xc is bf16 (else f32), xc, dt, bmat, cmat
-        _P, _P, _P, _P, _P,  # a, d_skip, h0 (null: zeros), y, h_last
+        _I, _P, _P, _P, _L, _L,  # bf16 (else f32), xc, proj, z (null: no gate), z's (batch, seq) strides
+        _P, _P, _P, _P, _P, _P,  # a_log, dt_bias, d_skip, h0 (null: zeros), out, h_last
         _I, _I, _I, _I, _P,  # B, S, D, N, stream
     ]
     lib.repro_selective_scan.restype = _I

@@ -1,18 +1,22 @@
 """Plain PyTorch version of the selective scan (K6): the reference's own
-formulation (``repro.models.ssm``, ``mamba_apply`` and
-``_ssm_scan_chunked``).
+formulation (``repro.models.ssm``, ``mamba_apply``/``mamba_step`` and
+``_ssm_scan_chunked``), from the x_proj output to the gated rows.
 
-``da = exp(dt a)`` and ``db = dt B x`` are materialised as (B, S, D, N)
-f32 tensors, the time axis is padded to whole chunks with ``da = 1``,
-``db = 0`` (so the last state is the one after the last real token), each
-chunk is scanned in parallel — Hillis–Steele doubling, where the
-reference takes ``lax.associative_scan`` — with the carry folded in
-through the prefix products, and ``y = Σ_n h C + d_skip x``.
+``proj`` is split into B, C and dt_raw and cast to f32, ``dt =
+softplus(dt_raw + mean(dt_bias))`` and ``a = -exp(a_log)``; ``da = exp(dt
+a)`` and ``db = dt B x`` are materialised as (B, S, D, N) f32 tensors, the
+time axis is padded to whole chunks with ``da = 1``, ``db = 0`` (so the
+last state is the one after the last real token), each chunk is scanned in
+parallel — Hillis–Steele doubling, where the reference takes
+``lax.associative_scan`` — with the carry folded in through the prefix
+products, ``y = Σ_n h C + d_skip x``, and with ``z`` the output is
+``y.to(z.dtype) * silu(z)``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _scan_chunk(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -30,20 +34,23 @@ def _scan_chunk(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.T
 
 def selective_scan(
     xc: torch.Tensor,  # (B, S, D) model dtype, read as f32
-    dt: torch.Tensor,  # (B, S) f32: one step size per token
-    bmat: torch.Tensor,  # (B, S, N) f32
-    cmat: torch.Tensor,  # (B, S, N) f32
-    a: torch.Tensor,  # (D, N) f32: -exp(a_log)
+    proj: torch.Tensor,  # (B, S, 2N + 1) model dtype: B, C, dt_raw
+    a_log: torch.Tensor,  # (D, N) f32
+    dt_bias: torch.Tensor,  # (D,) f32
     d_skip: torch.Tensor,  # (D,) f32
     h0: torch.Tensor | None = None,  # (B, D, N) f32; None: zeros
+    z: torch.Tensor | None = None,  # (B, S, D) model dtype: the gate; None: y in f32
     chunk: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (y (B, S, D) f32, h_last (B, D, N) f32)."""
+    """-> (out (B, S, D): y in f32, or y silu(z) in z's dtype; h_last
+    (B, D, N) f32)."""
     bsz, s, d = xc.shape
-    n = a.shape[1]
+    n = a_log.shape[1]
     x = xc.float()
-    da = torch.exp(dt[:, :, None, None] * a)  # (B, S, D, N)
-    db = (dt[:, :, None] * bmat)[:, :, None, :] * x[..., None]
+    bmat, cmat, dt_raw = proj.float().split([n, n, 1], dim=-1)
+    dt = F.softplus(dt_raw + dt_bias.mean())  # (B, S, 1): one step size per token
+    da = torch.exp(dt[..., None] * -torch.exp(a_log))  # (B, S, D, N)
+    db = dt[..., None] * bmat[:, :, None, :] * x[..., None]
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:
@@ -58,4 +65,4 @@ def selective_scan(
         hs.append(hc)
     hs = torch.cat(hs, dim=1)[:, :s]
     y = torch.einsum("bsdn,bsn->bsd", hs, cmat) + d_skip * x
-    return y, h
+    return (y if z is None else y.to(z.dtype) * F.silu(z)), h

@@ -10,10 +10,12 @@ reference's arithmetic and quirks:
   (``softplus(dt_raw + dt_bias.mean())``); the depthwise conv is a
   cross-correlation in f32 over ``conv - 1`` rows of left padding (or
   ``conv_init``), and ``conv_state`` keeps the last ``conv - 1``
-  pre-conv inputs.  The scan itself is K6
-  (``kernels/selective_scan``): over the whole prompt in
-  :func:`mamba_apply`, at S = 1 in :func:`mamba_step`.  On CPU tensors
-  K6 runs its plain version, the reference's chunked formulation.
+  pre-conv inputs.  Everything from the x_proj output to the gated rows
+  (the split, softplus(dt_raw + mean(dt_bias)), -exp(a_log), the scan,
+  d_skip x and the silu(z) gate) is K6 (``kernels/selective_scan``): over
+  the whole prompt in :func:`mamba_apply`, at S = 1 in
+  :func:`mamba_step`.  On CPU tensors K6 runs its plain version, the
+  reference's chunked formulation.
 * mLSTM: the chunked gated-linear-attention form (chunk 128), ``log(max(f,
   1e-6))``, ``exp(min(rel, 0))``, ``max(|n|, 1)`` as the normaliser, k
   scaled by ``hd ** -0.5`` and the forget gate biased by +4; padded steps
@@ -46,15 +48,6 @@ def _causal_conv(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _ssm_inputs(p, xc: torch.Tensor, state: int):
-    """xc (..., D_in) in the model dtype -> (dt (...) f32, B, C (..., N)
-    f32, a (D_in, N) f32): the projections the scan takes."""
-    proj = (xc @ p.x_proj.to(xc.dtype)).float()
-    bmat, cmat, dt_raw = proj.split([state, state, 1], dim=-1)
-    dt = F.softplus(dt_raw + p.dt_bias.mean())[..., 0]
-    return dt.contiguous(), bmat.contiguous(), cmat.contiguous(), -torch.exp(p.a_log)
-
-
 def mamba_apply(p, x: torch.Tensor, state: int, chunk: int = 256, init_state=None, conv_init=None):
     """Full-sequence selective SSM.  x: (B, S, D_model) -> (y, (ssm_state
     (B, D_in, N) f32, conv_state (B, conv - 1, D_in))), so prefill can
@@ -67,11 +60,10 @@ def mamba_apply(p, x: torch.Tensor, state: int, chunk: int = 256, init_state=Non
     xi_pad = torch.cat([pad, xi], dim=1)
     xc = F.silu(_causal_conv(xi_pad.float(), p.conv_w[:, 0, :].float()).to(dt_))
     conv_state = xi_pad[:, xi_pad.shape[1] - (conv - 1):]
-    dt, bmat, cmat, a = _ssm_inputs(p, xc, state)
+    proj = xc @ p.x_proj.to(dt_)  # (B, S, 2N + 1): B, C, dt_raw
     h0 = None if init_state is None else init_state.float().contiguous()
-    y, h_last = scan_ops.selective_scan(xc.contiguous(), dt, bmat, cmat, a, p.d_skip, h0, chunk)
-    y = (y.to(dt_) * F.silu(z)) @ p.out_proj.to(dt_)
-    return y, (h_last, conv_state)
+    y, h_last = scan_ops.selective_scan(xc, proj, p.a_log, p.dt_bias, p.d_skip, h0, z, chunk)
+    return y @ p.out_proj.to(dt_), (h_last, conv_state)
 
 
 def mamba_step(p, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Tensor, state: int):
@@ -81,10 +73,9 @@ def mamba_step(p, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Te
     xi, z = (x @ p.in_proj.to(dt_)).chunk(2, dim=-1)
     window = torch.cat([conv_state.to(dt_), xi[:, None]], dim=1)  # (B, conv, D_in)
     xc = F.silu(_causal_conv(window.float(), p.conv_w[:, 0, :].float()).to(dt_))  # (B, 1, D_in)
-    dt, bmat, cmat, a = _ssm_inputs(p, xc, state)
-    y, h = scan_ops.selective_scan(xc.contiguous(), dt, bmat, cmat, a, p.d_skip, ssm_state.contiguous())
-    y = (y[:, 0].to(dt_) * F.silu(z)) @ p.out_proj.to(dt_)
-    return y, (h, window[:, 1:])
+    proj = xc @ p.x_proj.to(dt_)
+    y, h = scan_ops.selective_scan(xc, proj, p.a_log, p.dt_bias, p.d_skip, ssm_state.contiguous(), z[:, None])
+    return y[:, 0] @ p.out_proj.to(dt_), (h, window[:, 1:])
 
 
 # ------------------------------------------------------------------- mLSTM

@@ -115,44 +115,72 @@ def test_mamba_step_chained_after_apply():
 
 # ------------------------------------------------------------------ K6
 def _scan_inputs(b, s, d, n, seed):
+    """K6's operands as ``mamba_apply`` hands them over: the x_proj output
+    ``proj`` (B, C, dt_raw), the conv output ``xc``, the gate ``z``, and
+    Mamba's f32 leaves, all random (so a per-channel dt would show)."""
     rng = np.random.default_rng(seed)
     return dict(
         xc=rng.normal(size=(b, s, d)).astype(np.float32),
-        dt=np.log1p(np.exp(rng.normal(size=(b, s)))).astype(np.float32),
-        bmat=rng.normal(size=(b, s, n)).astype(np.float32),
-        cmat=rng.normal(size=(b, s, n)).astype(np.float32),
-        a=-np.exp(rng.normal(size=(d, n)) * 0.5).astype(np.float32),
+        proj=rng.normal(size=(b, s, 2 * n + 1)).astype(np.float32),
+        z=rng.normal(size=(b, s, d)).astype(np.float32),
+        a_log=(rng.normal(size=(d, n)) * 0.5).astype(np.float32),
+        dt_bias=rng.normal(size=(d,)).astype(np.float32),
         d_skip=rng.normal(size=(d,)).astype(np.float32),
         h0=rng.normal(size=(b, d, n)).astype(np.float32),
     )
 
 
-def _reference_scan(inp, chunk, with_h0):
-    """The reference's scan path (``mamba_apply`` :93-111) on these inputs."""
-    xc, dt, bmat, cmat = (jnp.asarray(inp[k]) for k in ("xc", "dt", "bmat", "cmat"))
+def _reference_scan(inp, chunk, with_h0, gated):
+    """The reference's elementwise and scan on these operands: ``mamba_step``
+    (``repro.models.ssm`` :129-136) at S = 1, else ``mamba_apply``
+    (:93-112) through ``_ssm_scan_chunked``; with ``gated`` the output is
+    ``y silu(z)``, as both compute it before ``out_proj``."""
+    xc, proj, z = (jnp.asarray(inp[k]) for k in ("xc", "proj", "z"))
     b, s, d = xc.shape
-    dt = dt[..., None]
-    da = jnp.exp(dt[..., None] * jnp.asarray(inp["a"]))
-    db = dt[..., None] * bmat[:, :, None, :] * xc[..., None]
-    h0 = jnp.asarray(inp["h0"]) if with_h0 else jnp.zeros((b, d, inp["a"].shape[1]), jnp.float32)
-    pad = (-s) % chunk
-    if pad:
-        da = jnp.pad(da, ((0, 0), (0, pad), (0, 0), (0, 0)), constant_values=1.0)
-        db = jnp.pad(db, ((0, 0), (0, pad), (0, 0), (0, 0)))
-    hs, h_last = RS._ssm_scan_chunked(da, db, h0, chunk)
-    y = jnp.einsum("bsdn,bsn->bsd", hs[:, :s], cmat) + jnp.asarray(inp["d_skip"]) * xc
-    return y, h_last
+    n = inp["a_log"].shape[1]
+    bmat, cmat, dt_raw = jnp.split(proj.astype(jnp.float32), [n, 2 * n], axis=-1)
+    dt = jax.nn.softplus(dt_raw + jnp.asarray(inp["dt_bias"]).mean())  # (B, S, 1)
+    a = -jnp.exp(jnp.asarray(inp["a_log"]))
+    h0 = jnp.asarray(inp["h0"]) if with_h0 else jnp.zeros((b, d, n), jnp.float32)
+    skip = jnp.asarray(inp["d_skip"]) * xc
+    if s == 1:
+        da = jnp.exp(dt[:, 0, :, None] * a)  # (B, D_in, N)
+        db = dt[:, 0, :, None] * bmat[:, 0, None, :] * xc[:, 0, :, None]
+        h_last = da * h0 + db
+        y = (jnp.einsum("bdn,bn->bd", h_last, cmat[:, 0]) + skip[:, 0])[:, None]
+    else:
+        da = jnp.exp(dt[..., None] * a)
+        db = dt[..., None] * bmat[:, :, None, :] * xc[..., None]
+        pad = (-s) % chunk
+        if pad:
+            da = jnp.pad(da, ((0, 0), (0, pad), (0, 0), (0, 0)), constant_values=1.0)
+            db = jnp.pad(db, ((0, 0), (0, pad), (0, 0), (0, 0)))
+        hs, h_last = RS._ssm_scan_chunked(da, db, h0, chunk)
+        y = jnp.einsum("bsdn,bsn->bsd", hs[:, :s], cmat) + skip
+    return (y * jax.nn.silu(z) if gated else y), h_last
 
 
-@pytest.mark.parametrize("s,chunk,with_h0", [(37, 16, False), (37, 16, True), (1, 256, True), (64, 256, False)])
-def test_selective_scan_matches_reference_scan(s, chunk, with_h0):
-    inp = _scan_inputs(2, s, 12, N_STATE, seed=s)
-    y_ref, h_ref = _reference_scan(inp, chunk, with_h0)
+_SCAN_CASES = [pytest.param(s, chunk, h0, N_STATE, False, id=f"{s}-{chunk}-{h0}")
+               for s, chunk, h0 in [(37, 16, False), (37, 16, True), (1, 256, True), (64, 256, False)]]
+_SCAN_CASES += [pytest.param(s, chunk, h0, n, gated, id=f"{s}-{chunk}-{h0}-n{n}-{'gated' if gated else 'y'}")
+                for s, chunk in [(1, 256), (37, 16), (130, 64)] for h0 in (False, True) for n in (8, 16)
+                for gated in (False, True) if (s, chunk, h0, n, gated) not in [(1, 256, True, N_STATE, False)]]
+
+
+@pytest.mark.parametrize("s,chunk,with_h0,n,gated", _SCAN_CASES)
+def test_selective_scan_matches_reference_scan(s, chunk, with_h0, n, gated):
+    """K6's wrapper on CPU tensors (the plain version) against the
+    reference from the x_proj output to the gated rows: S = 1 (a decode
+    step), 37 and 130 (ragged against the chunk), with and without h0, 8
+    and 16 states, gated and ``z=None``."""
+    inp = _scan_inputs(2, s, 12, n, seed=s + n)
+    y_ref, h_ref = _reference_scan(inp, chunk, with_h0, gated)
     t = {k: torch.from_numpy(v) for k, v in inp.items()}
-    before = scan_ops.selective_scan.launches
-    y, h = scan_ops.selective_scan(t["xc"], t["dt"], t["bmat"], t["cmat"], t["a"], t["d_skip"],
-                                   t["h0"] if with_h0 else None, chunk)
-    assert scan_ops.selective_scan.launches == before  # CPU calls run the plain version, uncounted
+    before = (scan_ops.selective_scan.launches, scan_ops.selective_scan.launches_step)
+    y, h = scan_ops.selective_scan(t["xc"], t["proj"], t["a_log"], t["dt_bias"], t["d_skip"],
+                                   t["h0"] if with_h0 else None, t["z"] if gated else None, chunk)
+    # CPU calls run the plain version, uncounted
+    assert (scan_ops.selective_scan.launches, scan_ops.selective_scan.launches_step) == before
     assert y.dtype == h.dtype == torch.float32
     _close(y, y_ref)
     _close(h, h_ref)
@@ -162,14 +190,20 @@ def _bad(name):
     t = {k: torch.from_numpy(v) for k, v in _scan_inputs(2, 5, 12, N_STATE, seed=0).items()}
     if name == "xc_fp16":
         t["xc"] = t["xc"].half()
-    elif name == "dt_fp64":
-        t["dt"] = t["dt"].double()
-    elif name == "bmat_shape":
-        t["bmat"] = t["bmat"][:, :4]
+    elif name == "dt_fp64":  # dt_bias, which dt takes its mean from
+        t["dt_bias"] = t["dt_bias"].double()
+    elif name == "bmat_shape":  # proj, which holds B, over too few steps
+        t["proj"] = t["proj"][:, :4]
+    elif name == "proj_width":  # 2N columns: no dt_raw
+        t["proj"] = t["proj"][..., :-1]
     elif name == "a_width":
-        t["a"] = t["a"][:7]
+        t["a_log"] = t["a_log"][:7]
     elif name == "h0_shape":
         t["h0"] = t["h0"][:1]
+    elif name == "z_shape":
+        t["z"] = t["z"][..., :6]
+    elif name == "z_dtype":
+        t["z"] = t["z"].to(torch.bfloat16)
     elif name == "xc_2d":
         t["xc"] = t["xc"][0]
     elif name == "meta_device":
@@ -180,11 +214,12 @@ def _bad(name):
 @pytest.mark.parametrize("name,error", [("xc_fp16", TypeError), ("dt_fp64", TypeError),
                                         ("bmat_shape", ValueError), ("a_width", ValueError),
                                         ("h0_shape", ValueError), ("xc_2d", ValueError),
-                                        ("meta_device", ValueError)])
+                                        ("meta_device", ValueError), ("proj_width", ValueError),
+                                        ("z_shape", ValueError), ("z_dtype", TypeError)])
 def test_selective_scan_wrapper_raises(name, error):
     t = _bad(name)
     with pytest.raises(error):
-        scan_ops.selective_scan(t["xc"], t["dt"], t["bmat"], t["cmat"], t["a"], t["d_skip"], t["h0"])
+        scan_ops.selective_scan(t["xc"], t["proj"], t["a_log"], t["dt_bias"], t["d_skip"], t["h0"], t["z"])
 
 
 # ------------------------------------------------------------------ xLSTM cells

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/kernel_sweeps.py [k4] [k2] [k1] [k3 [PARENT]]   (no argument: k4, k2, k1)
+    python3 tools/kernel_sweeps.py [k4] [k2] [k1] [k3 [PARENT]] [k6 [PARENT]]   (no argument: k4, k2, k1)
 
 1. K4 stages: builds a copy of ``src/repro_torch/csrc/decode_attention.cu``
    (under ``build/kernel_sweeps/``) with a timestamp (``clock64`` and
@@ -50,6 +50,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    build/parent``), the shipped kernels of that checkout and this one are
    then timed at the same shapes in turns (other, this, this, other; one
    process each, each building its own kernels).
+6. K6 (``k6``): copies of ``src/repro_torch/csrc/selective_scan.cu``
+   (under ``build/kernel_sweeps/``) with the design changed (2 or 8 states
+   a thread, 2 channels a thread, 64-step chunks, 8 warps a block) or one
+   stage taken out (the exps, the staging copies, the sum over states,
+   the whole epilogue), each timed gated at hymba-1.5b's prefill layer (4 x
+   2048, 3200 channels x 16 states, bf16) and at a decode step's (S = 1,
+   with h0), with its registers and spills; the variants that compute K6's
+   function are held to the plain version (``chip_smoke``'s ``SCAN_RTOL``
+   on y and h_last).  The shipped kernel is also timed with ``z=None``.
+   With ``PARENT`` (a checkout unpacked as for ``k3``), that checkout's K6
+   and this one's are then timed in turns (other, this, this, other): the
+   kernel alone, and the scan section of a Mamba layer — from the x_proj
+   output to the gated rows, which an older K6 leaves to eager ops (split,
+   cast, softplus, -exp(a_log), y.to(bf16) * silu(z)) — then hymba-1.5b's
+   prefill of 4 x 2048 and a decode graph replay, each with its device
+   kernels (profiler).  Before the design steps, the shipped kernel's
+   chunk phases from ``clock64`` stamps by lane 0 of each warp (unpack,
+   walk, barrier waits, the gated epilogue) and the SM clock.
 
 Every line names the card and its power limit.  It exits non-zero without
 a card.
@@ -58,6 +76,7 @@ a card.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -628,6 +647,334 @@ def k3_ab(parent: Path) -> int:
     return 0
 
 
+# K6: hymba-1.5b's prefill layer and a decode step's: label, B, S, with h0
+K6_SHAPES = (("prefill layer", 4, 2048, False), ("decode step", 4, 1, True))
+K6_EXP = "            h[m][k] = fmaf(ex2(s * a2[m][k]), h[m][k], bq[k] * x);\n"
+K6_UNPACK_BC = "    for (int i = tid; i < kChunk * N / 4; i += kThreads) {\n"
+K6_UNPACK_X = ("    for (int i = tid; i < kCh / 2 * (kChunk / 4); i += kThreads) {\n"
+               "      const int ch = 2 * (i % (kCh / 2)), t = 4 * (i / (kCh / 2));\n")
+K6_WALK = "    const int steps = (len + 3) & ~3;\n"
+K6_LOOP = "    for (int t = 0; t < steps; t += 4) {\n"
+K6_STAGE = "  auto stage = [&](int c, int buf) {\n"
+K6_EPILOGUE = ("    for (int i = tid; i < kCh / 2 * (kChunk / 4); i += kThreads) {\n"
+               "      const int t = 4 * (i / (kCh / 2));\n")
+K6_SUM = "      for (int ln = 0; ln < Lay::kLanes; ++ln) {\n"
+K6_PARTIAL = "        *reinterpret_cast<float4*>(s_p + Lay::prow(l, m * (kCh / kChans) + g) + t) =\n"
+K6_CHUNKS = "  const int chunks = (S + kChunk - 1) / kChunk;\n"
+K6_HLAST = "      for (int k = 0; k < kStates; ++k) a.h_last[(static_cast<long long>(b) * D + d) * N + n0 + k] = h[m][k];\n"
+
+
+# B and C staged as one word per state (C << 16 | B, exact in bf16): half
+# the shared-memory words of the walk, two bit operations per state more
+K6_PACK_UNPACK = (
+    "        const float s = dt[t];\n"
+    "        vb = make_float4(s * raw_at<T>(pr, e), s * raw_at<T>(pr, e + 1), s * raw_at<T>(pr, e + 2),\n"
+    "                         s * raw_at<T>(pr, e + 3));\n",
+    "        const float s = dt[t];\n"
+    "        if constexpr (sizeof(T) == 2) {\n"
+    "          const uint16_t* p16 = reinterpret_cast<const uint16_t*>(pr);\n"
+    "          vb = make_float4(__uint_as_float(uint32_t(p16[e + N]) << 16 | p16[e]),\n"
+    "                           __uint_as_float(uint32_t(p16[e + N + 1]) << 16 | p16[e + 1]),\n"
+    "                           __uint_as_float(uint32_t(p16[e + N + 2]) << 16 | p16[e + 2]),\n"
+    "                           __uint_as_float(uint32_t(p16[e + N + 3]) << 16 | p16[e + 3]));\n"
+    "        } else {\n"
+    "        vb = make_float4(s * raw_at<T>(pr, e), s * raw_at<T>(pr, e + 1), s * raw_at<T>(pr, e + 2),\n"
+    "                         s * raw_at<T>(pr, e + 3));\n"
+    "        }\n")
+K6_PACK_WALK = (
+    "        load_states(cq, s_c + (t + j) * N + n0);\n"
+    "        const float s = comp(dt4, j);\n",
+    "        const float s = comp(dt4, j);\n"
+    "        if constexpr (sizeof(T) == 2) {\n"
+    "#pragma unroll\n"
+    "          for (int m = 0; m < kChans; ++m) {\n"
+    "            const float xd = s * comp(x4[m], j);\n"
+    "            float acc = 0.0f;\n"
+    "#pragma unroll\n"
+    "            for (int k = 0; k < kStates; ++k) {\n"
+    "              const uint32_t w = __float_as_uint(bq[k]);\n"
+    "              h[m][k] = fmaf(ex2(s * a2[m][k]), h[m][k], __uint_as_float(w << 16) * xd);\n"
+    "              acc = fmaf(h[m][k], __uint_as_float(w & 0xffff0000u), acc);\n"
+    "            }\n"
+    "            p[m][j] = acc;\n"
+    "          }\n"
+    "          continue;\n"
+    "        }\n"
+    "        load_states(cq, s_c + (t + j) * N + n0);\n")
+
+
+K6_SHIPPED = {"kStates": 4, "kChans": 1, "kChunk": 32, "kWarps": 4}  # the kernel's constants
+
+
+def _k6_const(name: str, value: int) -> tuple:
+    return (f"constexpr int {name} = {K6_SHIPPED[name]};", f"constexpr int {name} = {value};")
+
+
+# name: (source edits, whether the variant still computes K6's function):
+# the shipped kernel, design steps, then ablations that take one stage out
+K6_VARIANTS = {
+    "shipped": ((), True),
+    "2 states a thread": ((_k6_const("kStates", 2),), True),
+    "8 states a thread": ((_k6_const("kStates", 8),), True),
+    "2 channels a thread": ((_k6_const("kChans", 2),), True),
+    "64-step chunks": ((_k6_const("kChunk", 64),), True),
+    "2 warps a block": ((_k6_const("kWarps", 2),), True),
+    "2 channels a thread, 2 warps a block": ((_k6_const("kChans", 2), _k6_const("kWarps", 2)), True),
+    "8 warps a block": ((_k6_const("kWarps", 8),), True),
+    "B and C packed as bf16 pairs": ((K6_PACK_UNPACK, K6_PACK_WALK), True),
+    "walk unrolled to 8 steps": (((K6_LOOP, "#pragma unroll 2\n" + K6_LOOP),), True),
+    "no exps": (((K6_EXP, K6_EXP.replace("ex2(s * a2[m][k])", "s * a2[m][k]")),), False),
+    "no walk": (((K6_WALK, K6_WALK.replace("(len + 3) & ~3", "0 * len")),), False),
+    "no staging copies": (((K6_STAGE, K6_STAGE + "    if (c >= 0) { hopper::cp_async_commit(); "
+                                      "hopper::cp_async_commit(); return; }\n"),), False),
+    # the partial sums go to a register that is stored once, so the h C
+    # products stay; the epilogue adds none
+    "no sum over states": (((K6_PARTIAL, "        if ((sink += p[m][0] + p[m][1] + p[m][2] + p[m][3]) == 1e30f)\n"
+                                          "          *reinterpret_cast<float4*>(s_p) =\n"),
+                            (K6_SUM, K6_SUM.replace("ln < Lay::kLanes", "ln < 0")),
+                            (K6_CHUNKS, "  float sink = 0.0f;\n" + K6_CHUNKS),
+                            (K6_HLAST, K6_HLAST.replace("= h[m][k];", "= h[m][k] + 0.0f * sink;"))), False),
+    "no unpacking": (((K6_UNPACK_BC, K6_UNPACK_BC.replace("i < kChunk * N / 4", "i < 0 * N")),
+                      (K6_UNPACK_X, K6_UNPACK_X.replace("i < kCh / 2", "i < 0 * kCh"))), False),
+    "no epilogue": (((K6_EPILOGUE, K6_EPILOGUE.replace("i < kCh / 2", "i < 0 * kCh / 2")),), False),
+}
+
+
+def _k6_args(t: dict, with_h0: bool, gated: bool = True) -> tuple:
+    return C._scan_args(t, with_h0, gated)
+
+
+# K6's per-chunk phases, from clock64 stamps by lane 0 of each warp of the
+# first 8 blocks of sequence 0 (8 slots a chunk: 5 clocks, 2 %globaltimer)
+K6_STAMP_BLOCKS, K6_STAMP_CHUNKS = 8, 64
+K6_PHASES = ("unpack (after the chunk's barrier)", "walk", "wait for the walk's barrier",
+             "sum, gate, stores (and warp 0's softplus)", "wait for the next chunk's barrier")
+
+
+def k6_stamped_source() -> str:
+    def stamp(k: int) -> str:
+        timer = ("unsigned long long g; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g)); "
+                 f"g_k6_stamps[i + {5 + (k == 4)}] = g; ") if k in (0, 4) else ""
+        return ("    if (lane == 0 && blockIdx.y == 0 && blockIdx.x < %d && c < %d) { "
+                "const long long i = ((blockIdx.x * kWarps + warp) * %d + c) * 8; "
+                "g_k6_stamps[i + %d] = clock64(); %s}\n" % (K6_STAMP_BLOCKS, K6_STAMP_CHUNKS,
+                                                             K6_STAMP_CHUNKS, k, timer))
+
+    src = (ROOT / "src/repro_torch/csrc/selective_scan.cu").read_text()
+    anchors = [
+        ("namespace {\n", "namespace {\n\n__device__ unsigned long long* g_k6_stamps;\n"),
+        ("    __syncthreads();  // chunk c's rows and dt are in; chunk c - 1 is written out\n",
+         "    __syncthreads();  // chunk c's rows and dt are in; chunk c - 1 is written out\n" + stamp(0)),
+        ("    // 2. walk the chunk", stamp(1) + "    // 2. walk the chunk"),
+        ("    hopper::cp_async_wait<1>();  // chunk c + 1", stamp(2) + "    hopper::cp_async_wait<1>();  // chunk c + 1"),
+        ("    if (warp == 0 && c + 1 < chunks) softplus_rows", stamp(3) + "    if (warp == 0 && c + 1 < chunks) softplus_rows"),
+        ("        }\n      }\n    }\n  }\n#pragma unroll\n  for (int m = 0; m < kChans; ++m) {",
+         "        }\n      }\n    }\n" + stamp(4) + "  }\n#pragma unroll\n  for (int m = 0; m < kChans; ++m) {"),
+    ]
+    for old, new in anchors:
+        if src.count(old) != 1:
+            raise RuntimeError(f"selective_scan.cu changed: anchor {old[:50]!r} not found once")
+        src = src.replace(old, new)
+    return src + ("\nextern \"C\" int repro_k6_set_stamps(void* p) {\n"
+                  "  return static_cast<int>(cudaMemcpyToSymbol(g_k6_stamps, &p, sizeof(p)));\n}\n")
+
+
+def k6_stages(dev, card: str, flush) -> None:
+    """Median cycles of each phase of a chunk, per warp, at hymba's prefill
+    layer (gated; the second launch is read), and the SM clock."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    out_dir = ROOT / "build" / "kernel_sweeps"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, lib_path = out_dir / "scan_stamped.cu", out_dir / "libscan_stamped.so"
+    cu.write_text(k6_stamped_source())
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
+                           str(lib_path), str(cu), str(_build.CSRC / "errors.cu")],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"stamped K6 failed to build:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_selective_scan.argtypes = _build.load_library().repro_selective_scan.argtypes
+    lib.repro_selective_scan.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    lib.repro_k6_set_stamps.argtypes = [ctypes.c_void_p]
+    lib.repro_k6_set_stamps.restype = ctypes.c_int
+    warps = int(re.search(r"constexpr int kWarps = (\d+);", cu.read_text()).group(1))
+    stamps = torch.zeros(K6_STAMP_BLOCKS * warps * K6_STAMP_CHUNKS * 8, dtype=torch.int64, device=dev)
+    if lib.repro_k6_set_stamps(stamps.data_ptr()):
+        raise RuntimeError("the stamp buffer could not be set")
+    rng = np.random.default_rng(C.SEED + 13)
+    label, b, s, with_h0 = K6_SHAPES[0]
+    t = C._scan_inputs(rng, b, s, C.HYMBA_D_INNER, C.HYMBA_STATE, torch.bfloat16, dev)
+    load = _build.load_library
+    try:
+        _build.load_library = lambda: lib
+        for _ in range(2):  # the second launch is read
+            stamps.zero_()
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            scan_ops.selective_scan(*_k6_args(t, with_h0))
+            torch.cuda.synchronize()
+    finally:
+        _build.load_library = load
+    rec = stamps.cpu().numpy().reshape(-1, K6_STAMP_CHUNKS, 8).astype(np.float64)  # warp, chunk, slot
+    clocks, ns = rec[..., :5], rec[..., 5:7]
+    steady = clocks[:, 1:-1]  # chunks 1..62: the first one waits for its copies, the last stages nothing
+    phases = np.concatenate([np.diff(steady, axis=2), (clocks[:, 2:, 0] - clocks[:, 1:-1, 4])[..., None]], axis=2)
+    period = clocks[:, 2:, 0] - clocks[:, 1:-1, 0]
+    span = ns[:, :, 1] - ns[:, :, 0]
+    ghz = np.median((clocks[:, :, 4] - clocks[:, :, 0])[span > 0] / span[span > 0])
+    print(f"K6 chunk phases, {label} ({b}x{s}, {C.HYMBA_D_INNER} channels x {C.HYMBA_STATE} states, bf16, "
+          f"gated): {phases.shape[0]} warps x {phases.shape[1]} chunks, median {np.median(period):.0f} cycles "
+          f"from one chunk to the next, SM clock {ghz:.3f} GHz [{card}]", flush=True)
+    for name, col in zip(K6_PHASES, phases.reshape(-1, 5).T):
+        print(f"  {name:>42}: median {np.median(col):6.0f}, mean {col.mean():7.1f} cycles", flush=True)
+    del t
+
+
+def k6_design_steps(dev, card: str, flush) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import plain as scan_plain
+
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    nvcc, out_dir = _build.find_nvcc(), ROOT / "build" / "kernel_sweeps"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (edits, _)) in enumerate(K6_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"selective_scan.cu changed: anchor {old[:50]!r} not found once")
+            text = text.replace(old, new)
+        cu = out_dir / f"scan_v{i}.cu"
+        cu.write_text(text)
+        procs[name] = (out_dir / f"libscan_v{i}.so", subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
+             str(out_dir / f"libscan_v{i}.so"), str(cu), str(_build.CSRC / "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"K6 variant {name!r} failed to build:\n{log[-3000:]}")
+        print(f"K6 variant {name!r}, ptxas per instance: {ptxas_summary(log, 'selective_scan_kernel')} "
+              f"[{card}]", flush=True)
+        lib = ctypes.CDLL(str(path))
+        lib.repro_selective_scan.argtypes = _build.load_library().repro_selective_scan.argtypes
+        lib.repro_selective_scan.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+
+    rng = np.random.default_rng(C.SEED + 13)
+    load = _build.load_library
+    try:
+        for label, b, s, with_h0 in K6_SHAPES:
+            t = C._scan_inputs(rng, b, s, C.HYMBA_D_INNER, C.HYMBA_STATE, torch.bfloat16, dev)
+            y_want, h_want = scan_plain.selective_scan(*_k6_args(t, with_h0, False))
+            print(f"K6 {label} ({b}x{s}, {C.HYMBA_D_INNER} channels x {C.HYMBA_STATE} states, bf16, gated) "
+                  f"[{card}]", flush=True)
+            for name, lib in libs.items():
+                _build.load_library = lambda lib=lib: lib
+                same = K6_VARIANTS[name][1]
+                ms = C.median_ms(lambda: scan_ops.selective_scan(*_k6_args(t, with_h0)), flush)
+                check = ""
+                if same:
+                    y, h = scan_ops.selective_scan(*_k6_args(t, with_h0, False))
+                    errs = [((got - want).abs().max() / want.abs().max()).item()
+                            for got, want in ((y, y_want), (h, h_want))]
+                    check = f", max|variant-plain| / max|plain| y {errs[0]:.3e}, h_last {errs[1]:.3e}"
+                    if not max(errs) <= C.SCAN_RTOL:
+                        raise AssertionError(f"K6 variant {name!r} disagrees with the plain version: {errs}")
+                print(f"  {name}: {ms:.4f} ms{check} [{card}]", flush=True)
+                if name == "shipped":
+                    ms = C.median_ms(lambda: scan_ops.selective_scan(*_k6_args(t, with_h0, False)), flush)
+                    print(f"  shipped, z=None (y in f32): {ms:.4f} ms [{card}]", flush=True)
+            del t, y_want, h_want
+    finally:
+        _build.load_library = load
+
+
+def k6_shipped(tree: Path, label: str) -> None:
+    """One checkout's shipped K6 at each shape, alone and as the scan section
+    of a Mamba layer (run in a process of its own)."""
+    import inspect
+
+    sys.path.insert(0, str(tree / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    dev, card = torch.device("cuda"), C.card_line()
+    _build.load_library()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    fused = "proj" in inspect.signature(scan_ops.selective_scan).parameters
+    rng = np.random.default_rng(C.SEED + 13)
+    for name, b, s, with_h0 in K6_SHAPES:
+        t = C._scan_inputs(rng, b, s, C.HYMBA_D_INNER, C.HYMBA_STATE, torch.bfloat16, dev)
+        if fused:
+            kernel = section = lambda: scan_ops.selective_scan(*_k6_args(t, with_h0))
+        else:  # the older API: the prologue and the gate are eager ops around the kernel
+            n = C.HYMBA_STATE
+
+            def prologue():
+                bmat, cmat, dt_raw = t["proj"].float().split([n, n, 1], dim=-1)
+                dt = F.softplus(dt_raw + t["dt_bias"].mean())[..., 0]
+                return (t["xc"], dt.contiguous(), bmat.contiguous(), cmat.contiguous(), -torch.exp(t["a_log"]),
+                        t["d_skip"], t["h0"] if with_h0 else None)
+
+            args = prologue()
+            kernel = lambda: scan_ops.selective_scan(*args)  # noqa: E731
+
+            def section():
+                y, h = scan_ops.selective_scan(*prologue())
+                return y.to(torch.bfloat16) * F.silu(t["z"]), h
+
+        ms, sec = C.median_ms(kernel, flush), C.median_ms(section, flush)
+        print(f"[{label}] K6 {name}: kernel {ms:.4f} ms, scan section {sec:.4f} ms ({tree}) [{card}]", flush=True)
+        del t
+    del flush
+    k6_model(dev, card, label)
+
+
+def k6_model(dev, card: str, label: str) -> None:
+    """hymba-1.5b (full, seeded random weights) on the checkout imported:
+    prefill of 4 x 2048 (wall, back to back) and one decode step as a graph
+    replay (wall, 20 back to back), each with its device kernels (profiler)."""
+    from repro_torch import configs
+    from repro_torch.models import decode as D
+    from repro_torch.serving import engine as E
+
+    cfg = configs.get_config("hymba-1.5b")
+    model, _ = C._build_lm(dev, cfg, cfg.name)
+    prompts = torch.from_numpy(np.random.default_rng(C.SEED + 15).integers(
+        0, cfg.vocab_size, size=(C.PREFILL_B, C.PREFILL_S))).to(dev)
+    prefill = lambda: D.prefill(model, cfg, prompts, max_len=C.DECODE_MAX_LEN)  # noqa: E731
+    prefill_ms = C.wall_ms(prefill, iters=5, warmup=1)
+    _, busy, rows = C.profile_steps(prefill, n=1)
+    logits, cache, lens = prefill()
+    graph = E.DecodeGraph(model, cfg, cache)
+    tok = logits.argmax(-1)
+    replay_ms = C.wall_ms(lambda: graph.run(tok, lens))
+    _, replay_busy, replay_rows = C.profile_steps(lambda: graph.run(tok, lens))
+    print(f"[{label}] hymba-1.5b prefill 4x2048: {prefill_ms:.1f} ms (wall, 5 back to back), device busy "
+          f"{busy:.1f} ms in {sum(e.count for e in rows)} kernels; decode replay {replay_ms:.3f} ms/step (wall, "
+          f"20 back to back), device busy {replay_busy:.3f} ms in {sum(e.count for e in replay_rows) / 4:g} "
+          f"kernels a step [{card}]", flush=True)
+
+
+def k6_ab(parent: Path) -> int:
+    for tree, label in ((parent, "other"), (ROOT, "this"), (ROOT, "this"), (parent, "other")):
+        proc = subprocess.run([sys.executable, __file__, "k6-child", str(tree), label], timeout=600)
+        if proc.returncode:
+            return proc.returncode
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_sweeps: no CUDA device", file=sys.stderr)
@@ -635,9 +982,12 @@ def main() -> int:
     if sys.argv[1:2] == ["k3-child"]:
         k3_shipped(Path(sys.argv[2]).resolve(), sys.argv[3])
         return 0
-    parts = {a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3")} or {"k4", "k2", "k1"}
+    if sys.argv[1:2] == ["k6-child"]:
+        k6_shipped(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    parts = {a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3", "k6")} or {"k4", "k2", "k1"}
     others = [Path(a).resolve() for a in sys.argv[1:] if a not in parts]
-    if others and (parts != {"k3"} or len(others) > 1 or not others[0].is_dir()):
+    if others and (parts not in ({"k3"}, {"k6"}) or len(others) > 1 or not others[0].is_dir()):
         print(__doc__, file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -654,9 +1004,15 @@ def main() -> int:
     if "k3" in parts:
         k3_stages(dev, card, flush)
         k3_design_steps(dev, card, flush)
-        del flush
         if others:
+            del flush
             return k3_ab(others[0])
+    if "k6" in parts:
+        k6_stages(dev, card, flush)
+        k6_design_steps(dev, card, flush)
+        if others:
+            del flush
+            return k6_ab(others[0])
     return 0
 
 
