@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    beside the launch floor of an empty kernel; K6 (the selective scan,
    from the x_proj output to the gated rows) at hymba-1.5b's layer, S =
    1, 37 and 2048, with and without h0, ``z=None`` (y in f32) and gated,
-   timed at the prefill layer and at a decode step;
+   timed at the prefill layer and at a decode step; K3's row log-sum-exp
+   (the backward's input) and K3's backward (dQ, then dK/dV) against their
+   plain versions at Gemma3-1B's training layers (4 x 1024, global and
+   window 512, bf16 and f32) and ragged, GQA, D 64/128 and Sk != Sq
+   cases, the backward timed per training step beside SDPA's backward;
 3. main path: ``SmolRuntime.run`` with split decode over a seeded SJPG
    corpus (384x512, 4:2:0, q90; 2 full batches of 64 + a ragged tail) into
    a full-width ResNet-50 with seeded random weights; checks the outputs,
@@ -47,7 +51,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    K3/K4 and K6 a layer, logits held against plain attention and the
    plain scan) and xlstm-125m (full: mLSTM and sLSTM, no kernel), each
    first decode step also against ``forward`` over the prompt and that
-   token, and the launches of one sLSTM layer's token loop;
+   token, and the launches of one sLSTM layer's token loop; phase 4E
+   trains Gemma3-1B at full size (f32 master weights, bf16 compute,
+   AdamW): the first step twice from one state, on the kernels and on
+   plain attention (loss and grad norm held to each other), then
+   ``train()`` for 10 steps of 4 x 1024 tokens (each step's loss, grad
+   norm, ms and peak memory; K3 forward 52 and backward 26 launches a
+   step; the loss must fall), and training hymba-1.5b must raise (K6 has
+   no backward);
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -155,6 +166,23 @@ FORWARD_LOGIT_RTOL = 2**-7
 # largest |logit|: both run bf16 activations; the attention outputs round to
 # bf16 one step apart now and then, and 26 layers carry that on
 LM_LOGIT_RTOL = 5e-2
+# phase 4E: Gemma3-1B trained at full size, f32 master weights, bf16 compute
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 10
+# K3's backward vs its plain backward (the same inputs, both f32 inside),
+# per gradient relative to its largest |value|: bf16 gradients may round
+# one bf16 step apart (2^-8 of a value, 2^-7 with room), f32 ones sum in
+# another order
+BWD_BF16_RTOL, BWD_F32_RTOL = 2**-7, 1e-5
+# plus, elementwise, f32 cancellation noise: a gradient that is zero in exact
+# arithmetic (dq of a row with one key: dP - Delta = dO.v - dO.O) comes out
+# of both versions as ~2e-7 of noise (added after the first card run)
+BWD_ATOL = 1e-5
+# K3's row log-sum-exp (base 2) vs the plain one's: the bf16 kernel sums
+# exp2 of f32 scores in MUFU.EX2 (~2^-22 relative each); base-2 units
+LSE_ATOL = 1e-3
+# the first step on the kernels vs under plain attention (autograd through
+# the plain version), bf16 compute: loss and grad norm, relative
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-2, 5e-2
 
 # the vision serving phase
 SERVE_TENANTS = (("gold", 4.0), ("bronze", 1.0))
@@ -265,6 +293,8 @@ DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel":
 # bf16 kernel at (q/k, v) widths (64, 64), (128, 128), (256, 256), (192, 128);
 # K6 at 8 and 16 states, the model dtype (xc, proj, z, the gated out) f32 and bf16
 DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4, "selective_scan_kernel": 4}
+# kernels held to no spills alone: K3's backward (dQ and dK/dV, 3 widths x 2 dtypes each)
+NO_SPILL_KERNELS = {"flash_attention_bwd_dq_kernel": 6, "flash_attention_bwd_dkdv_kernel": 6}
 
 
 def check_kernel_code(build) -> None:
@@ -305,6 +335,11 @@ def check_kernel_code(build) -> None:
         for n, report in spills.items():
             if key in n and "0 bytes spill stores, 0 bytes spill loads" not in report:
                 raise AssertionError(f"{n} spills: {report}")
+    for key, n in NO_SPILL_KERNELS.items():
+        found = [report for e, report in spills.items() if key in e]
+        if spills and (len(found) != n or any("0 bytes spill stores, 0 bytes spill loads" not in r
+                                              for r in found)):
+            raise AssertionError(f"{key}: {len(found)} instances (expected {n}) or spills: {found}")
     if serialized:  # ptxas waits after every wgmma where it cannot prove the overlap safe
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     if not spills:
@@ -1022,6 +1057,176 @@ def time_flash_attention(dev, flush) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:99",
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": totals["library_ms"],
+    }
+
+
+def check_flash_attention_lse(dev) -> float:
+    """K3's row log-sum-exp (base 2, the backward's input) against the
+    plain version's: both kernels (bf16 tensor-core, f32 SIMT) at the
+    training shape (4 x 1024, D 256, 4 heads over 1, causal, window 512 and
+    none), and ragged, GQA, D 64/128/192-128 and Sk != Sq cases; the output
+    is held to the plain one as in :func:`check_flash_attention`.  Returns
+    the largest |lse - plain lse|."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 12)
+    cases = [  # B, Sq, Sk, H, KVH, D, DV, causal, window, dtype
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, None, torch.bfloat16),
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (2, 777, 777, 4, 1, 256, 256, True, 100, torch.float32),
+        (1, 300, 300, 8, 2, 128, 128, True, None, torch.bfloat16),
+        (1, 129, 129, 4, 4, 64, 64, False, None, torch.float32),
+        (1, 130, 300, 4, 4, 64, 64, False, None, torch.bfloat16),
+        (1, 257, 257, 4, 4, 192, 128, True, None, torch.bfloat16),
+    ]
+    worst = 0.0
+    for b, sq, sk, h, kvh, d, dv, causal, window, dt in cases:
+        q = _randn(rng, (b, sq, h, d), dt, dev)
+        k, v = _randn(rng, (b, sk, kvh, d), dt, dev), _randn(rng, (b, sk, kvh, dv), dt, dev)
+        got, lse = fa_ops._forward(q, k, v, causal, window, d**-0.5, with_lse=True)
+        want, want_lse = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window, return_lse=True)
+        torch.cuda.synchronize()
+        err = (lse - want_lse).abs().max().item()
+        out_err, inside, tol = _attn_bound(got, want, dt)
+        log(f"  flash_attention lse B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} D={d}/{dv} causal={causal} "
+            f"window={window} {str(dt)[6:]}: max|lse-plain|={err:.3e} (atol {LSE_ATOL}), "
+            f"max|out-plain|={out_err:.3e} (bound {tol})")
+        if not (lse.shape == (b, h, sq) and err <= LSE_ATOL and inside):
+            raise AssertionError(f"flash_attention's lse disagrees with the plain one: {err} / {out_err}")
+        worst = max(worst, err)
+    _expect_zero_counters("flash_attention", f"after {len(cases)} launches with lse")
+    return worst
+
+
+def _bwd_inputs(rng, b, sq, sk, h, kvh, d, causal, window, dt, dev):
+    """q, k, v, dO and the plain forward's (out, lse) for them: the inputs
+    both backward versions take."""
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    q = _randn(rng, (b, sq, h, d), dt, dev)
+    k, v = (_randn(rng, (b, sk, kvh, d), dt, dev) for _ in range(2))
+    do = _randn(rng, (b, sq, h, d), dt, dev)
+    out, lse = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window, return_lse=True)
+    return q, k, v, out, lse, do
+
+
+def check_flash_attention_bwd(dev) -> float:
+    """K3's backward (dQ kernel, then dK/dV kernel) against the plain
+    backward on the same (q, k, v, out, lse, dO): Gemma3-1B's training
+    layers (4 x 1024, 4 heads over 1 of 256, causal, global and window 512)
+    in bf16 and f32, then ragged S (1, 33, 777), GQA groups 2 and 4, D 64
+    and 128, non-causal, Sk != Sq, and a window that ends inside a tile.
+    dq, dk and dv each within BWD_BF16_RTOL (bf16) or BWD_F32_RTOL (f32)
+    of their largest |plain| value, plus BWD_ATOL, elementwise.  Returns the largest relative error
+    over the f32 cases."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 13)
+    cases = [  # B, Sq, Sk, H, KVH, D, causal, window, dtype
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, True, None, torch.bfloat16),
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, True, GEMMA_WINDOW, torch.float32),
+        (1, TRAIN_S, TRAIN_S, 4, 1, 256, True, None, torch.float32),
+        (1, 1, 1, 4, 1, 256, True, None, torch.bfloat16),
+        (2, 33, 33, 4, 1, 256, True, None, torch.bfloat16),
+        (2, 777, 777, 4, 1, 256, True, 100, torch.bfloat16),
+        (1, 300, 300, 8, 2, 128, True, None, torch.bfloat16),
+        (1, 300, 300, 8, 2, 128, True, 64, torch.float32),
+        (1, 200, 200, 4, 1, 64, False, None, torch.bfloat16),
+        (1, 130, 300, 4, 4, 64, False, None, torch.bfloat16),  # cross attention
+        (1, 300, 130, 8, 2, 64, True, None, torch.float32),  # causal, Sk < Sq
+    ]
+    worst = 0.0
+    for b, sq, sk, h, kvh, d, causal, window, dt in cases:
+        q, k, v, out, lse, do = _bwd_inputs(rng, b, sq, sk, h, kvh, d, causal, window, dt, dev)
+        got = fa_ops.flash_attention_bwd_bshd(q, k, v, out, lse, do, causal=causal, window=window)
+        want = fa_plain.flash_attention_bwd_bshd(q, k, v, out, lse, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        rtol = BWD_F32_RTOL if dt == torch.float32 else BWD_BF16_RTOL
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = w.float().abs().max().item()
+            diff = (g.float() - w.float()).abs()
+            err = diff.max().item() / max(scale, 1e-30)
+            if not (g.dtype == dt and g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+                    and bool((diff <= rtol * scale + BWD_ATOL).all())):
+                raise AssertionError(f"flash_attention_bwd {name} disagrees with its plain version: {err:.3e} "
+                                     f"of max|plain| {scale:.3e} (bound {rtol:g} + {BWD_ATOL:g}), B={b} Sq={sq} "
+                                     f"Sk={sk} H={h} "
+                                     f"KVH={kvh} D={d} causal={causal} window={window} {dt}")
+            errs.append(err)
+        log(f"  flash_attention_bwd B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} D={d} causal={causal} "
+            f"window={window} {str(dt)[6:]}: max|kernel-plain|/max|plain| dq {errs[0]:.2e} dk {errs[1]:.2e} "
+            f"dv {errs[2]:.2e} (bound {rtol:g} of max|plain| + {BWD_ATOL:g})")
+        if dt == torch.float32:
+            worst = max(worst, *errs)
+    fa_ops.flash_attention_bwd_bshd.launches = 0
+    return worst
+
+
+def time_flash_attention_bwd(dev, flush) -> dict:
+    """One Gemma3-1B training step's K3 backward launches (4 x 1024 tokens,
+    D 256, 4 heads over 1, bf16): 4 global + 22 local (window 512) layers,
+    each shape timed alone (dQ and dK/dV kernels together) and summed.
+    The bound is the larger of the operations, 5 products of 2 D flops
+    over the masked pairs at the bf16 tensor-core peak, and the bytes, q,
+    k, v, out, dO and lse read and dq, dk, dv written once.  The library
+    yardstick is SDPA's backward alone: ``torch.autograd.grad`` on a graph
+    kept from one forward, ``is_causal`` for the global layer and the
+    explicit mask for the local one (the backend that ran is logged)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plain as fa_plain
+
+    rng = np.random.default_rng(SEED + 14)
+    b, s, h, kvh, d, dt = TRAIN_B, TRAIN_S, 4, 1, 256, torch.bfloat16
+    pos = torch.arange(s, device=dev)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0)
+    for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
+        q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, kvh, d, True, window, dt, dev)
+        kernel = median_ms(lambda: fa_ops.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window), flush)
+        plain = median_ms(lambda: fa_plain.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window),
+                          flush, iters=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        if window is None:
+            mask, o = None, F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        library = median_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), flush)
+        backend = _sdpa_backend(qt.detach(), kt.detach(), vt.detach(), mask, window is None)
+        pairs = attention_pairs(s, True, window) * b * h
+        layer_bound, by = bound_ms(b * s * (4 * h + 4 * kvh) * d * 2 + b * h * s * 4, 10.0 * d * pairs,
+                                   PEAK_BF16_FLOPS)
+        log(f"  flash_attention_bwd {'global' if window is None else f'local (window {window})'} layer "
+            f"({b}x{s}, D {d}, bf16): kernel {kernel:.4f} ms ({layer_bound / kernel:.1%} of its "
+            f"{layer_bound:.4f} ms bound, {by}), plain {plain:.4f} ms, SDPA backward {library:.4f} ms "
+            f"({backend})")
+        totals["ms"] += n_layers * kernel
+        totals["plain_ms"] += n_layers * plain
+        totals["library_ms"] += n_layers * library
+        totals["flops"] += n_layers * 10.0 * d * pairs
+        del o, qt, kt, vt
+    nbytes = (N_GLOBAL + N_LOCAL) * (b * s * (4 * h + 4 * kvh) * d * 2 + b * h * s * 4)
+    b_ms, b_by = bound_ms(nbytes, totals["flops"], PEAK_BF16_FLOPS)
+    log(f"  flash_attention_bwd per step ({N_GLOBAL} global + {N_LOCAL} local launches): kernel "
+        f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA backward {totals['library_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
+    fa_ops.flash_attention_bwd_bshd.launches = 0
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:86",
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": b_ms,
@@ -2447,6 +2652,147 @@ def run_ssm_path(dev, card: str) -> dict:
     return launches
 
 
+def _train_counts() -> tuple[int, int]:
+    """(K3 forward launches, K3 backward launches) so far."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches
+
+
+def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
+    """The first step with lr > 0 (step 1: the schedule gives lr 0 at step
+    0), taken twice from one state: on the kernels (K3 forward with lse,
+    K3's backward), then with K3 swapped for its plain version, which
+    autograd differentiates.  Loss and grad norm are held to each other
+    within TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL; how far the updated leaves
+    and AdamW's m differ is printed."""
+    from repro_torch.training import train_loop as loop
+
+    state = loop.init_train_state(cfg, SEED, dev)
+    state["step"].fill_(1)
+    leaves = list(state["params"].parameters())
+    start = [p.detach().clone() for p in leaves]
+    step_fn = loop.make_train_step(cfg, tcfg)
+    kernel_run = None
+    for name in ("kernels", "plain attention"):
+        with torch.no_grad():
+            for p, p0 in zip(leaves, start):
+                p.copy_(p0)
+            for t in (*state["opt"]["m"].values(), *state["opt"]["v"].values()):
+                t.zero_()
+        state["opt"]["count"].zero_()
+        state["step"].fill_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "kernels":
+            state, metrics = step_fn(state, batch)
+        else:
+            with _plain_kernels():
+                state, metrics = step_fn(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"[train] first step (step 1) on {name}: loss {loss:.6f}, grad norm {gnorm:.6f}, {ms:.1f} ms "
+            f"[{card}]")
+        moments = list(state["opt"]["m"].values())
+        if kernel_run is None:  # the kernel run's update and m, held for the plain run
+            kernel_run = (loss, gnorm, [p.detach() - p0 for p, p0 in zip(leaves, start)],
+                          [m.clone() for m in moments])
+            continue
+        lk, gk, uk, mk = kernel_run
+        upd = max(((p.detach() - p0) - u).abs().max().item() for p, p0, u in zip(leaves, start, uk))
+        upd /= max(u.abs().max().item() for u in uk)
+        mom = max((a - b).abs().max().item() for a, b in zip(moments, mk)) / max(m.abs().max().item() for m in mk)
+        log(f"[train] kernels vs plain attention: loss {abs(lk - loss) / abs(loss):.3e} (bound "
+            f"{TRAIN_LOSS_RTOL}), grad norm {abs(gk - gnorm) / gnorm:.3e} (bound {TRAIN_GNORM_RTOL}) relative; "
+            f"updated leaves max|Δ update| / max|update| {upd:.3e}, AdamW m {mom:.3e}")
+        if abs(lk - loss) > TRAIN_LOSS_RTOL * abs(loss) or abs(gk - gnorm) > TRAIN_GNORM_RTOL * gnorm:
+            raise AssertionError(f"the kernel step disagrees with the plain-attention step: loss {lk} vs {loss}, "
+                                 f"grad norm {gk} vs {gnorm}")
+    del state, leaves, start, kernel_run, moments
+    torch.cuda.empty_cache()
+
+
+def run_training_path(dev, card: str) -> dict:
+    """Phase 4E: Gemma3-1B trained at full size (26 layers, d_model 1152,
+    4 query heads over 1 KV head of 256, window 512 on 22 layers, vocab
+    262144, tied embeddings; f32 master weights, bf16 compute, AdamW):
+    the first step twice from one state, on the kernels and on plain
+    attention (:func:`_first_step_twice`); then ``train()`` — what
+    ``launch/train.py`` drives — over ``synthetic_lm_batch_fn`` at 4 x 1024
+    (+1) tokens for 10 steps (warmup 1), each step's loss, grad norm, step
+    ms (synchronised) and peak memory printed, K3 forward 2 x 26 (the
+    forward and each layer's recompute) and K3 backward 26 launches per
+    step asserted, every loss and grad norm finite and the last loss below
+    the first.  Then hymba-1.5b on the card raises (K6 has no backward).
+    Returns the launches of the 10 steps."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PrefetchIterator, ShardedBatchSource, synthetic_lm_batch_fn
+    from repro_torch.training import train_loop as loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = configs.get_config("gemma3-1b")
+    tcfg = loop.TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=TRAIN_STEPS)
+    fn = synthetic_lm_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _first_step_twice(cfg, tcfg, fn(0, 0, 0, 1), dev, card)
+    log(f"[train] first steps: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_attention_counts()
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fa_ops.flash_attention_bwd_bshd.launches = 0
+    per_step, grad_norms = [], []
+    last = [_train_counts()]
+
+    def on_step(i, state, metrics):
+        gnorm = float(metrics["grad_norm"])
+        now = _train_counts()
+        per_step.append((now[0] - last[0][0], now[1] - last[0][1]))
+        last[0] = now
+        grad_norms.append(gnorm)
+        log(f"[train] step {i}: grad norm {gnorm:.4f}, K3 launches {per_step[-1][0]} forward / "
+            f"{per_step[-1][1]} backward, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    it = PrefetchIterator(ShardedBatchSource(fn, seed=0))
+    t0 = time.perf_counter()
+    try:
+        state, history = loop.train(cfg, tcfg, it, TRAIN_STEPS, key=SEED, device=dev, log_every=10**9,
+                                    on_step=on_step)
+    finally:
+        it.close()
+    wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    for h in history:
+        log(f"[train] step {h['step']}: loss {h['loss']:.4f}, step {h['sec'] * 1e3:.1f} ms (synchronised)")
+    steady = [h["sec"] for h in history[1:]]
+    med = statistics.median(steady)
+    log(f"[train] gemma3-1b full ({n_params / 1e9:.3f} B f32 params, bf16 compute), {TRAIN_STEPS} steps of "
+        f"{TRAIN_B}x{TRAIN_S} tokens in {wall:.1f} s: step {med * 1e3:.1f} ms median of steps 1-"
+        f"{TRAIN_STEPS - 1} ({min(steady) * 1e3:.1f}-{max(steady) * 1e3:.1f}), "
+        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s, loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    losses = [h["loss"] for h in history]
+    if not (len(history) == TRAIN_STEPS and all(np.isfinite(losses)) and all(np.isfinite(grad_norms))):
+        raise AssertionError(f"training: losses {losses}, grad norms {grad_norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    want = (2 * cfg.num_layers, cfg.num_layers)
+    if any(c != want for c in per_step):
+        raise AssertionError(f"K3 launches per step (forward, backward) {per_step}, expected {want}")
+    launches = {"flash_attention": sum(c[0] for c in per_step), "flash_attention_bwd": sum(c[1] for c in per_step)}
+    del state
+    torch.cuda.empty_cache()
+    try:
+        loop.check_trainable(configs.get_config("hymba-1.5b"), dev)
+    except NotImplementedError as e:
+        log(f"[train] hymba-1.5b on the card raises, as it must: {e}")
+    else:
+        raise AssertionError("training hymba-1.5b on the card should raise: K6 has no backward")
+    return launches
+
+
 def run_paper_images(dev, card: str) -> dict:
     """Phase 6A: each image dataset in the paper's four formats through a
     ``SmolRuntime`` over ResNet-18/34/50 (full depth and width, seeded
@@ -2717,8 +3063,14 @@ def main() -> int:
         f"bf16 elementwise 2^-7 |plain| + {ATTN_BF16_ATOL})")
     attn_errs = {**check_flash_attention(dev), "flash_attention_cross": check_flash_attention_cross(dev),
                  "decode_attention": check_decode_attention(dev)}
+    log(f"[kernels] flash_attention's lse vs plain (atol {LSE_ATOL}, base 2); flash_attention_bwd vs its plain "
+        f"backward (dq, dk, dv each: bf16 {BWD_BF16_RTOL:g}, f32 {BWD_F32_RTOL:g} of max|plain|)")
+    lse_err = check_flash_attention_lse(dev)
+    log(f"[kernels] flash_attention lse: largest |kernel - plain| {lse_err:.3e}")
+    attn_errs["flash_attention_bwd"] = check_flash_attention_bwd(dev)
     for timed in (time_flash_attention(dev, flush), time_flash_attention_mla(dev, flush),
-                  time_flash_attention_cross(dev, flush), time_decode_attention(dev, flush)):
+                  time_flash_attention_cross(dev, flush), time_decode_attention(dev, flush),
+                  time_flash_attention_bwd(dev, flush)):
         timed["max_abs_err"] = attn_errs[timed["name"]]
         rows.append(timed)
     log(f"[kernels] selective_scan vs plain (f32 state; {SCAN_RTOL:g} of max|plain|; bf16(y) 2^-7 |plain| + "
@@ -2769,6 +3121,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_ssm_path(dev, card))
     log(f"[lm] phase 4D took {time.perf_counter() - t0:.1f} s")
+    # ---- phase 4E: Gemma3-1B trained at full size (K3 forward with lse, K3 backward)
+    t0 = time.perf_counter()
+    _add(launches, run_training_path(dev, card))
+    log(f"[train] phase 4E took {time.perf_counter() - t0:.1f} s")
     # ---- phase 5: the vision serving path over phase 3's model and corpus
     t0 = time.perf_counter()
     run_vision_serving(dev, corpus, full, thumb, res, card)

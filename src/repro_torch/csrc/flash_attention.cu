@@ -13,7 +13,11 @@
 // masked gives exp(0) terms that a later valid tile wipes through corr, never
 // exp(-inf - -inf) = NaN); l == 0 at the end gives 0, not NaN.  f32 scores,
 // softmax and accumulation; q/k/v/out float32 or bfloat16, one kernel each,
-// chosen by dtype.
+// chosen by dtype.  Both kernels optionally write each row's log-sum-exp
+// in base 2, lse[b, h, q] = log2 sum_k exp(scale q . k) over the unmasked
+// keys, (B, H, Sq) f32 (-1e30 for a row with no key), for the backward
+// (csrc/flash_attention_bwd.cu), which recomputes P = exp2(scale log2(e)
+// q . k - lse); serving passes a null pointer and the epilogue skips it.
 //
 // What bounds it on an H100.  By the roofline, operations at Gemma3-1B's
 // prefill (S 2048, D 256, 4 query heads over 1 KV head: ~34 GFLOP against
@@ -115,6 +119,7 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;
@@ -142,7 +147,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk, int H, int group,
+                       const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse, int Sq,
+                       int Sk, int H, int group,
                        Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qt = smem;                    // (BQ, DQK + 1)
@@ -251,6 +257,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= Sq) continue;
     const float li = l[i] == 0.0f ? 1.0f : l[i];
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qpos] = l[i] == 0.0f ? kNegInf : m[i] * kLog2e + log2f(l[i]);
     float* o = out + b * os.b + qpos * os.s + h * os.h;
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) o[tx + 16 * jj] = acc[i][jj] / li;
@@ -267,7 +275,6 @@ constexpr int kChunk = 64;           // bf16 columns in one 128-byte swizzle row
 constexpr int kRowBytes = 128;
 constexpr int kSmemMax = 232448;     // dynamic shared memory a block may have
 constexpr int kMaxStages = 3;        // K/V ring depth, where more would fit
-constexpr float kLog2e = 1.4426950408889634f;
 
 // shared memory, from a 1024-byte aligned base: Q[kQBufs] as DQK / 64
 // chunks of (128 rows x 128 B), then K[kStages] as DQK / 64 and
@@ -517,7 +524,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                          int Sq, int Sk, int H, int group, Strides os, float scale_log2, int causal,
+                          float* __restrict__ lse, int Sq, int Sk, int H, int group, Strides os,
+                          float scale_log2, int causal,
                           int window, int group_heads, int n_tiles, int* __restrict__ counters) {
   using L = TcLayout<DQK, DV>;
   constexpr int kQkChunks = DQK / kChunk, kVChunks = DV / kChunk, kStages = L::kStages;
@@ -710,6 +718,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
       const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0), inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);
+      if (lse != nullptr && (lane & 3) == 0) {  // rs.m0 / m1: the rows' max over the quad, base 2
+        float* lrow = lse + (static_cast<long long>(tl.b) * H + tl.h) * Sq;
+        if (row < Sq) lrow[row] = l0 == 0.0f ? kNegInf : rs.m0 + log2f(l0);
+        if (row + 8 < Sq) lrow[row + 8] = l1 == 0.0f ? kNegInf : rs.m1 + log2f(l1);
+      }
       __nv_bfloat16* o0 = out + tl.b * os.b + row * os.s + tl.h * os.h + col;
       __nv_bfloat16* o1 = o0 + 8 * os.s;
 #pragma unroll
@@ -764,7 +777,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
 }
 
 template <int DQK, int DV>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Sk, int H,
                 int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                 int group_heads, int* counters, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
@@ -782,14 +795,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   const long long tiles = static_cast<long long>(B) * H * ((Sq + kTcBQ - 1) / kTcBQ);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = tiles < sms ? static_cast<int>(tiles) : sms;  // one per SM, each walks its tiles
-  kernel<<<blocks, kTcThreads, bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Sq, Sk,
-                                                H, H / KVH, os, scale * kLog2e, causal, window, group_heads,
+  kernel<<<blocks, kTcThreads, bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, Sq,
+                                                Sk, H, H / KVH, os, scale * kLog2e, causal, window, group_heads,
                                                 static_cast<int>(tiles), counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DQK, int DV>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Sk, int H,
                int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                cudaStream_t stream) {
   constexpr int bytes = smem_bytes(DQK, DV);
@@ -800,19 +813,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Sk, H, H / KVH, qs, ks, vs, os, scale, causal, window);
+      static_cast<float*>(out), lse, Sq, Sk, H, H / KVH, qs, ks, vs, os, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DQK, int DV>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+int launch(int dtype, const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Sk,
            int H, int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
            int window, int group_heads, int* counters, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+    return launch_f32<DQK, DV>(q, k, v, out, lse, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
                                stream);
   if (dtype == 1 && counters != nullptr)
-    return launch_bf16<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+    return launch_bf16<DQK, DV>(q, k, v, out, lse, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
                                 group_heads, counters, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -823,7 +836,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out, in
 // pointers and strides 16-byte aligned), q, k, v and out alike.  q
 // (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, DV), out (B, Sq, H, DV),
 // each with its own (batch, seq, head) strides in elements and a
-// contiguous last dimension.  (D, DV): (64, 64), (128, 128), (256, 256) or
+// contiguous last dimension.  lse: (B, H, Sq) f32 written with each row's
+// log-sum-exp in base 2, or null.  (D, DV): (64, 64), (128, 128), (256, 256) or
 // MLA's (192, 128).  window < 0: no window.  group_heads: (batch, head)
 // pairs per group of the bf16 kernel's tile order (out of 1..B*H: all of
 // them in one group).  counters: 2 int32 on the device, zero at the
@@ -831,7 +845,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out, in
 // pair per stream that launches it, as launches on one stream run in
 // order; unused by float32).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* out, int B, int Sq, int Sk, int H, int KVH, int D, int DV,
+                                     void* out, void* lse_ptr, int B, int Sq, int Sk, int H, int KVH, int D, int DV,
                                      long long qsb, long long qss, long long qsh, long long ksb,
                                      long long kss, long long ksh, long long vsb, long long vss,
                                      long long vsh, long long osb, long long oss, long long osh,
@@ -844,17 +858,18 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   auto st = static_cast<cudaStream_t>(stream);
   const int gh = group_heads;
   int* const ctr = static_cast<int*>(counters);
+  float* const lse = static_cast<float*>(lse_ptr);
   if (D == 64 && DV == 64)
-    return launch<64, 64>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window, gh,
+    return launch<64, 64>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window, gh,
                           ctr, st);
   if (D == 128 && DV == 128)
-    return launch<128, 128>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+    return launch<128, 128>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
                             gh, ctr, st);
   if (D == 256 && DV == 256)
-    return launch<256, 256>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+    return launch<256, 256>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
                             gh, ctr, st);
   if (D == 192 && DV == 128)  // MLA: nope 128 + rope 64 for q and k, v 128
-    return launch<192, 128>(dtype, q, k, v, out, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
+    return launch<192, 128>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KVH, qs, ks, vs, os, scale, causal, window,
                             gh, ctr, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,3 @@
 """Data substrate: synthetic dataset generators standing in for the
-paper's eight evaluation datasets.  The reference's sharded resumable
-pipeline (``data/pipeline.py``) is not ported yet (ROADMAP.md, port
-queue: 'LLM side stack')."""
+paper's eight evaluation datasets (``datasets.py``), and the reference's
+sharded, resumable LM input pipeline with prefetch (``pipeline.py``)."""

@@ -21,4 +21,26 @@ loaded with ``ctypes``).
 * selective_scan   — Mamba's selective scan with its state in registers,
                      from the x_proj output to the gated rows (hymba's
                      prefill, and each decode step at S = 1)
+
+Gradients: flash_attention is a ``torch.autograd.Function`` whose
+backward is a kernel too (``csrc/flash_attention_bwd.cu``).  The other
+kernels have no backward; :func:`require_no_grad` makes their wrappers
+raise rather than return an output cut from the graph.
 """
+
+import torch
+
+
+def require_no_grad(kernel: str, roadmap: str, *tensors) -> None:
+    """Raise where launching ``kernel``, which has no backward, would cut a
+    gradient: grad mode is on and an input that requires grad lies off the
+    CPU (on CPU tensors the wrappers run their plain versions, which
+    autograd differentiates).  Called before the wrappers' device branch."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad and t.device.type != "cpu":
+            raise NotImplementedError(
+                f"{kernel} has no backward: an input requires grad on {t.device}, and its output "
+                f"would carry no gradient ({roadmap}); run it under torch.no_grad()")
+

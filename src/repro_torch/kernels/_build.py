@@ -145,7 +145,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.repro_resize_affine_planar_f32.restype = _I
     lib.repro_flash_attention.argtypes = [
-        _I, _P, _P, _P, _P,  # dtype, q, k, v, out
+        _I, _P, _P, _P, _P, _P,  # dtype, q, k, v, out, lse (null: none)
         _I, _I, _I, _I, _I, _I, _I,  # B, Sq, Sk, H, KVH, D (q/k width), DV (v width)
         _L, _L, _L, _L, _L, _L,  # q / k strides (batch, seq, head)
         _L, _L, _L, _L, _L, _L,  # v / out strides
@@ -153,6 +153,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         _P, _P,  # work-tile counters, stream
     ]
     lib.repro_flash_attention.restype = _I
+    lib.repro_flash_attention_bwd.argtypes = [
+        _I, _P, _P, _P, _P, _P,  # dtype, q, k, v, out, dout
+        _P, _P, _P, _P, _P,  # lse, delta (written), dq, dk, dv
+        _I, _I, _I, _I, _I, _I,  # B, Sq, Sk, H, KVH, D
+        *[_L] * 24,  # (batch, seq, head) strides of q, k, v, out, dout, dq, dk, dv
+        _F, _I, _I, _P,  # scale, causal, window (-1 = none), stream
+    ]
+    lib.repro_flash_attention_bwd.restype = _I
     lib.repro_decode_attention.argtypes = [
         _I, _I,  # q dtype, cache dtype
         _P, _L, _L,  # q, its (batch, head) strides

@@ -22,11 +22,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, require_no_grad
 from repro_torch.kernels.decode_attention import plain
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
 MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
+ROADMAP_BACKWARD = "decode only: no training path reaches K4, and no backward is queued"
 STAGE_BYTES = 64 * 1024  # K + V rows of one chunk in shared memory (csrc kStageBytes)
 MIN_CHUNK = 8  # keys per block, at least (unless fewer are valid)
 _ALIGN = 16  # bytes: the kernel's TMA bulk copies
@@ -104,6 +105,7 @@ def decode_attention_cache(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     scale = float(d) ** -0.5 if scale is None else float(scale)
+    require_no_grad("decode_attention (K4)", ROADMAP_BACKWARD, q, k_cache, v_cache)
     if q.device.type == "cpu":
         return plain.decode_attention(q, k_cache, v_cache, lengths, window=window, scale=scale)
     group = h // kvh

@@ -30,6 +30,20 @@ group's K/V fit :data:`KV_L2_BYTES`), heaviest causal tile first within a
 group.  Blocks take the next tile from a counter in device memory, kept
 per device and stream like K4's arrival counters: the kernel leaves it at
 zero.
+
+Gradients.  When grad mode is on and q, k or v requires grad,
+:func:`flash_attention_bshd` runs as :class:`FlashAttention`, a
+``torch.autograd.Function``: its forward is K3 with the row log-sum-exp
+``lse`` (B, H, Sq) f32 in base 2 (``log2 Σ_k exp(scale q·k)``; the
+kernels' softmax runs in base 2), saving q, k, v, out and lse; its
+backward is :func:`flash_attention_bwd_bshd`, K3's backward
+(``csrc/flash_attention_bwd.cu``: a dQ kernel, which also writes
+``Delta = rowsum(dO ∘ O)``, then a dK/dV kernel).  On CPU tensors each
+half runs its plain version, so the CPU tests drive the same wiring.
+Otherwise (serving) the forward is the plain launch, with no ``lse``.
+The backward's instances are :data:`BWD_HEAD_DIMS`; a width outside them
+(MLA's 192/128) raises ``NotImplementedError`` (ROADMAP port queue item
+25.7b).
 """
 
 from __future__ import annotations
@@ -43,6 +57,9 @@ from repro_torch.kernels.flash_attention import plain
 
 # the kernels' template instances, (q/k width, v width)
 HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+# the backward kernels' instances (q/k width = v width)
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+BWD_ROADMAP = "ROADMAP port queue item 25.7b (K3 backward at MLA's 192/128)"
 # the C entry point's dtype code: 0 the SIMT fp32 kernel, 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16  # bytes: TMA base pointers and strides
@@ -85,6 +102,11 @@ def _check_tma(*xs: torch.Tensor) -> None:
             )
 
 
+def _aligned16(x: torch.Tensor) -> bool:
+    """A 16-byte aligned pointer and (batch, seq, head) strides."""
+    return x.data_ptr() % 16 == 0 and all(st * x.element_size() % 16 == 0 for st in _strides(x))
+
+
 def tile_group(b: int, h: int, kvh: int, sk: int, d: int, dv: int) -> int:
     """(batch, head) pairs per group of the bf16 kernel's tile order: whole
     KV heads (``h // kvh`` query heads each) whose bf16 K and V, Sk keys of
@@ -92,6 +114,68 @@ def tile_group(b: int, h: int, kvh: int, sk: int, d: int, dv: int) -> int:
     ``b * h`` pairs (one group: every head's heaviest tile first)."""
     kv_heads = max(1, KV_L2_BYTES // (sk * (d + dv) * 2))
     return min(b * h, kv_heads * (h // kvh))
+
+
+def _launch(q, k, v, causal: bool, window: int | None, scale: float, with_lse: bool):
+    """K3 on CUDA tensors -> (out, lse or None)."""
+    b, s, h, d = q.shape
+    sk, dv = k.shape[1], v.shape[3]
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take (q/k, v) head widths in {HEAD_DIMS}, got {(d, dv)}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("q/k/v need a contiguous head_dim")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    if out.numel() == 0:
+        return out, lse
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.repro_flash_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, s, sk, h, k.shape[2], d, dv,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        scale, int(causal), -1 if window is None else int(window),
+        tile_group(b, h, k.shape[2], sk, d, dv),
+        _build.stream_counters("flash_attention", q.device, stream, 2).data_ptr(), stream,
+    )
+    _build.check(lib, status, "flash_attention")
+    flash_attention_bshd.launches += 1
+    flash_attention_bshd.launches_by_dims[(d, dv)] += 1
+    flash_attention_bshd.launches_cross += sk != s
+    return out, lse
+
+
+def _forward(q, k, v, causal: bool, window: int | None, scale: float, with_lse: bool):
+    """-> (out, lse or None): the plain version on CPU tensors, else K3."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale,
+                                              return_lse=True)
+        return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale), None
+    return _launch(q, k, v, causal, window, scale, with_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 with a gradient: forward with ``lse``, backward K3's backward
+    (plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int | None, scale: float):
+        out, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_bshd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bshd(
@@ -108,39 +192,14 @@ def flash_attention_bshd(
 
     On a CUDA tensor this launches ``csrc/flash_attention.cu`` on the
     current stream (and raises if it cannot); on a CPU tensor it runs the
-    plain version."""
+    plain version.  Under grad mode with an input that requires grad it
+    runs as :class:`FlashAttention` (forward with ``lse``, backward K3's
+    backward)."""
     _check(q, k, v, window)
-    b, s, h, d = q.shape
-    sk, dv = k.shape[1], v.shape[3]
-    scale = float(d) ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return plain.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
-    if (d, dv) not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take (q/k, v) head widths in {HEAD_DIMS}, got {(d, dv)}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("q/k/v need a contiguous head_dim")
-    if q.dtype == torch.bfloat16:
-        _check_tma(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.repro_flash_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, sk, h, k.shape[2], d, dv,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        scale, int(causal), -1 if window is None else int(window),
-        tile_group(b, h, k.shape[2], sk, d, dv),
-        _build.stream_counters("flash_attention", q.device, stream, 2).data_ptr(), stream,
-    )
-    _build.check(lib, status, "flash_attention")
-    flash_attention_bshd.launches += 1
-    flash_attention_bshd.launches_by_dims[(d, dv)] += 1
-    flash_attention_bshd.launches_cross += sk != s
-    return out
+    scale = float(q.shape[3]) ** -0.5 if scale is None else float(scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, with_lse=False)[0]
 
 
 flash_attention_bshd.launches = 0  # kernel launches (CPU calls do not count)
@@ -149,3 +208,66 @@ flash_attention_bshd.launches_by_dims = dict.fromkeys(HEAD_DIMS, 0)
 # the launches with a key length other than the query length (cross attention)
 flash_attention_bshd.launches_cross = 0
 
+
+def flash_attention_bwd_bshd(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KVH, D)
+    v: torch.Tensor,  # (B, Sk, KVH, DV)
+    out: torch.Tensor,  # (B, Sq, H, DV): the forward's output
+    lse: torch.Tensor,  # (B, H, Sq) f32, base 2
+    dout: torch.Tensor,  # (B, Sq, H, DV)
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's backward -> (dq, dk, dv) in q/k/v's dtype (f32 accumulation;
+    dk and dv summed over each KV head's query heads, with no atomics).
+
+    On CUDA tensors this launches ``csrc/flash_attention_bwd.cu`` — the dQ
+    kernel (which writes ``Delta``), then the dK/dV kernel — on the
+    current stream; on CPU tensors it runs the plain backward."""
+    _check(q, k, v, window)
+    b, s, h, d = q.shape
+    sk, dv = k.shape[1], v.shape[3]
+    for name, t, shape in (("out", out, (b, s, h, dv)), ("dout", dout, (b, s, h, dv))):
+        if tuple(t.shape) != shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {shape} {q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be ({b}, {h}, {s}) float32, got {tuple(lse.shape)} {lse.dtype}")
+    scale = float(d) ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return plain.flash_attention_bwd_bshd(q, k, v, out, lse, dout, causal=causal, window=window,
+                                              scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
+    if (d, dv) not in BWD_HEAD_DIMS:
+        raise NotImplementedError(f"K3's backward takes (q/k, v) head widths in {BWD_HEAD_DIMS}, got "
+                                  f"{(d, dv)}: {BWD_ROADMAP}")
+    # the kernels read rows 16 bytes at a time: a row that is not 16-byte aligned is copied
+    q, k, v, out, dout = (t if t.stride(3) == 1 and _aligned16(t) else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, k.shape[2], d), dtype=k.dtype, device=q.device)
+    dv_ = torch.empty((b, sk, k.shape[2], dv), dtype=v.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv_.zero_()
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.repro_flash_attention_bwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+        b, s, sk, h, k.shape[2], d,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out), *_strides(dout),
+        *_strides(dq), *_strides(dk), *_strides(dv_),
+        scale, int(causal), -1 if window is None else int(window), stream,
+    )
+    _build.check(lib, status, "flash_attention_bwd")
+    flash_attention_bwd_bshd.launches += 1
+    return dq, dk, dv_
+
+
+# calls that launched the backward (one dQ and one dK/dV kernel each; CPU calls do not count)
+flash_attention_bwd_bshd.launches = 0

@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, require_no_grad
 from repro_torch.kernels.selective_scan import plain
 
 NSTATES = (8, 16)  # the kernel's template instances: hymba-1.5b's 16, its smoke config's 8
+# where a gradient through the kernel is queued
+ROADMAP_BACKWARD = "ROADMAP port queue item 25.7a (K6's backward, hymba training on the card)"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -72,6 +74,7 @@ def selective_scan(
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != xc.device:
             raise ValueError(f"{name} on {t.device} but xc on {xc.device}")
+    require_no_grad("selective_scan (K6)", ROADMAP_BACKWARD, xc, proj, a_log, dt_bias, d_skip, h0, z)
     if xc.device.type == "cpu":
         return plain.selective_scan(xc, proj, a_log, dt_bias, d_skip, h0, z, chunk)
     if xc.device.type != "cuda":

@@ -26,7 +26,8 @@ computes it in jnp.
 
 MoE is the reference's single-device dispatch (:func:`moe_apply`); its
 expert-parallel ``shard_map`` branch belongs to the mesh (ROADMAP item
-23), and ``moe_aux_loss`` to training.  The dispatch makes no host sync,
+23).  :func:`moe_aux_loss` is the reference's load-balancing loss, which
+the reference defines and its train step does not call.  The dispatch makes no host sync,
 so a decode step with MoE layers can be captured as one CUDA graph
 (``serving/engine.py``): no ``bincount``, ``nonzero``, boolean-mask
 indexing, ``repeat_interleave`` with tensor repeats or ``.item()``.
@@ -284,3 +285,18 @@ def moe_apply(p, cfg, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     if p.shared is not None:
         y = y + mlp_apply(p.shared, xt, act)
     return y.reshape(b, s, d)
+
+
+def moe_aux_loss(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch/OLMoE style), f32:
+    ``E * Σ_e frac_e prob_e``, frac_e the share of the top-k assignments
+    that go to expert e (counted by ``scatter_add_``, no host sync) and
+    prob_e the mean router probability of e.  ``p``: a ``transformer.MoE``."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    gates = torch.softmax(x.reshape(b * s, d).float() @ p.router.float(), dim=-1)
+    idx = torch.topk(gates, k, dim=-1).indices.reshape(-1)
+    frac = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32, device=x.device)) / (b * s * k)
+    prob = gates.mean(dim=0)
+    return e * torch.sum(frac * prob)

@@ -18,10 +18,16 @@ dense-FFN layers, a separately scanned group in the reference
 (``params["dense_prefix"]``), are ``TransformerLM.dense_prefix``; whisper's
 ``params["encoder"]`` and ``params["cross"]`` are ``TransformerLM.encoder``
 and ``TransformerLM.cross``.
-Parameters are inference weights (no gradients): matrices and the
-embedding in the config dtype, norm scales and the MoE router in f32 (see
-``models/layers.py`` on why that matches the reference's
-cast-at-the-call-site).  Each submodule is named as the reference's
+Parameters are inference weights (no gradients) by default: matrices and
+the embedding in the config dtype, norm scales and the MoE router in f32
+(see ``models/layers.py`` on why that matches the reference's
+cast-at-the-call-site).  The training state's model (``train=True`` in
+:func:`init_lm` and :func:`from_jax_params`) holds every leaf in f32 with
+``requires_grad``, as the reference keeps its f32 master parameters —
+Mamba's ``a_log``, ``dt_bias`` and ``d_skip`` included — and compute
+still casts each to the config dtype at its use; :func:`forward_train`
+is the forward with gradients, each block rematerialised in the backward
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).  Each submodule is named as the reference's
 pytree leaf it holds (``moe.experts.w_gate`` is
 ``params["layers"]["moe"]["experts"]["w_gate"][i]``), which is how
 :func:`from_jax_params` carries weights across and :func:`to_jax_layout`
@@ -36,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -286,13 +293,15 @@ class TransformerLM(nn.Module):
     final norm and (untied) LM head; with an encoder (``is_encdec``) the
     :class:`Encoder` and one :class:`CrossBlock` per main layer, with the
     ViT stub frontend the (D, D) ``vis_proj``; else None.  Built
-    uninitialised: fill it with :func:`init_lm` or :func:`from_jax_params`."""
+    uninitialised: fill it with :func:`init_lm` or :func:`from_jax_params`.
+    ``param_dtype`` (default: the config dtype) is the matrices' and the
+    embedding's dtype; the training state's model takes f32."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, param_dtype: torch.dtype | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        dtype = torch_dtype(cfg.dtype)
+        dtype = param_dtype or torch_dtype(cfg.dtype)
         kind = main_block_kind(cfg)
         n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
         self.embed = _weight((cfg.padded_vocab_size, cfg.d_model), dtype, device)
@@ -313,7 +322,7 @@ class TransformerLM(nn.Module):
 
 @torch.no_grad()
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
-            device: str | torch.device | None = "cuda") -> TransformerLM:
+            device: str | torch.device | None = "cuda", train: bool = False) -> TransformerLM:
     """Random weights with the reference's distributions (``init_lm``):
     embedding N(0, 1) * d_model^-0.5, each matrix N(0, 1) * fan_in^-0.5 —
     the router and every projection (in, out) over its first dimension, an
@@ -322,14 +331,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     (and 0), Mamba's ``dt_bias``, ``a_log`` and ``d_skip`` as built.  Drawn
     in f32 on ``device`` from ``generator``
     (a generator on that device; default: seed 0) and stored in the config
-    dtype.  The numbers differ from the JAX ones for the same seed — load
+    dtype, or with ``train`` kept in f32 with ``requires_grad``.  The numbers differ from the JAX ones for the same seed — load
     those with :func:`from_jax_params`."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} but weights on {dev}")
-    model = TransformerLM(cfg, dev)
+    model = TransformerLM(cfg, dev, torch.float32 if train else None)
     for name, w in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name == "embed":
@@ -343,7 +352,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
         noise = torch.empty(w.shape, dtype=torch.float32, device=dev).normal_(generator=generator)
         w.copy_(noise.mul_(scale))
         del noise
-    return model
+    return model.requires_grad_(train)
 
 
 def _np(x) -> torch.Tensor:
@@ -363,39 +372,50 @@ def _jax_path(name: str) -> tuple[tuple[str, ...], int | None]:
     return tuple(parts), None
 
 
-@torch.no_grad()
-def from_jax_params(params: dict, cfg: ModelConfig) -> TransformerLM:
-    """A CPU :class:`TransformerLM` holding the reference's parameters.
+def jax_ndim(name: str, t: torch.Tensor) -> int:
+    """The rank of parameter ``name``'s leaf in the reference's layout: a
+    layer's leaves are stacked under a leading layer axis."""
+    return t.dim() + (_jax_path(name)[1] is not None)
 
-    ``params`` is ``repro.models.transformer.init_lm``'s pytree with numpy
-    (or array-like) leaves.  Each parameter's dotted name is its path in
-    the pytree, the layer index taken out (:func:`_jax_path`).  Raises if
-    a leaf of ``params`` has no parameter."""
-    model = TransformerLM(cfg, "cpu")
+
+@torch.no_grad()
+def load_jax_layout(named, tree: dict, what: str = "model") -> None:
+    """Copy the reference-layout ``tree`` (numpy or array-like leaves, each
+    layer group stacked under a leading layer axis) into the tensors of
+    ``named``, (parameter name, tensor) pairs, in place.  Each name is its
+    path in the tree, the layer index taken out (:func:`_jax_path`).
+    Raises if a leaf of ``tree`` has no tensor."""
     carried = set()
-    for name, w in model.named_parameters():
+    for name, w in named:
         path, index = _jax_path(name)
-        leaf = params
+        leaf = tree
         for part in path:
             leaf = leaf[part]
         w.copy_(_np(leaf if index is None else leaf[index]))
         carried.add(path)
-    missing = set(_leaf_paths(params)) - carried
+    missing = set(_leaf_paths(tree)) - carried
     if missing:
-        raise ValueError(f"{cfg.name}: reference leaves with no parameter in the port: {sorted(missing)}")
-    return model
+        raise ValueError(f"{what}: reference leaves with no parameter in the port: {sorted(missing)}")
+
+
+def from_jax_params(params: dict, cfg: ModelConfig, train: bool = False) -> TransformerLM:
+    """A CPU :class:`TransformerLM` holding the reference's parameters
+    (with ``train``: the training state's f32 model).
+
+    ``params`` is ``repro.models.transformer.init_lm``'s pytree with numpy
+    (or array-like) leaves (:func:`load_jax_layout`)."""
+    model = TransformerLM(cfg, "cpu", torch.float32 if train else None)
+    load_jax_layout(model.named_parameters(), params, cfg.name)
+    return model.requires_grad_(train)
 
 
 @torch.no_grad()
-def to_jax_layout(model: TransformerLM) -> dict:
-    """The inverse of :func:`from_jax_params`: the parameters as the
-    reference's nested pytree (``init_lm``'s keys), each layer group's
-    leaves stacked under a leading layer axis; torch tensors on the model's
-    device in its dtypes (a model on the ``meta`` device gives the layout's
-    shapes alone)."""
-    groups: dict[tuple[str, ...], list] = {}  # path -> its layers' weights, in layer order
+def stack_jax_layout(named) -> dict:
+    """(parameter name, tensor) pairs as the reference's nested pytree,
+    each layer group's tensors stacked under a leading layer axis."""
+    groups: dict[tuple[str, ...], list] = {}  # path -> its layers' tensors, in layer order
     stacked = set()
-    for name, w in model.named_parameters():
+    for name, w in named:
         path, index = _jax_path(name)
         groups.setdefault(path, []).append(w.detach())
         if index is not None:
@@ -407,6 +427,15 @@ def to_jax_layout(model: TransformerLM) -> dict:
             node = node.setdefault(part, {})
         node[path[-1]] = torch.stack(ws) if path in stacked else ws[0]
     return tree
+
+
+def to_jax_layout(model: TransformerLM) -> dict:
+    """The inverse of :func:`from_jax_params`: the parameters as the
+    reference's nested pytree (``init_lm``'s keys), each layer group's
+    leaves stacked under a leading layer axis; torch tensors on the model's
+    device in its dtypes (a model on the ``meta`` device gives the layout's
+    shapes alone)."""
+    return stack_jax_layout(model.named_parameters())
 
 
 def _leaf_paths(tree: dict, prefix: tuple = ()):
@@ -501,13 +530,22 @@ def embed_inputs(params: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     return torch.cat([vis, x], dim=1)
 
 
-def encode(params: TransformerLM, cfg: ModelConfig, frames) -> torch.Tensor:
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward, as the reference's
+    ``jax.checkpoint`` around each scanned layer)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def encode(params: TransformerLM, cfg: ModelConfig, frames, remat: bool = False) -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings (B, S_enc, D)
     (the stub frontend's output), non-causal (K3 with causal off)."""
     x = torch.as_tensor(frames, device=params.embed.device).to(torch_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
     for blk in params.encoder.layers:
-        x = _block_full(blk, cfg, x, positions, None, causal=False)
+        x = _run(_block_full, remat, blk, cfg, x, positions, None, False)
     return L.apply_norm(params.encoder.final_norm, x, cfg.norm_type)
 
 
@@ -534,6 +572,32 @@ def _cross_attend(p_cross: CrossBlock, cfg: ModelConfig, x: torch.Tensor, enc_kv
     return x + out.reshape(b, s, cfg.num_heads * hd) @ p_cross.attn.wo.to(dt)
 
 
+def _decoder_layer(blk: Block, cross: CrossBlock, cfg: ModelConfig, x, positions, enc_out):
+    """One encoder-decoder layer: the decoder block, then its cross
+    attention over the encoder's output."""
+    x = _block_full(blk, cfg, x, positions, None)
+    return _cross_attend(cross, cfg, x, _encoder_kv(cross, cfg, enc_out))
+
+
+def _forward(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds, encoder_frames,
+             remat: bool) -> torch.Tensor:
+    tokens = as_tokens(params, tokens)
+    x = embed_inputs(params, cfg, tokens, vision_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.is_encdec:
+        if encoder_frames is None:
+            raise ValueError("encoder-decoder model needs encoder_frames")
+        enc_out = encode(params, cfg, encoder_frames, remat)
+        for blk, cross in zip(params.layers, params.cross):
+            x = _run(_decoder_layer, remat, blk, cross, cfg, x, positions, enc_out)
+        return logits_from(params, cfg, x)
+    for blk in params.dense_prefix or ():
+        x = _run(_block_full, remat, blk, cfg, x, positions, None)
+    for blk, is_local in zip(params.layers, params.is_local):
+        x = _run(_block_full, remat, blk, cfg, x, positions, is_local)
+    return logits_from(params, cfg, x)
+
+
 @torch.no_grad()
 def forward(
     params: TransformerLM,
@@ -544,19 +608,13 @@ def forward(
 ) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S_total, V); S_total counts the
     vision tokens."""
-    tokens = as_tokens(params, tokens)
-    x = embed_inputs(params, cfg, tokens, vision_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.is_encdec:
-        if encoder_frames is None:
-            raise ValueError("encoder-decoder model needs encoder_frames")
-        enc_out = encode(params, cfg, encoder_frames)
-        for blk, cross in zip(params.layers, params.cross):
-            x = _block_full(blk, cfg, x, positions, None)
-            x = _cross_attend(cross, cfg, x, _encoder_kv(cross, cfg, enc_out))
-        return logits_from(params, cfg, x)
-    for blk in params.dense_prefix or ():
-        x = _block_full(blk, cfg, x, positions, None)
-    for blk, is_local in zip(params.layers, params.is_local):
-        x = _block_full(blk, cfg, x, positions, is_local)
-    return logits_from(params, cfg, x)
+    return _forward(params, cfg, tokens, vision_embeds, encoder_frames, remat=False)
+
+
+def forward_train(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds=None,
+                  encoder_frames=None) -> torch.Tensor:
+    """:func:`forward` with gradients: each layer (an encoder-decoder layer
+    with its cross attention) runs under ``torch.utils.checkpoint``, so the
+    backward recomputes its activations, as the reference's
+    ``jax.checkpoint`` does."""
+    return _forward(params, cfg, tokens, vision_embeds, encoder_frames, remat=True)

@@ -1,3 +1,3 @@
-"""Training substrate: low-res-augmented training (paper §5.3).  The
-reference's optimizer, schedules and train step are not ported yet
-(ROADMAP.md, port queue: 'LLM side stack')."""
+"""Training substrate: low-res-augmented training (paper §5.3), and the
+LM trainer — AdamW and its schedule (``optimizer.py``), the loss, train
+step and loop (``train_loop.py``)."""
