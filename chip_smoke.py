@@ -135,6 +135,7 @@ MOE_PREFILL_B, MOE_PREFILL_S = 4, 1024
 MOE_MAX_LEN = MOE_PREFILL_S + 64
 DEEPSEEK_LAYERS = 4  # of 60: ~27 GB in bf16; all 60 (~470 GB) do not fit one card
 MLA_DIMS = (192, 128)  # DeepSeek-V2's q/k width (nope 128 + rope 64) and v width
+MLA_HEADS = 128  # DeepSeek-V2's query heads (MLA: group 1)
 OLMOE_HEADS, OLMOE_HD = 16, 128
 # phase 4C: whisper-large-v3 (full), internvl2-26b (full), qwen3-32b and
 # internlm2-20b (full width, 4 layers), bf16
@@ -287,20 +288,23 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 # copies into shared memory (K2; K6's double-buffered rows)
 DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
                     "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS",
-                    "selective_scan_kernel": "LDGSTS"}
+                    "selective_scan_kernel": "LDGSTS", "flash_attention_bwd_dq_tc_kernel": "HGMMA",
+                    "flash_attention_bwd_dkdv_tc_kernel": "HGMMA"}
 # instances a kernel template must have, where that is checked: K1's int16
 # zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1; K3's
-# bf16 kernel at (q/k, v) widths (64, 64), (128, 128), (256, 256), (192, 128);
-# K6 at 8 and 16 states, the model dtype (xc, proj, z, the gated out) f32 and bf16
-DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4, "selective_scan_kernel": 4}
-# kernels held to no spills alone: K3's backward (dQ and dK/dV, 3 widths x 2 dtypes each)
-NO_SPILL_KERNELS = {"flash_attention_bwd_dq_kernel": 6, "flash_attention_bwd_dkdv_kernel": 6}
+# bf16 kernels, forward and backward's two, at (q/k, v) widths (64, 64),
+# (128, 128), (256, 256), (192, 128); K6 at 8 and 16 states, the model dtype
+# (xc, proj, z, the gated out) f32 and bf16
+DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4, "selective_scan_kernel": 4,
+                      "flash_attention_bwd_dq_tc_kernel": 4, "flash_attention_bwd_dkdv_tc_kernel": 4}
+# kernels held to no spills alone: K3's f32 backward (SIMT dQ and dK/dV, the 4 widths each)
+NO_SPILL_KERNELS = {"flash_attention_bwd_dq_kernel": 4, "flash_attention_bwd_dkdv_kernel": 4}
 
 
 def check_kernel_code(build) -> None:
     """The redesigned kernels were compiled as designed: their SASS
-    (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16,
-    ``wgmma``), HMMA (every instance of K1's template, ``mma.sync`` tf32),
+    (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16
+    and its backward's dQ and dK/dV kernels, ``wgmma``), HMMA (every instance of K1's template, ``mma.sync`` tf32),
     UBLKCP (K4, TMA bulk copies) and LDGSTS (``cp.async``: K2, and every
     instance of K6, its staged rows), and ptxas reports no spills for
     them and serialises no ``wgmma`` (when this process built the
@@ -1104,48 +1108,53 @@ def check_flash_attention_lse(dev) -> float:
     return worst
 
 
-def _bwd_inputs(rng, b, sq, sk, h, kvh, d, causal, window, dt, dev):
+def _bwd_inputs(rng, b, sq, sk, h, kvh, d, dv, causal, window, dt, dev):
     """q, k, v, dO and the plain forward's (out, lse) for them: the inputs
-    both backward versions take."""
+    both backward versions take (q and k D wide, v and dO DV wide)."""
     from repro_torch.kernels.flash_attention import plain as fa_plain
 
     q = _randn(rng, (b, sq, h, d), dt, dev)
-    k, v = (_randn(rng, (b, sk, kvh, d), dt, dev) for _ in range(2))
-    do = _randn(rng, (b, sq, h, d), dt, dev)
+    k, v = _randn(rng, (b, sk, kvh, d), dt, dev), _randn(rng, (b, sk, kvh, dv), dt, dev)
+    do = _randn(rng, (b, sq, h, dv), dt, dev)
     out, lse = fa_plain.flash_attention_bshd(q, k, v, causal=causal, window=window, return_lse=True)
     return q, k, v, out, lse, do
 
 
 def check_flash_attention_bwd(dev) -> float:
-    """K3's backward (dQ kernel, then dK/dV kernel) against the plain
-    backward on the same (q, k, v, out, lse, dO): Gemma3-1B's training
-    layers (4 x 1024, 4 heads over 1 of 256, causal, global and window 512)
-    in bf16 and f32, then ragged S (1, 33, 777), GQA groups 2 and 4, D 64
-    and 128, non-causal, Sk != Sq, and a window that ends inside a tile.
-    dq, dk and dv each within BWD_BF16_RTOL (bf16) or BWD_F32_RTOL (f32)
-    of their largest |plain| value, plus BWD_ATOL, elementwise.  Returns the largest relative error
-    over the f32 cases."""
+    """K3's backward (dQ kernel, then dK/dV kernel; bf16 with GQA also the
+    group sum) against the plain backward on the same (q, k, v, out, lse,
+    dO): Gemma3-1B's training layers (4 x 1024, 4 heads over 1 of 256,
+    causal, global and window 512) in bf16 and f32, then ragged S (1, 33,
+    777), GQA groups 2 and 4, D 64 and 128, non-causal, Sk != Sq, a window
+    that ends inside a tile, and DeepSeek-V2's MLA layer (1 x 1024, 128
+    heads of q/k 192 and v 128, group 1, causal) in bf16 and f32.  dq, dk
+    and dv each within BWD_BF16_RTOL (bf16) or BWD_F32_RTOL (f32) of their
+    largest |plain| value, plus BWD_ATOL, elementwise.  Then two launches
+    on Gemma's global layer give bitwise-equal dq, dk and dv (no atomics).
+    Returns the largest relative error over the f32 cases."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
 
     rng = np.random.default_rng(SEED + 13)
-    cases = [  # B, Sq, Sk, H, KVH, D, causal, window, dtype
-        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, True, None, torch.bfloat16),
-        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
-        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, True, GEMMA_WINDOW, torch.float32),
-        (1, TRAIN_S, TRAIN_S, 4, 1, 256, True, None, torch.float32),
-        (1, 1, 1, 4, 1, 256, True, None, torch.bfloat16),
-        (2, 33, 33, 4, 1, 256, True, None, torch.bfloat16),
-        (2, 777, 777, 4, 1, 256, True, 100, torch.bfloat16),
-        (1, 300, 300, 8, 2, 128, True, None, torch.bfloat16),
-        (1, 300, 300, 8, 2, 128, True, 64, torch.float32),
-        (1, 200, 200, 4, 1, 64, False, None, torch.bfloat16),
-        (1, 130, 300, 4, 4, 64, False, None, torch.bfloat16),  # cross attention
-        (1, 300, 130, 8, 2, 64, True, None, torch.float32),  # causal, Sk < Sq
+    cases = [  # B, Sq, Sk, H, KVH, D, DV, causal, window, dtype
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, None, torch.bfloat16),
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, GEMMA_WINDOW, torch.float32),
+        (1, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, None, torch.float32),
+        (1, 1, 1, 4, 1, 256, 256, True, None, torch.bfloat16),
+        (2, 33, 33, 4, 1, 256, 256, True, None, torch.bfloat16),
+        (2, 777, 777, 4, 1, 256, 256, True, 100, torch.bfloat16),
+        (1, 300, 300, 8, 2, 128, 128, True, None, torch.bfloat16),
+        (1, 300, 300, 8, 2, 128, 128, True, 64, torch.float32),
+        (1, 200, 200, 4, 1, 64, 64, False, None, torch.bfloat16),
+        (1, 130, 300, 4, 4, 64, 64, False, None, torch.bfloat16),  # cross attention
+        (1, 300, 130, 8, 2, 64, 64, True, None, torch.float32),  # causal, Sk < Sq
+        (1, MOE_PREFILL_S, MOE_PREFILL_S, MLA_HEADS, MLA_HEADS, *MLA_DIMS, True, None, torch.bfloat16),
+        (1, MOE_PREFILL_S, MOE_PREFILL_S, MLA_HEADS, MLA_HEADS, *MLA_DIMS, True, None, torch.float32),
     ]
     worst = 0.0
-    for b, sq, sk, h, kvh, d, causal, window, dt in cases:
-        q, k, v, out, lse, do = _bwd_inputs(rng, b, sq, sk, h, kvh, d, causal, window, dt, dev)
+    for b, sq, sk, h, kvh, d, dv, causal, window, dt in cases:
+        q, k, v, out, lse, do = _bwd_inputs(rng, b, sq, sk, h, kvh, d, dv, causal, window, dt, dev)
         got = fa_ops.flash_attention_bwd_bshd(q, k, v, out, lse, do, causal=causal, window=window)
         want = fa_plain.flash_attention_bwd_bshd(q, k, v, out, lse, do, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1159,51 +1168,70 @@ def check_flash_attention_bwd(dev) -> float:
                     and bool((diff <= rtol * scale + BWD_ATOL).all())):
                 raise AssertionError(f"flash_attention_bwd {name} disagrees with its plain version: {err:.3e} "
                                      f"of max|plain| {scale:.3e} (bound {rtol:g} + {BWD_ATOL:g}), B={b} Sq={sq} "
-                                     f"Sk={sk} H={h} "
-                                     f"KVH={kvh} D={d} causal={causal} window={window} {dt}")
+                                     f"Sk={sk} H={h} KVH={kvh} D={d}/{dv} causal={causal} window={window} {dt}")
             errs.append(err)
-        log(f"  flash_attention_bwd B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} D={d} causal={causal} "
+        log(f"  flash_attention_bwd B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} D={d}/{dv} causal={causal} "
             f"window={window} {str(dt)[6:]}: max|kernel-plain|/max|plain| dq {errs[0]:.2e} dk {errs[1]:.2e} "
             f"dv {errs[2]:.2e} (bound {rtol:g} of max|plain| + {BWD_ATOL:g})")
         if dt == torch.float32:
             worst = max(worst, *errs)
+        del q, k, v, out, lse, do, got, want
+    b, s, _, h, kvh, d, _, causal, window, dt = cases[0]
+    q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, kvh, d, d, causal, window, dt, dev)
+    first, second = (fa_ops.flash_attention_bwd_bshd(q, k, v, out, lse, do, causal=causal, window=window)
+                     for _ in range(2))
+    same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+    log(f"  flash_attention_bwd twice on the global layer ({b}x{s}, bf16): dq, dk, dv bitwise equal {same}")
+    if not all(same):
+        raise AssertionError(f"flash_attention_bwd is not the same from run to run: {same}")
     fa_ops.flash_attention_bwd_bshd.launches = 0
     return worst
 
 
-def time_flash_attention_bwd(dev, flush) -> dict:
-    """One Gemma3-1B training step's K3 backward launches (4 x 1024 tokens,
-    D 256, 4 heads over 1, bf16): 4 global + 22 local (window 512) layers,
-    each shape timed alone (dQ and dK/dV kernels together) and summed.
-    The bound is the larger of the operations, 5 products of 2 D flops
-    over the masked pairs at the bf16 tensor-core peak, and the bytes, q,
-    k, v, out, dO and lse read and dq, dk, dv written once.  The library
-    yardstick is SDPA's backward alone: ``torch.autograd.grad`` on a graph
-    kept from one forward, ``is_causal`` for the global layer and the
-    explicit mask for the local one (the backend that ran is logged)."""
+def _bwd_layer_ms(q, k, v, out, lse, do, window, flush, mask=None) -> tuple:
+    """(kernel, plain, SDPA backward) ms of one layer's backward.  SDPA's
+    backward alone: ``torch.autograd.grad`` on a graph kept from one
+    forward, ``is_causal`` without a mask, else the explicit mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
 
+    kernel = median_ms(lambda: fa_ops.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window), flush)
+    plain = median_ms(lambda: fa_plain.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window),
+                      flush, iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if mask is None:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
+    else:
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+    dot = do.transpose(1, 2).contiguous()
+    library = median_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), flush)
+    backend = _sdpa_backend(qt.detach(), kt.detach(), vt.detach(), mask, mask is None)
+    return kernel, plain, library, backend
+
+
+def time_flash_attention_bwd(dev, flush) -> dict:
+    """One Gemma3-1B training step's K3 backward launches (4 x 1024 tokens,
+    D 256, 4 heads over 1, bf16): 4 global + 22 local (window 512) layers,
+    each shape timed alone (every kernel of one call together) and summed.
+    The bound is the larger of the operations, 5 products of 2 D flops
+    over the masked pairs at the bf16 tensor-core peak, and the bytes, q,
+    k, v, out, dO and lse read and dq, dk, dv written once.  The library
+    yardstick is SDPA's backward (:func:`_bwd_layer_ms`), ``is_causal``
+    for the global layer and the explicit mask for the local one (the
+    backend that ran is logged).  Then DeepSeek-V2's MLA layer (4 x 1024,
+    128 heads, q/k 192, v 128, causal), logged beside SDPA ``is_causal``:
+    DeepSeek-V2 is not trained on the card, so it is not in the step."""
     rng = np.random.default_rng(SEED + 14)
     b, s, h, kvh, d, dt = TRAIN_B, TRAIN_S, 4, 1, 256, torch.bfloat16
     pos = torch.arange(s, device=dev)
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0)
     for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
-        q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, kvh, d, True, window, dt, dev)
-        kernel = median_ms(lambda: fa_ops.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window), flush)
-        plain = median_ms(lambda: fa_plain.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window),
-                          flush, iters=5, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-        if window is None:
-            mask, o = None, F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
-        library = median_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), flush)
-        backend = _sdpa_backend(qt.detach(), kt.detach(), vt.detach(), mask, window is None)
+        q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, kvh, d, d, True, window, dt, dev)
+        mask = None if window is None else (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        kernel, plain, library, backend = _bwd_layer_ms(q, k, v, out, lse, do, window, flush, mask)
         pairs = attention_pairs(s, True, window) * b * h
         layer_bound, by = bound_ms(b * s * (4 * h + 4 * kvh) * d * 2 + b * h * s * 4, 10.0 * d * pairs,
                                    PEAK_BF16_FLOPS)
@@ -1215,12 +1243,24 @@ def time_flash_attention_bwd(dev, flush) -> dict:
         totals["plain_ms"] += n_layers * plain
         totals["library_ms"] += n_layers * library
         totals["flops"] += n_layers * 10.0 * d * pairs
-        del o, qt, kt, vt
+        del q, k, v, out, lse, do
     nbytes = (N_GLOBAL + N_LOCAL) * (b * s * (4 * h + 4 * kvh) * d * 2 + b * h * s * 4)
     b_ms, b_by = bound_ms(nbytes, totals["flops"], PEAK_BF16_FLOPS)
     log(f"  flash_attention_bwd per step ({N_GLOBAL} global + {N_LOCAL} local launches): kernel "
         f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA backward {totals['library_ms']:.4f} "
         f"ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
+    (dqk, dv), b, s, h = MLA_DIMS, MOE_PREFILL_B, MOE_PREFILL_S, MLA_HEADS
+    q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, h, dqk, dv, True, None, dt, dev)
+    kernel, plain, library, backend = _bwd_layer_ms(q, k, v, out, lse, do, None, flush)
+    pairs = attention_pairs(s, True, None) * b * h
+    mla_bound, by = bound_ms(b * s * h * (4 * dqk + 4 * dv) * 2 + b * h * s * 4,
+                             2.0 * (3 * dqk + 2 * dv) * pairs, PEAK_BF16_FLOPS)
+    log(f"  flash_attention_bwd MLA layer ({b}x{s}, {h} heads, q/k {dqk} v {dv}, causal, bf16): kernel "
+        f"{kernel:.4f} ms ({mla_bound / kernel:.1%} of its {mla_bound:.4f} ms bound, {by}), plain {plain:.4f} "
+        f"ms, SDPA backward {library:.4f} ms ({backend})")
+    del q, k, v, out, lse, do
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
     fa_ops.flash_attention_bwd_bshd.launches = 0
     return {
         "name": "flash_attention_bwd",
@@ -2712,6 +2752,51 @@ def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def profile_train_step(step, vocab: int, card: str) -> None:
+    """torch.profiler over one steady training step (after one unprofiled,
+    shapes recorded): device busy against the wall time, and the device
+    time by family — K3's backward and forward (kernel names), AdamW with
+    the gradient clip (``multi_tensor_apply`` kernels), the logits and
+    cross-entropy (every op with a ``vocab``-wide input: the logits
+    products forward and backward, the f32 logits, logsumexp, gather and
+    their gradients), the other GEMMs (cuBLAS kernel names, less the
+    logits products), and the rest (norms, elementwise, copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0 and e.self_cpu_time_total == 0]
+
+    def ms(rows) -> float:
+        return sum(e.self_device_time_total for e in rows) / 1e3
+
+    def named(*keys) -> list:
+        return [e for e in kernels if any(k in e.key for k in keys)]
+
+    total = ms(kernels)
+    bwd, fwd = named("flash_attention_bwd"), [e for e in named("flash_attention") if "bwd" not in e.key]
+    adam, gemms = named("multi_tensor_apply"), named("nvjet", "gemm", "xmma", "cutlass", "sm90_")
+    vocab_ops = [e for e in prof.key_averages(group_by_input_shape=True)
+                 if e.self_cpu_time_total > 0 and "_foreach" not in e.key
+                 and any(vocab in (shape or []) for shape in (e.input_shapes or []))]
+    logits_mm = ms(e for e in vocab_ops if e.key == "aten::mm")
+    parts = {"K3 backward": ms(bwd), "K3 forward": ms(fwd), "AdamW and clip": ms(adam),
+             f"the {vocab}-vocab logits and cross-entropy": ms(vocab_ops), "other GEMMs": ms(gemms) - logits_mm}
+    parts["norms, elementwise, copies"] = total - sum(parts.values())
+    log(f"[train] one steady step profiled: {wall:.1f} ms wall, device busy {total:.1f} ms (idle "
+        f"{1 - total / wall:.1%}); by family: " + ", ".join(
+            f"{name} {t:.2f} ms" for name, t in sorted(parts.items(), key=lambda kv: -kv[1]))
+        + f" (of the logits and cross-entropy, the logits products {logits_mm:.2f} ms) [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[train]   step device {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:80]}")
+
+
 def run_training_path(dev, card: str) -> dict:
     """Phase 4E: Gemma3-1B trained at full size (26 layers, d_model 1152,
     4 query heads over 1 KV head of 256, window 512 on 22 layers, vocab
@@ -2723,7 +2808,9 @@ def run_training_path(dev, card: str) -> dict:
     ms (synchronised) and peak memory printed, K3 forward 2 x 26 (the
     forward and each layer's recompute) and K3 backward 26 launches per
     step asserted, every loss and grad norm finite and the last loss below
-    the first.  Then hymba-1.5b on the card raises (K6 has no backward).
+    the first; then one more steady step by kernel family
+    (:func:`profile_train_step`).  Then hymba-1.5b on the card raises (K6
+    has no backward).
     Returns the launches of the 10 steps."""
     from repro_torch import configs
     from repro_torch.data.pipeline import PrefetchIterator, ShardedBatchSource, synthetic_lm_batch_fn
@@ -2782,7 +2869,9 @@ def run_training_path(dev, card: str) -> dict:
     if any(c != want for c in per_step):
         raise AssertionError(f"K3 launches per step (forward, backward) {per_step}, expected {want}")
     launches = {"flash_attention": sum(c[0] for c in per_step), "flash_attention_bwd": sum(c[1] for c in per_step)}
-    del state
+    step_fn, batch = loop.make_train_step(cfg, tcfg), fn(0, 0, 0, 1)
+    profile_train_step(lambda: step_fn(state, batch), cfg.vocab_size, card)
+    del state, step_fn, batch
     torch.cuda.empty_cache()
     try:
         loop.check_trainable(configs.get_config("hymba-1.5b"), dev)

@@ -68,7 +68,8 @@
 // l sums the unrounded f32 P; O is 64 x DV f32 per warpgroup, DV / 2
 // registers a thread, rescaled only where a row max moved.  The tensor
 // maps (TMA descriptors) are built on the host from the tensors' (batch,
-// seq, head) strides through `cuTensorMapEncodeTiled`, reached with
+// seq, head) strides through `cuTensorMapEncodeTiled` (`hopper::make_map`,
+// which the backward shares), reached with
 // `cudaGetDriverEntryPoint[ByVersion]` so the library does not link
 // libcuda; TMA needs 16-byte aligned base pointers and strides (the
 // wrapper checks) and fills out-of-bounds rows with zeros (ragged S).
@@ -309,23 +310,9 @@ struct TcLayout {
   static constexpr bool kOverlap = DV <= 128;
 };
 
-// a ring position: stage and the parity of its current phase
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  template <int N>
-  __device__ __forceinline__ void advance() {
-    if (++stage == N) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using hopper::ex2;  // one MUFU.EX2: a result below 2^-126 flushes to 0, against an l of at least 1
+using hopper::pack_bf16;
+using hopper::Ring;
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
@@ -370,14 +357,6 @@ __device__ __forceinline__ void fence_p(uint32_t (&phi)[4][4], uint32_t (&plo)[4
 struct RowStats {
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 };
-
-// 2^x in one MUFU.EX2 (exp2f adds a denormal fix-up around it): a result
-// below 2^-126 flushes to 0, against an l of at least 1
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // the max (kMax) or sum of a row's 16 values s[4 j + e], e in {e0, e0 + 1}:
 // a tree, 4 dependent steps deep
@@ -737,52 +716,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ------------------------------------------------------------------ host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda function) looked up through the CUDA
-// runtime, so the library does not link -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                     : nullptr;
-  }();
-  return fn;
-}
-
-// the (D, S, heads, B) bf16 tensor at `ptr` with strides `st` (elements),
-// read in boxes of 64 columns x `rows` rows, 128-byte swizzled
-bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B, Strides st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2, static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {kChunk, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Sk, int H,
                 int KVH, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal, int window,
                 int group_heads, int* counters, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, DQK, Sq, H, B, qs, kTcBQ) || !make_map(&kmap, k, DQK, Sk, KVH, B, ks, kTcBK) ||
-      !make_map(&vmap, v, DV, Sk, KVH, B, vs, kTcBK))
+  if (!hopper::make_map(&qmap, q, DQK, Sq, H, B, qs.s, qs.h, qs.b, kTcBQ) ||
+      !hopper::make_map(&kmap, k, DQK, Sk, KVH, B, ks.s, ks.h, ks.b, kTcBK) ||
+      !hopper::make_map(&vmap, v, DV, Sk, KVH, B, vs.s, vs.h, vs.b, kTcBK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = TcLayout<DQK, DV>::kBytes;
   static int limit[hopper::kMaxDevices] = {};

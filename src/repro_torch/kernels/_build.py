@@ -154,9 +154,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_attention_bwd.argtypes = [
-        _I, _P, _P, _P, _P, _P,  # dtype, q, k, v, out, dout
-        _P, _P, _P, _P, _P,  # lse, delta (written), dq, dk, dv
-        _I, _I, _I, _I, _I, _I,  # B, Sq, Sk, H, KVH, D
+        _I, _P, _P, _P, _P, _P, _P,  # dtype, q, k, v, out, dout, lse
+        _P, _P, _P,  # scratch: Delta / lse rows, per-head dk and dv sums (bf16 GQA; else null)
+        _P, _P, _P,  # dq, dk, dv
+        _I, _I, _I, _I, _I, _I, _I,  # B, Sq, Sk, H, KVH, D (q/k width), DV (v width)
         *[_L] * 24,  # (batch, seq, head) strides of q, k, v, out, dout, dq, dk, dv
         _F, _I, _I, _P,  # scale, causal, window (-1 = none), stream
     ]

@@ -38,12 +38,11 @@ Gradients.  When grad mode is on and q, k or v requires grad,
 kernels' softmax runs in base 2), saving q, k, v, out and lse; its
 backward is :func:`flash_attention_bwd_bshd`, K3's backward
 (``csrc/flash_attention_bwd.cu``: a dQ kernel, which also writes
-``Delta = rowsum(dO ∘ O)``, then a dK/dV kernel).  On CPU tensors each
-half runs its plain version, so the CPU tests drive the same wiring.
-Otherwise (serving) the forward is the plain launch, with no ``lse``.
-The backward's instances are :data:`BWD_HEAD_DIMS`; a width outside them
-(MLA's 192/128) raises ``NotImplementedError`` (ROADMAP port queue item
-25.7b).
+``Delta = rowsum(dO ∘ O)``, then a dK/dV kernel, and for bf16 with GQA a
+kernel that sums each KV head's group).  It takes the forward's
+:data:`HEAD_DIMS`.  On CPU tensors each half runs its plain version, so
+the CPU tests drive the same wiring.  Otherwise (serving) the forward is
+the plain launch, with no ``lse``.
 """
 
 from __future__ import annotations
@@ -57,12 +56,10 @@ from repro_torch.kernels.flash_attention import plain
 
 # the kernels' template instances, (q/k width, v width)
 HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
-# the backward kernels' instances (q/k width = v width)
-BWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
-BWD_ROADMAP = "ROADMAP port queue item 25.7b (K3 backward at MLA's 192/128)"
 # the C entry point's dtype code: 0 the SIMT fp32 kernel, 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16  # bytes: TMA base pointers and strides
+_BWD_TILE = 64  # query rows of a backward tile: the padding of its Delta / lse rows
 # K/V bytes one group of the bf16 kernel's tile order may hold, a sixth of
 # the H100's 50 MB L2: the q and out streams pass through it too
 KV_L2_BYTES = 8 * 2**20
@@ -103,8 +100,10 @@ def _check_tma(*xs: torch.Tensor) -> None:
 
 
 def _aligned16(x: torch.Tensor) -> bool:
-    """A 16-byte aligned pointer and (batch, seq, head) strides."""
-    return x.data_ptr() % 16 == 0 and all(st * x.element_size() % 16 == 0 for st in _strides(x))
+    """A 16-byte aligned pointer and positive (batch, seq, head) strides
+    that are multiples of 16 bytes (an expanded dimension, stride 0, is
+    not a TMA stride)."""
+    return x.data_ptr() % 16 == 0 and all(st > 0 and st * x.element_size() % 16 == 0 for st in _strides(x))
 
 
 def tile_group(b: int, h: int, kvh: int, sk: int, d: int, dv: int) -> int:
@@ -221,11 +220,13 @@ def flash_attention_bwd_bshd(
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3's backward -> (dq, dk, dv) in q/k/v's dtype (f32 accumulation;
-    dk and dv summed over each KV head's query heads, with no atomics).
+    dk and dv summed over each KV head's query heads, with no atomics, so
+    the result is the same from run to run).
 
     On CUDA tensors this launches ``csrc/flash_attention_bwd.cu`` — the dQ
-    kernel (which writes ``Delta``), then the dK/dV kernel — on the
-    current stream; on CPU tensors it runs the plain backward."""
+    kernel (which writes ``Delta``), then the dK/dV kernel, then for bf16
+    with GQA the group sum — on the current stream; on CPU tensors it runs
+    the plain backward."""
     _check(q, k, v, window)
     b, s, h, d = q.shape
     sk, dv = k.shape[1], v.shape[3]
@@ -241,25 +242,32 @@ def flash_attention_bwd_bshd(
                                               scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
-    if (d, dv) not in BWD_HEAD_DIMS:
-        raise NotImplementedError(f"K3's backward takes (q/k, v) head widths in {BWD_HEAD_DIMS}, got "
-                                  f"{(d, dv)}: {BWD_ROADMAP}")
-    # the kernels read rows 16 bytes at a time: a row that is not 16-byte aligned is copied
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take (q/k, v) head widths in {HEAD_DIMS}, got {(d, dv)}")
+    # the kernels read rows 16 bytes at a time (bf16: q, k, v and dout by
+    # TMA): a tensor whose rows are not 16-byte aligned is copied
     q, k, v, out, dout = (t if t.stride(3) == 1 and _aligned16(t) else t.contiguous()
                           for t in (q, k, v, out, dout))
     lse = lse.contiguous()
+    kvh = k.shape[2]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, k.shape[2], d), dtype=k.dtype, device=q.device)
-    dv_ = torch.empty((b, sk, k.shape[2], dv), dtype=v.dtype, device=q.device)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, sk, kvh, d), dtype=k.dtype, device=q.device)
+    dv_ = torch.empty((b, sk, kvh, dv), dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv_.zero_()
+    # Delta and (bf16) lse, each row padded to whole 64-row tiles
+    rows = torch.empty(2 * b * h * (-(-s // _BWD_TILE) * _BWD_TILE), dtype=torch.float32, device=q.device)
+    # bf16 with GQA: each query head's dk and dv in f32, summed over the group by a third kernel
+    per_head = q.dtype == torch.bfloat16 and h > kvh
+    dk_acc = torch.empty((b, sk, h, d), dtype=torch.float32, device=q.device) if per_head else None
+    dv_acc = torch.empty((b, sk, h, dv), dtype=torch.float32, device=q.device) if per_head else None
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.repro_flash_attention_bwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
-        b, s, sk, h, k.shape[2], d,
+        lse.data_ptr(), rows.data_ptr(), None if dk_acc is None else dk_acc.data_ptr(),
+        None if dv_acc is None else dv_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+        b, s, sk, h, kvh, d, dv,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out), *_strides(dout),
         *_strides(dq), *_strides(dk), *_strides(dv_),
         scale, int(causal), -1 if window is None else int(window), stream,
@@ -269,5 +277,6 @@ def flash_attention_bwd_bshd(
     return dq, dk, dv_
 
 
-# calls that launched the backward (one dQ and one dK/dV kernel each; CPU calls do not count)
+# calls that launched the backward (one dQ and one dK/dV kernel each, and the bf16 GQA group
+# sum; CPU calls do not count)
 flash_attention_bwd_bshd.launches = 0

@@ -16,11 +16,11 @@ Gradients come from ``torch.autograd.grad`` through
 rematerialised in the backward as the reference's ``jax.checkpoint``
 does.  On the card attention is K3 forward and K3 backward
 (``kernels/flash_attention``); a model whose forward reaches a kernel
-with no backward — K6, Mamba's scan (hymba-1.5b), or K3 at an instance
-its backward lacks (MLA's 192/128) — raises ``NotImplementedError``
-(:func:`check_trainable`) rather than train with a gradient cut at the
-kernel.  ``grad_pspecs`` (the reference's ZeRO sharding constraints) has
-no meaning on one device and raises (the mesh is ROADMAP item 23).
+with no backward — K6, Mamba's scan (hymba-1.5b) — raises
+``NotImplementedError`` (:func:`check_trainable`) rather than train with
+a gradient cut at the kernel.  ``grad_pspecs`` (the reference's ZeRO
+sharding constraints) has no meaning on one device and raises (the mesh
+is ROADMAP item 23).
 Multi-host training is not ported: one process, host 0 of 1.
 """
 
@@ -37,7 +37,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt_mod
 from repro_torch.distributed.fault_tolerance import PreemptionHandler, StragglerMonitor
-from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -74,23 +73,12 @@ class TrainConfig:
 def check_trainable(cfg: ModelConfig, device) -> None:
     """Raise ``NotImplementedError`` where training ``cfg`` on ``device``
     would run a kernel that has no backward: on the card, K6 (the hybrid
-    family's Mamba scan) and K3 at a width its backward does not take
-    (MLA's 192/128).  The CPU runs the plain versions, which autograd
-    differentiates."""
-    if torch.device(device).type == "cpu":
-        return
-    if cfg.family == "hybrid":
+    family's Mamba scan).  K3's backward takes every width K3's forward
+    does (MLA's 192/128 included).  The CPU runs the plain versions,
+    which autograd differentiates."""
+    if torch.device(device).type != "cpu" and cfg.family == "hybrid":
         raise NotImplementedError(f"{cfg.name}: Mamba's selective scan (K6) has no backward kernel; "
                                   f"training on the card is {scan_ops.ROADMAP_BACKWARD}")
-    if cfg.family == "ssm":
-        return  # the xLSTM stack runs no kernel
-    if cfg.attn_type == "mla":
-        dims = (cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim)
-    else:
-        dims = (cfg.resolved_head_dim, cfg.resolved_head_dim)
-    if dims not in fa_ops.BWD_HEAD_DIMS:
-        raise NotImplementedError(f"{cfg.name}: K3's backward has no {dims} instance; "
-                                  f"training on the card is {fa_ops.BWD_ROADMAP}")
 
 
 def _batch_tensors(batch: dict, device) -> dict:

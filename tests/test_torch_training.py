@@ -177,19 +177,27 @@ def test_adamw_update_is_the_references():
 
 
 # ---------------------------------------------------------- K3's backward
-ATTN_CASES = [  # b, s, h, kvh, d, causal, window, block (the reference's KV block)
-    (2, 24, 2, 2, 16, True, None, 1024),  # causal, dense branch
-    (1, 37, 4, 1, 16, True, None, 16),  # GQA, S not a multiple of the block
-    (2, 40, 4, 2, 8, True, 7, 16),  # window, GQA
-    (1, 33, 2, 1, 16, False, None, 1024),  # non-causal (the encoder)
-    (1, 29, 6, 2, 16, True, 5, 8),  # window, group 3, ragged blocks
+ATTN_CASES = [  # b, s, h, kvh, d, dv (None: d), causal, window, block (the reference's KV block)
+    (2, 24, 2, 2, 16, None, True, None, 1024),  # causal, dense branch
+    (1, 37, 4, 1, 16, None, True, None, 16),  # GQA, S not a multiple of the block
+    (2, 40, 4, 2, 8, None, True, 7, 16),  # window, GQA
+    (1, 33, 2, 1, 16, None, False, None, 1024),  # non-causal (the encoder)
+    (1, 29, 6, 2, 16, None, True, 5, 8),  # window, group 3, ragged blocks
+    (1, 30, 4, 4, 24, 16, True, None, 16),  # v narrower than q/k (MLA's 192/128 in small), ragged blocks
 ]
 
 
-def _attn_inputs(b, s, h, kvh, d, seed):
+def _attn_case_id(case) -> str:
+    """pytest's id of the case's values, dv left out where it is d."""
+    return "-".join(str(x) for i, x in enumerate(case) if i != 5 or x is not None)
+
+
+def _attn_inputs(b, s, h, kvh, d, seed, dv=None):
+    """q, k (d wide), v and dO (dv wide, d if None), seeded."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     return [rng.normal(size=shape).astype(np.float32) for shape in
-            ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d), (b, s, h, d))]
+            ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, dv), (b, s, h, dv))]
 
 
 def _ref_attention_vjp(q, k, v, do, causal, window, block):
@@ -217,9 +225,10 @@ def _ref_lse(q, k, causal, window):
     return (mx[..., 0] + np.log(np.exp(sc - mx).sum(-1))) * LOG2E
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d,causal,window,block", ATTN_CASES)
-def test_flash_attention_backward_against_reference_vjp(b, s, h, kvh, d, causal, window, block):
-    q, k, v, do = _attn_inputs(b, s, h, kvh, d, seed=s)
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,causal,window,block", ATTN_CASES,
+                         ids=[_attn_case_id(c) for c in ATTN_CASES])
+def test_flash_attention_backward_against_reference_vjp(b, s, h, kvh, d, dv, causal, window, block):
+    q, k, v, do = _attn_inputs(b, s, h, kvh, d, seed=s, dv=dv)
     want_out, (dq_w, dk_w, dv_w) = _ref_attention_vjp(q, k, v, do, causal, window, block)
     qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
     out, lse = fa_plain.flash_attention_bshd(qt, kt, vt, causal=causal, window=window, return_lse=True)
@@ -280,7 +289,7 @@ def test_kernels_without_backward_raise_under_grad():
     assert y.grad_fn is not None
 
 
-@pytest.mark.parametrize("arch,match", [("hymba-1.5b", "25.7a"), ("deepseek-v2-236b", "25.7b")])
+@pytest.mark.parametrize("arch,match", [("hymba-1.5b", "25.7a")])
 def test_training_on_the_card_raises_where_a_kernel_has_no_backward(arch, match):
     cfg = configs.get_config(arch)
     with pytest.raises(NotImplementedError, match=match):
@@ -288,6 +297,15 @@ def test_training_on_the_card_raises_where_a_kernel_has_no_backward(arch, match)
     loop.check_trainable(cfg, "cpu")  # the plain versions train
     for ok in ("gemma3-1b", "xlstm-125m", "qwen3-32b"):
         loop.check_trainable(configs.get_config(ok), "cuda")
+
+
+def test_training_mla_on_the_card_passes_the_check():
+    """K3's backward takes MLA's (192, 128) instance: DeepSeek-V2 (and its
+    smoke config, also q/k wider than v) may train on the card."""
+    for cfg in (configs.get_config("deepseek-v2-236b"), configs.get_smoke_config("deepseek-v2-236b")):
+        assert cfg.attn_type == "mla" and cfg.nope_head_dim + cfg.rope_head_dim != cfg.v_head_dim
+        loop.check_trainable(cfg, "cuda")
+        loop.check_trainable(cfg, "cpu")
 
 
 # ------------------------------------------------------------ loss and step

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where K4's, K2's, K1's and K3's time goes on the card, beyond ``chip_smoke.py``.
+"""Where K4's, K2's, K1's, K3's (and its backward's) and K6's time goes on the card, beyond ``chip_smoke.py``.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/kernel_sweeps.py [k4] [k2] [k1] [k3 [PARENT]] [k6 [PARENT]]   (no argument: k4, k2, k1)
+    python3 tools/kernel_sweeps.py [k4] [k2] [k1] [k3 [PARENT]] [k6 [PARENT]] [k3bwd [PARENT]]
+    (no argument: k4, k2, k1)
 
 1. K4 stages: builds a copy of ``src/repro_torch/csrc/decode_attention.cu``
    (under ``build/kernel_sweeps/``) with a timestamp (``clock64`` and
@@ -68,6 +69,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    kernels (profiler).  Before the design steps, the shipped kernel's
    chunk phases from ``clock64`` stamps by lane 0 of each warp (unpack,
    walk, barrier waits, the gated epilogue) and the SM clock.
+
+7. K3's backward (``k3bwd``): at Gemma3-1B's global and local training
+   layers (4 x 1024, 4 heads over 1 of 256, window 512 on the local one)
+   and DeepSeek-V2's MLA layer (4 x 1024, 128 heads, q/k 192, v 128), all
+   causal and bf16, the shipped backward call beside SDPA's backward
+   (``chip_smoke._bwd_layer_ms``) and each of its kernels' device time per
+   launch (profiler: the dQ kernel, the dK/dV kernel, the GQA group sum).
+   With ``PARENT`` (a checkout unpacked as for ``k3``), that checkout's
+   backward and this one's are then timed at the same shapes in turns
+   (other, this, this, other; one process each, each building its own
+   kernels; a checkout without the (192, 128) instance says so), then
+   ``chip_smoke.run_training_path`` (phase 4E: Gemma3-1B trained at full
+   size, its step ms, tokens/s and device time by kernel family) on each
+   checkout's package in turns the same way.
 
 Every line names the card and its power limit.  It exits non-zero without
 a card.
@@ -647,6 +662,100 @@ def k3_ab(parent: Path) -> int:
     return 0
 
 
+# K3's backward: Gemma3-1B's training layers (4 x 1024, 4 heads over 1 of
+# 256) and DeepSeek-V2's MLA layer (4 x 1024, 128 heads, q/k 192, v 128):
+# label, B, S, H, KVH, DQK, DV, window; all causal, bf16
+K3BWD_SHAPES = (("Gemma3-1B global layer", 4, 1024, 4, 1, 256, 256, None),
+                ("Gemma3-1B local layer", 4, 1024, 4, 1, 256, 256, 512),
+                ("DeepSeek-V2 MLA layer", 4, 1024, 128, 128, 192, 128, None))
+
+
+def k3bwd_inputs(dev, shape) -> tuple:
+    """(q, k, v, out, lse, dO) at a K3 backward shape, seeded."""
+    _, b, s, h, kvh, dqk, dv, window = shape
+    return C._bwd_inputs(np.random.default_rng(C.SEED + 14), b, s, s, h, kvh, dqk, dv, True, window,
+                         torch.bfloat16, dev)
+
+
+def k3bwd_kernels(dev, card: str, flush) -> None:
+    """This checkout's K3 backward at each shape: the call (every kernel of
+    it) beside SDPA's backward, and each of its kernels' device time per
+    launch (profiler, L2 flushed before each call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    _build.load_library()
+    for shape in K3BWD_SHAPES:
+        window = shape[-1]
+        q, k, v, out, lse, do = k3bwd_inputs(dev, shape)
+        mask = None
+        if window is not None:
+            pos = torch.arange(q.shape[1], device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        ms, _, sdpa, backend = C._bwd_layer_ms(q, k, v, out, lse, do, window, flush, mask)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                flush.zero_()
+                fa.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window)
+            torch.cuda.synchronize()
+        parts = []
+        for e in prof.key_averages():
+            name = re.search(r"flash_attention_bwd_\w+", e.key)
+            if name and getattr(e, "self_device_time_total", 0) > 0:
+                parts.append(f"{name.group(0)} {e.self_device_time_total / 1e3 / e.count:.4f} ms")
+        print(f"K3 backward {shape[0]}: {ms:.4f} ms, SDPA backward {sdpa:.4f} ms ({backend}); per launch: "
+              f"{', '.join(parts)} [{card}]", flush=True)
+        del q, k, v, out, lse, do
+
+
+def k3bwd_shipped(tree: Path, label: str) -> None:
+    """One checkout's K3 backward at each shape (run in a process of its own)."""
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev, card = torch.device("cuda"), C.card_line()
+    _build.load_library()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    for shape in K3BWD_SHAPES:
+        window = shape[-1]
+        q, k, v, out, lse, do = k3bwd_inputs(dev, shape)
+        try:
+            ms = C.median_ms(lambda: fa.flash_attention_bwd_bshd(q, k, v, out, lse, do, window=window), flush)
+        except NotImplementedError as e:  # a checkout whose backward lacks the instance
+            print(f"[{label}] K3 backward {shape[0]}: {e} ({tree}) [{card}]", flush=True)
+            continue
+        print(f"[{label}] K3 backward {shape[0]}: {ms:.4f} ms ({tree}) [{card}]", flush=True)
+        del q, k, v, out, lse, do
+
+
+def k3bwd_train(tree: Path, label: str) -> None:
+    """Phase 4E (``chip_smoke.run_training_path``, Gemma3-1B trained at full
+    size) on one checkout's package, in a process of its own: this
+    checkout's measuring code either way, so only the package differs."""
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    print(f"[{label}] phase 4E on {tree}", flush=True)
+    C.run_training_path(torch.device("cuda"), C.card_line())
+
+
+def k3bwd_ab(parent: Path) -> int:
+    """The two checkouts' backward alone, then their training steps, each
+    in turns (other, this, this, other)."""
+    for child in ("k3bwd-child", "k3bwd-train-child"):
+        for tree, label in ((parent, "other"), (ROOT, "this"), (ROOT, "this"), (parent, "other")):
+            proc = subprocess.run([sys.executable, __file__, child, str(tree), label], timeout=600)
+            if proc.returncode:
+                return proc.returncode
+    return 0
+
+
 # K6: hymba-1.5b's prefill layer and a decode step's: label, B, S, with h0
 K6_SHAPES = (("prefill layer", 4, 2048, False), ("decode step", 4, 1, True))
 K6_EXP = "            h[m][k] = fmaf(ex2(s * a2[m][k]), h[m][k], bq[k] * x);\n"
@@ -985,9 +1094,15 @@ def main() -> int:
     if sys.argv[1:2] == ["k6-child"]:
         k6_shipped(Path(sys.argv[2]).resolve(), sys.argv[3])
         return 0
-    parts = {a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3", "k6")} or {"k4", "k2", "k1"}
+    if sys.argv[1:2] == ["k3bwd-child"]:
+        k3bwd_shipped(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["k3bwd-train-child"]:
+        k3bwd_train(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    parts = {a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3", "k6", "k3bwd")} or {"k4", "k2", "k1"}
     others = [Path(a).resolve() for a in sys.argv[1:] if a not in parts]
-    if others and (parts not in ({"k3"}, {"k6"}) or len(others) > 1 or not others[0].is_dir()):
+    if others and (parts not in ({"k3"}, {"k6"}, {"k3bwd"}) or len(others) > 1 or not others[0].is_dir()):
         print(__doc__, file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -1013,6 +1128,11 @@ def main() -> int:
         if others:
             del flush
             return k6_ab(others[0])
+    if "k3bwd" in parts:
+        k3bwd_kernels(dev, card, flush)
+        if others:
+            del flush
+            return k3bwd_ab(others[0])
     return 0
 
 
