@@ -27,6 +27,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain versions at Gemma3-1B's training layers (4 x 1024, global and
    window 512, bf16 and f32) and ragged, GQA, D 64/128 and Sk != Sq
    cases, the backward timed per training step beside SDPA's backward;
+   K3 also over K and V expanded (stride 0) over the batch or the KV
+   heads; K6's backward against the plain backward at hymba-1.5b's
+   training layer (4 x 1024, bf16, gated) and at S = 37 and 130 with h0,
+   bf16 and f32, and the 8-state instance over 80 channels, bitwise equal
+   from launch to launch, timed at the training layer;
 3. main path: ``SmolRuntime.run`` with split decode over a seeded SJPG
    corpus (384x512, 4:2:0, q90; 2 full batches of 64 + a ragged tail) into
    a full-width ResNet-50 with seeded random weights; checks the outputs,
@@ -57,8 +62,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain attention (loss and grad norm held to each other), then
    ``train()`` for 10 steps of 4 x 1024 tokens (each step's loss, grad
    norm, ms and peak memory; K3 forward 52 and backward 26 launches a
-   step; the loss must fall), and training hymba-1.5b must raise (K6 has
-   no backward);
+   step; the loss must fall), then hymba-1.5b the same way for 6 steps
+   (the first step also on plain attention and the plain scan; K3 and K6
+   each 64 forward and 32 backward launches a step), each step profiled
+   once by kernel family;
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -155,6 +162,11 @@ SCAN_RTOL = 1e-4
 # K6's bf16(y), which its gate multiplies: one bf16 step apart at most
 # (K3's bf16 rule, the constant term relative to the largest |value|)
 SCAN_BF16_RTOL, SCAN_BF16_ATOL = 2**-7, 1e-4
+# K6's bf16 dz against the plain backward: it rounds three times after y
+# (bf16(y), dout bf16(y), silu_backward), so one step of y between the two
+# (which sum y in another order) can become about 2.5 steps of dz: held to
+# three of SCAN_BF16_RTOL (the count outside one step is logged)
+SCAN_DZ_STEPS = 3
 # kernel vs plain on the card, both f32 inside: f32 outputs sum in another
 # order (the CPU tests' 2e-5 bound); bf16 outputs may round one bf16 step
 # apart, at most 2^-7 of the value, held elementwise (plus f32 noise)
@@ -169,6 +181,7 @@ FORWARD_LOGIT_RTOL = 2**-7
 LM_LOGIT_RTOL = 5e-2
 # phase 4E: Gemma3-1B trained at full size, f32 master weights, bf16 compute
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 10
+HYMBA_TRAIN_STEPS = 6  # hymba-1.5b's steps in phase 4E, at the same 4 x 1024
 # K3's backward vs its plain backward (the same inputs, both f32 inside),
 # per gradient relative to its largest |value|: bf16 gradients may round
 # one bf16 step apart (2^-8 of a value, 2^-7 with room), f32 ones sum in
@@ -285,18 +298,19 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 # ------------------------------------------------------------ phase 1: build
 # the redesigned kernels and the instruction their SASS must hold: tensor
 # cores (K3 bf16, K1 at every point), TMA bulk copies (K4), cp.async
-# copies into shared memory (K2; K6's double-buffered rows)
+# copies into shared memory (K2; K6's and K6 backward's double-buffered rows)
 DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
                     "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS",
                     "selective_scan_kernel": "LDGSTS", "flash_attention_bwd_dq_tc_kernel": "HGMMA",
-                    "flash_attention_bwd_dkdv_tc_kernel": "HGMMA"}
+                    "flash_attention_bwd_dkdv_tc_kernel": "HGMMA", "selective_scan_bwd_kernel": "LDGSTS"}
 # instances a kernel template must have, where that is checked: K1's int16
 # zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1; K3's
 # bf16 kernels, forward and backward's two, at (q/k, v) widths (64, 64),
-# (128, 128), (256, 256), (192, 128); K6 at 8 and 16 states, the model dtype
-# (xc, proj, z, the gated out) f32 and bf16
+# (128, 128), (256, 256), (192, 128); K6 and its backward at 8 and 16
+# states, the model dtype (xc, proj, z, the gated out) f32 and bf16
 DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4, "selective_scan_kernel": 4,
-                      "flash_attention_bwd_dq_tc_kernel": 4, "flash_attention_bwd_dkdv_tc_kernel": 4}
+                      "flash_attention_bwd_dq_tc_kernel": 4, "flash_attention_bwd_dkdv_tc_kernel": 4,
+                      "selective_scan_bwd_kernel": 4}
 # kernels held to no spills alone: K3's f32 backward (SIMT dQ and dK/dV, the 4 widths each)
 NO_SPILL_KERNELS = {"flash_attention_bwd_dq_kernel": 4, "flash_attention_bwd_dkdv_kernel": 4}
 
@@ -720,7 +734,8 @@ def check_flash_attention(dev) -> dict:
     ragged S, causal and not; for the bf16 tensor-core kernel also the
     edges of its 128-row query and 64-key tiles (S = 1, 63, 65, 127, 129,
     2049), windows that end inside a tile (64, 100), groups 1/4/8, D
-    64/128/256, causal off, and q/k/v as (B, H, S, D) views; then the MLA
+    64/128/256, causal off, and q/k/v as (B, H, S, D) views; K and V
+    expanded (stride 0) over the batch or the KV heads; then the MLA
     instance, q/k 192 and v 128: DeepSeek-V2's prefill shape (4 x 1024, 128
     heads, group 1, causal) in bf16 and f32, OLMoE's (16 heads of 128),
     and ragged and edge cases: S where the 3-stage ring and the tiles wrap
@@ -783,6 +798,25 @@ def check_flash_attention(dev) -> dict:
         if dt == torch.float32:
             worst = max(worst, err)
 
+    # K and V expanded (a dimension of stride 0) over the batch and over the
+    # KV heads: the bf16 kernel hands the stride to TMA as it is
+    expanded = (("batch", (2, 300, 8, 2, 64, torch.bfloat16)), ("KV heads", (2, 300, 8, 4, 128, torch.bfloat16)),
+                ("batch", (2, 300, 8, 2, 64, torch.float32)))
+    for what, (b, s, h, kvh, d, dt) in expanded:
+        q = _randn(rng, (b, s, h, d), dt, dev)
+        one = (1, s, kvh, d) if what == "batch" else (b, s, 1, d)
+        k, v = (_randn(rng, one, dt, dev).expand(b, s, kvh, d) for _ in range(2))
+        got = fa_ops.flash_attention_bshd(q, k, v)
+        want = fa_plain.flash_attention_bshd(q, k, v)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(got, want, dt)
+        log(f"  flash_attention B={b} S={s} H={h} KVH={kvh} D={d} causal=True, K and V expanded over the {what} "
+            f"(strides {k.stride()}) {str(dt)[6:]}: max|kernel-plain|={err:.3e} (bound {tol})")
+        if not (got.dtype == dt and got.shape == q.shape and inside):
+            raise AssertionError(f"flash_attention over an expanded K/V disagrees with its plain version: {err}")
+        if dt == torch.float32:
+            worst = max(worst, err)
+
     dqk, dv = MLA_DIMS
     b4, s4 = MOE_PREFILL_B, MOE_PREFILL_S
     mla_cases = [  # B, S, H, KVH, causal, window, dtype (q/k 192, v 128)
@@ -822,7 +856,7 @@ def check_flash_attention(dev) -> dict:
                                  f"bound {tol}")
         if dt == torch.float32:
             worst_mla = max(worst_mla, err)
-    _expect_zero_counters("flash_attention", f"after {len(cases) + len(mla_cases)} launches")
+    _expect_zero_counters("flash_attention", f"after {len(cases) + len(expanded) + len(mla_cases)} launches")
     return {"flash_attention": worst, "flash_attention_mla": worst_mla}
 
 
@@ -1608,6 +1642,156 @@ def time_selective_scan(dev, flush) -> list:
     return rows
 
 
+def _scan_bwd_case(rng, b, s, d, n, dt, with_h0, gated, with_dh_last, dev) -> tuple:
+    """K6's operands, the forward's h_chunks (the kernel with ``with_chunks``)
+    and seeded cotangents: (args, dout, dh_last or None, h_chunks)."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    t = _scan_inputs(rng, b, s, d, n, dt, dev)
+    args = _scan_args(t, with_h0, gated)
+    out, h_last, h_chunks = scan_ops._forward(*args, 256, with_chunks=True)
+    dout = _randn(rng, tuple(out.shape), out.dtype, dev)
+    dh_last = _randn(rng, tuple(h_last.shape), torch.float32, dev) if with_dh_last else None
+    return args, dout, dh_last, h_chunks
+
+
+def check_selective_scan_bwd(dev) -> float:
+    """K6's backward (the per-chunk walks, the sums over channel blocks,
+    the parameter sums) against the plain backward on the same inputs and
+    cotangents, from the kernel forward's h_chunks: hymba-1.5b's training
+    layer (4 x 1024, 3200 channels x 16 states, bf16, gated, no h0), S =
+    37 and 130 with h0 (dh0) and a cotangent on h_last in bf16 and f32,
+    and the 8-state instance over 80 channels (a ragged last block), gated
+    and ``z=None``.  In f32 every gradient is held to ``SCAN_RTOL`` of its
+    largest |plain| value (the recurrences in another order); in bf16,
+    dxc and d proj elementwise to one bf16 step, 2^-7 |plain| +
+    ``SCAN_BF16_ATOL`` max|plain| (both sum in f32 and round once), the f32
+    gradients to ``SCAN_RTOL``.  dz rounds three times where autograd's
+    gate does (bf16(y), dout bf16(y), silu_backward): it is held to the
+    eager gate's backward on the kernel forward's own y within one bf16
+    step (expected bit for bit: the backward recomputes the forward's y
+    from its h_chunks), and to the plain backward (whose y sums in another
+    order) within ``SCAN_DZ_STEPS`` bf16 steps, its count of elements
+    outside one step logged.
+    Then two launches at the training layer are bitwise equal (no
+    atomics).  Returns the largest |kernel - plain| / max|plain| over the
+    f32 cases."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import plain as scan_plain
+
+    silu = torch.nn.functional.silu
+    rng = np.random.default_rng(SEED + 16)
+    d, n, bf16, f32 = HYMBA_D_INNER, HYMBA_STATE, torch.bfloat16, torch.float32
+    cases = [  # B, S, D, N, dtype, h0, gated, a cotangent on h_last
+        (TRAIN_B, TRAIN_S, d, n, bf16, False, True, False),
+        (TRAIN_B, 37, d, n, bf16, True, True, True),
+        (TRAIN_B, 130, d, n, bf16, True, True, True),
+        (TRAIN_B, 37, d, n, f32, True, True, True),
+        (TRAIN_B, 130, d, n, f32, True, True, True),
+        (3, 37, 80, 8, f32, True, True, True),
+        (3, 130, 80, 8, f32, True, False, True),
+        (3, 130, 80, 8, bf16, False, True, False),
+    ]
+    names = ("dxc", "dproj", "da_log", "ddt_bias", "dd_skip", "dh0", "dz")
+    worst = 0.0
+    for b, s, dd, nn, dt, with_h0, gated, with_dh in cases:
+        args, dout, dh_last, h_chunks = _scan_bwd_case(rng, b, s, dd, nn, dt, with_h0, gated, with_dh, dev)
+        got = scan_ops.selective_scan_bwd(*args, dout, dh_last, h_chunks)
+        want = scan_plain.selective_scan_bwd(*args, dout, dh_last)
+        torch.cuda.synchronize()
+        errs, notes = {}, []
+        for name, g, w in zip(names, got, want):
+            if w is None:
+                if g is not None:
+                    raise AssertionError(f"selective_scan_bwd returned {name} where the plain backward has none")
+                continue
+            scale = w.float().abs().max().item()
+            diff = (g.float() - w.float()).abs()
+            errs[name] = diff.max().item() / max(scale, 1e-30)
+            finite = g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+            if name == "dz" and dt == bf16:
+                outside = int((diff > SCAN_BF16_RTOL * w.float().abs() + SCAN_BF16_ATOL * scale).sum())
+                notes.append(f"dz: {outside} of {diff.numel()} elements outside 2^-7 |plain| + "
+                             f"{SCAN_BF16_ATOL:g} max|plain| (three roundings; held to {SCAN_DZ_STEPS} steps)")
+                inside = finite and bool((diff <= SCAN_DZ_STEPS * SCAN_BF16_RTOL * w.float().abs()
+                                          + SCAN_BF16_ATOL * scale).all())
+            elif g.dtype == bf16:
+                inside = finite and bool((diff <= SCAN_BF16_RTOL * w.float().abs() + SCAN_BF16_ATOL * scale).all())
+            else:
+                inside = finite and errs[name] <= SCAN_RTOL
+            if not inside:
+                raise AssertionError(f"selective_scan_bwd {name} disagrees with the plain backward: {errs[name]:.3e} "
+                                     f"of max|plain| {scale:.3e}, B={b} S={s} D={dd} N={nn} {dt} h0={with_h0} "
+                                     f"gated={gated}")
+        if gated:  # dz against the eager gate's backward on the kernel forward's own y
+            xc, proj, a_log, dt_bias, d_skip, h0, z = args
+            y = scan_ops._forward(xc, proj, a_log, dt_bias, d_skip, h0, None, 256, with_chunks=False)[0]
+            zz = z.detach().requires_grad_(True)
+            own = torch.autograd.grad(y.to(dt) * silu(zz), zz, dout)[0]
+            gap = (got[6].float() - own.float()).abs()
+            equal = int((got[6] == own).sum())
+            notes.append(f"dz equal to the eager gate's backward on the kernel's y at {equal} of {own.numel()}")
+            if not bool((gap <= SCAN_BF16_RTOL * own.float().abs() + 1e-30).all()):
+                raise AssertionError(f"selective_scan_bwd dz is not the eager gate's backward on the kernel's y: "
+                                     f"{gap.max().item():.3e}")
+        log(f"  selective_scan_bwd B={b} S={s} D={dd} N={nn} {str(dt)[6:]} h0={with_h0} gated={gated} dh_last="
+            f"{with_dh}: max|kernel-plain| / max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + ("; " + "; ".join(notes) if notes else ""))
+        if dt == f32:
+            worst = max(worst, *errs.values())
+        del args, dout, dh_last, h_chunks, got, want
+    b, s, dd, nn, dt, with_h0, gated, with_dh = cases[0]
+    args, dout, dh_last, h_chunks = _scan_bwd_case(rng, b, s, dd, nn, dt, with_h0, gated, with_dh, dev)
+    first, second = (scan_ops.selective_scan_bwd(*args, dout, dh_last, h_chunks) for _ in range(2))
+    same = [x is None and y is None or bool(torch.equal(x, y)) for x, y in zip(first, second)]
+    log(f"  selective_scan_bwd twice on the training layer ({b}x{s}, bf16): every gradient bitwise equal {same}")
+    if not all(same):
+        raise AssertionError(f"selective_scan_bwd is not the same from run to run: {same}")
+    scan_ops.selective_scan_bwd.launches = 0
+    return worst
+
+
+def time_selective_scan_bwd(dev, flush) -> dict:
+    """K6's backward as a hymba-1.5b training step runs it, one launch a
+    layer: the training layer (4 x 1024 tokens, 3200 channels x 16
+    states, bf16, gated, no h0), the kernel (its three kernels) beside the
+    plain backward, and x 32 layers a step.  The bound is the larger of
+    the bytes (xc, proj, the z half of the in_proj rows, dout, h_chunks,
+    a_log, dt_bias and d_skip read once; dxc, d proj, dz and the
+    parameter gradients written once; at 3.35 TB/s) and the SFU exps, at
+    least one per (b, t, d, n) (16 a clock per SM).  No single PyTorch
+    call computes this function."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import plain as scan_plain
+
+    rng = np.random.default_rng(SEED + 17)
+    b, s, d, n = TRAIN_B, TRAIN_S, HYMBA_D_INNER, HYMBA_STATE
+    args, dout, _, h_chunks = _scan_bwd_case(rng, b, s, d, n, torch.bfloat16, False, True, False, dev)
+    kernel = median_ms(lambda: scan_ops.selective_scan_bwd(*args, dout, None, h_chunks), flush)
+    plain = median_ms(lambda: scan_plain.selective_scan_bwd(*args, dout), flush, iters=3, warmup=1)
+    rows_, f32_params = b * s * d, 3 * d * 4 + d * n * 4
+    nbytes = (3 * rows_ * 2 + 2 * b * s * (2 * n + 1) * 2 + h_chunks.numel() * 4  # xc, z, dout; proj, d proj;
+              + 2 * rows_ * 2 + 2 * f32_params)  # h_chunks; dxc, dz out; the parameters and their gradients
+    t_bytes, t_sfu = nbytes / PEAK_BYTES_S, b * s * d * n / PEAK_SFU_OPS
+    b_ms, b_by = max(t_bytes, t_sfu) * 1e3, "bytes" if t_bytes >= t_sfu else "operations"
+    log(f"  selective_scan_bwd training layer ({b}x{s}, {d} channels x {n} states, bf16, gated): kernel "
+        f"{kernel:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: bytes {t_bytes * 1e3:.4f}, SFU exps "
+        f"{t_sfu * 1e3:.4f}), {b_ms / kernel:.1%} of it; x {HYMBA_LAYERS} layers a step: kernel "
+        f"{HYMBA_LAYERS * kernel:.3f} ms, plain {HYMBA_LAYERS * plain:.3f} ms")
+    scan_ops.selective_scan_bwd.launches = 0
+    return {
+        "name": "selective_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:39",
+        "ms": kernel,
+        "plain_ms": plain,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 # ------------------------------------------------------------ phase 3: main
 def cpu_program(compiled, model, batch: int, header=None):
     """``compiled``'s device program built again on the CPU around a copy
@@ -2024,6 +2208,8 @@ def _zero_attention_counts() -> None:
     da_ops.decode_attention_cache.launches = 0
     scan_ops.selective_scan.launches = 0
     scan_ops.selective_scan.launches_step = 0
+    fa_ops.flash_attention_bwd_bshd.launches = 0
+    scan_ops.selective_scan_bwd.launches = 0
 
 
 def _plain_kernels():
@@ -2692,20 +2878,23 @@ def run_ssm_path(dev, card: str) -> dict:
     return launches
 
 
-def _train_counts() -> tuple[int, int]:
-    """(K3 forward launches, K3 backward launches) so far."""
+def _train_counts() -> tuple[int, int, int, int]:
+    """(K3 forward, K3 backward, K6 forward, K6 backward) launches so far."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
 
-    return fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches
+    return (fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches,
+            scan_ops.selective_scan.launches, scan_ops.selective_scan_bwd.launches)
 
 
 def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
     """The first step with lr > 0 (step 1: the schedule gives lr 0 at step
     0), taken twice from one state: on the kernels (K3 forward with lse,
-    K3's backward), then with K3 swapped for its plain version, which
-    autograd differentiates.  Loss and grad norm are held to each other
-    within TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL; how far the updated leaves
-    and AdamW's m differ is printed."""
+    K3's backward; for the hybrid K6 with h_chunks and K6's backward), then
+    with K3 (and K6) swapped for their plain versions, which autograd
+    differentiates.  Loss and grad norm are held to each other within
+    TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL; how far the updated leaves and
+    AdamW's m differ, and each run's peak memory, are printed."""
     from repro_torch.training import train_loop as loop
 
     state = loop.init_train_state(cfg, SEED, dev)
@@ -2714,7 +2903,8 @@ def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
     start = [p.detach().clone() for p in leaves]
     step_fn = loop.make_train_step(cfg, tcfg)
     kernel_run = None
-    for name in ("kernels", "plain attention"):
+    plain = "plain attention" + (" and the plain scan" if cfg.family == "hybrid" else "")
+    for name in ("kernels", plain):
         with torch.no_grad():
             for p, p0 in zip(leaves, start):
                 p.copy_(p0)
@@ -2723,6 +2913,7 @@ def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
         state["opt"]["count"].zero_()
         state["step"].fill_(1)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if name == "kernels":
             state, metrics = step_fn(state, batch)
@@ -2731,8 +2922,9 @@ def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
                 state, metrics = step_fn(state, batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         ms = (time.perf_counter() - t0) * 1e3
-        log(f"[train] first step (step 1) on {name}: loss {loss:.6f}, grad norm {gnorm:.6f}, {ms:.1f} ms "
-            f"[{card}]")
+        log(f"[train] {cfg.name} first step (step 1, {batch['tokens'].shape[0]}x{batch['tokens'].shape[1] - 1}) "
+            f"on {name}: loss {loss:.6f}, grad norm {gnorm:.6f}, {ms:.1f} ms, peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
         moments = list(state["opt"]["m"].values())
         if kernel_run is None:  # the kernel run's update and m, held for the plain run
             kernel_run = (loss, gnorm, [p.detach() - p0 for p, p0 in zip(leaves, start)],
@@ -2742,22 +2934,24 @@ def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
         upd = max(((p.detach() - p0) - u).abs().max().item() for p, p0, u in zip(leaves, start, uk))
         upd /= max(u.abs().max().item() for u in uk)
         mom = max((a - b).abs().max().item() for a, b in zip(moments, mk)) / max(m.abs().max().item() for m in mk)
-        log(f"[train] kernels vs plain attention: loss {abs(lk - loss) / abs(loss):.3e} (bound "
+        log(f"[train] kernels vs {plain}: loss {abs(lk - loss) / abs(loss):.3e} (bound "
             f"{TRAIN_LOSS_RTOL}), grad norm {abs(gk - gnorm) / gnorm:.3e} (bound {TRAIN_GNORM_RTOL}) relative; "
             f"updated leaves max|Δ update| / max|update| {upd:.3e}, AdamW m {mom:.3e}")
         if abs(lk - loss) > TRAIN_LOSS_RTOL * abs(loss) or abs(gk - gnorm) > TRAIN_GNORM_RTOL * gnorm:
-            raise AssertionError(f"the kernel step disagrees with the plain-attention step: loss {lk} vs {loss}, "
+            raise AssertionError(f"the kernel step disagrees with the step on {plain}: loss {lk} vs {loss}, "
                                  f"grad norm {gk} vs {gnorm}")
     del state, leaves, start, kernel_run, moments
     torch.cuda.empty_cache()
 
 
-def profile_train_step(step, vocab: int, card: str) -> None:
+def profile_train_step(step, vocab: int, card: str, tag: str) -> None:
     """torch.profiler over one steady training step (after one unprofiled,
     shapes recorded): device busy against the wall time, and the device
-    time by family — K3's backward and forward (kernel names), AdamW with
+    time by family — K3's backward and forward and K6's backward and
+    forward (kernel names; K6 for the hybrid only), AdamW with
     the gradient clip (``multi_tensor_apply`` kernels), the logits and
-    cross-entropy (every op with a ``vocab``-wide input: the logits
+    cross-entropy (every op with a ``vocab``-wide input, the padded
+    vocabulary the logits have: the logits
     products forward and backward, the f32 logits, logsumexp, gather and
     their gradients), the other GEMMs (cuBLAS kernel names, less the
     logits products), and the rest (norms, elementwise, copies)."""
@@ -2781,15 +2975,17 @@ def profile_train_step(step, vocab: int, card: str) -> None:
 
     total = ms(kernels)
     bwd, fwd = named("flash_attention_bwd"), [e for e in named("flash_attention") if "bwd" not in e.key]
+    scan_bwd, scan_fwd = named("selective_scan_bwd"), named("selective_scan_kernel")
     adam, gemms = named("multi_tensor_apply"), named("nvjet", "gemm", "xmma", "cutlass", "sm90_")
     vocab_ops = [e for e in prof.key_averages(group_by_input_shape=True)
                  if e.self_cpu_time_total > 0 and "_foreach" not in e.key
                  and any(vocab in (shape or []) for shape in (e.input_shapes or []))]
     logits_mm = ms(e for e in vocab_ops if e.key == "aten::mm")
     parts = {"K3 backward": ms(bwd), "K3 forward": ms(fwd), "AdamW and clip": ms(adam),
+             **({"K6 backward": ms(scan_bwd), "K6 forward": ms(scan_fwd)} if scan_fwd else {}),
              f"the {vocab}-vocab logits and cross-entropy": ms(vocab_ops), "other GEMMs": ms(gemms) - logits_mm}
     parts["norms, elementwise, copies"] = total - sum(parts.values())
-    log(f"[train] one steady step profiled: {wall:.1f} ms wall, device busy {total:.1f} ms (idle "
+    log(f"[train] {tag}: one steady step profiled: {wall:.1f} ms wall, device busy {total:.1f} ms (idle "
         f"{1 - total / wall:.1%}); by family: " + ", ".join(
             f"{name} {t:.2f} ms" for name, t in sorted(parts.items(), key=lambda kv: -kv[1]))
         + f" (of the logits and cross-entropy, the logits products {logits_mm:.2f} ms) [{card}]")
@@ -2797,89 +2993,92 @@ def profile_train_step(step, vocab: int, card: str) -> None:
         log(f"[train]   step device {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:80]}")
 
 
-def run_training_path(dev, card: str) -> dict:
-    """Phase 4E: Gemma3-1B trained at full size (26 layers, d_model 1152,
-    4 query heads over 1 KV head of 256, window 512 on 22 layers, vocab
-    262144, tied embeddings; f32 master weights, bf16 compute, AdamW):
-    the first step twice from one state, on the kernels and on plain
-    attention (:func:`_first_step_twice`); then ``train()`` — what
-    ``launch/train.py`` drives — over ``synthetic_lm_batch_fn`` at 4 x 1024
-    (+1) tokens for 10 steps (warmup 1), each step's loss, grad norm, step
-    ms (synchronised) and peak memory printed, K3 forward 2 x 26 (the
-    forward and each layer's recompute) and K3 backward 26 launches per
-    step asserted, every loss and grad norm finite and the last loss below
-    the first; then one more steady step by kernel family
-    (:func:`profile_train_step`).  Then hymba-1.5b on the card raises (K6
-    has no backward).
-    Returns the launches of the 10 steps."""
+def train_lm(dev, card: str, arch: str, steps: int) -> dict:
+    """One configuration trained at full size (f32 master weights, bf16
+    compute, AdamW): the first step twice from one state, on the kernels
+    and on their plain versions (:func:`_first_step_twice`); then
+    ``train()`` — what ``launch/train.py`` drives — over
+    ``synthetic_lm_batch_fn`` at TRAIN_B x TRAIN_S (+1) tokens for
+    ``steps`` steps (warmup 1), each step's loss, grad norm, step ms
+    (synchronised) and peak memory printed; per step K3 forward 2 x layers
+    (the forward and each layer's recompute) and K3 backward one a layer,
+    and for the hybrid the same for K6 and K6's backward, asserted; every
+    loss and grad norm finite and the last loss below the first; then one
+    more steady step by kernel family (:func:`profile_train_step`).
+    Returns the launches of the ``steps`` steps."""
     from repro_torch import configs
     from repro_torch.data.pipeline import PrefetchIterator, ShardedBatchSource, synthetic_lm_batch_fn
     from repro_torch.training import train_loop as loop
     from repro_torch.training.optimizer import AdamWConfig
 
-    cfg = configs.get_config("gemma3-1b")
-    tcfg = loop.TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=TRAIN_STEPS)
+    cfg = configs.get_config(arch)
+    tcfg = loop.TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=steps)
     fn = synthetic_lm_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     _first_step_twice(cfg, tcfg, fn(0, 0, 0, 1), dev, card)
-    log(f"[train] first steps: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
     torch.cuda.reset_peak_memory_stats()
     _zero_attention_counts()
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-
-    fa_ops.flash_attention_bwd_bshd.launches = 0
     per_step, grad_norms = [], []
     last = [_train_counts()]
 
     def on_step(i, state, metrics):
         gnorm = float(metrics["grad_norm"])
         now = _train_counts()
-        per_step.append((now[0] - last[0][0], now[1] - last[0][1]))
+        per_step.append(tuple(n - b for n, b in zip(now, last[0])))
         last[0] = now
         grad_norms.append(gnorm)
-        log(f"[train] step {i}: grad norm {gnorm:.4f}, K3 launches {per_step[-1][0]} forward / "
-            f"{per_step[-1][1]} backward, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[train] {cfg.name} step {i}: grad norm {gnorm:.4f}, K3 launches {per_step[-1][0]} forward / "
+            f"{per_step[-1][1]} backward, K6 {per_step[-1][2]} forward / {per_step[-1][3]} backward, peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     it = PrefetchIterator(ShardedBatchSource(fn, seed=0))
     t0 = time.perf_counter()
     try:
-        state, history = loop.train(cfg, tcfg, it, TRAIN_STEPS, key=SEED, device=dev, log_every=10**9,
-                                    on_step=on_step)
+        state, history = loop.train(cfg, tcfg, it, steps, key=SEED, device=dev, log_every=10**9, on_step=on_step)
     finally:
         it.close()
     wall = time.perf_counter() - t0
     n_params = sum(p.numel() for p in state["params"].parameters())
     for h in history:
-        log(f"[train] step {h['step']}: loss {h['loss']:.4f}, step {h['sec'] * 1e3:.1f} ms (synchronised)")
+        log(f"[train] {cfg.name} step {h['step']}: loss {h['loss']:.4f}, step {h['sec'] * 1e3:.1f} ms "
+            f"(synchronised)")
     steady = [h["sec"] for h in history[1:]]
     med = statistics.median(steady)
-    log(f"[train] gemma3-1b full ({n_params / 1e9:.3f} B f32 params, bf16 compute), {TRAIN_STEPS} steps of "
-        f"{TRAIN_B}x{TRAIN_S} tokens in {wall:.1f} s: step {med * 1e3:.1f} ms median of steps 1-"
-        f"{TRAIN_STEPS - 1} ({min(steady) * 1e3:.1f}-{max(steady) * 1e3:.1f}), "
-        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s, loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, "
-        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    log(f"[train] {cfg.name} full ({n_params / 1e9:.3f} B f32 params, bf16 compute), {steps} steps of "
+        f"{TRAIN_B}x{TRAIN_S} tokens in {wall:.1f} s: step {med * 1e3:.1f} ms median of steps 1-{steps - 1} "
+        f"({min(steady) * 1e3:.1f}-{max(steady) * 1e3:.1f}), {TRAIN_B * TRAIN_S / med:.0f} tokens/s, loss "
+        f"{history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     losses = [h["loss"] for h in history]
-    if not (len(history) == TRAIN_STEPS and all(np.isfinite(losses)) and all(np.isfinite(grad_norms))):
-        raise AssertionError(f"training: losses {losses}, grad norms {grad_norms}")
+    if not (len(history) == steps and all(np.isfinite(losses)) and all(np.isfinite(grad_norms))):
+        raise AssertionError(f"training {cfg.name}: losses {losses}, grad norms {grad_norms}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"training did not lower the loss: {losses}")
-    want = (2 * cfg.num_layers, cfg.num_layers)
+        raise AssertionError(f"training {cfg.name} did not lower the loss: {losses}")
+    hybrid = cfg.family == "hybrid"
+    want = (2 * cfg.num_layers, cfg.num_layers, 2 * cfg.num_layers * hybrid, cfg.num_layers * hybrid)
     if any(c != want for c in per_step):
-        raise AssertionError(f"K3 launches per step (forward, backward) {per_step}, expected {want}")
-    launches = {"flash_attention": sum(c[0] for c in per_step), "flash_attention_bwd": sum(c[1] for c in per_step)}
+        raise AssertionError(f"{cfg.name}: launches per step (K3 forward, K3 backward, K6 forward, K6 backward) "
+                             f"{per_step}, expected {want}")
+    launches = dict(zip(("flash_attention", "flash_attention_bwd", "selective_scan", "selective_scan_bwd"),
+                        _train_counts()))
     step_fn, batch = loop.make_train_step(cfg, tcfg), fn(0, 0, 0, 1)
-    profile_train_step(lambda: step_fn(state, batch), cfg.vocab_size, card)
+    profile_train_step(lambda: step_fn(state, batch), cfg.padded_vocab_size, card, cfg.name)
     del state, step_fn, batch
     torch.cuda.empty_cache()
-    try:
-        loop.check_trainable(configs.get_config("hymba-1.5b"), dev)
-    except NotImplementedError as e:
-        log(f"[train] hymba-1.5b on the card raises, as it must: {e}")
-    else:
-        raise AssertionError("training hymba-1.5b on the card should raise: K6 has no backward")
     return launches
+
+
+def run_training_path(dev, card: str) -> dict:
+    """Phase 4E, :func:`train_lm` over two configurations: Gemma3-1B (26
+    layers, d_model 1152, 4 query heads over 1 KV head of 256, window 512
+    on 22 layers, vocab 262144, tied embeddings) for TRAIN_STEPS steps,
+    then hymba-1.5b (32 hybrid layers: d_model 1600, 25 query heads over 5
+    KV heads of 64, window 1024, Mamba 3200 channels x 16 states, conv 4,
+    vocab 32001; K3 and K6 forward and backward in every layer) for
+    HYMBA_TRAIN_STEPS.  Returns the launches of the trained steps."""
+    launches = train_lm(dev, card, "gemma3-1b", TRAIN_STEPS)
+    return _add(launches, train_lm(dev, card, "hymba-1.5b", HYMBA_TRAIN_STEPS))
 
 
 def run_paper_images(dev, card: str) -> dict:
@@ -3166,6 +3365,11 @@ def main() -> int:
         f"{SCAN_BF16_ATOL:g} max|plain|; the gate bitwise the eager gate on the kernel's y)")
     scan_err = check_selective_scan(dev)
     rows += [{**row, "max_abs_err": scan_err} for row in time_selective_scan(dev, flush)]
+    log(f"[kernels] selective_scan_bwd vs its plain backward (f32 {SCAN_RTOL:g} of max|plain|; bf16 dxc, d proj "
+        f"2^-7 |plain| + {SCAN_BF16_ATOL:g} max|plain|; dz against the eager gate's backward on the kernel's y, and "
+        f"{SCAN_DZ_STEPS} such steps of the plain backward's)")
+    scan_bwd_err = check_selective_scan_bwd(dev)
+    rows.append({**time_selective_scan_bwd(dev, flush), "max_abs_err": scan_bwd_err})
     del flush
 
     # ---- phase 3: the main path
@@ -3210,7 +3414,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_ssm_path(dev, card))
     log(f"[lm] phase 4D took {time.perf_counter() - t0:.1f} s")
-    # ---- phase 4E: Gemma3-1B trained at full size (K3 forward with lse, K3 backward)
+    # ---- phase 4E: Gemma3-1B and hymba-1.5b trained at full size (K3 and K6 forward and backward)
     t0 = time.perf_counter()
     _add(launches, run_training_path(dev, card))
     log(f"[train] phase 4E took {time.perf_counter() - t0:.1f} s")

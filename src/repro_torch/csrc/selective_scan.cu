@@ -7,6 +7,11 @@
 // from h_0 = h0[b,d,n] (or 0), the last state written to h_last.  With z
 // it writes out = y silu(z) in the model dtype, rounded where the eager
 // code rounds (bf16(bf16(y) bf16(silu(z))) in bf16); without z, y in f32.
+// For training it also writes h_chunks, the state entering each kChunk
+// steps, from which the backward (selective_scan_bwd.cu) walks each chunk
+// again; serving passes null and writes nothing more.  What the backward
+// must compute as this kernel does (the step, y's sum over lanes, dt, the
+// gate's roundings, kChunk) is in selective_scan.cuh, shared by both.
 //
 // Not a TPU kernel: it stands for the reference's plain-JAX scan
 // (src/repro/models/ssm.py:39-65, `lax.associative_scan` inside
@@ -54,6 +59,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "selective_scan.cuh"
 
 namespace {
 
@@ -61,42 +67,15 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStates = 4;  // states of a channel per thread
 constexpr int kChans = 1;   // channels per thread
-constexpr int kChunk = 32;  // time steps staged per pass
+constexpr int kChunk = scan::kChunk;  // time steps staged per pass: the h_chunks stride
 constexpr int kPad = 4;     // floats after each row of a transposed tile (bank spread)
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kChunk % 32 == 0 && (kStates == 2 || kStates % 4 == 0), "chunk of whole warps, vector states");
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// F.silu's own f32 arithmetic (expf, an IEEE division): the gate's bf16
-// rounding then lands where the eager `F.silu(z)` lands, bit for bit
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// element `i` of a run of T in shared memory (2-byte aligned for bf16)
-template <typename T>
-__device__ __forceinline__ float raw_at(const unsigned char* base, int i) {
-  return to_f32(*reinterpret_cast<const T*>(base + i * static_cast<int>(sizeof(T))));
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using scan::raw_at;
 
 // two neighbouring channels of one row
 __device__ __forceinline__ float2 pair_at(const float* p) { return *reinterpret_cast<const float2*>(p); }
@@ -164,6 +143,7 @@ struct Args {
   const float* h0;       // (B, D, N), null: zeros
   void* out;             // (B, S, D): T with z, f32 without
   float* h_last;         // (B, D, N)
+  float* h_chunks;       // (B, ceil(S / kChunk), D, N): the state entering each chunk; null: none
   int S, D;
 };
 
@@ -222,8 +202,7 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
     for (int r = lane; r < kChunk; r += 32) {
       float v = 0.0f;
       if (r < len) {
-        const float u = raw_at<T>(raw, r * Lay::kWidth + 2 * N) + mean;
-        v = u > 20.0f ? u : log1pf(expf(u));  // F.softplus, threshold 20
+        v = scan::softplus(raw_at<T>(raw, r * Lay::kWidth + 2 * N) + mean);
       }
       s_dt[buf * kChunk + r] = v;
     }
@@ -244,35 +223,16 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
       for (int k = 0; k < kStates; ++k) h[m][k] = 0.0f;
     }
 #pragma unroll
-    for (int k = 0; k < kStates; ++k) a2[m][k] = live ? -expf(a2[m][k]) * kLog2e : 0.0f;
+    for (int k = 0; k < kStates; ++k) a2[m][k] = live ? -expf(a2[m][k]) * scan::kLog2e : 0.0f;
   }
-  {
-    // dt_bias in 16-byte loads, up to 8 in flight a thread (D % 4 == 0)
-    float sum = 0.0f;
-    for (int base = 0; base < D; base += 32 * kThreads) {
-      float4 v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int i = base + 4 * (tid + k * kThreads);
-        v[k] = i < D ? *reinterpret_cast<const float4*>(a.dt_bias + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) sum += (v[k].x + v[k].y) + (v[k].z + v[k].w);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) s_red[warp] = sum;
-  }
+  scan::dt_bias_sums<kThreads>(a.dt_bias, D, s_red);
   // the epilogue's channel pair (fixed: kThreads is a multiple of kCh / 2)
   const int pair = 2 * (tid % (kCh / 2));
   const float skip0 = d0 + pair < D ? a.d_skip[d0 + pair] : 0.0f;
   const float skip1 = d0 + pair < D ? a.d_skip[d0 + pair + 1] : 0.0f;
   hopper::cp_async_wait<1>();
   __syncthreads();
-  float mean = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) mean += s_red[w];
-  mean /= static_cast<float>(D);
+  const float mean = scan::dt_bias_mean<kWarps>(s_red, D);
   if (warp == 0) softplus_rows(0, 0, mean);
 
   const int chunks = (S + kChunk - 1) / kChunk;
@@ -310,6 +270,18 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
     }
     __syncthreads();
 
+    if (a.h_chunks != nullptr) {
+#pragma unroll
+      for (int m = 0; m < kChans; ++m) {
+        const int d = d0 + m * (kCh / kChans) + g;
+        float* hc = a.h_chunks + ((static_cast<long long>(b) * chunks + c) * D + d) * N + n0;
+        if (d < D) {
+#pragma unroll
+          for (int k = 0; k < kStates; ++k) hc[k] = h[m][k];
+        }
+      }
+    }
+
     // 2. walk the chunk, 4 steps a pass; steps past the sequence keep h
     const int steps = (len + 3) & ~3;
     for (int t = 0; t < steps; t += 4) {
@@ -331,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
           float acc = 0.0f;
 #pragma unroll
           for (int k = 0; k < kStates; ++k) {
-            h[m][k] = fmaf(ex2(s * a2[m][k]), h[m][k], bq[k] * x);
+            h[m][k] = scan::step(h[m][k], s, a2[m][k], bq[k], x);
             acc = fmaf(h[m][k], cq[k], acc);
           }
           p[m][j] = acc;
@@ -351,14 +323,10 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
     for (int i = tid; i < kCh / 2 * (kChunk / 4); i += kThreads) {
       const int t = 4 * (i / (kCh / 2));
       if (d0 + pair >= D || t >= len) continue;
-      float4 y0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), y1 = y0;
-#pragma unroll
-      for (int ln = 0; ln < Lay::kLanes; ++ln) {
-        const float4 q0 = *reinterpret_cast<const float4*>(s_p + Lay::prow(ln, pair) + t);
-        const float4 q1 = *reinterpret_cast<const float4*>(s_p + Lay::prow(ln, pair + 1) + t);
-        y0 = make_float4(y0.x + q0.x, y0.y + q0.y, y0.z + q0.z, y0.w + q0.w);
-        y1 = make_float4(y1.x + q1.x, y1.y + q1.y, y1.z + q1.z, y1.w + q1.w);
-      }
+      const float4 y0 = scan::lane_sum<Lay::kLanes, float4>(
+          [&](int ln) { return *reinterpret_cast<const float4*>(s_p + Lay::prow(ln, pair) + t); });
+      const float4 y1 = scan::lane_sum<Lay::kLanes, float4>(
+          [&](int ln) { return *reinterpret_cast<const float4*>(s_p + Lay::prow(ln, pair + 1) + t); });
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (t + r >= len) break;
@@ -367,8 +335,7 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
         const long long o = (row0 + t0 + t + r) * D + d0 + pair;
         if (a.z != nullptr) {
           const float2 zz = pair_at(zr + (t + r) * kCh + pair);
-          store_pair(static_cast<T*>(a.out) + o, round_to<T>(v0) * round_to<T>(silu(zz.x)),
-                     round_to<T>(v1) * round_to<T>(silu(zz.y)));
+          store_pair(static_cast<T*>(a.out) + o, scan::gate<T>(v0, zz.x), scan::gate<T>(v1, zz.y));
         } else {
           store_pair(static_cast<float*>(a.out) + o, v0, v1);
         }
@@ -412,17 +379,21 @@ cudaError_t dispatch(int N, const Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // bf16: xc, proj, z and a gated out are bf16 (else f32).  z may be null
-// (out is then y in f32), h0 may be null (a zero state).  N is 8 or 16
+// (out is then y in f32), h0 may be null (a zero state), h_chunks may be
+// null (serving: no chunk states kept).  N is 8 or 16
 // (kernels/selective_scan/ops.py NSTATES); anything else returns
 // cudaErrorInvalidValue without launching.  The wrapper checks what the
 // vector copies and loads need: xc and z rows, a_log, dt_bias and h0
 // start 16-byte aligned, D * sizeof(T) is a multiple of 16.
 extern "C" int repro_selective_scan(int bf16, const void* xc, const void* proj, const void* z, long long z_sb,
                                     long long z_st, const float* a_log, const float* dt_bias,
-                                    const float* d_skip, const float* h0, void* out, float* h_last, int batch,
-                                    int S, int D, int N, cudaStream_t stream) {
-  const Args a{xc, proj, z, z_sb, z_st, a_log, dt_bias, d_skip, h0, out, h_last, S, D};
+                                    const float* d_skip, const float* h0, void* out, float* h_last,
+                                    float* h_chunks, int batch, int S, int D, int N, cudaStream_t stream) {
+  const Args a{xc, proj, z, z_sb, z_st, a_log, dt_bias, d_skip, h0, out, h_last, h_chunks, S, D};
   const cudaError_t err =
       bf16 ? dispatch<__nv_bfloat16>(N, a, batch, stream) : dispatch<float>(N, a, batch, stream);
   return static_cast<int>(err);
 }
+
+// steps per chunk of h_chunks (scan::kChunk): the wrapper sizes h_chunks by it
+extern "C" int repro_selective_scan_chunk() { return scan::kChunk; }

@@ -22,10 +22,11 @@ loaded with ``ctypes``).
                      from the x_proj output to the gated rows (hymba's
                      prefill, and each decode step at S = 1)
 
-Gradients: flash_attention is a ``torch.autograd.Function`` whose
-backward is a kernel too (``csrc/flash_attention_bwd.cu``).  The other
-kernels have no backward; :func:`require_no_grad` makes their wrappers
-raise rather than return an output cut from the graph.
+Gradients: flash_attention and selective_scan are
+``torch.autograd.Function``s whose backward is a kernel too
+(``csrc/flash_attention_bwd.cu``, ``csrc/selective_scan_bwd.cu``).
+decode_attention (decode only) has no backward: :func:`require_no_grad`
+makes its wrapper raise rather than return an output cut from the graph.
 """
 
 import torch

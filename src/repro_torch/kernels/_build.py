@@ -175,9 +175,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_selective_scan.argtypes = [
         _I, _P, _P, _P, _L, _L,  # bf16 (else f32), xc, proj, z (null: no gate), z's (batch, seq) strides
         _P, _P, _P, _P, _P, _P,  # a_log, dt_bias, d_skip, h0 (null: zeros), out, h_last
+        _P,  # h_chunks, the state entering each chunk (null: not kept)
         _I, _I, _I, _I, _P,  # B, S, D, N, stream
     ]
     lib.repro_selective_scan.restype = _I
+    lib.repro_selective_scan_chunk.argtypes = []  # -> steps per h_chunks state
+    lib.repro_selective_scan_chunk.restype = _I
+    lib.repro_selective_scan_bwd_scratch.argtypes = [_I, _I, _I, _I]  # B, S, D, N
+    lib.repro_selective_scan_bwd_scratch.restype = _L
+    lib.repro_selective_scan_bwd.argtypes = [
+        _I, _P, _P, _P, _L, _L,  # bf16 (else f32), xc, proj, z (null: no gate), z's (batch, seq) strides
+        _P, _P, _P, _P, _P, _P,  # dout, a_log, dt_bias, d_skip, h_chunks, dh_last (null: zeros)
+        _P, _P, _P, _P,  # scratch, dxc, dproj, dz (null without z)
+        _P, _P, _P, _P,  # da_log, ddt_bias, dd_skip, dh0 (null: not wanted)
+        _I, _I, _I, _I, _P,  # B, S, D, N, stream
+    ]
+    lib.repro_selective_scan_bwd.restype = _I
     lib.repro_empty_kernel.argtypes = [_I, _I, _P]  # blocks, threads, stream
     lib.repro_empty_kernel.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]

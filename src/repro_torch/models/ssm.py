@@ -15,7 +15,8 @@ reference's arithmetic and quirks:
   d_skip x and the silu(z) gate) is K6 (``kernels/selective_scan``): over
   the whole prompt in :func:`mamba_apply`, at S = 1 in
   :func:`mamba_step`.  On CPU tensors K6 runs its plain version, the
-  reference's chunked formulation.
+  reference's chunked formulation.  Under grad (training) K6 runs as an
+  autograd Function whose backward is K6's backward kernel.
 * mLSTM: the chunked gated-linear-attention form (chunk 128), ``log(max(f,
   1e-6))``, ``exp(min(rel, 0))``, ``max(|n|, 1)`` as the normaliser, k
   scaled by ``hd ** -0.5`` and the forget gate biased by +4; padded steps

@@ -15,10 +15,9 @@ Gradients come from ``torch.autograd.grad`` through
 :func:`~repro_torch.models.transformer.forward_train`, each layer
 rematerialised in the backward as the reference's ``jax.checkpoint``
 does.  On the card attention is K3 forward and K3 backward
-(``kernels/flash_attention``); a model whose forward reaches a kernel
-with no backward — K6, Mamba's scan (hymba-1.5b) — raises
-``NotImplementedError`` (:func:`check_trainable`) rather than train with
-a gradient cut at the kernel.  ``grad_pspecs`` (the reference's ZeRO
+(``kernels/flash_attention``) and Mamba's scan (hymba-1.5b) K6 forward
+and K6's backward (``kernels/selective_scan``); every model the port
+configures trains there.  ``grad_pspecs`` (the reference's ZeRO
 sharding constraints) has no meaning on one device and raises (the mesh
 is ROADMAP item 23).
 Multi-host training is not ported: one process, host 0 of 1.
@@ -37,7 +36,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt_mod
 from repro_torch.distributed.fault_tolerance import PreemptionHandler, StragglerMonitor
-from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update, cosine_schedule
@@ -68,17 +66,6 @@ class TrainConfig:
     checkpoint_every: int = 500
     checkpoint_dir: str | None = None
     keep_checkpoints: int = 3
-
-
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise ``NotImplementedError`` where training ``cfg`` on ``device``
-    would run a kernel that has no backward: on the card, K6 (the hybrid
-    family's Mamba scan).  K3's backward takes every width K3's forward
-    does (MLA's 192/128 included).  The CPU runs the plain versions,
-    which autograd differentiates."""
-    if torch.device(device).type != "cpu" and cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: Mamba's selective scan (K6) has no backward kernel; "
-                                  f"training on the card is {scan_ops.ROADMAP_BACKWARD}")
 
 
 def _batch_tensors(batch: dict, device) -> dict:
@@ -205,7 +192,6 @@ def train(
     the reference's dicts, {step, loss, sec}; ``on_step(i, state,
     metrics)``, if given, sees each step's state and metrics."""
     dev = resolve_device(device) if state is None else state["params"].embed.device
-    check_trainable(cfg, dev)
     if state is None:
         state = init_train_state(cfg, key, dev)
         if tcfg.checkpoint_dir and ckpt_mod.latest_step(tcfg.checkpoint_dir) is not None:

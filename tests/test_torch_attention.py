@@ -418,6 +418,26 @@ def test_flash_attention_kernel_is_fixed_by_dtype(monkeypatch):
             fa.flash_attention_bshd(q, q, q)
 
 
+def test_k3_takes_expanded_k_and_v_to_the_kernel(monkeypatch):
+    # K and V expanded over the batch or the KV heads (a stride of 0) pass
+    # the bf16 kernel's TMA checks unchanged and meet the device check: TMA
+    # takes a stride of 0, and on the card the kernel over such K/V agrees
+    # with its plain version (chip_smoke.py, check_flash_attention)
+    def no_launch():
+        raise AssertionError("a kernel was launched")
+
+    monkeypatch.setattr(fa._build, "load_library", no_launch)
+    bf16 = torch.bfloat16
+    q = torch.empty((2, 300, 8, 64), device="meta", dtype=bf16)
+    over_batch = torch.empty((1, 300, 2, 64), device="meta", dtype=bf16).expand(2, 300, 2, 64)
+    over_heads = torch.empty((2, 300, 1, 64), device="meta", dtype=bf16).expand(2, 300, 4, 64)
+    for kv in (over_batch, over_heads):
+        assert 0 in kv.stride()
+        fa._check_tma(q, kv, kv)
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            fa.flash_attention_bshd(q, kv, kv)
+
+
 def test_decode_attention_checks_cache_alignment(monkeypatch):
     # the kernel's 16-byte cp.async copies: a cache whose base or stepped
     # stride is not 16-byte aligned raises before the library is loaded;

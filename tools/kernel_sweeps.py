@@ -758,7 +758,7 @@ def k3bwd_ab(parent: Path) -> int:
 
 # K6: hymba-1.5b's prefill layer and a decode step's: label, B, S, with h0
 K6_SHAPES = (("prefill layer", 4, 2048, False), ("decode step", 4, 1, True))
-K6_EXP = "            h[m][k] = fmaf(ex2(s * a2[m][k]), h[m][k], bq[k] * x);\n"
+K6_EXP = "            h[m][k] = scan::step(h[m][k], s, a2[m][k], bq[k], x);\n"
 K6_UNPACK_BC = "    for (int i = tid; i < kChunk * N / 4; i += kThreads) {\n"
 K6_UNPACK_X = ("    for (int i = tid; i < kCh / 2 * (kChunk / 4); i += kThreads) {\n"
                "      const int ch = 2 * (i % (kCh / 2)), t = 4 * (i / (kCh / 2));\n")
@@ -767,7 +767,9 @@ K6_LOOP = "    for (int t = 0; t < steps; t += 4) {\n"
 K6_STAGE = "  auto stage = [&](int c, int buf) {\n"
 K6_EPILOGUE = ("    for (int i = tid; i < kCh / 2 * (kChunk / 4); i += kThreads) {\n"
                "      const int t = 4 * (i / (kCh / 2));\n")
-K6_SUM = "      for (int ln = 0; ln < Lay::kLanes; ++ln) {\n"
+K6_SUM = ("      const float4 y0 = scan::lane_sum<Lay::kLanes, float4>(\n"
+          "          [&](int ln) { return *reinterpret_cast<const float4*>(s_p + Lay::prow(ln, pair) + t); });\n"
+          "      const float4 y1 = scan::lane_sum<Lay::kLanes, float4>(\n")
 K6_PARTIAL = "        *reinterpret_cast<float4*>(s_p + Lay::prow(l, m * (kCh / kChans) + g) + t) =\n"
 K6_CHUNKS = "  const int chunks = (S + kChunk - 1) / kChunk;\n"
 K6_HLAST = "      for (int k = 0; k < kStates; ++k) a.h_last[(static_cast<long long>(b) * D + d) * N + n0 + k] = h[m][k];\n"
@@ -802,7 +804,7 @@ K6_PACK_WALK = (
     "#pragma unroll\n"
     "            for (int k = 0; k < kStates; ++k) {\n"
     "              const uint32_t w = __float_as_uint(bq[k]);\n"
-    "              h[m][k] = fmaf(ex2(s * a2[m][k]), h[m][k], __uint_as_float(w << 16) * xd);\n"
+    "              h[m][k] = scan::step(h[m][k], s, a2[m][k], __uint_as_float(w << 16), xd);\n"
     "              acc = fmaf(h[m][k], __uint_as_float(w & 0xffff0000u), acc);\n"
     "            }\n"
     "            p[m][j] = acc;\n"
@@ -816,7 +818,8 @@ K6_SHIPPED = {"kStates": 4, "kChans": 1, "kChunk": 32, "kWarps": 4}  # the kerne
 
 
 def _k6_const(name: str, value: int) -> tuple:
-    return (f"constexpr int {name} = {K6_SHIPPED[name]};", f"constexpr int {name} = {value};")
+    shipped = "scan::kChunk" if name == "kChunk" else K6_SHIPPED[name]  # kChunk is selective_scan.cuh's
+    return (f"constexpr int {name} = {shipped};", f"constexpr int {name} = {value};")
 
 
 # name: (source edits, whether the variant still computes K6's function):
@@ -832,7 +835,8 @@ K6_VARIANTS = {
     "8 warps a block": ((_k6_const("kWarps", 8),), True),
     "B and C packed as bf16 pairs": ((K6_PACK_UNPACK, K6_PACK_WALK), True),
     "walk unrolled to 8 steps": (((K6_LOOP, "#pragma unroll 2\n" + K6_LOOP),), True),
-    "no exps": (((K6_EXP, K6_EXP.replace("ex2(s * a2[m][k])", "s * a2[m][k]")),), False),
+    "no exps": (((K6_EXP, K6_EXP.replace("scan::step(h[m][k], s, a2[m][k], bq[k], x)",
+                                         "fmaf(s * a2[m][k], h[m][k], bq[k] * x)")),), False),
     "no walk": (((K6_WALK, K6_WALK.replace("(len + 3) & ~3", "0 * len")),), False),
     "no staging copies": (((K6_STAGE, K6_STAGE + "    if (c >= 0) { hopper::cp_async_commit(); "
                                       "hopper::cp_async_commit(); return; }\n"),), False),
@@ -840,7 +844,7 @@ K6_VARIANTS = {
     # products stay; the epilogue adds none
     "no sum over states": (((K6_PARTIAL, "        if ((sink += p[m][0] + p[m][1] + p[m][2] + p[m][3]) == 1e30f)\n"
                                           "          *reinterpret_cast<float4*>(s_p) =\n"),
-                            (K6_SUM, K6_SUM.replace("ln < Lay::kLanes", "ln < 0")),
+                            (K6_SUM, K6_SUM.replace("lane_sum<Lay::kLanes", "lane_sum<0")),
                             (K6_CHUNKS, "  float sink = 0.0f;\n" + K6_CHUNKS),
                             (K6_HLAST, K6_HLAST.replace("= h[m][k];", "= h[m][k] + 0.0f * sink;"))), False),
     "no unpacking": (((K6_UNPACK_BC, K6_UNPACK_BC.replace("i < kChunk * N / 4", "i < 0 * N")),
