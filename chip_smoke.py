@@ -121,6 +121,10 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 # programming guide, arithmetic instruction throughput, compute
 # capability 9.0) x the 1.98 GHz boost clock of the H100 SXM
 PEAK_SFU_OPS = 132 * 16 * 1.98e9
+# steps per saved state that K6's backward bound reads: the function needs
+# the states only as a checkpoint, so a kernel that saves them more often
+# pays for the extra bytes itself and the bound does not move with it
+BOUND_STATE_STRIDE = 32
 
 SEED = 0
 BATCH = 64
@@ -298,11 +302,13 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -
 # ------------------------------------------------------------ phase 1: build
 # the redesigned kernels and the instruction their SASS must hold: tensor
 # cores (K3 bf16, K1 at every point), TMA bulk copies (K4), cp.async
-# copies into shared memory (K2; K6's and K6 backward's double-buffered rows)
+# copies into shared memory (K2; K6's double-buffered rows), the cluster
+# barrier (K6 backward: its sums over channels through distributed shared
+# memory, PR 27; was LDGSTS)
 DESIGNED_KERNELS = {"flash_attention_tc_kernel": "HGMMA", "idct_rows_tc_kernel": "HMMA",
                     "flash_decode_kernel": "UBLKCP", "resize_affine_band_kernel": "LDGSTS",
                     "selective_scan_kernel": "LDGSTS", "flash_attention_bwd_dq_tc_kernel": "HGMMA",
-                    "flash_attention_bwd_dkdv_tc_kernel": "HGMMA", "selective_scan_bwd_kernel": "LDGSTS"}
+                    "flash_attention_bwd_dkdv_tc_kernel": "HGMMA", "selective_scan_bwd_kernel": "UCGABAR_ARV"}
 # instances a kernel template must have, where that is checked: K1's int16
 # zigzag entry at points 8/4/2 and its f32 natural entry at 8/4/2/1; K3's
 # bf16 kernels, forward and backward's two, at (q/k, v) widths (64, 64),
@@ -315,25 +321,56 @@ DESIGNED_INSTANCES = {"idct_rows_tc_kernel": 7, "flash_attention_tc_kernel": 4, 
 NO_SPILL_KERNELS = {"flash_attention_bwd_dq_kernel": 4, "flash_attention_bwd_dkdv_kernel": 4}
 
 
+_SASS: dict = {}
+
+
+def sass_text(build) -> str:
+    """``cuobjdump --dump-sass`` of the built library (once a process)."""
+    path = build.build_info["path"]
+    if path not in _SASS:
+        cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+        _SASS[path] = subprocess.run([str(cuobjdump), "--dump-sass", path], capture_output=True, text=True,
+                                     timeout=300, check=True).stdout
+    return _SASS[path]
+
+
+# SASS opcodes by the pipe that issues them
+SASS_PIPES = {"fma": ("FFMA", "FMUL", "FADD", "FMNMX", "HFMA2"), "sfu": ("MUFU",), "shfl": ("SHFL",),
+              "smem": ("LDS", "STS", "LD", "ST"), "global": ("LDG", "STG", "LDGSTS", "LDL", "STL"),
+              "alu": ("FSEL", "FSETP", "ISETP", "LOP3", "SEL", "SHF", "IADD3", "LEA", "PLOP3", "MOV", "IMAD", "PRMT",
+                      "F2F", "F2FP", "I2F", "F2I", "IABS", "VIADD", "CS2R", "S2R")}
+
+
+def sass_opcodes(build, key: str) -> dict:
+    """Static opcode counts (predicates and modifiers dropped) of each
+    function of the built library whose name holds ``key``."""
+    import collections
+    import re
+
+    counts, name = {}, None
+    for line in sass_text(build).splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            if key in name:
+                counts[name] = collections.Counter()
+        elif name in counts:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[name][m.group(1)] += 1
+    return counts
+
+
 def check_kernel_code(build) -> None:
     """The redesigned kernels were compiled as designed: their SASS
     (``cuobjdump --dump-sass`` of the built library) holds HGMMA (K3 bf16
     and its backward's dQ and dK/dV kernels, ``wgmma``), HMMA (every instance of K1's template, ``mma.sync`` tf32),
-    UBLKCP (K4, TMA bulk copies) and LDGSTS (``cp.async``: K2, and every
-    instance of K6, its staged rows), and ptxas reports no spills for
+    UBLKCP (K4, TMA bulk copies), LDGSTS (``cp.async``: K2, and every
+    instance of K6, its staged rows) and UCGABAR_ARV (every instance of
+    K6's backward, its cluster barrier), by the opcodes of
+    :func:`sass_opcodes`, and ptxas reports no spills for
     them and serialises no ``wgmma`` (when this process built the
     library)."""
-    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", build.build_info["path"]],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            name = line.split("Function : ", 1)[1].strip()
-            counts[name] = {op: 0 for op in set(DESIGNED_KERNELS.values())}
-        elif name is not None:
-            for op in counts[name]:
-                counts[name][op] += f" {op}." in line or f" {op} " in line
+    counts = sass_opcodes(build, "")
     spills, entry, serialized = {}, None, []
     for line in build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry function" in line:
@@ -1661,9 +1698,12 @@ def check_selective_scan_bwd(dev) -> float:
     cotangents, from the kernel forward's h_chunks: hymba-1.5b's training
     layer (4 x 1024, 3200 channels x 16 states, bf16, gated, no h0), S =
     37 and 130 with h0 (dh0) and a cotangent on h_last in bf16 and f32,
-    and the 8-state instance over 80 channels (a ragged last block), gated
-    and ``z=None``.  In f32 every gradient is held to ``SCAN_RTOL`` of its
-    largest |plain| value (the recurrences in another order); in bf16,
+    the 8-state instance over 80 channels (a ragged last block), gated
+    and ``z=None``; and the edges of the 8-step chunks and the clusters
+    of channel blocks: S = 17 (a last chunk of one step) over 200 channels
+    (13 blocks of 16, no cluster but one block, the last block ragged) and
+    S = 48 over 352 (22 blocks: clusters of 2).  In f32 every gradient is
+    held to ``SCAN_RTOL`` of its largest |plain| value (the recurrences in another order); in bf16,
     dxc and d proj elementwise to one bf16 step, 2^-7 |plain| +
     ``SCAN_BF16_ATOL`` max|plain| (both sum in f32 and round once), the f32
     gradients to ``SCAN_RTOL``.  dz rounds three times where autograd's
@@ -1691,6 +1731,8 @@ def check_selective_scan_bwd(dev) -> float:
         (3, 37, 80, 8, f32, True, True, True),
         (3, 130, 80, 8, f32, True, False, True),
         (3, 130, 80, 8, bf16, False, True, False),
+        (2, 17, 200, n, bf16, True, True, True),
+        (2, 48, 352, n, f32, False, True, False),
     ]
     names = ("dxc", "dproj", "da_log", "ddt_bias", "dd_skip", "dh0", "dz")
     worst = 0.0
@@ -1756,11 +1798,24 @@ def time_selective_scan_bwd(dev, flush) -> dict:
     layer: the training layer (4 x 1024 tokens, 3200 channels x 16
     states, bf16, gated, no h0), the kernel (its three kernels) beside the
     plain backward, and x 32 layers a step.  The bound is the larger of
-    the bytes (xc, proj, the z half of the in_proj rows, dout, h_chunks,
-    a_log, dt_bias and d_skip read once; dxc, d proj, dz and the
-    parameter gradients written once; at 3.35 TB/s) and the SFU exps, at
-    least one per (b, t, d, n) (16 a clock per SM).  No single PyTorch
-    call computes this function."""
+    the bytes (xc, proj, the z half of the in_proj rows, dout, a saved
+    state every ``BOUND_STATE_STRIDE`` steps, a_log, dt_bias and d_skip
+    read once; dxc, d proj, dz and the parameter gradients written once;
+    at 3.35 TB/s) and the SFU exps, at least one per (b, t, d, n) (16 a
+    clock per SM).  No single PyTorch call computes this function.  Also
+    logged: each of the three kernels' share of the call (profiler), the
+    main kernel's residency (blocks and warps an SM, blocks a cluster) and
+    the bytes of the partial rows it leaves the rows kernel, and its static
+    SASS per (b, t, d, n) by pipe (the bf16 16-state instance's opcodes
+    over the (t, d, n) a warp walks a chunk, 8 channels x 16 states x
+    ``state_chunk()`` steps; its walks are unrolled, so each runs once a
+    chunk): a static count, which neither bounds nor measures the time."""
+    import ctypes
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import plain as scan_plain
 
@@ -1770,14 +1825,41 @@ def time_selective_scan_bwd(dev, flush) -> dict:
     kernel = median_ms(lambda: scan_ops.selective_scan_bwd(*args, dout, None, h_chunks), flush)
     plain = median_ms(lambda: scan_plain.selective_scan_bwd(*args, dout), flush, iters=3, warmup=1)
     rows_, f32_params = b * s * d, 3 * d * 4 + d * n * 4
-    nbytes = (3 * rows_ * 2 + 2 * b * s * (2 * n + 1) * 2 + h_chunks.numel() * 4  # xc, z, dout; proj, d proj;
-              + 2 * rows_ * 2 + 2 * f32_params)  # h_chunks; dxc, dz out; the parameters and their gradients
-    t_bytes, t_sfu = nbytes / PEAK_BYTES_S, b * s * d * n / PEAK_SFU_OPS
+    states = b * -(-s // BOUND_STATE_STRIDE) * d * n * 4  # the saved states at the bound's stride
+    nbytes = (3 * rows_ * 2 + 2 * b * s * (2 * n + 1) * 2 + states  # xc, z, dout; proj, d proj; the states;
+              + 2 * rows_ * 2 + 2 * f32_params)  # dxc, dz out; the parameters and their gradients
+    elems = b * s * d * n
+    t_bytes, t_sfu = nbytes / PEAK_BYTES_S, elems / PEAK_SFU_OPS
     b_ms, b_by = max(t_bytes, t_sfu) * 1e3, "bytes" if t_bytes >= t_sfu else "operations"
     log(f"  selective_scan_bwd training layer ({b}x{s}, {d} channels x {n} states, bf16, gated): kernel "
         f"{kernel:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: bytes {t_bytes * 1e3:.4f}, SFU exps "
         f"{t_sfu * 1e3:.4f}), {b_ms / kernel:.1%} of it; x {HYMBA_LAYERS} layers a step: kernel "
         f"{HYMBA_LAYERS * kernel:.3f} ms, plain {HYMBA_LAYERS * plain:.3f} ms")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            flush.zero_()
+            scan_ops.selective_scan_bwd(*args, dout, None, h_chunks)
+        torch.cuda.synchronize()
+    parts = {re.search(r"selective_scan_bwd\w*", e.key).group(0): e.self_device_time_total / 1e3 / e.count
+             for e in prof.key_averages() if "selective_scan_bwd" in e.key and e.self_device_time_total > 0}
+    total = sum(parts.values())
+    lib = _build.load_library()
+    info = (ctypes.c_int * 6)()
+    _build.check(lib, lib.repro_selective_scan_bwd_info(1, n, d, info), "selective_scan_bwd_info")
+    blocks, warps, smem, cluster, clusters, chans = info
+    partial = b * s * (-(-d // chans) // cluster) * (2 * n + 1) * 4
+    log(f"  selective_scan_bwd launches: " + ", ".join(f"{k} {v:.4f} ms ({v / total:.1%})" for k, v in parts.items())
+        + f"; main kernel: {blocks} blocks of {warps} warps an SM ({blocks * warps} warps), {smem} bytes of shared "
+        f"memory a block, {chans} channels a block, {cluster} blocks a cluster ({clusters} clusters resident at "
+        f"once); partial rows {partial / 1e6:.1f} MB written and read back")
+    ops = [c for name, c in sass_opcodes(_build, "selective_scan_bwd_kernel").items()
+           if "ILi16E13__nv_bfloat16" in name]
+    if ops:
+        per_warp = 8 * n * scan_ops.state_chunk() / 32  # (t, d, n) a warp's chunk, per lane
+        per = {pipe: sum(ops[0][o] for o in codes) / per_warp for pipe, codes in SASS_PIPES.items()}
+        log("  selective_scan_bwd static SASS instructions per (b, t, d, n), bf16 16 states (a static count, "
+            "not a time): " + ", ".join(f"{pipe} {v:.2f}" for pipe, v in per.items())
+            + f", all {sum(ops[0].values()) / per_warp:.2f}; beside the bound {b_ms:.4f} ms ({b_by})")
     scan_ops.selective_scan_bwd.launches = 0
     return {
         "name": "selective_scan_bwd",

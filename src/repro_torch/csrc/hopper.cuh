@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: `cp.async` copies
-// (fused_preproc.cu), mbarriers, named barriers, TMA bulk copies
-// (decode_attention.cu) and tensor loads, `wgmma` shared-memory descriptors
+// (fused_preproc.cu), mbarriers, named barriers, thread-block cluster
+// barriers and distributed shared memory (selective_scan_bwd.cu), TMA bulk
+// copies (decode_attention.cu) and tensor loads, `wgmma` shared-memory descriptors
 // and the warpgroup products the flash-attention kernels (flash_attention.cu,
 // flash_attention_bwd.cu) issue, and on the host the TMA tensor maps they
 // read through.  Inline PTX names every accumulator register, so each
@@ -133,6 +134,40 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+// The block's rank in its thread-block cluster; the cluster barrier split
+// into its arrival (releasing this thread's shared-memory writes) and its
+// wait (acquiring every block's), each called by all threads of every
+// block in the cluster, arrivals and waits alternating; a shared-memory
+// address of this block mapped to the same offset in block `rank`'s shared
+// memory, and a 4-byte load through such an address (distributed shared
+// memory: the blocks of a cluster run at once, on the SMs of one GPC)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------- TMA

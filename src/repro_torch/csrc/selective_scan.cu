@@ -7,11 +7,12 @@
 // from h_0 = h0[b,d,n] (or 0), the last state written to h_last.  With z
 // it writes out = y silu(z) in the model dtype, rounded where the eager
 // code rounds (bf16(bf16(y) bf16(silu(z))) in bf16); without z, y in f32.
-// For training it also writes h_chunks, the state entering each kChunk
-// steps, from which the backward (selective_scan_bwd.cu) walks each chunk
-// again; serving passes null and writes nothing more.  What the backward
-// must compute as this kernel does (the step, y's sum over lanes, dt, the
-// gate's roundings, kChunk) is in selective_scan.cuh, shared by both.
+// For training it also writes h_chunks, the state entering each
+// scan::kStateStride (8) steps, from which the backward
+// (selective_scan_bwd.cu) walks each 8 steps again; serving passes null
+// and writes nothing more.  What the backward must compute as this kernel
+// does (the step, y's sum over lanes, dt, the gate's roundings, the
+// stride) is in selective_scan.cuh, shared by both.
 //
 // Not a TPU kernel: it stands for the reference's plain-JAX scan
 // (src/repro/models/ssm.py:39-65, `lax.associative_scan` inside
@@ -67,9 +68,10 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStates = 4;  // states of a channel per thread
 constexpr int kChans = 1;   // channels per thread
-constexpr int kChunk = scan::kChunk;  // time steps staged per pass: the h_chunks stride
+constexpr int kChunk = 32;  // time steps staged per pass
 constexpr int kPad = 4;     // floats after each row of a transposed tile (bank spread)
 static_assert(kChunk % 32 == 0 && (kStates == 2 || kStates % 4 == 0), "chunk of whole warps, vector states");
+static_assert(kChunk % scan::kStateStride == 0 && scan::kStateStride % 4 == 0, "h_chunks states on 4-step passes");
 
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
@@ -143,7 +145,7 @@ struct Args {
   const float* h0;       // (B, D, N), null: zeros
   void* out;             // (B, S, D): T with z, f32 without
   float* h_last;         // (B, D, N)
-  float* h_chunks;       // (B, ceil(S / kChunk), D, N): the state entering each chunk; null: none
+  float* h_chunks;       // (B, ceil(S / kStateStride), D, N): the state entering each 8 steps; null: none
   int S, D;
 };
 
@@ -236,6 +238,7 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
   if (warp == 0) softplus_rows(0, 0, mean);
 
   const int chunks = (S + kChunk - 1) / kChunk;
+  const int states = (S + scan::kStateStride - 1) / scan::kStateStride;  // of h_chunks per sequence
   for (int c = 0; c < chunks; ++c) {
     const int buf = c & 1, t0 = c * kChunk, len = min(kChunk, S - t0);
     const unsigned char* raw = smem + buf * Lay::kStageBytes;
@@ -270,21 +273,20 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Args a) 
     }
     __syncthreads();
 
-    if (a.h_chunks != nullptr) {
-#pragma unroll
-      for (int m = 0; m < kChans; ++m) {
-        const int d = d0 + m * (kCh / kChans) + g;
-        float* hc = a.h_chunks + ((static_cast<long long>(b) * chunks + c) * D + d) * N + n0;
-        if (d < D) {
-#pragma unroll
-          for (int k = 0; k < kStates; ++k) hc[k] = h[m][k];
-        }
-      }
-    }
-
     // 2. walk the chunk, 4 steps a pass; steps past the sequence keep h
     const int steps = (len + 3) & ~3;
     for (int t = 0; t < steps; t += 4) {
+      if (a.h_chunks != nullptr && t % scan::kStateStride == 0) {  // the state entering steps t0 + t..
+        const long long state = static_cast<long long>(b) * states + (t0 + t) / scan::kStateStride;
+#pragma unroll
+        for (int m = 0; m < kChans; ++m) {
+          const int d = d0 + m * (kCh / kChans) + g;
+          if (d < D) {
+#pragma unroll
+            for (int k = 0; k < kStates; ++k) a.h_chunks[(state * D + d) * N + n0 + k] = h[m][k];
+          }
+        }
+      }
       const float4 dt4 = *reinterpret_cast<const float4*>(dt + t);
       float4 x4[kChans];
 #pragma unroll
@@ -395,5 +397,5 @@ extern "C" int repro_selective_scan(int bf16, const void* xc, const void* proj, 
   return static_cast<int>(err);
 }
 
-// steps per chunk of h_chunks (scan::kChunk): the wrapper sizes h_chunks by it
-extern "C" int repro_selective_scan_chunk() { return scan::kChunk; }
+// steps per state of h_chunks (scan::kStateStride): the wrapper sizes h_chunks by it
+extern "C" int repro_selective_scan_chunk() { return scan::kStateStride; }

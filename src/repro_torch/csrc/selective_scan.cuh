@@ -1,11 +1,11 @@
 // The arithmetic that the selective scan (selective_scan.cu) and its
 // backward (selective_scan_bwd.cu) must do alike.  The backward walks each
-// chunk again from the forward's h_chunks and recomputes y, so the state
-// update, y's sum over a channel's lanes and dt's prologue must round as
-// the forward's do; its dz is autograd's gate backward only if it rounds
-// the gate where the eager `y.to(T) * F.silu(z)` rounds.  Both kernels take
-// these from here, and the wrapper reads kChunk from the library
-// (repro_selective_scan_chunk) to size h_chunks.
+// kStateStride steps again from the forward's h_chunks and recomputes y,
+// so the state update, y's sum over a channel's lanes and dt's prologue
+// must round as the forward's do; its dz is autograd's gate backward only
+// if it rounds the gate where the eager `y.to(T) * F.silu(z)` rounds.  Both
+// kernels take these from here, and the wrapper reads kStateStride from
+// the library (repro_selective_scan_chunk) to size h_chunks.
 
 #pragma once
 
@@ -16,7 +16,7 @@
 
 namespace scan {
 
-constexpr int kChunk = 32;  // steps per chunk: h_chunks holds the state entering each
+constexpr int kStateStride = 8;  // steps per state of h_chunks: the state entering each 8 steps
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -77,13 +77,18 @@ __device__ __forceinline__ float gate_dz(float dout, float y, float z) {
 
 // alpha = exp(dt a) from a2 = a log2(e), and one step of a state:
 // h_t = alpha_t h_{t-1} + (dt_t B[t,n]) x[t,d], with sb = dt_t B[t,n]
+// (advance: the same step from an alpha already taken, which the backward
+// keeps for its reverse walk)
 __device__ __forceinline__ float alpha(float s, float a2) { return hopper::ex2(s * a2); }
+__device__ __forceinline__ float advance(float al, float h, float sb, float x) { return fmaf(al, h, sb * x); }
 __device__ __forceinline__ float step(float h, float s, float a2, float sb, float x) {
-  return fmaf(alpha(s, a2), h, sb * x);
+  return advance(alpha(s, a2), h, sb, x);
 }
 
-// y's sum over a channel's kLanes partial sums (each a thread's states),
-// lanes in order; y = fmaf(d_skip, x, that sum)
+// y's sum over a channel's kLanes partial sums (each a thread's states)
+// as a tree of halves, ((p0 + p1) + (p2 + p3)) at 4 lanes, which the
+// backward also forms with shuffles between the lanes; y = fmaf(d_skip, x,
+// that sum)
 __device__ __forceinline__ float4 operator+(const float4& p, const float4& q) {
   return make_float4(p.x + q.x, p.y + q.y, p.z + q.z, p.w + q.w);
 }
@@ -91,11 +96,10 @@ template <int kLanes, typename V, typename Part>
 __device__ __forceinline__ V lane_sum(Part part) {
   if constexpr (kLanes == 0) {
     return V{};
+  } else if constexpr (kLanes == 1) {
+    return part(0);
   } else {
-    V y = part(0);
-#pragma unroll
-    for (int ln = 1; ln < kLanes; ++ln) y = y + part(ln);
-    return y;
+    return lane_sum<kLanes / 2, V>(part) + lane_sum<kLanes / 2, V>([&](int ln) { return part(ln + kLanes / 2); });
   }
 }
 

@@ -25,6 +25,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# what a source needs beyond NVCC_FLAGS: K6's backward is assembled at
+# ptxas -O1, where the default level's scheduling of its unrolled walks
+# spills registers (PERF.md, PR 27)
+UNIT_FLAGS = {"selective_scan_bwd.cu": ("-Xptxas", "-O1")}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,6 +64,7 @@ def _sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(UNIT_FLAGS.items())).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -86,7 +91,7 @@ def _build(out: Path) -> None:
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [Path(tmp) / (p.stem + ".o") for p in units]
         logs = _run_all(
-            [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            [[nvcc, *NVCC_FLAGS, *UNIT_FLAGS.get(src.name, ()), "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
              for src, obj in zip(units, objs)]
         )
         lib_tmp = Path(tmp) / out.name
@@ -183,6 +188,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_selective_scan_chunk.restype = _I
     lib.repro_selective_scan_bwd_scratch.argtypes = [_I, _I, _I, _I]  # B, S, D, N
     lib.repro_selective_scan_bwd_scratch.restype = _L
+    # bf16, N, D, out (6 ints: blocks an SM, warps and shared-memory bytes a
+    # block, blocks a cluster, clusters resident at once, channels a block)
+    lib.repro_selective_scan_bwd_info.argtypes = [_I, _I, _I, _P]
+    lib.repro_selective_scan_bwd_info.restype = _I
     lib.repro_selective_scan_bwd.argtypes = [
         _I, _P, _P, _P, _L, _L,  # bf16 (else f32), xc, proj, z (null: no gate), z's (batch, seq) strides
         _P, _P, _P, _P, _P, _P,  # dout, a_log, dt_bias, d_skip, h_chunks, dh_last (null: zeros)

@@ -17,8 +17,8 @@ Gradients.  When grad mode is on and an input requires grad,
 the state entering each chunk of the kernels' steps (:func:`state_chunk`),
 saved with the inputs; its
 backward is :func:`selective_scan_bwd`, K6's backward
-(``csrc/selective_scan_bwd.cu``), which walks each chunk again from its
-state.  On CPU tensors each half runs its plain version, so the CPU tests
+(``csrc/selective_scan_bwd.cu``), which walks each 8 steps again from
+their state.  On CPU tensors each half runs its plain version, so the CPU tests
 drive the same wiring.  Otherwise (serving) the forward keeps no states.
 """
 
@@ -92,7 +92,7 @@ def _check_rows(what: str, dense: list, vectors: list, z: torch.Tensor | None, d
 
 
 def state_chunk() -> int:
-    """Steps per state of ``h_chunks``: ``kChunk`` of
+    """Steps per state of ``h_chunks``: ``kStateStride`` (8) of
     ``csrc/selective_scan.cuh``, which both kernels stride by, as the
     library reports it (loads the library: card only)."""
     return _build.load_library().repro_selective_scan_chunk()
@@ -212,10 +212,12 @@ def selective_scan_bwd(
     (no atomics: the same result from run to run).
 
     On CUDA tensors this launches ``csrc/selective_scan_bwd.cu`` (the
-    walks per chunk, then the sums over channel blocks into d proj, then
-    the parameter sums) on the current stream from ``h_chunks``, the
-    forward's saved states; on CPU tensors it runs the plain backward
-    (which recomputes the states, with ``chunk`` steps a tree)."""
+    walks per 8 steps, summed over a cluster of channel blocks; then the
+    sums over the clusters into d proj; then the parameter sums) on the
+    current stream from ``h_chunks``, the forward's saved states, with a
+    scratch of the size the library names; on CPU tensors it runs the
+    plain backward (which recomputes the states, with ``chunk`` steps a
+    tree)."""
     _check(xc, proj, a_log, dt_bias, d_skip, h0, z)
     bsz, s, d = xc.shape
     n = a_log.shape[1]

@@ -16,6 +16,8 @@ its reason:
   in bf16, the rest in f32 rounded once), but sums in another order.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -249,7 +251,7 @@ def test_backward_takes_expanded_cotangents_to_the_kernel(monkeypatch):
         raise Reached
 
     monkeypatch.setattr(scan_ops, "_check_device", lambda *a: None)
-    monkeypatch.setattr(scan_ops, "state_chunk", lambda: 32)
+    monkeypatch.setattr(scan_ops, "state_chunk", lambda: 8)
     monkeypatch.setattr(scan_ops._build, "load_library", library)
     b, s, d, n, bf16, f32 = 2, 37, 16, 8, torch.bfloat16, torch.float32
     meta = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
@@ -259,4 +261,97 @@ def test_backward_takes_expanded_cotangents_to_the_kernel(monkeypatch):
     dh_last = meta(1, 1, 1).expand(b, d, n)
     assert 0 in dout.stride() and 0 in dh_last.stride()
     with pytest.raises(Reached):
-        scan_ops.selective_scan_bwd(*args, dout, dh_last, meta(b, -(-s // 32), d, n))
+        scan_ops.selective_scan_bwd(*args, dout, dh_last, meta(b, -(-s // 8), d, n))
+
+
+def _meta_card(monkeypatch, lib):
+    """The card's branch of the wrapper on meta tensors: the device check
+    passes, the library is ``lib``, a state every 8 steps (the kernels'
+    ``kStateStride``), stream 0; launches counted on the card are put back
+    after the test."""
+    monkeypatch.setattr(scan_ops, "_check_device", lambda *a: None)
+    monkeypatch.setattr(scan_ops, "state_chunk", lambda: 8)
+    monkeypatch.setattr(scan_ops._build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(scan_ops.selective_scan, "launches", scan_ops.selective_scan.launches)
+    monkeypatch.setattr(scan_ops.selective_scan, "launches_step", scan_ops.selective_scan.launches_step)
+    monkeypatch.setattr(scan_ops.selective_scan_bwd, "launches", scan_ops.selective_scan_bwd.launches)
+
+
+def _meta_args(b, s, d, n, dtype=torch.bfloat16):
+    meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
+    return (meta(b, s, d, dtype=dtype), meta(b, s, 2 * n + 1, dtype=dtype), meta(d, n), meta(d), meta(d),
+            meta(b, d, n), meta(b, s, d, dtype=dtype))
+
+
+@pytest.mark.parametrize("s", [16, 17, 37, 130])
+def test_forward_keeps_a_state_every_state_chunk_steps(monkeypatch, s):
+    """Under grad the forward keeps h_chunks, the state entering each
+    ``state_chunk()`` steps (8: S = 17 keeps 3, a last state for one step),
+    and hands them to the kernel; serving keeps none."""
+    calls = []
+
+    def scan(*a):
+        calls.append(a)
+        return 0
+
+    _meta_card(monkeypatch, types.SimpleNamespace(repro_selective_scan=scan))
+    b, d, n = 2, 16, 8
+    args = _meta_args(b, s, d, n)
+    out, h_last, h_chunks = scan_ops._forward(*args, 256, with_chunks=True)
+    assert tuple(h_chunks.shape) == (b, -(-s // 8), d, n) and h_chunks.dtype == torch.float32
+    assert calls[-1][12] is not None  # the h_chunks pointer (0 on meta tensors; None means none)
+    assert tuple(out.shape) == (b, s, d) and tuple(h_last.shape) == (b, d, n)
+    assert scan_ops._forward(*args, 256, with_chunks=False)[2] is None and calls[-1][12] is None
+
+
+def test_backward_takes_states_only_at_the_kernels_stride(monkeypatch):
+    """h_chunks at another stride than ``state_chunk()`` (32 steps, as the
+    kernels once kept them) is refused before the library is reached."""
+    def library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(scan_ops, "_check_device", lambda *a: None)
+    monkeypatch.setattr(scan_ops, "state_chunk", lambda: 8)
+    monkeypatch.setattr(scan_ops._build, "load_library", library)
+    b, s, d, n = 2, 37, 16, 8
+    args = _meta_args(b, s, d, n)
+    dout = torch.empty((b, s, d), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="h_chunks"):
+        scan_ops.selective_scan_bwd(*args, dout, None, torch.empty((b, -(-s // 32), d, n), device="meta"))
+
+
+def test_backward_takes_the_scratch_the_library_names(monkeypatch):
+    """The backward's f32 scratch (the partial rows of the cluster sums, the
+    parameter partials) is as large as the library says at the call's
+    sizes, and the kernel gets the h_chunks it was given."""
+    sizes, calls, made = [], [], []
+
+    def scratch(*a):
+        sizes.append(a)
+        return 1234
+
+    def bwd(*a):
+        calls.append(a)
+        return 0
+
+    _meta_card(monkeypatch, types.SimpleNamespace(repro_selective_scan_bwd_scratch=scratch,
+                                                  repro_selective_scan_bwd=bwd))
+    empty = torch.empty
+
+    def recorded(*shape, **kw):
+        made.append((shape, kw.get("dtype")))
+        return empty(*shape, **kw)
+
+    b, s, d, n = 3, 37, 16, 16
+    args = _meta_args(b, s, d, n)
+    dout = torch.empty((b, s, d), dtype=torch.bfloat16, device="meta")
+    h_chunks = torch.empty((b, -(-s // 8), d, n), device="meta")
+    monkeypatch.setattr(torch, "empty", recorded)
+    grads = scan_ops.selective_scan_bwd(*args, dout, None, h_chunks)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert sizes == [(b, s, d, n)] and len(calls) == 1
+    assert ((1234,), torch.float32) in made
+    assert [tuple(g.shape) for g in grads] == [(b, s, d), (b, s, 2 * n + 1), (d, n), (d,), (d,), (b, d, n),
+                                               (b, s, d)]

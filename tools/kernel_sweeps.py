@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where K4's, K2's, K1's, K3's (and its backward's) and K6's time goes on the card, beyond ``chip_smoke.py``.
+"""Where K4's, K2's, K1's, K3's and K6's (and their backwards') time goes on the card, beyond ``chip_smoke.py``.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 tools/kernel_sweeps.py [k4] [k2] [k1] [k3 [PARENT]] [k6 [PARENT]] [k3bwd [PARENT]]
+                                   [k6bwd [PARENT]]
     (no argument: k4, k2, k1)
 
 1. K4 stages: builds a copy of ``src/repro_torch/csrc/decode_attention.cu``
@@ -53,7 +54,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    process each, each building its own kernels).
 6. K6 (``k6``): copies of ``src/repro_torch/csrc/selective_scan.cu``
    (under ``build/kernel_sweeps/``) with the design changed (2 or 8 states
-   a thread, 2 channels a thread, 64-step chunks, 8 warps a block) or one
+   a thread, 2 channels a thread, 64-step chunks, 8 warps a block; y's
+   lane sum in order, as before the backward's tree of halves; the
+   per-pass test for h_chunks taken out, which serving never writes) or one
    stage taken out (the exps, the staging copies, the sum over states,
    the whole epilogue), each timed gated at hymba-1.5b's prefill layer (4 x
    2048, 3200 channels x 16 states, bf16) and at a decode step's (S = 1,
@@ -83,6 +86,26 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    ``chip_smoke.run_training_path`` (phase 4E: Gemma3-1B trained at full
    size, its step ms, tokens/s and device time by kernel family) on each
    checkout's package in turns the same way.
+
+8. K6's backward (``k6bwd``): at hymba-1.5b's training layer (4 x 1024,
+   3200 channels x 16 states, bf16, gated), for each checkout (PARENT
+   first, when given) a copy of its ``csrc`` built whole with
+   ``clock64`` stamps by lane 0 of each warp of 8 blocks at the top of
+   each chunk and before the chunk loop's ``// 1.`` .. ``// 5.`` phases:
+   the median cycles of each phase (rows barrier, unpack, forward walk,
+   y/dz or dC, back walk, the sums over channels and the rows), the SM
+   clock, blocks an SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+   and the shared memory a block, and how the launch's blocks land on
+   the SMs (``%smid``); then this checkout's design steps and ablations
+   (copies of ``selective_scan_bwd.cu``: 4 or 1 warps a block, other
+   cluster sizes, none, odd clusters started late; the cluster sums, the
+   dz/dx rows, the unpack's gates or the passes over the channels taken
+   out), each built with its registers and spills (ptxas), held to the
+   plain backward where it computes the function, timed with its
+   residency; then each checkout's shipped backward (each kernel per
+   launch, profiler) and K6's forward rows (prefill layer, decode step,
+   the training layer with and without h_chunks) in turns (other, this,
+   this, other), a process each.
 
 Every line names the card and its power limit.  It exits non-zero without
 a card.
@@ -772,6 +795,14 @@ K6_SUM = ("      const float4 y0 = scan::lane_sum<Lay::kLanes, float4>(\n"
           "      const float4 y1 = scan::lane_sum<Lay::kLanes, float4>(\n")
 K6_PARTIAL = "        *reinterpret_cast<float4*>(s_p + Lay::prow(l, m * (kCh / kChans) + g) + t) =\n"
 K6_CHUNKS = "  const int chunks = (S + kChunk - 1) / kChunk;\n"
+K6_STATES = ("      if (a.h_chunks != nullptr && t % scan::kStateStride == 0) {  "
+             "// the state entering steps t0 + t..\n")
+# y's sum over lanes in lane order, ((p0 + p1) + p2) + p3 (the forward's
+# before its tree of halves)
+K6_IN_ORDER = ("namespace {\n", "namespace {\n\ntemplate <int kLanes, typename V, typename Part>\n"
+               "__device__ __forceinline__ V in_order_sum(Part part) {\n  using scan::operator+;\n"
+               "  V y = part(0);\n#pragma unroll\n  for (int ln = 1; ln < kLanes; ++ln) y = y + part(ln);\n"
+               "  return y;\n}\n")
 K6_HLAST = "      for (int k = 0; k < kStates; ++k) a.h_last[(static_cast<long long>(b) * D + d) * N + n0 + k] = h[m][k];\n"
 
 
@@ -818,8 +849,7 @@ K6_SHIPPED = {"kStates": 4, "kChans": 1, "kChunk": 32, "kWarps": 4}  # the kerne
 
 
 def _k6_const(name: str, value: int) -> tuple:
-    shipped = "scan::kChunk" if name == "kChunk" else K6_SHIPPED[name]  # kChunk is selective_scan.cuh's
-    return (f"constexpr int {name} = {shipped};", f"constexpr int {name} = {value};")
+    return (f"constexpr int {name} = {K6_SHIPPED[name]};", f"constexpr int {name} = {value};")
 
 
 # name: (source edits, whether the variant still computes K6's function):
@@ -834,6 +864,8 @@ K6_VARIANTS = {
     "2 channels a thread, 2 warps a block": ((_k6_const("kChans", 2), _k6_const("kWarps", 2)), True),
     "8 warps a block": ((_k6_const("kWarps", 8),), True),
     "B and C packed as bf16 pairs": ((K6_PACK_UNPACK, K6_PACK_WALK), True),
+    "y's lane sum in order": ((K6_IN_ORDER, (K6_SUM, K6_SUM.replace("scan::lane_sum", "in_order_sum"))), True),
+    "no h_chunks test in the walk": (((K6_STATES, "      if (false) {\n"),), True),
     "walk unrolled to 8 steps": (((K6_LOOP, "#pragma unroll 2\n" + K6_LOOP),), True),
     "no exps": (((K6_EXP, K6_EXP.replace("scan::step(h[m][k], s, a2[m][k], bq[k], x)",
                                          "fmaf(s * a2[m][k], h[m][k], bq[k] * x)")),), False),
@@ -1088,6 +1120,311 @@ def k6_ab(parent: Path) -> int:
     return 0
 
 
+# K6's backward at hymba-1.5b's training layer (4 x 1024, 3200 channels x 16
+# states, bf16, gated, no h0): per-chunk phases from clock64 stamps by lane 0
+# of each warp of the first 8 blocks of sequence 0, 8 slots a chunk (6
+# clocks, then %globaltimer at the chunk's start).  Stamp k goes before the
+# chunk loop's "// k. " comment (k = 1..5), stamp 0 at the top of the loop,
+# so each phase runs up to the next stamp (the last up to the next chunk's
+# top); both designs name their phases so.
+K6BWD_STAMP_BLOCKS, K6BWD_STAMP_CHUNKS = 8, 64
+K6BWD_SM_BLOCKS = 4096  # blocks whose SM is recorded (all of hymba's)
+K6BWD_PHASES = ("wait for the chunk's rows (barrier)", "unpack", "forward walk", "y, dz (and dC)", "back walk",
+                "dx, dB, d dt (and the sums over channels)")
+K6BWD_LOOP = re.compile(r"  for \(int c = chunks - 1[^\n]*\{\n")
+
+
+def k6bwd_stamped_source(src: str) -> str:
+    """selective_scan_bwd.cu (either design) with the phase stamps, a setter
+    for the stamp buffer and the hymba instance's occupancy (blocks an SM
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor, threads, dynamic
+    shared memory)."""
+    def stamp(k: int) -> str:
+        timer = ("unsigned long long g_; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g_)); "
+                 "g_k6bwd_stamps[i_ + 6] = g_; ") if k == 0 else ""
+        return ("    if (lane == 0 && blockIdx.y == 0 && blockIdx.x < %d && it < %d) { "
+                "const long long i_ = ((static_cast<long long>(blockIdx.x) * kWarps + warp) * %d + it) * 8; "
+                "g_k6bwd_stamps[i_ + %d] = clock64(); %s}\n" % (K6BWD_STAMP_BLOCKS, K6BWD_STAMP_CHUNKS,
+                                                               K6BWD_STAMP_CHUNKS, k, timer))
+
+    if src.count("namespace {\n") != 1 or len(K6BWD_LOOP.findall(src)) != 1:
+        raise RuntimeError("selective_scan_bwd.cu changed: its namespace or chunk loop not found once")
+    src = src.replace("namespace {\n", "namespace {\n\n__device__ unsigned long long* g_k6bwd_stamps;\n")
+    top = K6BWD_LOOP.search(src).end()
+    # each block's SM, in the slot after the stamps of its first warp's last chunk
+    smid = ("  if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < %d) { unsigned int s_; "
+            "asm volatile(\"mov.u32 %%0, %%%%smid;\" : \"=r\"(s_)); "
+            "g_k6bwd_stamps[%d + blockIdx.y * gridDim.x + blockIdx.x] = s_; }\n"
+            % (K6BWD_SM_BLOCKS, K6BWD_STAMP_BLOCKS * 4 * K6BWD_STAMP_CHUNKS * 8))
+    src = src[:top] + stamp(0) + src[top:]
+    first = src.index("  for (int c = chunks - 1")
+    src = src[:first] + smid + src[first:]
+    for k in range(1, 6):
+        anchor = f"\n    // {k}. "
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"selective_scan_bwd.cu changed: phase anchor {anchor!r} not found once")
+        src = src.replace(anchor, "\n" + stamp(k) + anchor[1:])
+    return src + (
+        "\nextern \"C\" int repro_k6bwd_set_stamps(void* p) {\n"
+        "  return static_cast<int>(cudaMemcpyToSymbol(g_k6bwd_stamps, &p, sizeof(p)));\n}\n"
+        "extern \"C\" int repro_k6bwd_occupancy(int* out) {\n"
+        "  using Lay = Layout<16, __nv_bfloat16>;\n"
+        "  auto* k = selective_scan_bwd_kernel<16, __nv_bfloat16>;\n"
+        "  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);\n"
+        "  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, kThreads, Lay::kBytes);\n"
+        "  out[1] = kThreads, out[2] = Lay::kBytes;\n"
+        "  return static_cast<int>(e);\n}\n")
+
+
+def k6bwd_case(dev, with_chunks: bool = True):
+    """(args, dout, h_chunks) at hymba's training layer, seeded; h_chunks
+    from the imported checkout's forward (its own stride)."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    rng = np.random.default_rng(C.SEED + 17)
+    t = C._scan_inputs(rng, C.TRAIN_B, C.TRAIN_S, C.HYMBA_D_INNER, C.HYMBA_STATE, torch.bfloat16, dev)
+    args = C._scan_args(t, False, True)
+    out, _, h_chunks = scan_ops._forward(*args, 256, with_chunks=with_chunks)
+    dout = C._randn(rng, tuple(out.shape), out.dtype, dev)
+    return args, dout, h_chunks
+
+
+def k6bwd_stamps(tree: Path, label: str) -> None:
+    """One checkout's K6 backward with phase stamps (run in a process of its
+    own): its csrc copied under build/kernel_sweeps/ with the stamped
+    backward, built whole, the backward launched twice (the second read);
+    median cycles of each phase, the SM clock, and the instance's occupancy."""
+    import shutil
+
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    dev, card = torch.device("cuda"), C.card_line()
+    work = ROOT / "build" / "kernel_sweeps" / f"k6bwd_{label}"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(_build.CSRC, work / "csrc")
+    bwd = work / "csrc" / "selective_scan_bwd.cu"
+    bwd.write_text(k6bwd_stamped_source(bwd.read_text()))
+    _build.CSRC = work / "csrc"
+    _build.build_dir = lambda: work / "lib"
+    lib = _build.load_library()
+    lib.repro_k6bwd_set_stamps.argtypes = [ctypes.c_void_p]
+    lib.repro_k6bwd_set_stamps.restype = ctypes.c_int
+    lib.repro_k6bwd_occupancy.argtypes = [ctypes.c_void_p]
+    lib.repro_k6bwd_occupancy.restype = ctypes.c_int
+    occ = (ctypes.c_int * 3)()
+    if lib.repro_k6bwd_occupancy(occ):
+        raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor failed")
+    warps = occ[1] // 32
+    stamps = torch.zeros(K6BWD_STAMP_BLOCKS * 4 * K6BWD_STAMP_CHUNKS * 8 + K6BWD_SM_BLOCKS, dtype=torch.int64,
+                         device=dev)
+    if lib.repro_k6bwd_set_stamps(stamps.data_ptr()):
+        raise RuntimeError("the stamp buffer could not be set")
+    args, dout, h_chunks = k6bwd_case(dev)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    for _ in range(2):  # the second launch is read
+        stamps.zero_()
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        scan_ops.selective_scan_bwd(*args, dout, None, h_chunks)
+        torch.cuda.synchronize()
+    chunk = scan_ops.state_chunk()
+    chunks = min(K6BWD_STAMP_CHUNKS, -(-C.TRAIN_S // chunk))
+    host = stamps.cpu().numpy()
+    nstamp = K6BWD_STAMP_BLOCKS * warps * K6BWD_STAMP_CHUNKS * 8
+    rec = host[:nstamp].reshape(-1, K6BWD_STAMP_CHUNKS, 8)[:, :chunks].astype(np.float64)
+    base = K6BWD_STAMP_BLOCKS * 4 * K6BWD_STAMP_CHUNKS * 8
+    blocks = C.TRAIN_B * -(-C.HYMBA_D_INNER // (8 * warps))  # 8 channels a warp at 16 states
+    sms = host[base:base + K6BWD_SM_BLOCKS][:blocks]
+    per_sm = np.bincount(sms, minlength=132)
+    clocks, ns = rec[..., :6], rec[..., 6]
+    steady = clocks[:, 1:-1]  # not the first chunk (its copies in flight) nor the last
+    ends = clocks[:, 2:, 0]  # each steady chunk's last phase runs to the next chunk's top
+    phases = np.concatenate([np.diff(steady, axis=2), (ends - steady[..., 5])[..., None]], axis=2)
+    period = ends - steady[..., 0]
+    span = ns[:, 2:] - ns[:, 1:-1]
+    ghz = np.median(period[span > 0] / span[span > 0])
+    print(f"[{label}] K6 backward chunk phases, training layer ({C.TRAIN_B}x{C.TRAIN_S}, {C.HYMBA_D_INNER} "
+          f"channels x {C.HYMBA_STATE} states, bf16, gated; {chunk}-step chunks): {phases.shape[0]} warps x "
+          f"{phases.shape[1]} chunks, median {np.median(period):.0f} cycles a chunk ({np.median(period) / chunk:.1f} "
+          f"a step), SM clock {ghz:.3f} GHz; occupancy {occ[0]} blocks of {warps} warps an SM ({occ[0] * warps} "
+          f"warps), {occ[2]} bytes of shared memory a block ({tree}) [{card}]", flush=True)
+    print(f"[{label}]   the {len(sms)} blocks over the SMs: " + ", ".join(
+        f"{k} blocks on {int((per_sm == k).sum())} SMs" for k in range(int(per_sm.max()) + 1)), flush=True)
+    for name, col in zip(K6BWD_PHASES, phases.reshape(-1, 6).T):
+        print(f"[{label}]   {name:>44}: median {np.median(col):7.0f}, mean {col.mean():8.1f} cycles "
+              f"({np.median(col) / np.median(period):.1%})", flush=True)
+
+
+def k6bwd_shipped(tree: Path, label: str) -> None:
+    """One checkout's shipped K6 backward (run in a process of its own): the
+    call at hymba's training layer, each of its kernels' device time per
+    launch (profiler), the main kernel's registers and spills (ptxas, when
+    this process built the library); then K6's forward rows: the serving
+    prefill layer (4 x 2048) and decode step (S = 1, h0), and the training
+    layer (4 x 1024) with and without h_chunks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    dev, card = torch.device("cuda"), C.card_line()
+    _build.load_library()
+    ptxas = ptxas_summary(_build.build_info.get("ptxas", ""), "selective_scan_bwd_kernel")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    args, dout, h_chunks = k6bwd_case(dev)
+    ms = C.median_ms(lambda: scan_ops.selective_scan_bwd(*args, dout, None, h_chunks), flush)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            flush.zero_()
+            scan_ops.selective_scan_bwd(*args, dout, None, h_chunks)
+        torch.cuda.synchronize()
+    parts = [f"{e.key} {e.self_device_time_total / 1e3 / e.count:.4f} ms" for e in prof.key_averages()
+             if "selective_scan_bwd" in e.key and getattr(e, "self_device_time_total", 0) > 0]
+    print(f"[{label}] K6 backward training layer: {ms:.4f} ms; per launch: {', '.join(parts)}; h_chunks "
+          f"{h_chunks.numel() * 4 / 1e6:.1f} MB; ptxas: {ptxas or 'not built here'} ({tree}) [{card}]", flush=True)
+    del args, dout, h_chunks
+    rng = np.random.default_rng(C.SEED + 13)
+    rows = []
+    for name, b, s, with_h0 in K6_SHAPES + (("training layer", C.TRAIN_B, C.TRAIN_S, False),):
+        t = C._scan_inputs(rng, b, s, C.HYMBA_D_INNER, C.HYMBA_STATE, torch.bfloat16, dev)
+        fwd = C._scan_args(t, with_h0, True)
+        rows.append(f"{name} {C.median_ms(lambda: scan_ops._forward(*fwd, 256, with_chunks=False), flush):.4f}")
+        if name == "training layer":
+            rows.append("with h_chunks "
+                        f"{C.median_ms(lambda: scan_ops._forward(*fwd, 256, with_chunks=True), flush):.4f}")
+        del t, fwd
+    print(f"[{label}] K6 forward (gated, bf16), ms: {', '.join(rows)} ({tree}) [{card}]", flush=True)
+
+
+# K6 backward design steps: name -> (source edits (old, new), each old found
+# at least once and replaced everywhere; whether the variant still computes
+# the function)
+K6BWD_CLUSTER = "for (int c = kMaxCluster; c > 1; --c)"
+K6BWD_STAGE0 = "  stage(chunks - 1, 0);  // in flight while the block reads its parameters"
+
+
+def _k6bwd_stagger(cycles: int) -> tuple:
+    """Odd clusters (all their blocks alike) start ``cycles`` late."""
+    return ((K6BWD_STAGE0, "  if ((blockIdx.x / a.cluster) & 1) { const long long t_ = clock64(); "
+             f"while (clock64() - t_ < {cycles}) {{}} }}\n" + K6BWD_STAGE0),)
+
+
+K6BWD_WARPS = "constexpr int kWarps = 2;"
+K6BWD_DEFAULT_PTXAS = "ptxas at its default level, not -O1 (spills)"
+K6BWD_VARIANTS = {
+    "shipped": ((), True),
+    K6BWD_DEFAULT_PTXAS: ((), True),
+    "4 warps a block": (((K6BWD_WARPS, "constexpr int kWarps = 4;"),), True),
+    "1 warp a block": (((K6BWD_WARPS, "constexpr int kWarps = 1;"),), True),
+    "clusters of up to 4 blocks": (((K6BWD_CLUSTER, "for (int c = 4; c > 1; --c)"),), True),
+    "no clusters (a partial per block)": (((K6BWD_CLUSTER, "for (int c = 1; c > 1; --c)"),), True),
+    "odd clusters start 11,000 cycles late": (_k6bwd_stagger(11000), True),
+    # ablations: one part taken out (timing only)
+    "no sums over the cluster": ((("j < len * kW; j += cl * kThreads", "j < 0; j += cl * kThreads"),), False),
+    "no dz and dx rows": ((("i = t * kCh + ch;\n        const long long o",
+                            "i = t * kCh + ch;\n        if (c >= 0) continue;\n        const long long o"),), False),
+    "no gates in the unpack": ((("gated ? scan::gate_dy<T>(raw_at<T>(dr, i), to_f32(zr[i]))",
+                                 "gated ? raw_at<T>(dr, i)"),), False),
+    "no passes over the channels": ((("    channel_sums<N, kL, kG>(", "    if (c < 0) channel_sums<N, kL, kG>("),
+                                     ("    block_channel_sums<N, kL, kG, kCh>(",
+                                      "    if (c < 0) block_channel_sums<N, kL, kG, kCh>(")), False),
+}
+
+
+def k6bwd_design_steps(dev, card: str, flush) -> None:
+    """Copies of this checkout's backward with one design step changed, each
+    built with the forward into a library of its own (one nvcc each, all at
+    once), held to the plain backward at chip_smoke's bounds where it still
+    computes the function, and timed at hymba's training layer (the whole
+    call) with its registers and spills."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import plain as scan_plain
+
+    src = (_build.CSRC / "selective_scan_bwd.cu").read_text()
+    nvcc, out_dir = _build.find_nvcc(), ROOT / "build" / "kernel_sweeps"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shipped = _build.load_library()
+    procs = {}
+    for i, (name, (edits, _)) in enumerate(K6BWD_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"selective_scan_bwd.cu changed: anchor {old[:50]!r} not found")
+            text = text.replace(old, new)
+        cu = out_dir / f"scan_bwd_v{i}.cu"
+        cu.write_text(text)
+        lib_path = out_dir / f"libscan_bwd_v{i}.so"
+        flags = _build.UNIT_FLAGS.get("selective_scan_bwd.cu", ()) if name != K6BWD_DEFAULT_PTXAS else ()
+        procs[name] = (lib_path, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-shared", "-o", str(lib_path), str(cu),
+             str(_build.CSRC / "selective_scan.cu"), str(_build.CSRC / "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"K6 backward variant {name!r} failed to build:\n{log[-3000:]}")
+        print(f"K6 backward variant {name!r}, ptxas per instance: "
+              f"{ptxas_summary(log, 'selective_scan_bwd_kernel')} [{card}]", flush=True)
+        lib = ctypes.CDLL(str(path))
+        for fn in ("repro_selective_scan", "repro_selective_scan_chunk", "repro_selective_scan_bwd",
+                   "repro_selective_scan_bwd_scratch", "repro_selective_scan_bwd_info", "repro_cuda_error_string"):
+            getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
+            getattr(lib, fn).restype = getattr(shipped, fn).restype
+        libs[name] = lib
+    names = ("dxc", "dproj", "da_log", "ddt_bias", "dd_skip", "dh0", "dz")
+    load = _build.load_library
+    try:
+        for name, lib in libs.items():
+            _build.load_library = lambda lib=lib: lib
+            args, dout, h_chunks = k6bwd_case(dev)
+            ms = C.median_ms(lambda: scan_ops.selective_scan_bwd(*args, dout, None, h_chunks), flush)
+            check = ""
+            if K6BWD_VARIANTS[name][1]:
+                got = scan_ops.selective_scan_bwd(*args, dout, None, h_chunks)
+                want = scan_plain.selective_scan_bwd(*args, dout)
+                errs = {k: ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                        for k, g, w in zip(names, got, want) if w is not None}
+                check = ", max|variant-plain| / max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                if max(errs.values()) > 4 * C.SCAN_BF16_RTOL:
+                    raise AssertionError(f"K6 backward variant {name!r} disagrees with the plain backward: {errs}")
+            info = (ctypes.c_int * 6)()
+            lib.repro_selective_scan_bwd_info(1, C.HYMBA_STATE, C.HYMBA_D_INNER, info)
+            print(f"  {name}: {ms:.4f} ms{check}; {info[0]} blocks of {info[1]} warps an SM, {info[2]} bytes of "
+                  f"shared memory a block, {info[3]} blocks a cluster, {info[4]} clusters at once [{card}]", flush=True)
+            del args, dout, h_chunks
+    finally:
+        _build.load_library = load
+
+
+def k6bwd_steps(tree: Path, label: str) -> None:
+    """The design steps of this checkout (a process of its own)."""
+    dev, card = torch.device("cuda"), C.card_line()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    print(f"K6 backward design steps, training layer ({C.TRAIN_B}x{C.TRAIN_S}, {C.HYMBA_D_INNER} channels x "
+          f"{C.HYMBA_STATE} states, bf16, gated) ({tree}) [{card}]", flush=True)
+    k6bwd_design_steps(dev, card, flush)
+
+
+def k6bwd_ab(parent: Path | None) -> int:
+    """Each checkout's phase stamps, this checkout's design steps, then the
+    two shipped backwards and K6's forward rows in turns (other, this,
+    this, other), a process each."""
+    runs = [("k6bwd-stamps-child", tree, label) for tree, label in ((parent, "other"), (ROOT, "this")) if tree]
+    runs.append(("k6bwd-steps-child", ROOT, "this"))
+    turns = ((parent, "other"), (ROOT, "this"), (ROOT, "this"), (parent, "other")) if parent else ((ROOT, "this"),)
+    runs += [("k6bwd-child", tree, label) for tree, label in turns]
+    for child, tree, label in runs:
+        proc = subprocess.run([sys.executable, __file__, child, str(tree), label], timeout=900)
+        if proc.returncode:
+            return proc.returncode
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_sweeps: no CUDA device", file=sys.stderr)
@@ -1104,11 +1441,24 @@ def main() -> int:
     if sys.argv[1:2] == ["k3bwd-train-child"]:
         k3bwd_train(Path(sys.argv[2]).resolve(), sys.argv[3])
         return 0
-    parts = {a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3", "k6", "k3bwd")} or {"k4", "k2", "k1"}
+    if sys.argv[1:2] == ["k6bwd-stamps-child"]:
+        k6bwd_stamps(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["k6bwd-steps-child"]:
+        k6bwd_steps(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["k6bwd-child"]:
+        k6bwd_shipped(Path(sys.argv[2]).resolve(), sys.argv[3])
+        return 0
+    parts = ({a for a in sys.argv[1:] if a in ("k4", "k2", "k1", "k3", "k6", "k3bwd", "k6bwd")}
+             or {"k4", "k2", "k1"})
     others = [Path(a).resolve() for a in sys.argv[1:] if a not in parts]
-    if others and (parts not in ({"k3"}, {"k6"}, {"k3bwd"}) or len(others) > 1 or not others[0].is_dir()):
+    if others and (parts not in ({"k3"}, {"k6"}, {"k3bwd"}, {"k6bwd"}) or len(others) > 1
+                   or not others[0].is_dir()):
         print(__doc__, file=sys.stderr)
         return 2
+    if parts == {"k6bwd"}:  # each checkout in processes of its own
+        return k6bwd_ab(others[0] if others else None)
     dev = torch.device("cuda")
     card = C.card_line()
     if "k4" in parts:
