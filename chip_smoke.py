@@ -76,7 +76,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    K1/K5/K2 kernels inside one replay (profiler), no warm failures, and a
    ``run()`` with ``RecalConfig(every=64)``; prints serving items/s, p50/p99
    latency, capture seconds per bucket, the graph pool's memory and the
-   program's time per batch eager and as a replay;
+   program's time per batch eager and as a replay; phase 5B drives the
+   replica mesh on two logical devices of the card (each its own CUDA
+   stream; ``REPRO_TORCH_FORCE_DEVICE_COUNT=2`` for the phase): a readback
+   ordered behind a program that spins on the second stream, one replica
+   and ``MeshConfig(replicas=2)`` serving the corpus in turns (outputs as
+   ``run()``'s, both replicas serving, each replica's graphs its own with
+   K1 x2, K5 x1 and K2 x1), ``fail_replica(1)`` halfway through a burst
+   (no request lost), and one replica sharded over both devices (even
+   buckets, each member's graphs replayed); prints items/s of one replica
+   and of two, the memory reserved around each warmup, and the two
+   replicas' graphs replayed on one stream against two at once;
 6. the paper's data: (A) each image dataset (bike-bird, animals-10,
    birds-200, imagenet-sim; 64 images in the paper's four formats) through
    a ``SmolRuntime`` over full-width ResNet-18/34/50 with seeded random
@@ -98,8 +108,10 @@ It imports nothing of JAX and nothing of the reference ``repro`` package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2261,6 +2273,241 @@ def run_vision_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
         _same_as_run(f"recalibrated run(), item {i}", o, ref[i])
 
 
+# ----------------------------------------------- phase 5B: the replica mesh
+MESH_PARTS = 2  # logical devices the card is split into (one stream each)
+OVERLAP_BUCKETS = (8, BATCH)  # replays timed on one stream vs two at once
+OVERLAP_REPLAYS = 10
+
+
+@contextlib.contextmanager
+def _forced_device_count(n: int):
+    """``REPRO_TORCH_FORCE_DEVICE_COUNT=n`` for the block, restored after."""
+    from repro_torch import device as D
+
+    old = os.environ.get(D.FORCE_DEVICE_COUNT_ENV)
+    os.environ[D.FORCE_DEVICE_COUNT_ENV] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[D.FORCE_DEVICE_COUNT_ENV]
+        else:
+            os.environ[D.FORCE_DEVICE_COUNT_ENV] = old
+
+
+def check_mesh_readback(dev) -> None:
+    """A program on a logical device's stream that spins ~23 ms on the card
+    before it writes its output, read back from the default stream (the
+    caller waits on the program's event) and inside the target's scope (a
+    replica dispatcher's order): each readback must see the values written
+    after the spin, never the memory before them."""
+    from repro_torch import device as D
+    from repro_torch.core import device_compiler as DC
+    from repro_torch.preprocessing.ops import TensorMeta
+    from repro_torch.runtime.scheduler import _to_host
+
+    target = D.mesh_devices(dev)[1]
+
+    def late(x):
+        torch.cuda._sleep(LONG_SPIN)
+        return x * 2.0 + 1.0
+
+    prog = DC.compile_device_program([], TensorMeta((1, 1, 256), "float32", "HWC"), late, 8,
+                                     device=target)
+    for i in range(4):
+        batch = np.full((8, 1, 1, 256), float(i), np.float32)
+        if i % 2:
+            with D.dispatch_scope(prog):
+                got = _to_host(prog(batch))
+        else:
+            got = _to_host(prog(batch))
+        if not (got == 2.0 * i + 1.0).all():
+            raise AssertionError(f"readback {i} ({'in the scope' if i % 2 else 'default stream'}) "
+                                 f"ran before the program's stream: {got.ravel()[:4]}")
+    log(f"[mesh] readback after a ~23 ms spin on {target.label}'s stream: ordered, from the "
+        "default stream and from the target's scope")
+
+
+def _mesh_runtime(dev, corpus, full, thumb, main: dict, mesh):
+    from repro_torch.runtime import (DeviceCompilerConfig, RuntimeConfig, SmolRuntime,
+                                     TenantConfig)
+
+    return SmolRuntime(
+        [main["spec"]], [full, thumb], {"resnet50": main["model"]}, calibration=corpus[:4],
+        config=RuntimeConfig(
+            batch_size=BATCH, num_workers=8, min_accuracy=0.8, max_wait_ms=5.0,
+            device=DeviceCompilerConfig(split_decode="full"), warmup="full",
+            tenants=tuple(TenantConfig(n, weight=w) for n, w in SERVE_TENANTS), mesh=mesh),
+        device=dev,
+    )
+
+
+def _warm_mesh(rt, what: str, dev, card: str) -> tuple:
+    """start_serving() and the background warmup, with the memory reserved
+    around them; every set's buckets captured, K1 x2, K5 x1 and K2 x1 in
+    each graph, on its own program set (one per replica target)."""
+    from repro_torch.core import device_compiler as DC
+
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    captures0 = DC.capture_program.captures
+    t0 = time.perf_counter()
+    rt.start_serving()
+    if not rt.wait_warm(timeout=SERVE_TIMEOUT_S):
+        raise AssertionError(f"{what}: background warmup did not finish")
+    t_warm = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reserved1 = torch.cuda.memory_reserved(dev)
+    sets = rt.compile().program_sets
+    graphs = [g for ps in sets for p in ps.programs.values()
+              for g in [m.graph for m in (p.members or (p,))]]
+    if any(g is None for g in graphs) or not all(ps.fully_warm for ps in sets):
+        raise AssertionError(f"{what}: a bucket was not captured")
+    for g in graphs:
+        _expect_vision_counts(f"{what} graph", {**g.kernel_launches, "idct_scaled": 0}, 8, 1)
+    captures = DC.capture_program.captures - captures0
+    if captures != len(graphs):
+        raise AssertionError(f"{what}: {captures} captures for {len(graphs)} graphs")
+    log(f"{what} {len(sets)} program set(s), {len(graphs)} graphs captured in {t_warm:.2f} s; "
+        f"memory reserved {reserved0 / 2**20:.1f} MiB before warmup, {reserved1 / 2**20:.1f} "
+        f"MiB after ({(reserved1 - reserved0) / 2**20:.1f} MiB) [{card}]")
+    return sets, graphs
+
+
+def _serve_corpus(rt, corpus, ref, what: str, fail_at: int | None = None) -> float:
+    """Every item as a ClassificationQuery over both tenants (replica 1
+    failed after ``fail_at`` submissions); every uid back without an error
+    and as run(); returns the items/s of the whole burst."""
+    from repro_torch.runtime import ClassificationQuery
+
+    t0 = time.perf_counter()
+    uids = {}
+    for i, item in enumerate(corpus):
+        if i == fail_at:
+            rt.fail_replica(1)
+        uids[rt.submit(ClassificationQuery(item), tenant=SERVE_TENANTS[i % 2][0])] = i
+    rt.flush(timeout=SERVE_TIMEOUT_S)
+    done = rt.drain(timeout=SERVE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if sorted(r.uid for r in done) != sorted(uids) or any(r.error is not None for r in done):
+        raise AssertionError(f"{what}: {len(done)} of {len(uids)} results, errors "
+                             f"{[r.error for r in done if r.error is not None][:3]}")
+    for r in done:
+        _same_as_run(f"{what} item {uids[r.uid]}", r.scores, ref[uids[r.uid]])
+    return len(corpus) / seconds
+
+
+def mesh_stream_overlap(sets, card: str) -> None:
+    """Device time of OVERLAP_REPLAYS replays of each replica's graph at a
+    bucket: both back to back on replica 0's stream, then each on its own
+    stream at once (CUDA events; the same graphs, their static inputs as
+    the last dispatch left them).  Printed, not gated."""
+    for b in OVERLAP_BUCKETS:
+        progs = [ps.programs[b] for ps in sets]
+        streams = [p.target.stream for p in progs]
+        results = {}
+        for mode in ("one stream", "two streams", "two streams", "one stream"):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(streams[0]):
+                torch.cuda._sleep(LONG_SPIN)
+                start.record()
+            for i, (prog, stream) in enumerate(zip(progs, streams)):
+                run_on = streams[0] if mode == "one stream" else stream
+                run_on.wait_event(start)
+                with torch.cuda.stream(run_on):
+                    for _ in range(OVERLAP_REPLAYS):
+                        prog.graph.graph.replay()
+                if run_on is not streams[0]:
+                    streams[0].wait_stream(run_on)
+            with torch.cuda.stream(streams[0]):
+                end.record()
+            end.synchronize()
+            results.setdefault(mode, []).append(start.elapsed_time(end))
+        one, two = (min(results[m]) for m in ("one stream", "two streams"))
+        log(f"[mesh] {len(progs)} x {OVERLAP_REPLAYS} replays at bucket {b}: {one:.3f} ms on one "
+            f"stream, {two:.3f} ms on two at once (each the better of two turns: "
+            f"{results['one stream']}, {results['two streams']}); the streams overlapped "
+            f"{(one - two) / one * 100:.1f}% of the serial time [{card}]")
+
+
+def run_mesh_serving(dev, corpus, full, thumb, main: dict, card: str) -> None:
+    """Phase 5B: the replica mesh on two logical devices of the one card."""
+    from repro_torch.runtime import MeshConfig
+
+    ref = main["outs"]
+    with _forced_device_count(MESH_PARTS):
+        check_mesh_readback(dev)
+        _kernel_counts(zero=True)
+        # (a) one replica (the default mesh) and two replicas, in turns
+        one = _mesh_runtime(dev, corpus, full, thumb, main, MeshConfig())
+        two = _mesh_runtime(dev, corpus, full, thumb, main, MeshConfig(replicas=MESH_PARTS))
+        try:
+            _warm_mesh(one, "[mesh] one replica:", dev, card)
+            sets, graphs = _warm_mesh(two, "[mesh] two replicas:", dev, card)
+            streams = {ps.programs[BATCH].target.stream for ps in sets}
+            if len(sets) != MESH_PARTS or len(streams) != MESH_PARTS:
+                raise AssertionError(f"{len(sets)} program sets on {len(streams)} streams")
+            rates = {"one": [], "two": []}
+            for name in ("one", "two", "two", "one"):
+                rt = one if name == "one" else two
+                rates[name].append(_serve_corpus(rt, corpus, ref, f"[mesh] {name} replica(s):"))
+            replicas = two.stats().mesh.replicas
+            log(f"[mesh] {len(corpus)} classifications, items/s in turns: one replica "
+                f"{rates['one']}, two replicas {rates['two']}; items per replica "
+                f"{[(r.device, r.items) for r in replicas]} [{card}]")
+            if any(r.items == 0 for r in replicas):
+                raise AssertionError(f"a replica served nothing: {replicas}")
+            mesh_stream_overlap(sets, card)
+            # (b) replica 1 fails halfway through a burst
+            _serve_corpus(two, corpus, ref, "[mesh] fail_replica(1):", fail_at=len(corpus) // 2)
+            stats = two.stats()
+            log(f"[mesh] after fail_replica(1): alive {stats.mesh.alive}, elastic plan "
+                f"{stats.mesh.elastic_plan}, redispatched "
+                f"{[r.redispatched_items for r in stats.mesh.replicas]}")
+            if stats.mesh.alive != 1 or stats.mesh.elastic_plan is None:
+                raise AssertionError(f"mesh after fail_replica(1): {stats.mesh}")
+            for rt in (one, two):
+                if rt.stats().warmup.failures or rt.programs_compiled_post_warmup:
+                    raise AssertionError(f"warm failures {rt.stats().warmup.errors}, "
+                                         f"{rt.programs_compiled_post_warmup} post-warmup builds")
+            replays = sum(g.replays for g in graphs)
+        finally:
+            one.stop_serving()
+            two.stop_serving()
+        del one, two, sets, graphs
+        torch.cuda.empty_cache()
+        # (c) one replica sharded over both logical devices
+        rt = _mesh_runtime(dev, corpus, full, thumb, main, MeshConfig(sharded=True))
+        try:
+            (ps,), graphs = _warm_mesh(rt, "[mesh] sharded group of two:", dev, card)
+            members = {b: [m.target.label for m in p.members] for b, p in ps.programs.items()}
+            if any(b % MESH_PARTS for b in ps.buckets) or any(
+                    len(set(m)) != MESH_PARTS for m in members.values()):
+                raise AssertionError(f"sharded buckets {ps.buckets}, members {members}")
+            replays0 = [g.replays for g in graphs]
+            rate = _serve_corpus(rt, corpus, ref, "[mesh] sharded:")
+            by_member = [0] * MESH_PARTS
+            for p in ps.programs.values():
+                for i, m in enumerate(p.members):
+                    by_member[i] += m.graph.replays
+            log(f"[mesh] sharded group: buckets {ps.buckets}, members {members[BATCH]}, "
+                f"{rate:.2f} items/s, replays by member {by_member} [{card}]")
+            if min(by_member) == 0 or sum(g.replays for g in graphs) == sum(replays0):
+                raise AssertionError(f"a member replayed no graph: {by_member}")
+            if rt.stats().warmup.failures or rt.programs_compiled_post_warmup:
+                raise AssertionError("sharded group: warm failures or post-warmup builds")
+        finally:
+            rt.stop_serving()
+        del rt, ps, graphs
+        torch.cuda.empty_cache()
+    wrapper = _kernel_counts()
+    log(f"[mesh] K1/K5/K2 launches in phase 5B through the wrappers {wrapper} (warm-up runs "
+        f"and captures), plus {replays} graph replays of the two replicas")
+    if min(wrapper[k] for k in REPLAY_KERNELS) == 0 or replays == 0:
+        raise AssertionError("phase 5B launched K1, K5 or K2 no time")
+
+
 # ------------------------------------------------------------ phase 4: LM
 def _attention_counts() -> dict:
     """The LM kernels' launches: K3's by instance family (D = DV with
@@ -3504,6 +3751,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_vision_serving(dev, corpus, full, thumb, res, card)
     log(f"[serve] phase 5 took {time.perf_counter() - t0:.1f} s")
+    # ---- phase 5B: the replica mesh on two streams of the card
+    t0 = time.perf_counter()
+    run_mesh_serving(dev, corpus, full, thumb, res, card)
+    log(f"[mesh] phase 5B took {time.perf_counter() - t0:.1f} s")
     model, exec_tput = res["model"], res["spec"].exec_throughput
     del res, corpus
     # ---- phase 6: the paper's datasets, and scaled split decode

@@ -51,7 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import dag as dag_mod
-from repro_torch.device import resolve_device
+from repro_torch.device import LogicalDevice, resolve_device
+from repro_torch.distributed.sharding import BatchSharding
+from repro_torch.kernels import _build
 from repro_torch.kernels.blocks_to_rgb import ops as b2r_ops
 from repro_torch.kernels.fused_preproc import ops as fp_ops
 from repro_torch.kernels.fused_preproc import plain as fp_plain
@@ -214,9 +216,27 @@ class ProgramCache(MutableMapping):
         )
 
 
-def device_cache_key(device: torch.device) -> tuple[str, str]:
-    """Hashable cache identity of a program's device."""
+def device_cache_key(device: Any) -> tuple:
+    """Hashable cache identity of a program's target: the runtime's
+    device, one logical device of the mesh, or a sharded replica group.
+    Two logical devices of one card key apart: each holds its own program,
+    per-batch tables and CUDA graphs, on its own stream."""
+    if isinstance(device, BatchSharding):
+        return ("sharded", tuple(d.label for d in device.devices))
+    if isinstance(device, LogicalDevice):
+        return ("logical", device.label)
     return ("device", str(device))
+
+
+def _resolve_target(device: Any) -> tuple[torch.device, Any]:
+    """(physical device, mesh target or None) of a program's ``device``
+    argument: a device name, a :class:`LogicalDevice` or a
+    :class:`BatchSharding` (whose first member's device it reports)."""
+    if isinstance(device, BatchSharding):
+        return device.devices[0].device, device
+    if isinstance(device, LogicalDevice):
+        return device.device, device
+    return resolve_device(device), None
 
 
 def _place(batch: Any, device: torch.device) -> torch.Tensor:
@@ -391,8 +411,13 @@ class DevicePreprocProgram:
 
     Calling the program copies the staged batch to ``device`` and enqueues
     the whole stage + model on the device's current stream; it returns the
-    output tensor without waiting.  ``dispatch_count`` tracks dispatches so
-    tests (and the engine) can assert the one-dispatch-per-batch contract.
+    output tensor without waiting.  A program bound to a mesh ``target``
+    runs on that logical device's stream instead
+    (:meth:`LogicalDevice.run`: the caller's stream waits for it), and a
+    sharded group's program runs its ``members``, one per device of the
+    group, each over its part of the batch, and joins their rows.
+    ``dispatch_count`` tracks dispatches so tests (and the engine) can
+    assert the one-dispatch-per-batch contract.
     ``build_seconds`` is the host-side cost of building the program (its
     constant tables included); ``first_dispatch_seconds`` is the wall time
     of dispatch #1 up to a device synchronize — the cold start that pays
@@ -428,6 +453,11 @@ class DevicePreprocProgram:
     coeff_layout: str | None = None
     # the program captured as one CUDA graph (ProgramSet.warm on CUDA)
     graph: "CapturedGraph | None" = None
+    # the mesh target it is bound to (None: the runtime's device, on the
+    # caller's current stream): a LogicalDevice or a BatchSharding
+    target: Any = None
+    # a sharded group's programs, one per device of the group, in order
+    members: tuple["DevicePreprocProgram", ...] = ()
 
     @property
     def dispatches_per_batch(self) -> int:
@@ -435,6 +465,27 @@ class DevicePreprocProgram:
 
     def __call__(self, batch):
         self.dispatch_count += 1
+        if self.members:
+            return self._dispatch_members(batch)
+        if self.target is not None:
+            return self.target.run(self._dispatch, batch)
+        return self._dispatch(batch)
+
+    def _dispatch_members(self, batch):
+        """Each member over its rows on its own stream, the rows joined in
+        order on the caller's stream."""
+        t0 = time.perf_counter()
+        outs = [m(part) for m, part in zip(self.members, self.target.split(batch))]
+        with torch.inference_mode():
+            out = torch.cat([o.to(self.device) for o in outs])
+        if self.dispatch_count == 1:
+            synchronize(self.device)
+            self.first_dispatch_seconds = time.perf_counter() - t0
+            if self.compile_listener is not None:
+                self.compile_listener(self, self.first_dispatch_seconds)
+        return out
+
+    def _dispatch(self, batch):
         if self.graph is not None:
             return self.graph.replay(batch)
         with torch.inference_mode():
@@ -520,7 +571,9 @@ def capture_program(prog: DevicePreprocProgram, bucket: int, pool: _GraphPool) -
     library and raises the kernels' shared-memory limits, none of which may
     happen inside a capture — then the capture itself, into the set's
     shared pool.  The capture is thread-local, so other threads' work
-    (dispatchers reading results back) neither joins nor invalidates it.
+    (dispatchers reading results back) neither joins nor invalidates it,
+    and so is the count of the kernels it holds: another replica's eager
+    dispatch meanwhile is not counted.
     """
     dev = prog.device
     dtype = getattr(torch, prog.in_meta.dtype)
@@ -537,11 +590,9 @@ def capture_program(prog: DevicePreprocProgram, bucket: int, pool: _GraphPool) -
                 with torch.inference_mode():
                     prog.fn(static_in)
                 synchronize(dev)
-            counters = _kernel_counters()
-            before = {name: fn.launches for name, fn in counters.items()}
             graph = torch.cuda.CUDAGraph()
             t1 = time.perf_counter()
-            with torch.inference_mode():
+            with torch.inference_mode(), _build.thread_launches() as counted:
                 graph.capture_begin(pool=pool.handle, capture_error_mode="thread_local")
                 try:
                     static_out = prog.fn(static_in)
@@ -556,7 +607,7 @@ def capture_program(prog: DevicePreprocProgram, bucket: int, pool: _GraphPool) -
             t2 = time.perf_counter()
     finally:
         prog.compile_listener = listener
-    launches = {name: fn.launches - before[name] for name, fn in counters.items()}
+    launches = {name: counted.get(fn, 0) for name, fn in _kernel_counters().items()}
     captured = CapturedGraph(graph, static_in, static_out, pool, t2 - t1,
                              {k: v for k, v in launches.items() if v})
     capture_program.captures += 1
@@ -603,7 +654,9 @@ class ProgramSet:
     smallest ready covering bucket (the warmer runs largest-first, so the
     full-size program is ready before serving starts and always covers).
     A bucket whose capture failed stays unready; its error is kept in
-    ``failures``.
+    ``failures``.  Graphs share one memory pool per logical device: a
+    sharded set's members capture into their own devices' pools, so their
+    replays can overlap.
     """
 
     programs: dict[int, DevicePreprocProgram]  # bucket -> program, ascending
@@ -617,7 +670,7 @@ class ProgramSet:
             raise ValueError("ProgramSet needs at least one program")
         self.programs = dict(sorted(self.programs.items()))
         self._warm_done = not self.require_ready
-        self._pool: _GraphPool | None = None  # created at the first capture
+        self._pools: dict[Any, _GraphPool] = {}  # by target label, made at its first capture
         self.failures: list[tuple[int, BaseException]] = []
 
     @property
@@ -637,7 +690,11 @@ class ProgramSet:
 
     @staticmethod
     def _is_warm(prog: DevicePreprocProgram) -> bool:
-        """Dispatched at least once and, on CUDA, captured as a graph."""
+        """Dispatched at least once and, on CUDA, captured as a graph (a
+        sharded program: every member)."""
+        members = getattr(prog, "members", ())
+        if members:
+            return all(ProgramSet._is_warm(m) for m in members)
         if not prog.dispatch_count:
             return False
         dev = getattr(prog, "device", None)
@@ -676,8 +733,10 @@ class ProgramSet:
         return tuple(p.key for p in self.programs.values())
 
     def graphs(self) -> dict[int, CapturedGraph]:
-        """bucket -> captured graph, for the buckets captured so far."""
-        return {b: p.graph for b, p in self.programs.items() if p.graph is not None}
+        """bucket -> captured graph, for the buckets captured so far (of a
+        sharded bucket, its first member's)."""
+        firsts = {b: (getattr(p, "members", ()) or (p,))[0] for b, p in self.programs.items()}
+        return {b: p.graph for b, p in firsts.items() if p.graph is not None}
 
     def warm(self, buckets: tuple[int, ...] | None = None) -> int:
         """Warm each not-yet-warm entry, largest bucket first.
@@ -701,9 +760,7 @@ class ProgramSet:
             prog._warming = True
             try:
                 if prog.device.type == "cuda":
-                    if self._pool is None:
-                        self._pool = _GraphPool()
-                    prog.graph = capture_program(prog, bucket, self._pool)
+                    self._capture(prog, bucket)
                 else:
                     zeros = np.zeros((bucket, *prog.in_meta.shape), np.dtype(prog.in_meta.dtype))
                     prog(zeros)
@@ -721,12 +778,36 @@ class ProgramSet:
             raise errors[0]
         return warmed
 
+    def _capture(self, prog: DevicePreprocProgram, bucket: int) -> None:
+        """``prog`` at ``bucket`` rows as a CUDA graph in its target's pool;
+        a sharded program's members, each at its share of the rows."""
+        if not prog.members:
+            prog.graph = capture_program(prog, bucket, self._pool_for(prog))
+            return
+        t0 = time.perf_counter()
+        rows = bucket // len(prog.members)
+        for member in prog.members:
+            if member.graph is None:
+                member.graph = capture_program(member, rows, self._pool_for(member))
+        # the members' warm-up runs are the group's: its next dispatch is
+        # not a cold start
+        prog.dispatch_count += 1
+        if prog.compile_listener is not None:
+            prog.compile_listener(prog, time.perf_counter() - t0)
+
+    def _pool_for(self, prog: DevicePreprocProgram) -> _GraphPool:
+        key = getattr(prog.target, "label", None)
+        if key not in self._pools:
+            self._pools[key] = _GraphPool()
+        return self._pools[key]
+
     def release(self, keep: Callable[[DevicePreprocProgram], bool] = lambda p: False) -> None:
         """Drop the captured graphs of every program ``keep`` rejects, so
         their memory pool can be freed (a rebuilt plan captures anew)."""
         for prog in self.programs.values():
-            if prog.graph is not None and not keep(prog):
-                prog.graph = None
+            if not keep(prog):
+                for p in getattr(prog, "members", ()) or (prog,):
+                    p.graph = None
 
 
 def program_cache_key(
@@ -770,15 +851,24 @@ def compile_device_program(
     ``'reference'`` keeps the per-op apply_device chain.  Either way the
     result is one dispatch per batch.  ``cache`` (keyed by
     :func:`program_cache_key`) makes recompiles after placement moves free.
-    ``model_fn`` takes and returns tensors on ``device``.
+    ``model_fn`` takes and returns tensors on ``device``.  ``device`` may
+    also be a mesh target: a :class:`LogicalDevice` or a
+    :class:`BatchSharding` (a sharded replica group).
     """
     if backend not in ("fused", "reference"):
         raise ValueError(f"device_backend must be 'fused' or 'reference', got {backend!r}")
-    dev = resolve_device(device)
+    dev, target = _resolve_target(device)
     impl = resolve_impl(impl, dev) if backend == "fused" else "chain"
-    key = program_cache_key(device_ops, in_meta, batch_size, backend, impl, model_key, dev)
+    key = program_cache_key(device_ops, in_meta, batch_size, backend, impl, model_key,
+                            target or dev)
     if cache is not None and key in cache:
         return cache[key]
+    if isinstance(target, BatchSharding):
+        program = _sharded_program(target, key, batch_size, lambda d, rows: compile_device_program(
+            device_ops, in_meta, model_fn, rows, backend, impl, model_key, device=d))
+        if cache is not None:
+            cache[key] = program
+        return program
 
     t_build = time.perf_counter()
     low = lower_device_ops(device_ops, in_meta) if backend == "fused" else None
@@ -808,10 +898,33 @@ def compile_device_program(
         device=dev,
         batch_size=batch_size,
         build_seconds=time.perf_counter() - t_build,
+        target=target,
     )
     if cache is not None:
         cache[key] = program
     return program
+
+
+def _sharded_program(sharding: BatchSharding, key: tuple, batch_size: int,
+                     build: Callable[[LogicalDevice, int], DevicePreprocProgram]
+                     ) -> DevicePreprocProgram:
+    """A sharded replica group's program: ``build(device, rows)`` for each
+    device of the group at ``batch_size / g`` rows (outside the cache: the
+    group's program holds its members).  Calling the program is its one
+    path (each member on its own stream); its ``fn`` raises."""
+    g = len(sharding.devices)
+    if batch_size % g:
+        raise ValueError(f"a batch of {batch_size} does not split over the {g} devices "
+                         "of a sharded group")
+    t_build = time.perf_counter()
+    members = tuple(build(d, batch_size // g) for d in sharding.devices)
+
+    def fn(batch):
+        raise RuntimeError("a sharded group's program runs through its members: call the "
+                           "program, not its fn")
+
+    return dataclasses.replace(members[0], fn=fn, key=key, batch_size=batch_size, target=sharding,
+                               members=members, build_seconds=time.perf_counter() - t_build)
 
 
 # ------------------------------------------------- split-decode (DCT) program
@@ -856,7 +969,7 @@ def compile_coeff_program(
         raise ValueError(f"scaled-IDCT factor must be 1, 2 or 4, got {factor}")
     if layout not in ("padded", "packed"):
         raise ValueError(f"layout must be 'padded' or 'packed', got {layout!r}")
-    dev = resolve_device(device)
+    dev, target = _resolve_target(device)
     impl = resolve_impl(impl, dev)
     n_br, n_bc = header.n_br, header.n_bc
     cbr, cbc = jpeg_mod.chroma_grid(header)
@@ -870,10 +983,17 @@ def compile_coeff_program(
     key = (
         ("CoeffDecode", header.quality, n_br, n_bc, header.height, header.width,
          subsample, factor, layout),
-        program_cache_key(device_ops, pixel_meta, batch_size, "fused", impl, model_key, dev),
+        program_cache_key(device_ops, pixel_meta, batch_size, "fused", impl, model_key,
+                          target or dev),
     )
     if cache is not None and key in cache:
         return cache[key]
+    if isinstance(target, BatchSharding):
+        program = _sharded_program(target, key, batch_size, lambda d, rows: compile_coeff_program(
+            header, device_ops, model_fn, rows, factor, layout, impl, model_key, device=d))
+        if cache is not None:
+            cache[key] = program
+        return program
 
     t_build = time.perf_counter()
     # constant operands, on the device once per program
@@ -929,6 +1049,7 @@ def compile_coeff_program(
         coeff_layout=layout,
         batch_size=batch_size,
         build_seconds=time.perf_counter() - t_build,
+        target=target,
     )
     if cache is not None:
         cache[key] = program

@@ -1,2 +1,3 @@
-"""Distributed pieces of the port: replica fault handling
-(``fault_tolerance``) for the serving scheduler."""
+"""Distributed pieces of the port: the serving mesh's replica groups
+(``collectives``) and sharded groups (``sharding``), replica fault handling
+(``fault_tolerance``) and checkpoints (``checkpoint``)."""

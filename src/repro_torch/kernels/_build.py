@@ -12,6 +12,7 @@ There is no fallback: a missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -229,3 +230,28 @@ def check(lib: ctypes.CDLL, status: int, name: str) -> None:
     if status != 0:
         text = lib.repro_cuda_error_string(status).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status} ({text})")
+
+
+_tally = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: adds one to its ``launches`` and
+    to every tally the calling thread has open (:func:`thread_launches`)."""
+    wrapper.launches += 1
+    for counts in getattr(_tally, "open", ()):
+        counts[wrapper] = counts.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """A dict, wrapper -> launches, counting only the launches the calling
+    thread makes inside the block: a graph capture's count, with other
+    threads dispatching eagerly meanwhile."""
+    counts: dict = {}
+    stack = _tally.__dict__.setdefault("open", [])
+    stack.append(counts)
+    try:
+        yield counts
+    finally:
+        stack.remove(counts)

@@ -85,7 +85,7 @@ def blocks_to_rgb(
         grid.n_br, grid.n_bc, grid.cbr, grid.cbc, grid.point, grid.hs, grid.ws,
         int(grid.subsample), stream)
     _build.check(lib, status, "blocks_to_rgb")
-    blocks_to_rgb.launches += 1
+    _build.count_launch(blocks_to_rgb)
     return out
 
 

@@ -150,7 +150,7 @@ def resize_affine_planar(
         out.data_ptr(), BAND_ROWS, min(ow, TILE_COLS), STAGE_BYTES // 4, stream,
     )
     _build.check(lib, status, "resize_affine_planar")
-    resize_affine_planar.launches += 1
+    _build.count_launch(resize_affine_planar)
     return out
 
 

@@ -124,7 +124,7 @@ def _launch(x: torch.Tensor, m: torch.Tensor, order: str) -> torch.Tensor:
         x.data_ptr(), int(x.dtype == torch.int16), *sizes, *strides, K_ROWS[order, point],
         m.data_ptr(), out.data_ptr(), p2, stream)
     _build.check(lib, status, "idct_rows")
-    idct_rows.launches += 1
+    _build.count_launch(idct_rows)
     idct_rows.launches_by_point[point] += 1
     return out
 

@@ -19,8 +19,10 @@ cache LRU-evicts beyond its bound.  With ``RuntimeConfig.warmup="full"``
 every batch bucket's program is warmed at startup — on a CUDA device
 captured as one CUDA graph and replayed by every later dispatch.
 :meth:`SmolRuntime.stats` returns the versioned :class:`RuntimeStats`
-schema.  The replica mesh (:class:`MeshConfig` other than the default,
-``fail_replica``) is not ported yet and raises.
+schema.  :class:`MeshConfig` serves from replica groups of logical devices
+(``repro_torch.device.mesh_devices``; on a card each has its own stream),
+optionally sharded, with ``fail_replica`` draining a replica's work onto
+the survivors.
 """
 
 from repro_torch.core.placement import SplitDecodeOption

@@ -16,16 +16,19 @@ Model execution is supplied as ``model_fns[name] -> callable`` taking an
 that call (decode, preprocessing, placement, batching, pipelining) is the
 runtime's job.
 
-This port covers ``repro.runtime.facade.SmolRuntime`` on one device: the
-batch path, program-set warmup (one CUDA graph per batch bucket on a
-card), online recalibration, the serving path with tenants, typed queries,
-telemetry and the rendition cache.  The replica mesh keeps its config
-fields and raises :class:`NotImplementedError` naming the ROADMAP item
-that ports it.
+This port covers ``repro.runtime.facade.SmolRuntime``: the batch path,
+program-set warmup (one CUDA graph per batch bucket on a card), online
+recalibration, the serving path with tenants, typed queries, telemetry,
+the rendition cache and the replica mesh.  The mesh's devices are logical
+ones (``repro_torch.device.mesh_devices``): each card, or the CPU, split
+into ``REPRO_TORCH_FORCE_DEVICE_COUNT`` parts, each part with its own CUDA
+stream on a card — so two replicas on one card are two sets of programs
+and graphs on two streams, fed from the one fair queue.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 import time
@@ -47,7 +50,9 @@ from repro_torch.core.placement import (
     SplitDecodeOption,
 )
 from repro_torch.core.planner import ModelSpec, Planner, QueryPlan
-from repro_torch.device import resolve_device
+from repro_torch.device import LogicalDevice, mesh_devices, resolve_device
+from repro_torch.distributed.collectives import replica_groups
+from repro_torch.distributed.sharding import batch_sharding
 from repro_torch.preprocessing import ops as P
 from repro_torch.preprocessing.formats import ImageFormat, StoredImage
 from repro_torch.preprocessing.ops import TensorMeta
@@ -97,15 +102,6 @@ from repro_torch.runtime.stats import (
     WarmupSection,
 )
 from repro_torch.runtime.telemetry import Telemetry, TelemetryConfig
-
-
-def _not_ported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md, port queue: {item})"
-    )
-
-
-_ITEM_MESH = "'Mesh'"
 
 
 @dataclasses.dataclass
@@ -190,8 +186,23 @@ class RecalConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Replicated multi-device serving.  Only the default (one replica, no
-    explicit devices, unsharded) is ported."""
+    """Replicated multi-device serving (the device mesh).
+
+    ``replicas``: data-parallel replica groups, each holding its own
+    programs (and on a card its own CUDA graphs and stream), fed from the
+    shared tenant-weighted fair queue.  ``devices``: ordinals into
+    ``repro_torch.device.mesh_devices`` to build the mesh from (None =
+    all of them); they are partitioned into ``replicas`` contiguous equal
+    groups.  ``sharded``: when a replica group has more than one device,
+    split each batch's leading dim across the group instead of leaving the
+    surplus devices idle.
+
+    The default (1 replica, no explicit devices, unsharded) builds and
+    dispatches exactly as the single-device runtime always has.  CPU tests
+    and one card exercise real meshes via
+    ``REPRO_TORCH_FORCE_DEVICE_COUNT=n`` (n logical devices per physical
+    one).
+    """
 
     replicas: int = 1
     devices: tuple[int, ...] | None = None
@@ -353,11 +364,31 @@ class RuntimeConfig:
         self.max_recal_workers = self.recal.max_workers
 
 
-def _check_ported(cfg: RuntimeConfig) -> None:
-    """Raise for the configuration a later slice of the port brings."""
-    mesh = cfg.mesh
-    if mesh.replicas > 1 or mesh.devices is not None or mesh.sharded:
-        raise _not_ported("the replica mesh (MeshConfig other than the default)", _ITEM_MESH)
+def _physical(device: torch.device) -> torch.device:
+    """``device`` with its index filled in (a card's current one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class _ModelCopies:
+    """An ``nn.Module`` model on every physical device a mesh spans: the
+    original on the runtime's own, a copy made at first use on each
+    other, picked by the input's device."""
+
+    def __init__(self, model: torch.nn.Module, home: torch.device):
+        self._copies = {home: model}
+        self._model = model
+        self._lock = threading.Lock()
+
+    def __call__(self, x: torch.Tensor) -> Any:
+        model = self._copies.get(x.device)
+        if model is None:
+            with self._lock:
+                if x.device not in self._copies:
+                    self._copies[x.device] = copy.deepcopy(self._model).to(x.device)
+                model = self._copies[x.device]
+        return model(x)
 
 
 @dataclasses.dataclass
@@ -464,7 +495,6 @@ class SmolRuntime:
         if missing:
             raise ValueError(f"no model_fn for models: {missing}")
         cfg = config or RuntimeConfig()
-        _check_ported(cfg)
         known = {m.name for m in models}
         bad = [t.name for t in cfg.tenants if t.model is not None and t.model not in known]
         if bad:
@@ -498,6 +528,11 @@ class SmolRuntime:
         # beyond program_cache_entries are LRU-evicted (an active tenant's
         # program is re-looked-up on every rebind and stays resident).
         self._device_programs = ProgramCache(self.config.program_cache_entries)
+        # nn.Module models copied onto the mesh's other physical devices
+        self._model_copies: dict[str, _ModelCopies] = {}
+        # the replica targets, resolved at the first compile and kept: a
+        # recompile never sees another mesh than the scheduler was built for
+        self._targets: list[Any] | None = None
         # measured per-dispatch launch overhead (lazily filled when the
         # config leaves device_dispatch_overhead_s at None)
         self._measured_dispatch_s: float | None = None
@@ -715,7 +750,7 @@ class SmolRuntime:
             program = device_compiler.compile_coeff_program(
                 header,
                 chain,
-                self.model_fns[plan.model.name],
+                self._model_fn(plan.model.name, device),
                 batch_size or self.config.batch_size,
                 factor=coeff.factor,
                 layout=coeff.layout,
@@ -794,7 +829,7 @@ class SmolRuntime:
         in_meta = self._decoded_meta(fmt)
         out_meta = P.chain_out_meta(host_ops, in_meta)
         out_shape, out_dtype = tuple(out_meta.shape), np.dtype(out_meta.dtype)
-        model_fn = self.model_fns[plan.model.name]
+        model_fn = self._model_fn(plan.model.name, device)
 
         in_shape = tuple(in_meta.shape)
         cache = self._rendition_cache
@@ -949,14 +984,69 @@ class SmolRuntime:
     _COEFF_FROM_PLAN = object()  # sentinel: use plan.coeff (vs an override)
 
     def _replica_targets(self) -> list[Any]:
-        """One compilation/dispatch target per replica group: the runtime's
-        device (the replica mesh is not ported; ``_check_ported`` raises
-        for any other MeshConfig)."""
-        return [self.device]
+        """One compilation/dispatch target per replica group, resolved once
+        (at the first compile) and reused for the runtime's life.
+
+        The single-replica default with no explicit devices keeps the
+        single-device path: the runtime's device, programs on the caller's
+        current stream.  Otherwise each replica group resolves to its
+        logical device (its own stream on a card) — or, in sharded mode,
+        a :class:`BatchSharding` splitting the batch across the group.
+        """
+        if self._targets is None:
+            self._targets = self._resolve_targets()
+        return self._targets
+
+    def _resolve_targets(self) -> list[Any]:
+        mesh = self.config.mesh
+        if mesh.replicas == 1 and mesh.devices is None and not mesh.sharded:
+            return [self.device]
+        devs = mesh_devices(self.device)
+        if mesh.devices is not None:
+            try:
+                devs = [devs[i] for i in mesh.devices]
+            except IndexError:
+                raise ValueError(
+                    f"mesh.devices={mesh.devices} out of range for "
+                    f"{len(devs)} visible device(s)"
+                ) from None
+        groups = replica_groups(devs, mesh.replicas)
+        targets: list[Any] = []
+        for group in groups:
+            if len(group) > 1 and mesh.sharded:
+                if self.config.batch_size % len(group):
+                    raise ValueError(
+                        f"batch_size {self.config.batch_size} does not split over "
+                        f"a sharded group of {len(group)} devices"
+                    )
+                targets.append(batch_sharding(group))
+            else:
+                # unsharded groups dispatch on their first device (surplus
+                # members idle — enable mesh.sharded to use them)
+                targets.append(group[0])
+        return targets
 
     @staticmethod
     def _target_label(target: Any) -> str:
+        if hasattr(target, "device_set"):  # a sharded replica group
+            ids = sorted(d.id for d in target.device_set)
+            return f"sharded[{ids[0]}-{ids[-1]}]"
+        if isinstance(target, LogicalDevice):
+            return target.label
         return str(target)
+
+    def _model_fn(self, name: str, target: Any) -> Callable:
+        """``name``'s model for a program on ``target``.  An ``nn.Module``
+        is used as is on the runtime's own physical device; a mesh that
+        spans others gets one copy of it per other physical device."""
+        fn = self.model_fns[name]
+        members = getattr(target, "devices", (target or self.device,))
+        phys = {_physical(getattr(d, "device", d)) for d in members}
+        if phys <= {_physical(self.device)} or not isinstance(fn, torch.nn.Module):
+            return fn
+        if name not in self._model_copies:
+            self._model_copies[name] = _ModelCopies(fn, _physical(self.device))
+        return self._model_copies[name]
 
     def _build_compiled(
         self, plan: QueryPlan, placement: Placement, coeff: Any = _COEFF_FROM_PLAN
@@ -965,7 +1055,10 @@ class SmolRuntime:
         shared by the default plan and per-tenant pinned plans (all hit the
         same bounded program cache).  ``coeff`` overrides the plan's costed
         split-decode option (recalibration moves between the pixel path,
-        factors and layouts without replanning).
+        factors and layouts without replanning).  One program instance is
+        built per replica target (cache-keyed on the logical device), so
+        every replica dispatcher owns a program bound to its own device or
+        group.
         """
         if coeff is SmolRuntime._COEFF_FROM_PLAN:
             coeff = plan.coeff
@@ -1040,16 +1133,20 @@ class SmolRuntime:
         target: Any,
         full_program: DevicePreprocProgram,
     ):
-        """Bucket programs for one device target.
+        """Bucket programs for one replica target.
 
         One program per power-of-two batch bucket (plus the exact batch
         size), every one pinned in the program cache so LRU churn from
         other tenants can't undo the warmup while this plan is bound.
+        Sharded targets keep only buckets their group size divides.
         """
+        group = len(getattr(target, "device_set", ())) or 1
         programs: dict[int, DevicePreprocProgram] = {}
         # descending: the already-built full-size program is pinned before
         # smaller-bucket builds can LRU-evict it from a tight cache
         for bucket in reversed(device_compiler.batch_buckets(self.config.batch_size)):
+            if bucket % group:
+                continue  # sharded batches need the batch axis divisible
             if bucket == self.config.batch_size:
                 prog = full_program
             elif coeff is not None:
@@ -1349,8 +1446,11 @@ class SmolRuntime:
         self._warmup_done = True
 
     def fail_replica(self, index: int) -> None:
-        """Fault hook of the replica mesh — not ported yet."""
-        raise _not_ported("SmolRuntime.fail_replica", _ITEM_MESH)
+        """Fault hook: take serving replica ``index`` out of the mesh (see
+        :meth:`RequestScheduler.fail_replica`)."""
+        if self._scheduler is None:
+            raise RuntimeError("start_serving() before fail_replica()")
+        self._scheduler.fail_replica(index)
 
     def submit(
         self, item: Any, tenant: str = DEFAULT_TENANT

@@ -79,6 +79,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import dispatch_scope
 from repro_torch.distributed.fault_tolerance import (
     ElasticPlan,
     ReplicaFailure,
@@ -1234,8 +1235,11 @@ class RequestScheduler:
             # ragged batch + program set: slice to the smallest warm
             # bucket covering the batch; unbucketed dispatch runs the full
             # max_batch buffer.  Either way padding lanes stop here — the
-            # completion loop below reads only rows < len(metas).
-            out = _to_host(device_fn(buf if bucket is None else buf[:bucket]))
+            # completion loop below reads only rows < len(metas).  A mesh
+            # program's readback runs in its target's scope: on its stream,
+            # behind its work, and apart from the other replicas'.
+            with dispatch_scope(device_fn):
+                out = _to_host(device_fn(buf if bucket is None else buf[:bucket]))
         except ReplicaFailure as e:
             self._on_replica_failure(replica, metas, e)
             return

@@ -4,8 +4,8 @@ decode time, entropy-stage time and dispatch overhead pinned so both plan
 alike; then the same
 plan key, identical argmax and logits within 1e-4 — also with warmup,
 recalibration, tenants, telemetry and the rendition cache on, and through
-a serving round trip.  The replica mesh, which a later slice of the port
-brings, raises NotImplementedError.
+a serving round trip.  The replica mesh is held in
+``tests/test_torch_mesh.py``.
 
 ``_runtimes`` is the shared set-up of the ``tests/test_torch_*`` files
 that hold the runtime against the reference."""
@@ -31,7 +31,6 @@ from repro_torch.core.planner import ModelSpec as TModelSpec  # noqa: E402
 from repro_torch.preprocessing.formats import ImageFormat as TFormat  # noqa: E402
 from repro_torch.preprocessing.formats import StoredImage as TStored  # noqa: E402
 from repro_torch.runtime import DeviceCompilerConfig as TDevCfg  # noqa: E402
-from repro_torch.runtime import MeshConfig as TMeshCfg  # noqa: E402
 from repro_torch.runtime import RuntimeConfig as TConfig  # noqa: E402
 from repro_torch.runtime import SmolRuntime as TRuntime  # noqa: E402
 
@@ -190,25 +189,6 @@ def test_ported_features_run_like_the_reference(images, feature, extra):
         # a second pass hits every staged tensor in both packages
         _assert_same_outputs(t_rt.run(t_corpus)[0], r_rt.run(r_corpus)[0])
         assert t_rt.stats().cache.hits == r_rt.stats().cache.hits > 0
-
-
-@pytest.mark.parametrize(
-    "cfg_kwargs,match",
-    [
-        ({"mesh": TMeshCfg(replicas=2)}, "mesh"),
-        ({"mesh": TMeshCfg(devices=(0,))}, "mesh"),
-    ],
-)
-def test_deferred_features_raise(images, cfg_kwargs, match):
-    fmt = TFormat(*FMT_ARGS["full"])
-    corpus = [TStored.from_array(images[0], [fmt])]
-    spec = TModelSpec("m", INPUT, exec_throughput=1.0, accuracy_by_format={fmt.key: 1.0})
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP"):
-        TRuntime([spec], [fmt], {"m": lambda x: x}, corpus, config=TConfig(**cfg_kwargs),
-                 device="cpu")
-    rt = TRuntime([spec], [fmt], {"m": lambda x: x}, corpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="(?s)fail_replica.*ROADMAP.*Mesh"):
-        rt.fail_replica(0)
 
 
 def test_serving_methods_raise_and_cuda_is_the_default(images, monkeypatch):

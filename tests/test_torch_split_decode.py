@@ -29,6 +29,7 @@ from repro.preprocessing import ops as RP  # noqa: E402
 from repro_torch.core import dag as t_dag  # noqa: E402
 from repro_torch.core import device_compiler as TDC  # noqa: E402
 from repro_torch.core.planner import standard_chain as t_chain  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.blocks_to_rgb import ops as b2r  # noqa: E402
 from repro_torch.kernels.blocks_to_rgb import plain as b2r_plain  # noqa: E402
 from repro_torch.kernels.fused_preproc import ops as fp  # noqa: E402
@@ -303,25 +304,27 @@ def _count_cpu_calls(monkeypatch):
                                   (b2r.blocks_to_rgb, b2r.plain, "blocks_to_rgb"),
                                   (fp.resize_affine_planar, fp.plain, "resize_affine_planar")):
         def counted(*args, _fn=getattr(module, name), _w=wrapper, **kwargs):
-            _w.launches += 1
+            _build.count_launch(_w)
             return _fn(*args, **kwargs)
 
         monkeypatch.setattr(module, name, counted)
 
 
 def test_program_launches_k1_twice_k5_once_k2_once(monkeypatch):
-    # what capture_program records per graph: the deltas of the counters
-    # that _kernel_counters names, over one run of the program
+    # what capture_program records per graph: the launches of the wrappers
+    # that _kernel_counters names, counted on the capturing thread over one
+    # run of the program (the same as the counters' deltas)
     _, t_prog, batch = _coeff_programs(2, True, "padded")
     counters = TDC._kernel_counters()
     assert counters["blocks_to_rgb"] is b2r.blocks_to_rgb
     assert counters["idct"] is idct.idct_rows
     _count_cpu_calls(monkeypatch)
     before = {name: fn.launches for name, fn in counters.items()}
-    with torch.inference_mode():
+    with torch.inference_mode(), _build.thread_launches() as counted:
         t_prog.fn(torch.from_numpy(batch))
     launches = {name: fn.launches - before[name] for name, fn in counters.items()}
     assert launches == {"idct": 2, "blocks_to_rgb": 1, "fused_preproc": 1}
+    assert {name: counted.get(fn, 0) for name, fn in counters.items()} == launches
     assert t_prog.stages[:5] == ("unzigzag", "dequant_idct/4pt", "unblockify",
                                  "chroma_upsample[2x2]", "ycbcr->rgb")
 
