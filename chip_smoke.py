@@ -65,7 +65,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    step; the loss must fall), then hymba-1.5b the same way for 6 steps
    (the first step also on plain attention and the plain scan; K3 and K6
    each 64 forward and 32 backward launches a step), each step profiled
-   once by kernel family;
+   once by kernel family; phase 4F drives the training mesh on logical
+   devices of the card (one CUDA stream each): the ring all-reduce on 2
+   and 4 streams bitwise the CPU's (also behind a ~23 ms spin on a
+   sender's stream), the bucketed psum and the EF-int8 all-reduce, the
+   ring's time over 4 GiB a device against its byte bound; Gemma3-1B full
+   data-parallel on two streams with ZeRO-1 moments (the first step
+   against the single-device step, the copies bitwise equal after it, 3
+   more steps, K3 forward 52 and backward 26 launches a data shard a
+   step); OLMoE-1B-7B at full width and 2 layers (``reduced``) on a
+   (2, 2) mesh, its expert-parallel MoE forward bitwise its serial
+   definition, then 3 steps;
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -116,6 +126,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -3410,6 +3421,410 @@ def run_training_path(dev, card: str) -> dict:
     return _add(launches, train_lm(dev, card, "hymba-1.5b", HYMBA_TRAIN_STEPS))
 
 
+# ---------------------------------------------- phase 4F: the training mesh
+MESH_RING_LENGTHS = (37, 2**24 + 3)  # f32 elements a device: one padded short, one of 64 MB
+MESH_TIMED_RING = 2**30  # f32 elements a device for the timed ring: 4 GiB each ("1.0 B f32 leaves")
+MESH_PSUM_RTOL = 1e-6  # psum_in_chunks against the plain sum, of the largest |sum|
+MESH_COMPRESSED_ATOL = 2e-2  # the int8 all-reduce against the exact sum, of the largest |sum|
+MESH_TRAIN_STEPS = 3  # steps after the first, on each mesh
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-3, 1e-2  # the first mesh step against the single-device one
+OLMOE_TRAIN_LAYERS = 2  # of 16: f32 weights, grads and AdamW state of all 16 (~110 GB) do not fit
+
+
+def _mesh_devices(dev, n: int) -> list:
+    from repro_torch import device as D
+
+    with _forced_device_count(n):
+        return D.mesh_devices(dev)
+
+
+def check_collectives(dev, card: str) -> None:
+    """The ring, the bucketed psum and the EF-int8 all-reduce on 2 and 4
+    logical devices of the card (one stream each) against the same
+    collectives on as many logical CPU devices: the ring bit for bit
+    (IEEE f32 adds in the same order), also when the second device's part
+    is written behind a ~23 ms spin on its stream (a missing wait would
+    read the memory before it); ``psum_in_chunks`` within MESH_PSUM_RTOL
+    of the plain sum; ``compressed_psum_pod`` within MESH_COMPRESSED_ATOL
+    of the exact sum, its int8 payloads and scales the CPU's.  Then the
+    in-place ring (``ring_allreduce_``, what each psum bucket runs) over
+    MESH_TIMED_RING f32 a device on 2 devices, timed against its bytes."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compression as COMP
+
+    rng = np.random.default_rng(SEED)
+    for n in (2, 4):
+        devices, cpus = _mesh_devices(dev, n), _mesh_devices("cpu", n)
+        for length in MESH_RING_LENGTHS:
+            x = rng.normal(size=(n, length)).astype(np.float32)
+            want = C.ring_allreduce([torch.from_numpy(row) for row in x], cpus)[0].numpy()
+            for spin in (False, True):
+                parts = [torch.from_numpy(row).to(dev) for row in x]
+                if spin:
+                    late = torch.zeros_like(parts[1])
+                    if devices[1].stream is not None:  # written on its stream, after the default stream's zeros
+                        devices[1].stream.wait_stream(torch.cuda.current_stream())
+                        late.record_stream(devices[1].stream)
+                    with devices[1].scope():
+                        torch.cuda._sleep(LONG_SPIN)
+                        late.copy_(parts[1])
+                    parts[1] = late
+                got = C.ring_allreduce(parts, devices)
+                for i, g in enumerate(got):
+                    if not np.array_equal(g.cpu().numpy(), want):
+                        raise AssertionError(f"ring_allreduce on {n} streams, length {length}"
+                                             f"{' behind a spin' if spin else ''}: device {i} differs from the CPU's")
+        tree = {f"l{j}": rng.normal(size=(n, *shape)).astype(np.float32)
+                for j, shape in enumerate(((4096, 33), (517,), (3, 5), (70001,), (1,)))}
+        got = C.psum_in_chunks([{k: torch.from_numpy(v[i]).to(dev) for k, v in tree.items()} for i in range(n)],
+                               devices)
+        for k, v in tree.items():
+            plain = torch.from_numpy(v).to(dev).sum(0)
+            for g in got:
+                err = float((g[k] - plain).abs().max() / plain.abs().max())
+                if err > MESH_PSUM_RTOL:
+                    raise AssertionError(f"psum_in_chunks on {n} streams: {k} {err:.3e} from the plain sum")
+        xs = rng.normal(size=(n, 4099)).astype(np.float32)
+        es = (1e-3 * rng.normal(size=(n, 4099))).astype(np.float32)
+        totals, _ = COMP.compressed_psum_pod([torch.from_numpy(r).to(dev) for r in xs],
+                                             [torch.from_numpy(r).to(dev) for r in es], devices)
+        cpu_totals, _ = COMP.compressed_psum_pod([torch.from_numpy(r) for r in xs], [torch.from_numpy(r) for r in es],
+                                                 cpus)
+        exact = xs.sum(0)
+        err = max(float(np.abs(t.cpu().numpy() - exact).max() / np.abs(exact).max()) for t in totals)
+        for i in range(n):
+            q, s_, _ = COMP.ef_quantize(torch.from_numpy(xs[i]).to(dev), torch.from_numpy(es[i]).to(dev))
+            cq, cs, _ = COMP.ef_quantize(torch.from_numpy(xs[i]), torch.from_numpy(es[i]))
+            if not (np.array_equal(q.cpu().numpy(), cq.numpy()) and float(s_) == float(cs)):
+                raise AssertionError(f"compressed_psum_pod on {n} streams: device {i}'s int8 payload or scale "
+                                     "differs from the CPU's")
+        cpu_err = max(float(np.abs(t.cpu().numpy() - c.numpy()).max() / np.abs(exact).max())
+                      for t, c in zip(totals, cpu_totals))
+        if err > MESH_COMPRESSED_ATOL or cpu_err > MESH_PSUM_RTOL:
+            raise AssertionError(f"compressed_psum_pod on {n} streams: {err:.3e} from the exact sum, "
+                                 f"{cpu_err:.3e} from the CPU's")
+        log(f"[train-mesh] {n} streams: ring_allreduce bitwise the CPU's at lengths {MESH_RING_LENGTHS} "
+            f"(also behind a ~23 ms spin on {devices[1].label}'s stream); psum_in_chunks within "
+            f"{MESH_PSUM_RTOL:g} of the plain sum; compressed_psum_pod {err:.3e} of the exact sum (bound "
+            f"{MESH_COMPRESSED_ATOL:g}), {cpu_err:.3e} of the CPU's, int8 payloads and scales the CPU's")
+    devices = _mesh_devices(dev, 2)
+    flats = []
+    for d in devices:
+        with d.scope():
+            flats.append(torch.randn(MESH_TIMED_RING, device=dev))
+    torch.cuda.synchronize()
+
+    def ring():
+        caller = C._enter(devices)
+        C.ring_allreduce_(flats, devices)
+        C._leave(devices, caller, [])
+
+    ms = median_ms(ring, None, iters=5, warmup=1)
+    p, nbytes = len(devices), MESH_TIMED_RING * 4
+    bound = p * 2 * (2 * (p - 1) / p) * nbytes / PEAK_BYTES_S * 1e3
+    log(f"[train-mesh] ring_allreduce_ of {MESH_TIMED_RING / 1e9:.3f} B f32 ({nbytes / 2**30:.0f} GiB) a device on "
+        f"{p} streams of the card: {ms:.3f} ms (CUDA events, median of 5); byte bound {bound:.3f} ms (each device "
+        f"moves 2(P-1)/P of its bytes, read and written, all {p} devices in one card's HBM at "
+        f"{PEAK_BYTES_S / 1e12:.2f} TB/s) [{card}]")
+    del flats
+    torch.cuda.empty_cache()
+
+
+def _place(state, mesh, rules):
+    """``state`` placed on ``mesh`` under ``rules`` -> (the placed state,
+    the ZeRO specs)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import zero as Z
+
+    with S.use_rules(rules), mesh:
+        specs = Z.zero_pspecs(state["params"], S.param_pspecs(state["params"]), mesh)
+        return Z.place_train_state(state, mesh, specs), specs
+
+
+def _same_norms(tag: str, metrics) -> None:
+    """Every device clipped with the same grad norm (the reduced gradients
+    are the same bits on every device)."""
+    norms = [float(g) for g in metrics["grad_norms"]]
+    if any(g != norms[0] for g in norms):
+        raise AssertionError(f"{tag}: the devices' grad norms differ: {norms}")
+
+
+def _hold_step(tag: str, against: str, params: list, moments: list, lr: float, card: str) -> None:
+    """A mesh step's updated leaves and AdamW m held against another run
+    of the same first step (m and v zero before it): ``params`` and
+    ``moments`` are (name, got, want) triples.  A first AdamW step moves
+    an element by lr·g/(|g| + eps) plus the same decay, so two runs whose
+    gradients differ only in rounding differ by at most 2·lr where an
+    element's gradient changes sign (and by f32 rounding elsewhere); m is
+    (1 - b1) times the clipped gradient, held per leaf within
+    MESH_GNORM_RTOL in L2.  Prints the share of elements whose update
+    differs by more than lr."""
+    worst_p, flipped, n_el, worst_m, worst_name = 0.0, 0, 0, 0.0, None
+    with torch.no_grad():
+        for name, got, want in params:
+            d = (got - want).abs()
+            if not bool((d <= 2 * lr + 2**-22 * want.abs()).all()):
+                raise AssertionError(f"{tag}: {name} moved {float(d.max()):.3e} from the {against}, more than two "
+                                     f"AdamW steps of lr {lr:g}")
+            worst_p = max(worst_p, float(d.max()))
+            flipped += int((d > lr).sum())
+            n_el += d.numel()
+        for name, got, want in moments:
+            scale = float(want.norm())
+            err = float((got - want).norm()) / scale if scale > 0 else float((got - want).abs().max())
+            if err >= worst_m:
+                worst_m, worst_name = err, name
+    log(f"[train-mesh] {tag} first step against the {against}: updated leaves max|Δ| {worst_p:.3e} (bound 2·lr "
+        f"{2 * lr:g}), {flipped} of {n_el} elements ({flipped / n_el:.2e}) updated more than lr apart; AdamW m "
+        f"|Δm| / |m| {worst_m:.3e} at worst ({worst_name}; bound {MESH_GNORM_RTOL:g} a leaf) [{card}]")
+    if worst_m > MESH_GNORM_RTOL:
+        raise AssertionError(f"{tag}: AdamW m of {worst_name} is {worst_m:.3e} from the {against}'s")
+
+
+def _mesh_steps(step, placed, fn, cfg, tag: str, mesh, card: str, first: int, check=None) -> tuple:
+    """MESH_TRAIN_STEPS more steps of ``step`` over ``fn``'s batches: each
+    step's loss, grad norm, ms (synchronised), K3 launches and peak
+    memory; asserts every device's grad norm the same and K3 forward 2 x
+    layers and backward one a layer per data shard a step; ``check(placed,
+    metrics)``, if given, sees the first step's outcome.  Returns (placed,
+    losses, median ms, launches)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    replicas = len(mesh.model_groups(("data",)))
+    want = (2 * cfg.num_layers * replicas, cfg.num_layers * replicas)
+    losses, times, launches = [], [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    for i in range(first, first + MESH_TRAIN_STEPS):
+        batch = fn(0, i, 0, 1)
+        _zero_attention_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, metrics = step(placed, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _same_norms(f"{tag} step {i}", metrics)
+        got = (fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches)
+        launches["flash_attention"] += got[0]
+        launches["flash_attention_bwd"] += got[1]
+        losses.append(loss)
+        log(f"[train-mesh] {tag} step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, {times[-1]:.1f} ms, K3 "
+            f"{got[0]} forward / {got[1]} backward ({replicas} data shards), peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        if got != want:
+            raise AssertionError(f"{tag}: K3 launches a step {got}, expected {want} "
+                                 f"({2 * cfg.num_layers} forward and {cfg.num_layers} backward a data shard)")
+        if check is not None and i == first:
+            check(placed, metrics)
+    return placed, losses, statistics.median(times), launches
+
+
+def train_mesh_gemma(dev, card: str) -> dict:
+    """(b) Gemma3-1B at full width and depth (f32 master weights, bf16
+    compute) data-parallel on two streams of the card,
+    ``make_mesh((2, 1), ("data", "model"))``, ZeRO-1 moments: the first
+    step (step 1) from phase 4E's seeded state and batch against the
+    single-device step on the kernels, the two copies bitwise equal after
+    it and held to the single-device step's updated leaves and m
+    (:func:`_hold_step`), then MESH_TRAIN_STEPS steps; the ring's share
+    of a step."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import synthetic_lm_batch_fn
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import zero as Z
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_loop as loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = configs.get_config("gemma3-1b")
+    tcfg = loop.TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=MESH_TRAIN_STEPS + 2)
+    fn = synthetic_lm_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    batch = fn(0, 0, 0, 1)
+    mesh = make_mesh((2, 1), ("data", "model"), _mesh_devices(dev, 2))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.init_train_state(cfg, SEED, dev)
+    state["step"].fill_(1)
+    placed, specs = _place(state, mesh, S.SINGLE_POD_RULES)
+    with S.use_rules(S.SINGLE_POD_RULES), mesh:
+        step = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)
+    state, single = loop.make_train_step(cfg, tcfg)(state, batch)
+    loss1, gnorm1 = float(single["loss"]), float(single["grad_norm"])
+    # the single-device step's updated leaves and m, held for the mesh step's
+    want_p, want_m = dict(state["params"].named_parameters()), state["opt"]["m"]
+    del state, single
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_attention_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed, metrics = step(placed, batch)
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    got = (fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches)
+    launches = {"flash_attention": got[0], "flash_attention_bwd": got[1]}
+    log(f"[train-mesh] {cfg.name} full ({cfg.num_layers} layers), {TRAIN_B}x{TRAIN_S} over 2 streams "
+        f"(data-parallel, ZeRO-1): first step (step 1) loss {loss:.6f}, grad norm {gnorm:.6f}, {first_ms:.1f} ms; "
+        f"the single-device step on the kernels: loss {loss1:.6f}, grad norm {gnorm1:.6f}; relative "
+        f"{abs(loss - loss1) / abs(loss1):.3e} (bound {MESH_LOSS_RTOL:g}), {abs(gnorm - gnorm1) / gnorm1:.3e} "
+        f"(bound {MESH_GNORM_RTOL:g}); K3 {got[0]} forward / {got[1]} backward [{card}]")
+    if abs(loss - loss1) > MESH_LOSS_RTOL * abs(loss1) or abs(gnorm - gnorm1) > MESH_GNORM_RTOL * gnorm1:
+        raise AssertionError(f"{cfg.name} on the mesh: loss {loss} vs {loss1}, grad norm {gnorm} vs {gnorm1}")
+    if got != (2 * 2 * cfg.num_layers, 2 * cfg.num_layers):
+        raise AssertionError(f"{cfg.name} on the mesh: K3 launches {got}")
+    _same_norms(cfg.name, metrics)
+    copies = [dict(c.named_parameters()) for c in placed["params"]]
+    unequal = [name for name, w in copies[0].items() if not torch.equal(w, copies[1][name])]
+    if unequal:
+        raise AssertionError(f"{cfg.name}: the two copies differ after a step in {unequal[:4]}")
+    log(f"[train-mesh] {cfg.name}: the two copies of all {len(copies[0])} parameters bitwise equal after the step, "
+        f"both devices' grad norms the same")
+    layout = Z.Layout(placed["params"][0], mesh, specs, S.SINGLE_POD_RULES)
+    _hold_step(cfg.name, "single-device step", [(n, w, want_p[n]) for n, w in copies[0].items()],
+               [(n, m, Z.take(want_m[n], layout.moment_slice(n, q, want_m[n].shape)))
+                for q, ms in enumerate(placed["opt"]["m"]) for n, m in ms.items()], tcfg.optimizer.lr, card)
+    del want_p, want_m, layout
+    torch.cuda.empty_cache()
+    placed, losses, med, more = _mesh_steps(step, placed, fn, cfg, cfg.name, mesh, card, 2)
+    _add(launches, more)
+    losses = [loss] + losses
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name} on the mesh: losses {losses}")
+    # the ring's share: the step's gradient reduction alone, on the same devices and leaf sizes
+    devices = mesh.flat
+    trees = []
+    for d, c in zip(devices, placed["params"]):
+        with d.scope():
+            trees.append([torch.zeros_like(w) for w in c.parameters()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.psum_in_chunks(trees, devices)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    del trees
+    n_params = sum(w.numel() for w in placed["params"][0].parameters())
+    log(f"[train-mesh] {cfg.name} full ({n_params / 1e9:.3f} B f32 params a copy) on 2 streams: step "
+        f"{med:.1f} ms median of {MESH_TRAIN_STEPS}, {TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"the gradients' psum_in_chunks alone {ring_ms:.1f} ms ({ring_ms / med:.1%} of the step) [{card}]")
+    del placed, step, copies
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_mesh_olmoe(dev, card: str) -> dict:
+    """(c) OLMoE-1B-7B at full width and OLMOE_TRAIN_LAYERS layers
+    (``reduced``) on ``make_mesh((2, 2), ("data", "model"))`` under
+    SINGLE_POD_RULES, four streams: one forward of ``moe_apply``'s
+    expert-parallel branch on a layer's input bitwise its serial
+    definition on the default stream (per data shard, each model device's
+    ``_moe_dispatch_compute`` over its 32 experts, the two added), then
+    MESH_TRAIN_STEPS steps (losses finite and falling, K3 launches), the
+    first held to the same step run serially: the same four logical
+    devices without streams, every op on the default stream in program
+    order, where no cross-stream race can happen — loss, grad norm, and
+    each device's updated leaves and m (:func:`_hold_step`)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import device as D
+    from repro_torch.data.pipeline import synthetic_lm_batch_fn
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.training import train_loop as loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    full = configs.get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, num_layers=OLMOE_TRAIN_LAYERS)
+    tcfg = loop.TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=MESH_TRAIN_STEPS + 2)
+    fn = synthetic_lm_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    mesh = make_mesh((2, 2), ("data", "model"), _mesh_devices(dev, 4))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.init_train_state(cfg, SEED, dev)
+    state["step"].fill_(1)
+    n_params = sum(w.numel() for w in state["params"].parameters())
+    moe = state["params"].layers[0].moe
+    dt = torch.bfloat16
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(size=(TRAIN_B, TRAIN_S, cfg.d_model)).astype(np.float32))
+    x = x.to(dev, dt)
+    with torch.no_grad():
+        with S.use_rules(S.SINGLE_POD_RULES), mesh:
+            y = L.moe_apply(moe, cfg, x)
+        e, k, tp = cfg.num_experts, cfg.experts_per_token, mesh.shape["model"]
+        n_local, t_local = e // tp, (TRAIN_B // 2) * TRAIN_S
+        cap = L.moe_capacity(cfg, t_local)
+        xt, serial = x.reshape(-1, cfg.d_model), []
+        for i in range(2):
+            parts = [L._moe_dispatch_compute(
+                xt[i * t_local:(i + 1) * t_local], moe.router,
+                types.SimpleNamespace(**{w: getattr(moe.experts, w)[m * n_local:(m + 1) * n_local]
+                                         for w in ("w_gate", "w_up", "w_down")}),
+                e, k, cap, cfg.mlp_act, dt, local_expert_range=(m * n_local, n_local)) for m in range(tp)]
+            serial.append(parts[0] + parts[1])
+        serial = torch.cat(serial).reshape(y.shape)
+    if not torch.equal(y, serial):
+        raise AssertionError(f"OLMoE's expert-parallel moe_apply differs from its serial definition: "
+                             f"{float((y.float() - serial.float()).abs().max()):.3e}")
+    log(f"[train-mesh] {full.name} moe_apply's expert-parallel branch on (2, 2) streams ({n_local} experts a model "
+        f"device, capacity {cap} a data shard of {t_local} tokens): bitwise its serial definition on the default "
+        f"stream")
+    del y, serial, x, xt
+    tag = f"{full.name} reduced"
+    serial_mesh = make_mesh((2, 2), ("data", "model"),
+                            [D.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
+    placed_s, specs = _place(state, serial_mesh, S.SINGLE_POD_RULES)
+    with S.use_rules(S.SINGLE_POD_RULES), serial_mesh:
+        placed_s, metrics_s = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)(placed_s, fn(0, 1, 0, 1))
+    _same_norms(f"{tag} serial", metrics_s)
+    loss_s, gnorm_s = float(metrics_s["loss"]), float(metrics_s["grad_norm"])
+    placed_s["opt"]["v"] = None  # what is held: each device's leaves and m
+    placed, specs = _place(state, mesh, S.SINGLE_POD_RULES)
+    with S.use_rules(S.SINGLE_POD_RULES), mesh:
+        step = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)
+    del state, moe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def against_serial(placed, metrics):
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        log(f"[train-mesh] {tag} step 1 on (2, 2) streams: loss {loss:.6f}, grad norm {gnorm:.6f}; serially on the "
+            f"default stream: loss {loss_s:.6f}, grad norm {gnorm_s:.6f}; relative {abs(loss - loss_s) / abs(loss_s):.3e} "
+            f"(bound {MESH_LOSS_RTOL:g}), {abs(gnorm - gnorm_s) / gnorm_s:.3e} (bound {MESH_GNORM_RTOL:g}) [{card}]")
+        if abs(loss - loss_s) > MESH_LOSS_RTOL * abs(loss_s) or abs(gnorm - gnorm_s) > MESH_GNORM_RTOL * gnorm_s:
+            raise AssertionError(f"{tag} on streams: loss {loss} vs {loss_s}, grad norm {gnorm} vs {gnorm_s} serially")
+        params = [(f"{dev.label} {n}", w, dict(cs.named_parameters())[n])
+                  for dev, c, cs in zip(mesh.flat, placed["params"], placed_s["params"]) for n, w in c.named_parameters()]
+        moments = [(f"{dev.label} {n}", m, ms_s[n])
+                   for dev, ms, ms_s in zip(mesh.flat, placed["opt"]["m"], placed_s["opt"]["m"]) for n, m in ms.items()]
+        _hold_step(tag, "serial run on the default stream", params, moments, tcfg.optimizer.lr, card)
+        placed_s.clear()
+
+    placed, losses, med, launches = _mesh_steps(step, placed, fn, cfg, tag, mesh, card, 1, check=against_serial)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{full.name} on the mesh: losses {losses}")
+    log(f"[train-mesh] {full.name} full width, reduced to {OLMOE_TRAIN_LAYERS} of {full.num_layers} layers "
+        f"({n_params / 1e9:.3f} B f32 params), EP + data-parallel on (2, 2) streams: step {med:.1f} ms median of "
+        f"{MESH_TRAIN_STEPS}, {TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del placed, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_train_mesh(dev, card: str) -> dict:
+    """Phase 4F, the training mesh on logical devices of the card: the
+    collectives (:func:`check_collectives`), Gemma3-1B data-parallel on
+    two streams (:func:`train_mesh_gemma`), OLMoE-1B-7B expert-parallel on
+    four (:func:`train_mesh_olmoe`).  Returns the K3 launches of the
+    driven steps."""
+    check_collectives(dev, card)
+    launches = train_mesh_gemma(dev, card)
+    return _add(launches, train_mesh_olmoe(dev, card))
+
+
 def run_paper_images(dev, card: str) -> dict:
     """Phase 6A: each image dataset in the paper's four formats through a
     ``SmolRuntime`` over ResNet-18/34/50 (full depth and width, seeded
@@ -3747,6 +4162,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_training_path(dev, card))
     log(f"[train] phase 4E took {time.perf_counter() - t0:.1f} s")
+    # ---- phase 4F: the training mesh on logical devices of the card (collectives, DP, EP)
+    t0 = time.perf_counter()
+    _add(launches, run_train_mesh(dev, card))
+    log(f"[train-mesh] phase 4F took {time.perf_counter() - t0:.1f} s [{card}]")
     # ---- phase 5: the vision serving path over phase 3's model and corpus
     t0 = time.perf_counter()
     run_vision_serving(dev, corpus, full, thumb, res, card)

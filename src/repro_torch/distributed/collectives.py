@@ -1,10 +1,40 @@
-"""Replica groups of the serving mesh.
+"""Collectives of the port's meshes, and the serving mesh's replica groups.
 
-The training mesh's collectives (the reference's ``ring_allreduce`` and
-``psum_in_chunks``) are not ported yet.
+The reference runs its collectives inside ``shard_map``/``vmap`` over a
+named axis.  Here one process drives every logical device of a mesh
+(``device.mesh_devices``), so a collective is a function over a list of
+per-device tensors, ``parts[i]`` on ``devices[i]``:
+
+* ``ring_allreduce`` — the reference's reduce-scatter + all-gather in
+  2(P-1) ring steps over 1/P-sized chunks, each step the reference's one
+  f32 add (own chunk + received chunk) in its order, so the result is the
+  reference's bit for bit and the same bits on every device;
+* ``psum_in_chunks`` — a gradient tree reduced in size-balanced buckets,
+  each bucket one flat ring;
+* ``copy_leaves`` — tensors copied to every device of a group;
+* ``broadcast`` and ``ring_sum`` — a tensor copied to every device of a
+  group, and a group's parts summed with the ring, as autograd Functions
+  that are each other's backward (MoE's expert-parallel branch).
+
+On a card each step's work is enqueued on the receiving device's stream
+after a barrier of events over the group's streams: a receiver reads its
+sender's chunk only after the sender's last write to it, and a sender
+overwrites a chunk only after its reader is done.  A received chunk is
+read in place by the receiver's add (on one card, device memory; across
+cards it would be a peer read), and the all-gather's chunks are
+device-to-device copies.  Every collective starts with each device's
+stream waiting on the caller's current stream and ends with the caller's
+stream waiting on every device, so its inputs and outputs are ordered for
+the caller; ``record_stream`` tells the caching allocator of each
+cross-stream use.  No step returns to the host.  On the CPU (logical
+devices without streams) the same steps run in order.
 """
 
 from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def replica_groups(devices, num_replicas: int):
@@ -24,3 +54,222 @@ def replica_groups(devices, num_replicas: int):
         )
     group = len(devices) // num_replicas
     return [devices[r * group : (r + 1) * group] for r in range(num_replicas)]
+
+
+# ------------------------------------------------------------ stream order
+def _on_card(devices) -> bool:
+    return devices[0].stream is not None
+
+
+def barrier(devices) -> None:
+    """Each device's stream waits for what every other device's stream
+    has been given so far (events; the host does not wait)."""
+    if not _on_card(devices):
+        return
+    events = []
+    for dev in devices:
+        ev = torch.cuda.Event()
+        ev.record(dev.stream)
+        events.append(ev)
+    for dev in devices:
+        for other, ev in zip(devices, events):
+            if other.stream != dev.stream:
+                dev.stream.wait_event(ev)
+
+
+def _enter(devices):
+    """The caller's current stream, which every device's stream now waits
+    on (None on the CPU)."""
+    if not _on_card(devices):
+        return None
+    caller = torch.cuda.current_stream(devices[0].device)
+    for dev in devices:
+        if dev.stream != caller:
+            dev.stream.wait_stream(caller)
+    return caller
+
+
+def _leave(devices, caller, outs) -> None:
+    """The caller's stream waits on every device's; ``outs`` are marked as
+    used on it."""
+    if caller is None:
+        return
+    for dev in devices:
+        if dev.stream != caller:
+            caller.wait_stream(dev.stream)
+    for t in outs:
+        t.record_stream(caller)
+
+
+def _used_on(t: torch.Tensor, dev) -> None:
+    if dev.stream is not None:
+        t.record_stream(dev.stream)
+
+
+# -------------------------------------------------------------------- ring
+def ring_allreduce_(flats: list, devices) -> list:
+    """The ring over ``flats`` in place: ``flats[i]`` a contiguous 1-d
+    tensor on ``devices[i]`` whose length is a multiple of P.  Afterwards
+    each holds the sum, the same bits everywhere.  The caller orders the
+    flats' writes before the call and its reads after it (``_enter`` /
+    ``_leave``, as :func:`ring_allreduce` does)."""
+    p = len(devices)
+    if p == 1:
+        return flats
+    parts = [f.view(p, -1) for f in flats]
+    for me, f in enumerate(flats):
+        _used_on(f, devices[(me + 1) % p])  # its chunks are read by the next device
+    # reduce-scatter: after P-1 steps, device r holds the full sum of
+    # chunk (r + 1) mod P
+    for i in range(p - 1):
+        barrier(devices)
+        for me in range(p):
+            recv = (me + 1) % p
+            with devices[recv].scope():
+                parts[recv][(recv - i - 1) % p].add_(parts[me][(me - i) % p])
+    # all-gather the reduced chunks around the ring
+    for i in range(p - 1):
+        barrier(devices)
+        for me in range(p):
+            recv = (me + 1) % p
+            with devices[recv].scope():
+                parts[recv][(recv - i) % p].copy_(parts[me][(me + 1 - i) % p])
+    barrier(devices)
+    return flats
+
+
+def ring_allreduce(parts: list, devices) -> list:
+    """Ring all-reduce of ``parts`` (one tensor per device, equal shapes)
+    -> the sums, one per device (new tensors; the inputs are unchanged).
+
+    The reference's schedule: flatten, pad to a multiple of P, P - 1
+    reduce-scatter steps and P - 1 all-gather steps over 1/P-sized chunks,
+    crop."""
+    p = len(devices)
+    if len(parts) != p:
+        raise ValueError(f"{len(parts)} parts for {p} devices")
+    if p == 1:
+        return [parts[0]]
+    shape, n = parts[0].shape, parts[0].numel()
+    pad = (-n) % p
+    caller = _enter(devices)
+    flats = []
+    for part, dev in zip(parts, devices):
+        with dev.scope():
+            _used_on(part, dev)
+            flat = torch.empty(n + pad, dtype=part.dtype, device=part.device)
+            flat[:n].copy_(part.reshape(-1))
+            flat[n:].zero_()
+            flats.append(flat)
+    ring_allreduce_(flats, devices)
+    outs = [f[:n].view(shape) for f in flats]
+    _leave(devices, caller, outs)
+    return outs
+
+
+def bucket_leaves(sizes: list[int], num_buckets: int) -> list[list[int]]:
+    """The reference's greedy size balancing: leaves by size, largest
+    first (ties in leaf order), each into the lightest bucket so far."""
+    buckets: list[list[int]] = [[] for _ in range(num_buckets)]
+    totals = [0] * num_buckets
+    for i in sorted(range(len(sizes)), key=lambda i: -sizes[i]):
+        b = totals.index(min(totals))
+        buckets[b].append(i)
+        totals[b] += sizes[i]
+    return buckets
+
+
+def psum_in_chunks(trees: list, devices, num_buckets: int = 4) -> list:
+    """Reduce a gradient tree over ``devices`` (``trees[i]`` on
+    ``devices[i]``, equal structures) in ``num_buckets`` buckets
+    (:func:`bucket_leaves`), each bucket's leaves concatenated into one
+    flat ring -> one reduced tree per device, its leaves views of the
+    bucket buffers."""
+    p = len(devices)
+    if len(trees) != p:
+        raise ValueError(f"{len(trees)} trees for {p} devices")
+    if p == 1:
+        return list(trees)
+    leaves = [tree_leaves(t) for t in trees]
+    sizes = [leaf.numel() for leaf in leaves[0]]
+    out = [[None] * len(sizes) for _ in trees]
+    caller = _enter(devices)
+    for bucket in bucket_leaves(sizes, num_buckets):
+        if not bucket:
+            continue
+        pad = (-sum(sizes[i] for i in bucket)) % p
+        flats = []
+        for ls, dev in zip(leaves, devices):
+            with dev.scope():
+                for i in bucket:
+                    _used_on(ls[i], dev)
+                tail = [torch.zeros(pad, dtype=ls[bucket[0]].dtype, device=ls[bucket[0]].device)] if pad else []
+                flats.append(torch.cat([ls[i].reshape(-1) for i in bucket] + tail))
+        ring_allreduce_(flats, devices)
+        for k, flat in enumerate(flats):
+            offset = 0
+            for i in bucket:
+                leaf = leaves[k][i]
+                out[k][i] = flat[offset:offset + sizes[i]].view(leaf.shape).to(leaf.dtype)
+                offset += sizes[i]
+    _leave(devices, caller, [t for o in out for t in o])
+    return [tree_unflatten(tree, o) for tree, o in zip(trees, out)]
+
+
+# ---------------------------------------------------------------- autograd
+def copy_leaves(leaves: list, devices) -> list:
+    """One copy of each of ``leaves`` per device, made on that device's
+    stream -> a list of copies per device."""
+    caller = _enter(devices)
+    outs = []
+    for dev in devices:
+        with dev.scope():
+            mine = []
+            for x in leaves:
+                _used_on(x, dev)
+                mine.append(torch.empty_like(x).copy_(x))
+            outs.append(mine)
+    _leave(devices, caller, [t for mine in outs for t in mine])
+    return outs
+
+
+def _copy_to(x: torch.Tensor, devices) -> list:
+    """One copy of ``x`` per device, each made on that device's stream."""
+    return [mine[0] for mine in copy_leaves([x], devices)]
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.devices = devices
+        return tuple(_copy_to(x, devices))
+
+    @staticmethod
+    def backward(ctx, *dys):
+        ref = next(d for d in dys if d is not None)
+        dys = [torch.zeros_like(ref) if d is None else d for d in dys]
+        return None, ring_allreduce(dys, ctx.devices)[0]
+
+
+class _RingSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.devices = devices
+        return ring_allreduce(list(parts), devices)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (None, *_copy_to(dy.contiguous(), ctx.devices))
+
+
+def broadcast(x: torch.Tensor, devices) -> list:
+    """``x`` copied to each of ``devices``; under autograd the copies'
+    gradients are summed back over the devices with the ring."""
+    return list(_Broadcast.apply(tuple(devices), x))
+
+
+def ring_sum(parts: list, devices) -> torch.Tensor:
+    """The ring's sum of ``parts`` (``parts[i]`` on ``devices[i]``), the
+    first device's copy; under autograd its gradient is broadcast back to
+    every part."""
+    return _RingSum.apply(tuple(devices), *parts)

@@ -1,22 +1,253 @@
-"""The serving half of the reference's sharding rules: a replica group's
-batch split across its logical devices.
+"""Sharding rules of the port: the reference's logical-axis rules and
+parameter specs (the training mesh), and a replica group's batch split
+(the serving mesh).
 
-The runtime's sharded mode (``MeshConfig.sharded``) gives a replica group
-more than one device.  Its program runs one member program per device, on
-that device's stream, over an equal contiguous part of the batch's leading
-dim, and joins the rows in order.  The logical-axis rules and
-``param_pspecs`` belong to the training mesh and are not ported yet.
+Training: model code names activations by *logical* axes ("batch",
+"seq", "heads", ...); :func:`use_rules` installs a mapping from logical
+names to mesh axes.  :func:`shard` is the identity, as the reference's is
+outside a mesh and as GSPMD's constraint is in value.  Parameter specs
+come from leaf paths by rule (:func:`param_pspecs`, the reference's
+``_PARAM_RULES``): each parameter of the port's
+:class:`~repro_torch.models.transformer.TransformerLM` is matched by its
+path in the reference's pytree, and a layer's parameter counts the
+leading layer axis its reference leaf is stacked under.  :class:`P` is
+``PartitionSpec``'s counterpart.  The calling thread's current mesh
+(``with mesh:``, ``launch/mesh.py``) and the training mesh's data shard
+being computed (:func:`expert_shard`) are kept here with the rules, where
+MoE's expert-parallel branch reads them.
+
+Serving: the runtime's sharded mode (``MeshConfig.sharded``) gives a
+replica group more than one device.  Its program runs one member program
+per device, on that device's stream, over an equal contiguous part of the
+batch's leading dim, and joins the rows in order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import re
+import threading
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.device import LogicalDevice
+
+_ctx = threading.local()
+
+
+class P(tuple):
+    """``PartitionSpec``'s counterpart: one entry per dimension, each a
+    mesh-axis name, a tuple of names (the dim split over their product) or
+    None (not split); equal as tuples."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P({', '.join(map(repr, self))})"
+
+
+# Logical-axis defaults for the production meshes.
+SINGLE_POD_RULES: dict[str, Any] = {
+    "batch": "data",
+    "seq": None,
+    "seq_shard": "data",  # sequence sharding for small-batch decode (SP)
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_cap": None,
+}
+MULTI_POD_RULES = dict(SINGLE_POD_RULES)
+MULTI_POD_RULES["batch"] = ("pod", "data")
+MULTI_POD_RULES["seq_shard"] = ("pod", "data")
+
+
+def set_rules(rules: dict[str, Any] | None) -> None:
+    _ctx.rules = rules
+
+
+def get_rules() -> dict[str, Any] | None:
+    return getattr(_ctx, "rules", None)
+
+
+class use_rules:
+    """Context manager installing logical->mesh axis rules (per thread)."""
+
+    def __init__(self, rules: dict[str, Any] | None):
+        self.rules = rules
+
+    def __enter__(self):
+        self.prev = get_rules()
+        set_rules(self.rules)
+        return self
+
+    def __exit__(self, *exc):
+        set_rules(self.prev)
+
+
+def logical_to_pspec(names: tuple[str | None, ...]) -> P:
+    rules = get_rules()
+    if rules is None:
+        return P()
+    return P(*[rules.get(n) if n is not None else None for n in names])
+
+
+def shard(x, *names: str | None):
+    """Annotate ``x`` with logical axis names: the identity (the port
+    places data explicitly; a constraint changes no value)."""
+    return x
+
+
+# ------------------------------------------------- the current mesh and shard
+def push_mesh(mesh) -> None:
+    """Make ``mesh`` the calling thread's current mesh (``with mesh:``)."""
+    _ctx.__dict__.setdefault("meshes", []).append(mesh)
+
+
+def pop_mesh() -> None:
+    _ctx.meshes.pop()
+
+
+def current_mesh():
+    """The calling thread's current mesh (innermost ``with mesh:``), or
+    None."""
+    meshes = getattr(_ctx, "meshes", None)
+    return meshes[-1] if meshes else None
+
+
+def data_axes_and_size(mesh, rules=None) -> tuple:
+    """(the rules' batch axes — a name, or a tuple of names — and the
+    product of their sizes on ``mesh``); ``rules`` default: the current
+    ones."""
+    rules = (rules if rules is not None else get_rules()) or {}
+    data_axes = rules.get("batch", "data")
+    if isinstance(data_axes, (tuple, list)):
+        size = 1
+        for a in data_axes:
+            size *= mesh.shape.get(a, 1)
+        return tuple(data_axes), size
+    return data_axes, mesh.shape.get(data_axes, 1)
+
+
+@contextlib.contextmanager
+def expert_shard(groups: dict | None):
+    """For the block, MoE layers compute one data shard of the training
+    mesh's batch: ``groups`` maps each of the shard's MoE modules to its
+    model devices' (device, router, experts), in model order."""
+    prev = current_expert_shard()
+    _ctx.expert_groups = groups
+    try:
+        yield
+    finally:
+        _ctx.expert_groups = prev
+
+
+def current_expert_shard() -> dict | None:
+    """The groups of the :func:`expert_shard` block being run, or None."""
+    return getattr(_ctx, "expert_groups", None)
+
+
+def remat_kwargs() -> dict:
+    """``torch.utils.checkpoint`` keywords that recompute a layer under the
+    rules, mesh and expert shard current at its forward (the backward may
+    recompute on another thread, the autograd engine's); none when none is
+    set."""
+    rules, mesh, groups = get_rules(), current_mesh(), current_expert_shard()
+    if rules is None and mesh is None and groups is None:
+        return {}
+
+    @contextlib.contextmanager
+    def recompute():
+        with use_rules(rules), mesh or contextlib.nullcontext(), expert_shard(groups):
+            yield
+
+    return {"context_fn": lambda: (contextlib.nullcontext(), recompute())}
+
+
+# ------------------------------------------------------------------ params
+
+# Path-pattern -> logical names per dimension.  First match wins.  Patterns
+# are matched against "/".join(path keys) of the reference's pytree.
+_PARAM_RULES: list[tuple[str, tuple[str | None, ...]]] = [
+    (r"embed", ("vocab", None)),
+    (r"lm_head", (None, "vocab")),
+    (r"(wq_b|wq)$", (None, "heads")),
+    (r"(wk|wv)$", (None, "kv_heads")),
+    (r"wo$", ("heads", None)),
+    (r"wkv_b$", (None, "heads")),
+    (r"(wq_a|wkv_a)$", (None, None)),
+    # EP and TP share the "model" mesh axis: experts shard on it, so the
+    # per-expert FFN dims must stay unsharded (pure expert parallelism).
+    (r"experts/.*(w_gate|w_up)$", ("experts", None, None)),
+    (r"experts/.*w_down$", ("experts", None, None)),
+    (r"(w_gate|w_up)$", (None, "mlp")),
+    (r"w_down$", ("mlp", None)),
+    (r"router$", (None, "experts")),
+    (r"(conv_w|conv_kernel)", (None, None, None)),
+    # SSM / xLSTM projections
+    (r"(in_proj|up_proj|o_gate|w_in|w_rec)$", (None, "mlp")),
+    (r"(out_proj|down_proj)$", ("mlp", None)),
+]
+
+
+def _path_str(path) -> str:
+    """A leaf path (its keys in the reference's pytree) as "a/b/c"."""
+    return "/".join(str(k) for k in path)
+
+
+def spec_for_leaf(name: str, leaf) -> P:
+    """PartitionSpec of the port's parameter ``name`` by path rules, in the
+    reference's layout: a layer's parameter is a slice of a leaf stacked
+    under a leading layer axis, so its rule is left-padded with None to
+    that leaf's rank (``transformer.jax_ndim``)."""
+    from repro_torch.models.transformer import _jax_path, jax_ndim
+
+    rules = get_rules() or SINGLE_POD_RULES
+    ps = _path_str(_jax_path(name)[0])
+    for pat, names in _PARAM_RULES:
+        if re.search(pat, ps):
+            axes = [rules.get(n) if n is not None else None for n in names]
+            pad = jax_ndim(name, leaf) - len(axes)
+            if pad < 0:  # rule arity exceeds leaf ndim: replicate
+                return P()
+            return P(*([None] * pad + axes))
+    return P()  # norms, biases, scalars: replicated
+
+
+def param_pspecs(model) -> dict:
+    """The specs of ``model``'s parameters (a ``TransformerLM``) as the
+    reference's pytree: nested dicts keyed as ``init_lm``'s, one spec per
+    leaf (a layer group's one, for its stacked leaf)."""
+    from repro_torch.models.transformer import _jax_path
+
+    tree: dict = {}
+    for name, w in model.named_parameters():
+        path = _jax_path(name)[0]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = spec_for_leaf(name, w)
+    return tree
+
+
+def spec_at(tree: dict, name: str):
+    """The entry of a reference-layout tree (specs, shapes) for the port's
+    parameter ``name``."""
+    from repro_torch.models.transformer import _jax_path
+
+    node = tree
+    for part in _jax_path(name)[0]:
+        node = node[part]
+    return node
+
+
+# ----------------------------------------------------------------- serving
 
 
 def serving_mesh(devices) -> tuple[LogicalDevice, ...]:

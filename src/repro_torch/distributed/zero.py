@@ -1,0 +1,226 @@
+"""ZeRO-1 optimizer-state sharding: the port of ``repro.distributed.zero``.
+
+Adam's moments double the f32 parameter footprint.  ZeRO-1 shards them
+over the DATA axes: a moment's spec is its parameter's with the first
+still-unsharded, data-divisible dimension given to the data axes.  The
+training mesh (``make_train_step(grad_pspecs=...)``) keeps on each device
+only its slice of ``m`` and ``v`` on that dimension, updates its slice of
+each parameter, and all-gathers the updated slices into every copy.
+
+Specs are over the reference's layout (each layer group stacked under a
+leading layer axis), so a stacked leaf's first free dimension may be the
+layer axis: a device then owns whole layers of it.
+"""
+
+from __future__ import annotations
+
+from repro_torch.distributed.sharding import P, data_axes_and_size
+
+
+def zero_spec_for(spec: P, shape: tuple[int, ...], data_axes, data_size: int) -> P:
+    """Extend a param spec with data-axis sharding on one free dim."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (axis, dim) in enumerate(zip(parts, shape)):
+        if axis is None and dim % data_size == 0 and dim >= data_size:
+            parts[i] = data_axes
+            return P(*parts)
+    return P(*parts)  # nothing divisible: stay replicated
+
+
+def _shapes(params) -> dict:
+    """A reference-layout tree of leaf shapes: ``params`` itself (leaves
+    with ``.shape``), or a ``TransformerLM``'s parameters stacked by layer
+    group (shapes only: ``meta`` tensors)."""
+    if isinstance(params, dict):
+        return params
+    import torch
+
+    from repro_torch.models.transformer import stack_jax_layout
+
+    return stack_jax_layout((name, torch.empty(w.shape, device="meta")) for name, w in params.named_parameters())
+
+
+def zero_pspecs(params, param_specs: dict, mesh) -> dict:
+    """Tree of optimizer-moment specs for ``params`` (a ``TransformerLM``
+    or a reference-layout tree), matching ``param_specs``
+    (``sharding.param_pspecs``), over the current rules' batch axes."""
+    data_axes, size = data_axes_and_size(mesh)
+
+    def one(shapes, specs):
+        if isinstance(specs, dict):
+            return {key: one(shapes[key], specs[key]) for key in specs}
+        return zero_spec_for(specs, tuple(shapes.shape), data_axes, size)
+
+    return one(_shapes(params), param_specs)
+
+
+# --------------------------------------------------------- state on a mesh
+def take(t, sl):
+    """``t``'s part ``sl``: (dim, start, stop), or the whole of ``t`` for
+    a dim of None."""
+    dim, start, stop = sl
+    return t if dim is None else t.narrow(dim, start, stop - start)
+
+
+WHOLE = (None, 0, 0)
+
+
+class Layout:
+    """Where a ``TransformerLM``'s parameters and AdamW moments live on
+    ``mesh`` under ``specs`` (a reference-layout tree of moment specs,
+    ``zero_pspecs``; they carry the parameter specs' "model" entries).
+
+    Each device holds a copy of every parameter, but an expert stack's
+    experts split over "model" (EP, the ``experts`` rule); every other
+    "model" entry of a spec (the dense tensor-parallel rules) is
+    replicated.  Each device holds and updates its ZeRO slice of ``m``
+    and ``v``: on the spec's data dimension, the device's part along the
+    data axes (for a layer group's leading layer axis, whole layers)."""
+
+    def __init__(self, model, mesh, specs: dict, rules=None):
+        from repro_torch.distributed.sharding import spec_at
+        from repro_torch.models.transformer import _jax_path
+
+        self.mesh = mesh
+        self.data_axes, self.data_size = data_axes_and_size(mesh, rules)
+        axes = self.data_axes if isinstance(self.data_axes, tuple) else (self.data_axes,)
+        self.data_axis_names = tuple(a for a in axes if a in mesh.shape)
+        self.tp = mesh.shape.get("model", 1)
+        self.data_index = [mesh.index(pos, self.data_axis_names) for pos in range(mesh.size)]
+        self.model_index = [int(mesh.coords(pos).get("model", 0)) for pos in range(mesh.size)]
+        named = list(model.named_parameters())
+        n_layers: dict = {}
+        for name, _ in named:
+            path = _jax_path(name)[0]
+            n_layers[path] = n_layers.get(path, 0) + 1
+        self.names = [name for name, _ in named]
+        self.model_dim, self.zero_dim, self.layer = {}, {}, {}
+        for name, _ in named:
+            path, index = _jax_path(name)
+            stacked = int(index is not None)
+            spec = tuple(spec_at(specs, name))
+            md = next((j for j, a in enumerate(spec) if a == "model"), None)
+            self.model_dim[name] = md - stacked if md is not None and "experts" in path and self.tp > 1 else None
+            zd = next((j for j, a in enumerate(spec) if a == self.data_axes), None)
+            self.zero_dim[name] = None if zd is None or self.data_size == 1 else zd - stacked  # -1: layers
+            self.layer[name] = (index, n_layers[path]) if stacked else None
+
+    def param_slice(self, name: str, pos: int, full_shape) -> tuple:
+        """The part of the full parameter the device at ``pos`` holds."""
+        md = self.model_dim[name]
+        if md is None:
+            return WHOLE
+        n = full_shape[md] // self.tp
+        m = self.model_index[pos]
+        return (md, m * n, (m + 1) * n)
+
+    def moment_slice(self, name: str, pos: int, local_shape) -> tuple | None:
+        """The part of the device's parameter whose moments it keeps and
+        updates (None: no part of it)."""
+        zd, ds, dd = self.zero_dim[name], self.data_size, self.data_index[pos]
+        if zd is None:
+            return WHOLE
+        if zd == -1:
+            index, n_layers = self.layer[name]
+            return WHOLE if index // (n_layers // ds) == dd else None
+        n = local_shape[zd] // ds
+        return (zd, dd * n, (dd + 1) * n)
+
+    def column(self, pos: int) -> list[int]:
+        """The positions that hold the same part of every parameter as
+        ``pos`` (its model index), in data order: an all-gather's group."""
+        return sorted((q for q in range(self.mesh.size) if self.model_index[q] == self.model_index[pos]),
+                      key=lambda q: self.data_index[q])
+
+
+def place_train_state(state: dict, mesh, specs: dict) -> dict:
+    """A single-device training state (``train_loop.init_train_state``'s)
+    placed on ``mesh`` under ``specs`` (``zero_pspecs``; the counterpart of
+    ``jax.device_put(state, named(mesh, specs))``): per device, in
+    ``mesh.flat`` order, its copy of the parameters (a ``TransformerLM``
+    with its experts), its ``m``/``v`` slices ({name: tensor}, only the
+    parts it keeps), ``count`` and ``step``.  Each device's tensors are made
+    on its stream; the caller's stream waits for them.  The data axes are
+    the current rules'."""
+    import torch
+    from torch import nn
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.transformer import TransformerLM
+
+    src = state["params"]
+    layout = Layout(src, mesh, specs)
+    devices = mesh.flat
+    caller = C._enter(devices)
+    params, ms, vs, counts, steps = [], [], [], [], []
+    for pos, dev in enumerate(devices):
+        with dev.scope(), torch.no_grad():
+            copy = TransformerLM(src.cfg, "meta", torch.float32)
+            m, v = {}, {}
+            for name, w in src.named_parameters():
+                part = take(w.detach(), layout.param_slice(name, pos, w.shape))
+                C._used_on(w, dev)
+                mine = torch.empty(part.shape, dtype=w.dtype, device=dev.device)
+                mine.copy_(part)
+                owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+                setattr(copy.get_submodule(owner), leaf, nn.Parameter(mine, requires_grad=w.requires_grad))
+                sl = layout.moment_slice(name, pos, mine.shape)
+                if sl is not None:
+                    for key, out in (("m", m), ("v", v)):
+                        full = state["opt"][key][name]
+                        C._used_on(full, dev)
+                        out[name] = take(take(full, layout.param_slice(name, pos, w.shape)), sl).clone()
+            params.append(copy)
+            ms.append(m)
+            vs.append(v)
+            counts.append(state["opt"]["count"].clone())
+            steps.append(state["step"].clone())
+    C._leave(devices, caller, [])
+    return {"params": params, "opt": {"m": ms, "v": vs, "count": counts}, "step": steps}
+
+
+def gather_train_state(placed: dict, mesh, specs: dict) -> dict:
+    """The inverse of :func:`place_train_state`: one state on the first
+    device's torch device, its experts joined over "model" and its moments
+    over the data axes; ``count`` and ``step`` the first device's."""
+    import torch
+    from torch import nn
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.transformer import TransformerLM
+
+    copies = placed["params"]
+    layout = Layout(copies[0], mesh, specs)
+    devices = mesh.flat
+    dev = devices[0].device
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    C._leave(devices, caller, [])  # the caller's stream reads after every device's writes
+    named = [dict(c.named_parameters()) for c in copies]
+    model = TransformerLM(copies[0].cfg, "meta", torch.float32)
+    out = {"m": {}, "v": {}}
+    with torch.no_grad():
+        for name, w in named[0].items():
+            full_shape = list(w.shape)
+            if layout.model_dim[name] is not None:
+                full_shape[layout.model_dim[name]] *= layout.tp
+            full = torch.empty(full_shape, dtype=w.dtype, device=dev)
+            moments = {key: torch.empty(full_shape, dtype=torch.float32, device=dev) for key in out}
+            for pos in range(mesh.size):
+                psl = layout.param_slice(name, pos, full_shape)
+                reads = [named[pos][name]]
+                take(full, psl).copy_(named[pos][name])
+                sl = layout.moment_slice(name, pos, named[pos][name].shape)
+                if sl is not None:
+                    for key in out:
+                        reads.append(placed["opt"][key][pos][name])
+                        take(take(moments[key], psl), sl).copy_(reads[-1])
+                if caller is not None:
+                    for t in reads:
+                        t.record_stream(caller)
+            owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+            setattr(model.get_submodule(owner), leaf, nn.Parameter(full, requires_grad=w.requires_grad))
+            for key in out:
+                out[key][name] = moments[key]
+    return {"params": model, "opt": {"m": out["m"], "v": out["v"],
+                                     "count": placed["opt"]["count"][0].to(dev)},
+            "step": placed["step"][0].to(dev)}

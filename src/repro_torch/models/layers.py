@@ -24,10 +24,15 @@ MLA's full-sequence attention is K3 at q/k width 192 and v width 128; its
 absorbed decode (``models/decode.py``) is plain torch, as the reference
 computes it in jnp.
 
-MoE is the reference's single-device dispatch (:func:`moe_apply`); its
-expert-parallel ``shard_map`` branch belongs to the mesh (ROADMAP item
-23).  :func:`moe_aux_loss` is the reference's load-balancing loss, which
-the reference defines and its train step does not call.  The dispatch makes no host sync,
+MoE (:func:`moe_apply`) is the reference's single-device dispatch, and
+under a current mesh with "model" and rules set, its expert-parallel
+branch, taken under exactly the reference's condition: each data shard's
+tokens are broadcast to the shard's model devices, each routes them to
+its own E/TP experts on its stream (``local_expert_range``), and the
+partial outputs are summed over "model" with the ring
+(``distributed/collectives.py``).  :func:`moe_aux_loss` is the
+reference's load-balancing loss, which the reference defines and its
+train step does not call.  The dispatch makes no host sync,
 so a decode step with MoE layers can be captured as one CUDA graph
 (``serving/engine.py``): no ``bincount``, ``nonzero``, boolean-mask
 indexing, ``repeat_interleave`` with tensor repeats or ``.item()``.
@@ -35,9 +40,13 @@ indexing, ``repeat_interleave`` with tensor repeats or ``.item()``.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as S
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 # --------------------------------------------------------------------- norms
@@ -249,35 +258,124 @@ def moe_route(xt: torch.Tensor, router: torch.Tensor, e: int, k: int, cap: int):
 
 
 def _moe_dispatch_compute(xt: torch.Tensor, router: torch.Tensor, experts, e: int, k: int, cap: int,
-                          act: str, dt: torch.dtype) -> torch.Tensor:
+                          act: str, dt: torch.dtype, local_expert_range=None) -> torch.Tensor:
     """Dispatch ``xt`` (T, D) into an (E·cap, D) buffer, run every expert's
     FFN as three batched products, and combine -> (T, D) in ``dt``.
 
-    The buffer has one row more, row E·cap, where every dropped assignment
-    writes (the reference's ``mode="drop"`` scatter); it is sliced off
-    before the products, so its value (written by colliding indices) is
-    never read."""
+    With ``local_expert_range=(lo, n_local)`` only experts lo..lo+n_local
+    run (``experts`` holds just those): an assignment is "mine" when it is
+    kept and its expert is in the range, fills row (expert - lo)·cap +
+    rank, and every other one points at row n_local·cap, as the
+    reference's out-of-range slot; the caller sums the partial outputs
+    over the expert groups.
+
+    The buffer has one row more, the out-of-range row, where every dropped
+    assignment writes (the reference's ``mode="drop"`` scatter); it is
+    sliced off before the products, so its value (written by colliding
+    indices) is never read, and the reference's zeroing of the rows that
+    are not mine changes nothing."""
     t, d = xt.shape
     flat_w, keep, slot = moe_route(xt, router, e, k, cap)
+    rows = e * cap
+    if local_expert_range:
+        lo, n_local = local_expert_range
+        rows = n_local * cap
+        local = slot - lo * cap
+        keep = keep & (local >= 0) & (local < rows)  # mine
+        slot = torch.where(keep, local, torch.full_like(local, rows))
     token_of = torch.arange(t * k, device=xt.device) // k
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=xt.device)
+    buf = torch.zeros((rows + 1, d), dtype=dt, device=xt.device)
     buf.index_copy_(0, slot, xt[token_of].to(dt))
-    buf = buf[: e * cap].view(e, cap, d)
+    buf = buf[:rows].view(rows // cap, cap, d)
     g = torch.bmm(buf, experts.w_gate.to(dt))
     u = torch.bmm(buf, experts.w_up.to(dt))
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    out_buf = torch.bmm(g * u, experts.w_down.to(dt)).view(e * cap, d)
+    out_buf = torch.bmm(g * u, experts.w_down.to(dt)).view(rows, d)
     zero = torch.zeros((), dtype=dt, device=xt.device)
-    gathered = torch.where(keep[:, None], out_buf[slot.clamp(max=e * cap - 1)], zero)
+    gathered = torch.where(keep[:, None], out_buf[slot.clamp(max=rows - 1)], zero)
     return (gathered * flat_w[:, None].to(dt)).view(t, k, d).sum(dim=1)
 
 
-def moe_apply(p, cfg, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Token-choice top-k MoE with per-expert capacity (Switch-style), the
-    reference's single-device path: every expert's FFN runs over its
-    ``cap`` buffer rows, and the shared experts (``n_shared · d_ff`` wide)
-    are one more MLP over every token."""
+def _expert_parallel(cfg, b: int, s: int):
+    """(mesh, its data axes, data size) when the reference would take its
+    expert-parallel branch for a (b, s) input — rules set, a current mesh
+    with "model", experts divisible over it, and at least 256 tokens a
+    data shard — else None.  Inside a training-mesh shard ``b`` is the
+    shard's rows; a shard of a data-split mesh that the reference would
+    route over the whole batch raises (its routing spans the shards)."""
+    rules, mesh = S.get_rules(), S.current_mesh()
+    in_shard = S.current_expert_shard() is not None
+    data_axes, data_size = S.data_axes_and_size(mesh, rules) if mesh is not None else ((), 1)
+    b_global = b * data_size if in_shard else b
+    use_ep = (
+        rules is not None
+        and mesh is not None
+        and "model" in mesh.shape
+        and cfg.num_experts % mesh.shape["model"] == 0
+        and b_global % data_size == 0
+        and b_global >= data_size
+        and (b_global // data_size) * s >= 256
+    )
+    if use_ep:
+        return mesh, data_axes, data_size
+    if in_shard and data_size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE routing over the whole batch of a data-split mesh (no expert-parallel branch: "
+            f"{b_global} x {s} tokens over {data_size} data shards) is not ported; the training mesh runs MoE "
+            "layers through the expert-parallel branch only")
+    return None
+
+
+def _moe_apply_ep(p, cfg, x: torch.Tensor, act: str, mesh, data_axes, data_size: int) -> torch.Tensor:
+    """The expert-parallel branch: per data shard, its tokens broadcast to
+    the shard's model devices, device m routing them to experts
+    m·E/TP .. (m+1)·E/TP - 1 on its stream, the partial outputs summed
+    with the ring; capacity per data shard's tokens, as the reference's.
+    Off a training shard ``x`` is the whole batch and each device uses a
+    slice of ``p``'s experts; in one, ``x`` is the shard's rows and each
+    device its own copy's."""
     b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    n_local = e // mesh.shape["model"]
+    xt = x.reshape(b * s, d)
+    groups = S.current_expert_shard()
+    if groups is not None:
+        t_local = b * s
+        shards = [(xt, groups[p])]
+    else:
+        t_local = (b // data_size) * s
+        sliced = [SimpleNamespace(**{name: getattr(p.experts, name)[m * n_local:(m + 1) * n_local]
+                                     for name in ("w_gate", "w_up", "w_down")})
+                  for m in range(mesh.shape["model"])]
+        shards = [(xt[i * t_local:(i + 1) * t_local], [(dev, p.router, sliced[m]) for m, dev in enumerate(devs)])
+                  for i, devs in enumerate(mesh.model_groups(data_axes))]
+    cap = moe_capacity(cfg, t_local)
+    ys = []
+    for x_shard, members in shards:
+        devices = [dev for dev, _, _ in members]
+        parts = []
+        for m, ((dev, router, experts), xm) in enumerate(zip(members, C.broadcast(x_shard, devices))):
+            with dev.scope():
+                parts.append(_moe_dispatch_compute(xm, router, experts, e, k, cap, act, x.dtype,
+                                                   local_expert_range=(m * n_local, n_local)))
+        ys.append(C.ring_sum(parts, devices))
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
+    if p.shared is not None:
+        y = y + mlp_apply(p.shared, xt, act)
+    return y.reshape(b, s, d)
+
+
+def moe_apply(p, cfg, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Token-choice top-k MoE with per-expert capacity (Switch-style).  Off
+    a mesh, the reference's single-device path: every expert's FFN runs
+    over its ``cap`` buffer rows, and the shared experts (``n_shared ·
+    d_ff`` wide) are one more MLP over every token; under a mesh, where
+    the reference takes it, the expert-parallel branch
+    (:func:`_moe_apply_ep`)."""
+    b, s, d = x.shape
+    ep = _expert_parallel(cfg, b, s)
+    if ep is not None:
+        return _moe_apply_ep(p, cfg, x, act, *ep)
     t = b * s
     xt = x.reshape(t, d)
     y = _moe_dispatch_compute(xt, p.router, p.experts, cfg.num_experts, cfg.experts_per_token,

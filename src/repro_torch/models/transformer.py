@@ -45,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -458,9 +459,11 @@ def _attn_full(p_attn, cfg: ModelConfig, x, positions, is_local, causal=True):
 
 
 def ffn(p: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """The block's FFN over h (..., D): its MoE, or its MLP."""
+    """The block's FFN over h (B, S, D), or (B, D) for a decode step: its
+    MoE, or its MLP."""
     if p.moe is not None:
-        return L.moe_apply(p.moe, cfg, h.reshape(-1, 1, h.shape[-1]), cfg.mlp_act).reshape(h.shape)
+        x = h if h.dim() == 3 else h.reshape(-1, 1, h.shape[-1])
+        return L.moe_apply(p.moe, cfg, x, cfg.mlp_act).reshape(h.shape)
     return L.mlp_apply(p.mlp, h, cfg.mlp_act)
 
 
@@ -535,7 +538,7 @@ def _run(fn, remat: bool, *args):
     activations recomputed in the backward, as the reference's
     ``jax.checkpoint`` around each scanned layer)."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **S.remat_kwargs())
     return fn(*args)
 
 

@@ -28,6 +28,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401  (this module's API too)
+
 # f32 bytes of the leaves one pass of the update takes at a time
 GROUP_BYTES = 512 * 2**20
 
@@ -40,25 +42,6 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-
-
-def tree_leaves(tree) -> list:
-    """The tensors of ``tree``: a dict's in sorted-key order, a list's or
-    tuple's in order, depth first."""
-    if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for node in tree for leaf in tree_leaves(node)]
-    return [tree]
-
-
-def tree_map(fn, tree):
-    """``tree``'s structure with ``fn`` applied to each leaf."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, tree[key]) for key in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, node) for node in tree)
-    return fn(tree)
 
 
 def adamw_init(params) -> dict:
@@ -107,19 +90,21 @@ def _groups(n_bytes: list[int]) -> list[list[int]]:
 
 
 @torch.no_grad()
-def adamw_update(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0, decay=None):
+def adamw_update(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0, decay=None, norm=None):
     """One AdamW step; ``lr_scale`` multiplies cfg.lr (the schedule's
     output); ``decay``, a tree of bools in ``params``' structure, says
-    which leaves weight decay applies to (default: ``ndim >= 2``).
-    Updates ``params``, ``state["m"]`` and ``state["v"]`` in place ->
-    (params, {"m", "v", "count": count + 1}, the grads' global norm before
-    the clip)."""
+    which leaves weight decay applies to (default: ``ndim >= 2``);
+    ``norm``, if given, is the global norm the clip uses (the training
+    mesh passes it: its device updates slices, the norm is the whole
+    gradient's).  Updates ``params``, ``state["m"]`` and ``state["v"]`` in
+    place -> (params, {"m", "v", "count": count + 1}, the grads' global
+    norm before the clip)."""
     flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
     flat_d = [p.ndim >= 2 for p in flat_p] if decay is None else tree_leaves(decay)
     flat_m, flat_v = tree_leaves(state["m"]), tree_leaves(state["v"])
     if not (len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v)):
         raise ValueError(f"{len(flat_p)} params, {len(flat_g)} grads, {len(flat_m)} m, {len(flat_v)} v")
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g) if norm is None else norm
     clip = _clip_scale(gnorm, cfg.grad_clip)
     count = state["count"] + 1
     count_f = count.float()

@@ -17,10 +17,15 @@ rematerialised in the backward as the reference's ``jax.checkpoint``
 does.  On the card attention is K3 forward and K3 backward
 (``kernels/flash_attention``) and Mamba's scan (hymba-1.5b) K6 forward
 and K6's backward (``kernels/selective_scan``); every model the port
-configures trains there.  ``grad_pspecs`` (the reference's ZeRO
-sharding constraints) has no meaning on one device and raises (the mesh
-is ROADMAP item 23).
-Multi-host training is not ported: one process, host 0 of 1.
+configures trains there.
+
+``make_train_step(grad_pspecs=...)`` under a current mesh
+(``launch/mesh.py``) is the training mesh: data-parallel over the
+rules' batch axes, MoE's experts split over "model" (expert parallel),
+ZeRO-1 moments (``distributed/zero.py``), the gradients reduced with the
+ring (``distributed/collectives.py``); its state is
+``zero.place_train_state``'s, one copy of the parameters per logical
+device.  Multi-host training is not ported: one process, host 0 of 1.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt_mod
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as S
+from repro_torch.distributed import zero
 from repro_torch.distributed.fault_tolerance import PreemptionHandler, StragglerMonitor
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -42,16 +50,21 @@ from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 
 log = logging.getLogger("repro_torch.train")
 
-def lm_loss(params: T.TransformerLM, cfg: ModelConfig, tokens, targets, loss_mask=None, **fwd_kw):
-    """Next-token cross-entropy over f32 logits, with a 1e-4 z-loss; mean
-    over tokens, or over ``loss_mask``'s weight.  The VLM's logits at its
-    vision tokens are cropped."""
+def token_losses(params: T.TransformerLM, cfg: ModelConfig, tokens, targets, **fwd_kw) -> torch.Tensor:
+    """Each token's next-token cross-entropy over f32 logits, with a 1e-4
+    z-loss (B, S).  The VLM's logits at its vision tokens are cropped."""
     logits = T.forward_train(params, cfg, tokens, **fwd_kw).float()
     if cfg.frontend == "vit_stub" and fwd_kw.get("vision_embeds") is not None:
         logits = logits[:, fwd_kw["vision_embeds"].shape[1]:]
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets[..., None])[..., 0] - logz
-    per_tok = -ll + 1e-4 * torch.square(logz)
+    return -ll + 1e-4 * torch.square(logz)
+
+
+def lm_loss(params: T.TransformerLM, cfg: ModelConfig, tokens, targets, loss_mask=None, **fwd_kw):
+    """:func:`token_losses`' mean over tokens, or over ``loss_mask``'s
+    weight."""
+    per_tok = token_losses(params, cfg, tokens, targets, **fwd_kw)
     if loss_mask is None:
         return per_tok.mean()
     return (per_tok * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
@@ -88,12 +101,18 @@ def make_train_step(
     microbatches in f32 accumulators, one microbatch at a time, as the
     reference's ``lax.scan``.  The state is updated in place (AdamW on the
     leaves, ``m`` and ``v``) and returned; metrics are 0-d tensors
-    (``loss``, ``grad_norm``) on the state's device, not read back."""
-    if grad_pspecs is not None:
-        raise NotImplementedError("grad_pspecs shards gradients over a mesh; the port trains on one device "
-                                  "(the mesh is ROADMAP item 23)")
-    loss_fn = loss_fn or lm_loss
+    (``loss``, ``grad_norm``) on the state's device, not read back.
+
+    ``grad_pspecs`` (``zero.zero_pspecs``' tree) makes it the training
+    mesh's step over the mesh current here, under the rules current here
+    (:func:`_mesh_train_step`)."""
     schedule = cosine_schedule(tcfg.warmup_steps, tcfg.total_steps)
+    if grad_pspecs is not None:
+        mesh = S.current_mesh()
+        if mesh is None:
+            raise ValueError("grad_pspecs needs a current mesh: make the step inside `with make_mesh(...):`")
+        return _mesh_train_step(cfg, tcfg, loss_fn, grad_pspecs, mesh, S.get_rules(), schedule)
+    loss_fn = loss_fn or lm_loss
 
     def compute_loss(params, batch):
         tokens = batch["tokens"]
@@ -130,6 +149,196 @@ def make_train_step(
         del grads
         state = {"params": params, "opt": new_opt, "step": step + 1}
         return state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def _split_rows(batch: dict, n: int) -> list[dict]:
+    """``batch``'s arrays cut into ``n`` equal contiguous parts of rows."""
+    parts = [{} for _ in range(n)]
+    for key, value in batch.items():
+        if value.shape[0] % n:
+            raise ValueError(f"{key}: {value.shape[0]} rows do not split over {n} data shards")
+        pieces = torch.chunk(value, n) if torch.is_tensor(value) else np.split(np.asarray(value), n)
+        for part, piece in zip(parts, pieces):
+            part[key] = piece
+    return parts
+
+
+def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, mesh, rules, schedule):
+    """The training mesh's step: ``train_step(state, batch) -> (state,
+    metrics)`` over ``zero.place_train_state``'s state.
+
+    The batch (each microbatch under ``grad_accum``) splits over the
+    rules' batch axes.  Each data shard's forward and backward run on its
+    lead device (model index 0), on that device's stream; an MoE layer's
+    expert-parallel branch runs the shard's experts on its model devices
+    (``sharding.expert_shard``).  Then, with the host never waiting:
+
+    * the gradients are summed with ``psum_in_chunks`` — an expert stack's
+      over the data devices of its model index, a router's (a part from
+      each model device) over the whole mesh, every other leaf's over the
+      shards' leads, which then copy it to their other model devices;
+    * the global norm and clip come from the reduced gradients (the same
+      bits on every device, each device's in ``metrics["grad_norms"]``;
+      an expert stack's squares summed over "model");
+    * each device runs AdamW (``optimizer.adamw_update``, the reference's
+      order of operations) on its ZeRO slice of each parameter, ``m`` and
+      ``v``;
+    * the updated slices are all-gathered into every copy.
+
+    The loss keeps the reference's denominators: with a ``loss_mask``,
+    sum(per_tok * mask) / max(sum(mask), 1) over the whole (micro)batch,
+    the mask sums reduced before the shards scale their sums; without one,
+    the mean, as the mean of the equal shards' means.  A custom
+    ``loss_fn`` is taken to be a mean over rows: each shard's is divided by
+    the number of shards."""
+    data_axes, data_size = S.data_axes_and_size(mesh, rules)
+    batch_axes = data_axes if isinstance(data_axes, tuple) else (data_axes,)
+    stray = [a for a, n in mesh.shape.items() if n > 1 and a not in batch_axes and a != "model"]
+    if stray:
+        raise ValueError(f"mesh axes {stray} are neither the rules' batch axes {batch_axes} nor 'model'")
+    devices = mesh.flat
+    pos_of = {id(dev): pos for pos, dev in enumerate(devices)}
+    shards = [[pos_of[id(dev)] for dev in group] for group in mesh.model_groups(data_axes)]
+    leads = [group[0] for group in shards]
+    accum = tcfg.grad_accum
+
+    def shard_loss(params, batch, denom):
+        tokens = batch["tokens"]
+        fwd_kw = {key: batch[key] for key in ("vision_embeds", "encoder_frames") if key in batch}
+        if loss_fn is not None:
+            return loss_fn(params, cfg, tokens[:, :-1], tokens[:, 1:], batch.get("loss_mask"), **fwd_kw) / data_size
+        per_tok = token_losses(params, cfg, tokens[:, :-1], tokens[:, 1:], **fwd_kw)
+        if denom is None:
+            return per_tok.mean() / data_size
+        return (per_tok * batch["loss_mask"]).sum() / torch.clamp(denom, min=1.0)
+
+    def train_step(state, batch):
+        copies = state["params"]
+        if len(copies) != mesh.size:
+            raise ValueError(f"a state of {len(copies)} copies on a mesh of {mesh.size} devices")
+        with mesh, S.use_rules(rules):
+            layout = zero.Layout(copies[0], mesh, grad_pspecs, rules)
+            named = [dict(c.named_parameters()) for c in copies]
+            names = layout.names
+            experts = [n for n in names if layout.model_dim[n] is not None]
+            dense = [n for n in names if layout.model_dim[n] is None]
+            # a router's gradient has a part from each model device; every
+            # other dense leaf's comes from the shard's lead alone
+            routers = [n for n in dense if n.endswith("moe.router")] if len(shards[0]) > 1 else []
+            replicated = [n for n in dense if n not in routers]
+            caller = C._enter(devices)
+            mb_batches = [batch] if accum == 1 else [{k: v[i] for k, v in batch.items()} for i in range(accum)]
+            moe_names = [name for name, mod in copies[0].named_modules() if isinstance(mod, T.MoE)]
+            ep_groups = [{copies[group[0]].get_submodule(mn): [
+                (devices[q], copies[q].get_submodule(mn).router, copies[q].get_submodule(mn).experts)
+                for q in group] for mn in moe_names} for group in shards]
+            grads: list[dict] = [{} for _ in devices]
+            losses = {}
+            for mb in mb_batches:
+                parts = _split_rows(mb, data_size)
+                tensors = {}
+                for i, lead in enumerate(leads):
+                    with devices[lead].scope():
+                        tensors[i] = _batch_tensors(parts[i], devices[lead].device)
+                denoms = None
+                if "loss_mask" in mb and loss_fn is None:
+                    sums = []
+                    for i, lead in enumerate(leads):
+                        with devices[lead].scope():
+                            sums.append(tensors[i]["loss_mask"].sum())
+                    denoms = C.ring_allreduce(sums, [devices[q] for q in leads])
+                for i, group in enumerate(shards):
+                    lead = group[0]
+                    with devices[lead].scope(), S.expert_shard(ep_groups[i]):
+                        leaves = [(q, n, named[q][n]) for q in group for n in (names if q == lead else experts + routers)]
+                        loss = shard_loss(copies[lead], tensors[i], None if denoms is None else denoms[i])
+                        got = torch.autograd.grad(loss, [w for _, _, w in leaves], allow_unused=True)
+                        part = loss.detach() if accum == 1 else loss.detach() / accum
+                        losses[i] = part if i not in losses else losses[i] + part
+                        # on the lead's stream, where autograd leaves every gradient ready
+                        for (q, n, w), g in zip(leaves, got):
+                            if g is None:
+                                continue
+                            if accum > 1:
+                                if n not in grads[q]:
+                                    grads[q][n] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                                grads[q][n].add_(g / accum)
+                            else:
+                                grads[q][n] = g
+                        del got
+            C.barrier(devices)  # every backward's gradients, on whichever stream made them
+            for q, dev in enumerate(devices):  # zeros where a device computed none of a leaf it reduces
+                with dev.scope():
+                    for n in (names if q in leads else experts + routers):
+                        if n not in grads[q]:
+                            grads[q][n] = torch.zeros(named[q][n].shape, dtype=torch.float32, device=named[q][n].device)
+            reduced = [dict(g) for g in grads]
+            for group_names, groups in ((replicated, [leads]), (routers, [list(range(len(devices)))]),
+                                        (experts, [layout.column(q) for q in shards[0]])):
+                if not group_names:
+                    continue
+                for group in groups:
+                    trees = C.psum_in_chunks([[grads[q][n] for n in group_names] for q in group],
+                                             [devices[q] for q in group])
+                    for q, tree in zip(group, trees):
+                        reduced[q].update(zip(group_names, tree))
+            for group in shards:  # a lead's reduced leaves to its shard's other model devices
+                if len(group) > 1 and replicated:
+                    got = C.copy_leaves([reduced[group[0]][n] for n in replicated], [devices[q] for q in group[1:]])
+                    for q, mine in zip(group[1:], got):
+                        reduced[q].update(zip(replicated, mine))
+            del grads
+            loss_total = C.ring_allreduce([losses[i] for i in range(len(leads))], [devices[q] for q in leads])[0]
+            # the global norm: every leaf's squares; an expert stack's summed over "model"
+            norms, sq_experts = [], []
+            for q, dev in enumerate(devices):
+                with dev.scope():
+                    sq = torch.stack(torch._foreach_norm([reduced[q][n] for n in dense])).square().sum()
+                    norms.append(sq)
+                    if experts:
+                        sq_experts.append(torch.stack(torch._foreach_norm([reduced[q][n] for n in experts])).square().sum())
+            if experts:
+                for group in shards:
+                    total = C.ring_allreduce([sq_experts[q] for q in group], [devices[q] for q in group])
+                    for q, t in zip(group, total):
+                        with devices[q].scope():
+                            norms[q] = norms[q] + t
+            new_counts, new_steps = [], []
+            for q, dev in enumerate(devices):
+                with dev.scope():
+                    gnorm = norms[q].sqrt()
+                    norms[q] = gnorm
+                    own = {n: layout.moment_slice(n, q, named[q][n].shape) for n in state["opt"]["m"][q]}
+                    p_sl = {n: zero.take(named[q][n], sl) for n, sl in own.items()}
+                    g_sl = {n: zero.take(reduced[q][n], sl) for n, sl in own.items()}
+                    decay = {n: T.jax_ndim(n, named[q][n]) >= 2 for n in own}
+                    _, new_opt, _ = adamw_update(
+                        g_sl, {"m": state["opt"]["m"][q], "v": state["opt"]["v"][q], "count": state["opt"]["count"][q]},
+                        p_sl, tcfg.optimizer, schedule(state["step"][q]), decay=decay, norm=gnorm)
+                    new_counts.append(new_opt["count"])
+                    new_steps.append(state["step"][q] + 1)
+            del reduced
+            # the all-gather: each device's updated slices into every copy of its column
+            C.barrier(devices)
+            with torch.no_grad():
+                for q, dev in enumerate(devices):
+                    with dev.scope():
+                        for s in layout.column(q):
+                            if s == q:
+                                continue
+                            for n in names:
+                                if layout.zero_dim[n] is None:
+                                    continue
+                                sl = layout.moment_slice(n, s, named[s][n].shape)
+                                if sl is not None:
+                                    zero.take(named[q][n], sl).copy_(zero.take(named[s][n], sl))
+            C.barrier(devices)
+            C._leave(devices, caller, [loss_total, *norms])
+        state = {"params": copies, "opt": {"m": state["opt"]["m"], "v": state["opt"]["v"], "count": new_counts},
+                 "step": new_steps}
+        return state, {"loss": loss_total, "grad_norm": norms[0], "grad_norms": norms}
 
     return train_step
 
