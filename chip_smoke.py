@@ -111,7 +111,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    factor 2, K1 at point 4 and K5, into phase 3's ResNet-50.  Each checks the
    plan, the launches per dispatch, the outputs, and the logits against
    the CPU run of the same program;
-7. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
+7. the dry run against the card (``repro_torch.launch.dryrun``): inside
+   phase 4, Gemma3-1B's prefill of 4 x 2048 and a decode step at phase 4's
+   batch and cache; inside phase 4E, one Gemma3-1B and one hymba-1.5b
+   training step at 4 x 1024.  Each step's record, traced on the host (meta
+   tensors, nothing on the card), is held against one call of the step on
+   the card: argument bytes against the bytes placed (2%), the peak
+   estimate against the step's peak (10%; both as the allocator requested
+   them, its rounded memory_allocated figures printed beside), the aten
+   dot FLOPs against the profiler's (1%), the kernel launches exactly, and
+   each roofline term at most 1.05x the step's device busy time; and the
+   CLI on one cell of the single-pod mesh, on the host beside phase 2;
+8. the kernels' JSON line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX and nothing of the reference ``repro`` package.
 """
@@ -133,21 +144,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 CUDA-core
-# FLOP/s — the denominators of every bound_ms below
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores
-PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores
-# exp2 results per second on the SFUs: 132 SMs x 16 a clock (CUDA C
-# programming guide, arithmetic instruction throughput, compute
-# capability 9.0) x the 1.98 GHz boost clock of the H100 SXM
-PEAK_SFU_OPS = 132 * 16 * 1.98e9
-# steps per saved state that K6's backward bound reads: the function needs
-# the states only as a checkpoint, so a kernel that saves them more often
-# pays for the extra bytes itself and the bound does not move with it
-BOUND_STATE_STRIDE = 32
+# the H100 SXM's published peaks (the denominators of every bound below) and
+# the LM kernels' cost functions live in the package: kernels/cost.py and
+# each kernel's ops.py (imported where used: the A/B tools import this file
+# beside another checkout's package)
 
 SEED = 0
 BATCH = 64
@@ -317,9 +317,12 @@ def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flops
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, flops: float, dtype: str = "float32") -> tuple[float, str]:
+    """The vision kernels' bounds: ``flops`` at ``dtype``'s peak against
+    ``nbytes`` at the HBM's rate."""
+    from repro_torch.kernels.cost import KernelCost
+
+    return KernelCost({dtype: flops}, 0.0, nbytes).bound_ms()
 
 
 # ------------------------------------------------------------ phase 1: build
@@ -540,7 +543,7 @@ def time_idct(dev, grid, point: int, flush) -> dict:
     # each row's first K int16 in, P f32 out, the two matrices' K rows; three
     # TF32 products per multiply-add (3xTF32)
     b_ms, b_by = bound_ms(rows * (k * 2 + p2 * 4) + 2 * k * p2 * 4, 3 * 2.0 * rows * k * p2,
-                          PEAK_TF32_FLOPS)
+                          "tf32")
     log(f"  idct per batch ({rows} int16 zigzag rows, point {point}, K {k}): kernel {kernel:.4f} ms, "
         f"plain {plain:.4f} ms, zz.to(float32) @ m_zz {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"{b_ms / kernel:.1%} of it; f32 natural rows: kernel {f32_kernel:.4f} ms, torch.matmul "
@@ -946,16 +949,14 @@ def time_flash_attention_mla(dev, flush) -> dict:
     pad = lambda x: F.pad(x, (0, 256 - x.shape[-1]))  # noqa: E731
     qp, kp, vp = pad(q), pad(k), pad(v)
     padded = median_ms(lambda: fa_ops.flash_attention_bshd(qp, kp, vp, scale=scale), flush)
-    pairs = attention_pairs(s, True, None) * b * h
-    flops = 2.0 * (dqk + dv) * pairs
-    nbytes = b * s * h * (2 * dqk + 2 * dv) * 2  # q, k, v, out once, bf16
-    layer_bound, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    cost = fa_ops.flash_attention_cost(b, s, s, h, h, dqk, dv, True, None, dt)
+    layer_bound, by = cost.bound_ms()
     log(f"  flash_attention MLA layer ({b}x{s}, {h} heads, q/k {dqk} v {dv}, causal, bf16): kernel "
         f"{kernel:.4f} ms ({layer_bound / kernel:.1%} of its {layer_bound:.4f} ms bound, {by}), plain "
         f"{plain:.4f} ms, SDPA is_causal {library:.4f} ms ({_sdpa_backend(qt, kt, vt, None, True)}); "
         f"yardstick: the (256, 256) instance on zero-padded copies {padded:.4f} ms")
     n = DEEPSEEK_LAYERS
-    b_ms, b_by = bound_ms(n * nbytes, n * flops, PEAK_BF16_FLOPS)
+    b_ms, b_by = (n * cost).bound_ms()
     return {
         "name": "flash_attention_mla",
         "route": "cuda",
@@ -1038,15 +1039,14 @@ def time_flash_attention_cross(dev, flush) -> dict:
     kernel = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v, causal=False), flush)
     plain = median_ms(lambda: fa_plain.flash_attention_bshd(q, k, v, causal=False), flush, iters=5, warmup=1)
     library = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), flush)
-    nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * 2  # q, out, k, v once, bf16
-    flops = 4.0 * d * sq * sk * b * h
-    layer_bound, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    cost = fa_ops.flash_attention_cost(b, sq, sk, h, h, d, d, False, None, dt)
+    layer_bound, by = cost.bound_ms()
     log(f"  flash_attention cross layer (whisper: {b}x{sq} rows over {sk} frames, {h} heads of {d}, "
         f"non-causal, bf16): kernel {kernel:.4f} ms ({layer_bound / kernel:.1%} of its {layer_bound:.4f} ms "
         f"bound, {by}), plain {plain:.4f} ms, SDPA no mask {library:.4f} ms "
         f"({_sdpa_backend(qt, kt, vt, None, False)})")
     n = 32  # decoder layers of whisper-large-v3
-    b_ms, b_by = bound_ms(n * nbytes, n * flops, PEAK_BF16_FLOPS)
+    b_ms, b_by = (n * cost).bound_ms()
     # K4 over the cross cache: one query token per sequence, all 1500 keys valid
     qd = _randn(rng, (b, h, d), dt, dev)
     kc, vc = (_randn(rng, (b, sk, h, d), dt, dev) for _ in range(2))
@@ -1055,8 +1055,7 @@ def time_flash_attention_cross(dev, flush) -> dict:
     k4_plain = median_ms(lambda: da_plain.decode_attention(qd, kc, vc, lens), flush)
     k4_lib = median_ms(lambda: F.scaled_dot_product_attention(qd[:, :, None], kc.transpose(1, 2),
                                                               vc.transpose(1, 2)), flush)
-    k4_bound, k4_by = bound_ms(h * b * sk * d * 2 * 2 + 2 * b * h * d * 2 + b * 4, 4.0 * h * d * b * sk,
-                               PEAK_BF16_FLOPS)
+    k4_bound, k4_by = da_ops.decode_attention_cost(b, sk, h, h, d, None, dt, dt, keys=b * sk).bound_ms()
     log(f"  decode_attention cross layer (whisper: {b} seqs over {sk} frames, {h} heads of {d}, bf16): "
         f"kernel {k4:.4f} ms ({k4_bound / k4:.1%} of its {k4_bound:.4f} ms bound, {k4_by}), plain "
         f"{k4_plain:.4f} ms, SDPA no mask {k4_lib:.4f} ms")
@@ -1071,14 +1070,6 @@ def time_flash_attention_cross(dev, flush) -> dict:
         "bound_by": b_by,
         "library_ms": n * library,
     }
-
-
-def attention_pairs(s: int, causal: bool, window: int | None) -> int:
-    """(query, key) pairs the mask lets through: what attention must compute."""
-    qpos = np.arange(s)
-    hi = qpos + 1 if causal else np.full(s, s)
-    lo = np.maximum(0, qpos - window + 1) if window is not None else np.zeros(s, np.int64)
-    return int((hi - lo).sum())
 
 
 def _sdpa_backend(q, k, v, mask, causal: bool) -> str:
@@ -1101,6 +1092,7 @@ def time_flash_attention(dev, flush) -> dict:
     flash backend)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.cost import KernelCost
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
 
@@ -1110,7 +1102,7 @@ def time_flash_attention(dev, flush) -> dict:
     # SDPA's (B, H, S, D) layout, made once outside the timed calls
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     pos = torch.arange(s, device=dev)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0)
+    totals, cost = dict(ms=0.0, plain_ms=0.0, library_ms=0.0), KernelCost()
     for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
         mask = pos[None, :] <= pos[:, None]
         if window is not None:
@@ -1132,9 +1124,8 @@ def time_flash_attention(dev, flush) -> dict:
         totals["ms"] += n_layers * kernel
         totals["plain_ms"] += n_layers * plain
         totals["library_ms"] += n_layers * library
-        totals["flops"] += n_layers * 4.0 * d * attention_pairs(s, True, window) * b * h
-    nbytes = (N_GLOBAL + N_LOCAL) * (2 * b * s * h * d + 2 * b * s * kvh * d) * 2
-    b_ms, b_by = bound_ms(nbytes, totals["flops"], PEAK_BF16_FLOPS)
+        cost = cost + n_layers * fa_ops.flash_attention_cost(b, s, s, h, kvh, d, d, True, window, dt)
+    b_ms, b_by = cost.bound_ms()
     log(f"  flash_attention per prefill ({N_GLOBAL} global + {N_LOCAL} local launches): "
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA (faster form) "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
@@ -1145,8 +1136,7 @@ def time_flash_attention(dev, flush) -> dict:
     olmoe = median_ms(lambda: fa_ops.flash_attention_bshd(q, k, v), flush)
     plain = median_ms(lambda: fa_plain.flash_attention_bshd(q, k, v), flush, iters=5, warmup=1)
     library = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush)
-    layer_bound, by = bound_ms(b * s * h * 4 * d * 2, 4.0 * d * attention_pairs(s, True, None) * b * h,
-                               PEAK_BF16_FLOPS)
+    layer_bound, by = fa_ops.flash_attention_cost(b, s, s, h, h, d, d, True, None, dt).bound_ms()
     log(f"  flash_attention OLMoE layer ({b}x{s}, {h} heads of {d}, causal, bf16): kernel "
         f"{olmoe:.4f} ms ({layer_bound / olmoe:.1%} of its {layer_bound:.4f} ms bound, {by}), plain "
         f"{plain:.4f} ms, SDPA is_causal {library:.4f} ms ({_sdpa_backend(qt, kt, vt, None, True)})")
@@ -1318,17 +1308,19 @@ def time_flash_attention_bwd(dev, flush) -> dict:
     backend that ran is logged).  Then DeepSeek-V2's MLA layer (4 x 1024,
     128 heads, q/k 192, v 128, causal), logged beside SDPA ``is_causal``:
     DeepSeek-V2 is not trained on the card, so it is not in the step."""
+    from repro_torch.kernels.cost import KernelCost
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
     rng = np.random.default_rng(SEED + 14)
     b, s, h, kvh, d, dt = TRAIN_B, TRAIN_S, 4, 1, 256, torch.bfloat16
     pos = torch.arange(s, device=dev)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0)
+    totals, cost = dict(ms=0.0, plain_ms=0.0, library_ms=0.0), KernelCost()
     for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
         q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, kvh, d, d, True, window, dt, dev)
         mask = None if window is None else (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
         kernel, plain, library, backend = _bwd_layer_ms(q, k, v, out, lse, do, window, flush, mask)
-        pairs = attention_pairs(s, True, window) * b * h
-        layer_bound, by = bound_ms(b * s * (4 * h + 4 * kvh) * d * 2 + b * h * s * 4, 10.0 * d * pairs,
-                                   PEAK_BF16_FLOPS)
+        layer = fa_ops.flash_attention_bwd_cost(b, s, s, h, kvh, d, d, True, window, dt)
+        layer_bound, by = layer.bound_ms()
         log(f"  flash_attention_bwd {'global' if window is None else f'local (window {window})'} layer "
             f"({b}x{s}, D {d}, bf16): kernel {kernel:.4f} ms ({layer_bound / kernel:.1%} of its "
             f"{layer_bound:.4f} ms bound, {by}), plain {plain:.4f} ms, SDPA backward {library:.4f} ms "
@@ -1336,25 +1328,20 @@ def time_flash_attention_bwd(dev, flush) -> dict:
         totals["ms"] += n_layers * kernel
         totals["plain_ms"] += n_layers * plain
         totals["library_ms"] += n_layers * library
-        totals["flops"] += n_layers * 10.0 * d * pairs
+        cost = cost + n_layers * layer
         del q, k, v, out, lse, do
-    nbytes = (N_GLOBAL + N_LOCAL) * (b * s * (4 * h + 4 * kvh) * d * 2 + b * h * s * 4)
-    b_ms, b_by = bound_ms(nbytes, totals["flops"], PEAK_BF16_FLOPS)
+    b_ms, b_by = cost.bound_ms()
     log(f"  flash_attention_bwd per step ({N_GLOBAL} global + {N_LOCAL} local launches): kernel "
         f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA backward {totals['library_ms']:.4f} "
         f"ms, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
     (dqk, dv), b, s, h = MLA_DIMS, MOE_PREFILL_B, MOE_PREFILL_S, MLA_HEADS
     q, k, v, out, lse, do = _bwd_inputs(rng, b, s, s, h, h, dqk, dv, True, None, dt, dev)
     kernel, plain, library, backend = _bwd_layer_ms(q, k, v, out, lse, do, None, flush)
-    pairs = attention_pairs(s, True, None) * b * h
-    mla_bound, by = bound_ms(b * s * h * (4 * dqk + 4 * dv) * 2 + b * h * s * 4,
-                             2.0 * (3 * dqk + 2 * dv) * pairs, PEAK_BF16_FLOPS)
+    mla_bound, by = fa_ops.flash_attention_bwd_cost(b, s, s, h, h, dqk, dv, True, None, dt).bound_ms()
     log(f"  flash_attention_bwd MLA layer ({b}x{s}, {h} heads, q/k {dqk} v {dv}, causal, bf16): kernel "
         f"{kernel:.4f} ms ({mla_bound / kernel:.1%} of its {mla_bound:.4f} ms bound, {by}), plain {plain:.4f} "
         f"ms, SDPA backward {library:.4f} ms ({backend})")
     del q, k, v, out, lse, do
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-
     fa_ops.flash_attention_bwd_bshd.launches = 0
     return {
         "name": "flash_attention_bwd",
@@ -1489,6 +1476,7 @@ def time_decode_attention(dev, flush) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cost import KernelCost
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import plain as da_plain
 
@@ -1502,7 +1490,7 @@ def time_decode_attention(dev, flush) -> dict:
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     pos = torch.arange(s, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    totals, cost = dict(ms=0.0, plain_ms=0.0, library_ms=0.0), KernelCost()
     for window, n_layers in ((None, N_GLOBAL), (GEMMA_WINDOW, N_LOCAL)):
         mask = pos[None, :] < lens[:, None]
         if window is not None:
@@ -1513,15 +1501,14 @@ def time_decode_attention(dev, flush) -> dict:
         library = median_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
         keys = np.minimum(lens_np, s) - (np.maximum(0, lens_np - window) if window else 0)
-        nbytes = kvh * keys.sum() * d * 2 * 2 + 2 * b * h * d * 2 + b * 4
-        flops = 4.0 * h * d * keys.sum()
-        layer_bound, _ = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        layer = da_ops.decode_attention_cost(b, s, h, kvh, d, window, dt, dt, keys=int(keys.sum()))
+        layer_bound, _ = layer.bound_ms()
         chunk, n_split = da_ops.split_plan(b * kvh, s, window, d, 2, n_sm)
         line = (f"  decode_attention {'global' if window is None else f'local (window {window})'} "
                 f"layer ({b} seqs, cache {s}, D {d}, bf16; {n_split} chunks of {chunk} keys x "
                 f"{b * kvh} = {n_split * b * kvh} blocks, one launch): kernel {kernel:.4f} ms, plain "
                 f"{plain:.4f} ms, SDPA {library:.4f} ms; bytes bound {layer_bound:.4f} ms, "
-                f"{layer_bound / kernel:.1%} of it, {nbytes / kernel / 1e9:.3f} TB/s")
+                f"{layer_bound / kernel:.1%} of it, {layer.bytes / kernel / 1e9:.3f} TB/s")
         if window is not None:
             lib = _build.load_library()
 
@@ -1536,9 +1523,8 @@ def time_decode_attention(dev, flush) -> dict:
         totals["ms"] += n_layers * kernel
         totals["plain_ms"] += n_layers * plain
         totals["library_ms"] += n_layers * library
-        totals["flops"] += n_layers * flops
-        totals["bytes"] += n_layers * nbytes
-    b_ms, b_by = bound_ms(totals["bytes"], totals["flops"], PEAK_BF16_FLOPS)
+        cost = cost + n_layers * layer
+    b_ms, b_by = cost.bound_ms()
     log(f"  decode_attention per decode step ({N_GLOBAL} global + {N_LOCAL} local launches): "
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -1550,8 +1536,7 @@ def time_decode_attention(dev, flush) -> dict:
     lens = torch.from_numpy(lens_np).to(dev)
     kernel = median_ms(lambda: da_ops.decode_attention_cache(q, kc, vc, lens), flush)
     keys = int(np.minimum(lens_np, s).sum())
-    layer_bound, _ = bound_ms(h * keys * d * 2 * 2 + 2 * b * h * d * 2 + b * 4, 4.0 * h * d * keys,
-                              PEAK_BF16_FLOPS)
+    layer_bound, _ = da_ops.decode_attention_cost(b, s, h, h, d, None, dt, dt, keys=keys).bound_ms()
     log(f"  decode_attention OLMoE layer ({b} seqs, cache {s}, {h} heads of {d}, bf16): kernel "
         f"{kernel:.4f} ms, bytes bound {layer_bound:.4f} ms")
     return {
@@ -1665,6 +1650,7 @@ def time_selective_scan(dev, flush) -> list:
     B x, the h FMA, h C).  No single PyTorch call computes this function.
     Returns the two rows: ``selective_scan`` (the prefill layer) and
     ``selective_scan_step``."""
+    from repro_torch.kernels.cost import PEAK_BYTES_S
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import plain as scan_plain
 
@@ -1676,13 +1662,9 @@ def time_selective_scan(dev, flush) -> list:
         args = _scan_args(t, with_h0, True)
         kernel = median_ms(lambda: scan_ops.selective_scan(*args), flush)
         plain = median_ms(lambda: scan_plain.selective_scan(*args), flush, iters=5, warmup=1)
-        elems, rows_, nbytes = b * s * d * n, b * s * d, 0
-        for x in (t["xc"], t["proj"], t["a_log"], t["dt_bias"], t["d_skip"]) + ((t["h0"],) if with_h0 else ()):
-            nbytes += x.numel() * x.element_size()
-        nbytes += 2 * rows_ * 2 + b * d * n * 4  # z read, out written (bf16); h_last (f32)
-        sfu = elems + 2 * rows_ + 2 * b * s
-        t_bytes, t_sfu, t_f32 = nbytes / PEAK_BYTES_S, sfu / PEAK_SFU_OPS, 6.0 * elems / PEAK_FP32_FLOPS
-        b_ms, b_by = max(t_bytes, t_sfu, t_f32) * 1e3, "bytes" if t_bytes >= max(t_sfu, t_f32) else "operations"
+        cost = scan_ops.selective_scan_cost(b, s, d, n, torch.bfloat16, with_h0, True)
+        b_ms, b_by = cost.bound_ms()
+        t_bytes, t_sfu, t_f32 = cost.bytes / PEAK_BYTES_S, cost.op_seconds()["sfu"], cost.op_seconds()["float32"]
         log(f"  {name} {'prefill layer' if s > 1 else 'decode step layer'} ({b}x{s}, {d} channels x {n} "
             f"states, bf16, gated): kernel {kernel:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"bytes {t_bytes * 1e3:.4f}, SFU ops {t_sfu * 1e3:.4f}, f32 flops {t_f32 * 1e3:.4f}), "
@@ -1822,7 +1804,7 @@ def time_selective_scan_bwd(dev, flush) -> dict:
     states, bf16, gated, no h0), the kernel (its three kernels) beside the
     plain backward, and x 32 layers a step.  The bound is the larger of
     the bytes (xc, proj, the z half of the in_proj rows, dout, a saved
-    state every ``BOUND_STATE_STRIDE`` steps, a_log, dt_bias and d_skip
+    state every ``cost.BOUND_STATE_STRIDE`` steps, a_log, dt_bias and d_skip
     read once; dxc, d proj, dz and the parameter gradients written once;
     at 3.35 TB/s) and the SFU exps, at least one per (b, t, d, n) (16 a
     clock per SM).  No single PyTorch call computes this function.  Also
@@ -1839,6 +1821,7 @@ def time_selective_scan_bwd(dev, flush) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cost import PEAK_BYTES_S
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import plain as scan_plain
 
@@ -1847,13 +1830,9 @@ def time_selective_scan_bwd(dev, flush) -> dict:
     args, dout, _, h_chunks = _scan_bwd_case(rng, b, s, d, n, torch.bfloat16, False, True, False, dev)
     kernel = median_ms(lambda: scan_ops.selective_scan_bwd(*args, dout, None, h_chunks), flush)
     plain = median_ms(lambda: scan_plain.selective_scan_bwd(*args, dout), flush, iters=3, warmup=1)
-    rows_, f32_params = b * s * d, 3 * d * 4 + d * n * 4
-    states = b * -(-s // BOUND_STATE_STRIDE) * d * n * 4  # the saved states at the bound's stride
-    nbytes = (3 * rows_ * 2 + 2 * b * s * (2 * n + 1) * 2 + states  # xc, z, dout; proj, d proj; the states;
-              + 2 * rows_ * 2 + 2 * f32_params)  # dxc, dz out; the parameters and their gradients
-    elems = b * s * d * n
-    t_bytes, t_sfu = nbytes / PEAK_BYTES_S, elems / PEAK_SFU_OPS
-    b_ms, b_by = max(t_bytes, t_sfu) * 1e3, "bytes" if t_bytes >= t_sfu else "operations"
+    cost = scan_ops.selective_scan_bwd_cost(b, s, d, n, torch.bfloat16, False, True)
+    b_ms, b_by = cost.bound_ms()
+    t_bytes, t_sfu = cost.bytes / PEAK_BYTES_S, cost.op_seconds()["sfu"]
     log(f"  selective_scan_bwd training layer ({b}x{s}, {d} channels x {n} states, bf16, gated): kernel "
         f"{kernel:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: bytes {t_bytes * 1e3:.4f}, SFU exps "
         f"{t_sfu * 1e3:.4f}), {b_ms / kernel:.1%} of it; x {HYMBA_LAYERS} layers a step: kernel "
@@ -2956,6 +2935,166 @@ def drive_lm(dev, card: str, cfg, model, tag: str, b: int, s: int, max_len: int,
     return launches
 
 
+# ------------------------------------------ phase 7: the dry run against the card
+DRYRUN_ARGS_RTOL = 0.02  # the record's argument bytes against the bytes placed (as requested)
+DRYRUN_PEAK_RTOL = 0.10  # its peak estimate against the peak over the step (as requested)
+DRYRUN_FLOPS_RTOL = 0.01  # its aten dot FLOPs against the profiler's (with_flops) over the step
+DRYRUN_ROOFLINE_SLACK = 1.05  # a roofline term above this x the step's device busy time is a wrong count
+DRYRUN_DOTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")  # the profiler's product rows
+DRYRUN_CLI = ("--arch", "gemma3-1b", "--shape", "train_4k", "--mesh", "single")
+
+
+def device_bytes() -> tuple[int, int]:
+    """(memory_allocated(), the allocator's requested bytes): the caching
+    allocator rounds each block up (to 512 bytes, or a large block's whole
+    segment when what is left over is under 1 MiB), so the tensors' own
+    bytes are what it records as requested."""
+    return torch.cuda.memory_allocated(), torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+
+def _kernel_launches() -> dict:
+    """The LM kernels' launches so far, by the names a trace counts them."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    return {"flash_attention": fa_ops.flash_attention_bshd.launches,
+            "flash_attention_bwd": fa_ops.flash_attention_bwd_bshd.launches,
+            "decode_attention": da_ops.decode_attention_cache.launches,
+            "selective_scan": scan_ops.selective_scan.launches,
+            "selective_scan_bwd": scan_ops.selective_scan_bwd.launches}
+
+
+def start_dryrun_cli() -> subprocess.Popen:
+    """Phase 7's smoke test of the entry point, host only: ``python -m
+    repro_torch.launch.dryrun`` on one cell of the single-pod mesh (its
+    record under build/dryrun), started beside phase 2, whose kernel
+    times are device times (CUDA events behind a spin)."""
+    import atexit
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI, "--out", str(ROOT / "build" / "dryrun")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))  # a failed phase leaves none running
+    return proc
+
+
+def finish_dryrun_cli(proc: subprocess.Popen) -> None:
+    """Wait for :func:`start_dryrun_cli`'s run: it must exit 0 with an OK
+    line."""
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in out.strip().splitlines()[-3:]:
+        log(f"[dryrun] cli: {line}")
+    if proc.returncode != 0 or not any(ln.startswith("OK ") for ln in out.splitlines()):
+        raise AssertionError(f"dryrun CLI {' '.join(DRYRUN_CLI)} failed (exit {proc.returncode}):\n{out[-4000:]}")
+
+
+def dryrun_against_card(tag: str, cfg, shape, step, placed: tuple, card: str) -> dict:
+    """Phase 7 for one step: the dry run's record of ``shape`` on the 1x1
+    host mesh (traced on the CPU, nothing on the card) held against one
+    call of ``step`` on the card, which runs the same program: the argument
+    bytes against ``placed`` (:func:`device_bytes` the state or cache took:
+    allocated, requested), the peak estimate against the peak over the
+    call, the aten dot FLOPs against the profiler's, the kernel launches
+    exactly, and each roofline term against the call's device busy time
+    (profiler).  Bytes are held as the allocator requested them; its
+    rounded figures (memory_allocated) are printed beside them.  Returns
+    the call's kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg, shape, make_host_mesh(H.trace_devices(1)))
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, before = device_bytes(), _kernel_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_flops=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    measured_args = placed[1]
+    peak = measured_args + torch.cuda.memory_stats()["requested_bytes.all.peak"] - start[1]
+    peak_allocated = placed[0] + torch.cuda.max_memory_allocated() - start[0]
+    launched = {k: v - before[k] for k, v in _kernel_launches().items() if v != before[k]}
+    # a product counts where it launched a kernel: checkpoint's recompute
+    # stops at the last tensor the backward needs, inside the layer's last
+    # product, which the profiler records and the card never runs
+    dots = [e for e in prof.events() if e.name in DRYRUN_DOTS]
+    flops = sum(e.flops for e in dots if e.device_time_total > 0)
+    stopped = [e for e in dots if e.device_time_total == 0 and e.flops]
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0 and e.self_cpu_time_total == 0) / 1e6
+    mem, hlo, roof = rec["memory"], rec["hlo"], rec["roofline"]
+    args_err = abs(mem["argument_bytes"] - measured_args) / measured_args
+    peak_err = (mem["peak_estimate_bytes"] - peak) / peak
+    flops_err = abs(hlo["dot_flops"] - flops) / flops
+    shares = {k: roof[f"{k}_seconds"] / busy for k in ("compute", "memory", "collective")}
+    log(f"[dryrun] {tag} ({shape.global_batch}x{shape.seq_len}, traced in {trace_s:.1f} s): argument bytes "
+        f"{mem['argument_bytes']} vs {measured_args} placed ({args_err:.3%}, bound {DRYRUN_ARGS_RTOL:.0%}; "
+        f"memory_allocated {placed[0]}, {(placed[0] - mem['argument_bytes']) / mem['argument_bytes']:+.3%}); peak "
+        f"estimate {mem['peak_estimate_bytes'] / 2**30:.3f} GiB vs {peak / 2**30:.3f} GiB measured ({peak_err:+.2%}, "
+        f"bound {DRYRUN_PEAK_RTOL:.0%}; max_memory_allocated {peak_allocated / 2**30:.3f} GiB, "
+        f"{(mem['peak_estimate_bytes'] - peak_allocated) / peak_allocated:+.2%}); aten dot FLOPs {hlo['dot_flops']:.6e} vs profiler {flops:.6e} "
+        f"({flops_err:.4%}, bound {DRYRUN_FLOPS_RTOL:.0%}; {len(stopped)} recorded products launched nothing, "
+        f"{sum(e.flops for e in stopped):.4e} FLOPs); launches {hlo['launches']} vs {launched}; device "
+        f"busy {busy * 1e3:.3f} ms, roofline compute {roof['compute_seconds'] * 1e3:.3f} ms ({shares['compute']:.1%}), "
+        f"memory {roof['memory_seconds'] * 1e3:.3f} ms ({shares['memory']:.1%}), collective "
+        f"{roof['collective_seconds'] * 1e3:.3f} ms, dominant {roof['dominant']} [{card}]")
+    bad = []
+    if args_err > DRYRUN_ARGS_RTOL:
+        bad.append(f"argument bytes {args_err:.3%} off")
+    if abs(peak_err) > DRYRUN_PEAK_RTOL:
+        bad.append(f"peak estimate {peak_err:+.2%} off")
+    if flops_err > DRYRUN_FLOPS_RTOL:
+        bad.append(f"dot FLOPs {flops_err:.4%} off")
+    if hlo["launches"] != launched:
+        bad.append(f"launches {hlo['launches']} traced, {launched} on the card")
+    bad += [f"{k} roofline {v:.1%} of the measured busy time" for k, v in shares.items() if v > DRYRUN_ROOFLINE_SLACK]
+    if bad:
+        raise AssertionError(f"dry run vs the card, {tag}: " + "; ".join(bad))
+    return launched
+
+
+def dryrun_serving(dev, cfg, model, params_bytes: tuple, card: str) -> dict:
+    """Phase 7 for Gemma3-1B's serving (phase 4's model): a prefill of
+    PREFILL_B x PREFILL_S into a cache of that length (the prefill cell's),
+    then a decode step over a DECODE_MAX_LEN cache (phase 4's batch and
+    cache).  ``params_bytes``: :func:`device_bytes` the model took."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.models import decode as D
+
+    def plus(before):
+        return tuple(p + now - b for p, now, b in zip(params_bytes, device_bytes(), before))
+
+    launches = {}
+    rng = np.random.default_rng(SEED + 21)
+    before = device_bytes()
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(PREFILL_B, PREFILL_S)).astype(np.int32)).to(dev)
+    args = plus(before)
+    shape = InputShape("phase4_prefill", "prefill", PREFILL_S, PREFILL_B)
+    _add(launches, dryrun_against_card(f"{cfg.name} prefill", cfg, shape,
+                                       lambda: D.prefill(model, cfg, prompts, max_len=PREFILL_S), args, card))
+    before = device_bytes()
+    logits, cache, lens = D.prefill(model, cfg, prompts, max_len=DECODE_MAX_LEN)
+    tok = logits.argmax(-1).to(torch.int32)
+    del logits
+    torch.cuda.synchronize()
+    args = plus(before)
+    shape = InputShape("phase4_decode", "decode", DECODE_MAX_LEN, PREFILL_B)
+    _add(launches, dryrun_against_card(f"{cfg.name} decode step", cfg, shape,
+                                       lambda: D.decode_step(model, cfg, tok, cache, lens), args, card))
+    del cache, prompts
+    return launches
+
+
 def run_lm_path(dev, card: str) -> dict:
     """Phase 4: Gemma3-1B at full width in bf16 (random weights from a
     seeded generator on the card) through :func:`drive_lm`: prefill and
@@ -2966,15 +3105,21 @@ def run_lm_path(dev, card: str) -> dict:
 
     cfg = configs.get_config("gemma3-1b")
     t0 = time.perf_counter()
+    before = device_bytes()
     model = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
+    params_bytes = tuple(now - b for now, b in zip(device_bytes(), before))
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({sum(model.is_local)} local, window "
         f"{cfg.sliding_window}), d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
         f"{cfg.dtype}, built on the card in {time.perf_counter() - t0:.1f} s")
-    return drive_lm(dev, card, cfg, model, cfg.name, PREFILL_B, PREFILL_S, DECODE_MAX_LEN,
-                    "request {i}: the quick brown fox jumps over the lazy dog")
+    launches = drive_lm(dev, card, cfg, model, cfg.name, PREFILL_B, PREFILL_S, DECODE_MAX_LEN,
+                        "request {i}: the quick brown fox jumps over the lazy dog")
+    t0 = time.perf_counter()
+    _add(launches, dryrun_serving(dev, cfg, model, params_bytes, card))
+    log(f"[dryrun] phase 7 on {cfg.name}'s serving took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def run_moe_mla_path(dev, card: str) -> dict:
@@ -3220,11 +3365,8 @@ def run_ssm_path(dev, card: str) -> dict:
 
 def _train_counts() -> tuple[int, int, int, int]:
     """(K3 forward, K3 backward, K6 forward, K6 backward) launches so far."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.selective_scan import ops as scan_ops
-
-    return (fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches,
-            scan_ops.selective_scan.launches, scan_ops.selective_scan_bwd.launches)
+    counts = _kernel_launches()
+    return tuple(counts[k] for k in ("flash_attention", "flash_attention_bwd", "selective_scan", "selective_scan_bwd"))
 
 
 def _first_step_twice(cfg, tcfg, batch, dev, card: str) -> None:
@@ -3347,6 +3489,7 @@ def train_lm(dev, card: str, arch: str, steps: int) -> dict:
     more steady step by kernel family (:func:`profile_train_step`).
     Returns the launches of the ``steps`` steps."""
     from repro_torch import configs
+    from repro_torch.configs.shapes import InputShape
     from repro_torch.data.pipeline import PrefetchIterator, ShardedBatchSource, synthetic_lm_batch_fn
     from repro_torch.training import train_loop as loop
     from repro_torch.training.optimizer import AdamWConfig
@@ -3374,11 +3517,14 @@ def train_lm(dev, card: str, arch: str, steps: int) -> dict:
 
     it = PrefetchIterator(ShardedBatchSource(fn, seed=0))
     t0 = time.perf_counter()
+    before = device_bytes()
     try:
         state, history = loop.train(cfg, tcfg, it, steps, key=SEED, device=dev, log_every=10**9, on_step=on_step)
     finally:
         it.close()
     wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    state_bytes = tuple(now - b for now, b in zip(device_bytes(), before))
     n_params = sum(p.numel() for p in state["params"].parameters())
     for h in history:
         log(f"[train] {cfg.name} step {h['step']}: loss {h['loss']:.4f}, step {h['sec'] * 1e3:.1f} ms "
@@ -3403,6 +3549,11 @@ def train_lm(dev, card: str, arch: str, steps: int) -> dict:
     launches = dict(zip(("flash_attention", "flash_attention_bwd", "selective_scan", "selective_scan_bwd"),
                         _train_counts()))
     step_fn, batch = loop.make_train_step(cfg, tcfg), fn(0, 0, 0, 1)
+    t0 = time.perf_counter()
+    shape = InputShape("phase4e_train", "train", TRAIN_S, TRAIN_B)
+    _add(launches, dryrun_against_card(f"{cfg.name} training step", cfg, shape, lambda: step_fn(state, batch),
+                                       state_bytes, card))
+    log(f"[dryrun] phase 7 on {cfg.name}'s training step took {time.perf_counter() - t0:.1f} s")
     profile_train_step(lambda: step_fn(state, batch), cfg.padded_vocab_size, card, cfg.name)
     del state, step_fn, batch
     torch.cuda.empty_cache()
@@ -3451,6 +3602,7 @@ def check_collectives(dev, card: str) -> None:
     MESH_TIMED_RING f32 a device on 2 devices, timed against its bytes."""
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import compression as COMP
+    from repro_torch.kernels.cost import PEAK_BYTES_S
 
     rng = np.random.default_rng(SEED)
     for n in (2, 4):
@@ -4067,6 +4219,9 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "Compiling entry", "warning", "wgmma")):
             log(f"[env] ptxas: {line.strip()}")
     check_kernel_code(_build)
+    # ---- phase 7's smoke test of the dry run's entry point, on the host beside phase 2 (its checks
+    # against the card run inside phases 4 and 4E)
+    dryrun_cli = start_dryrun_cli()
 
     # ---- phase 2: kernels at the main path's shapes
     full = ImageFormat("jpeg", None, 90, subsample=True)
@@ -4115,6 +4270,9 @@ def main() -> int:
     scan_bwd_err = check_selective_scan_bwd(dev)
     rows.append({**time_selective_scan_bwd(dev, flush), "max_abs_err": scan_bwd_err})
     del flush
+    t0 = time.perf_counter()
+    finish_dryrun_cli(dryrun_cli)
+    log(f"[dryrun] phase 7's CLI done (waited {time.perf_counter() - t0:.1f} s after phase 2)")
 
     # ---- phase 3: the main path
     log(f"[main] corpus: {N_ITEMS} images {IMG_H}x{IMG_W}, SJPG 4:2:0 q90 + 161-px q75 thumbnail")
@@ -4142,7 +4300,7 @@ def main() -> int:
     hold_to_cpu("[main] first batch", np.stack(outs[:BATCH]), res["cpu_logits"])
 
     del compiled, prog, outs
-    # ---- phase 4: the LM serving path (Gemma3-1B)
+    # ---- phase 4: the LM serving path (Gemma3-1B), and phase 7's dry run of its prefill and decode step
     t0 = time.perf_counter()
     launches.update(run_lm_path(dev, card))
     log(f"[lm] phase 4 took {time.perf_counter() - t0:.1f} s")
@@ -4158,7 +4316,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_ssm_path(dev, card))
     log(f"[lm] phase 4D took {time.perf_counter() - t0:.1f} s")
-    # ---- phase 4E: Gemma3-1B and hymba-1.5b trained at full size (K3 and K6 forward and backward)
+    # ---- phase 4E: Gemma3-1B and hymba-1.5b trained at full size (K3 and K6 forward and backward), and
+    # phase 7's dry run of one training step of each
     t0 = time.perf_counter()
     _add(launches, run_training_path(dev, card))
     log(f"[train] phase 4E took {time.perf_counter() - t0:.1f} s")

@@ -20,7 +20,8 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
 
     ``None`` and ``"cuda"`` mean the card; the CPU is used only when asked
     for by name.  Asking for CUDA on a machine without it raises — there is
-    no quiet fallback to the CPU.
+    no quiet fallback to the CPU.  The meta device holds shapes alone (a
+    trace's: ``launch/hlo_analysis.py``).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -28,7 +29,7 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
     return dev
 
@@ -53,10 +54,19 @@ class LogicalDevice:
     def __repr__(self) -> str:
         return f"LogicalDevice({self.label})"
 
+    @contextlib.contextmanager
     def scope(self):
         """Run the body on this device: on a card its stream is the
-        thread's current stream; on the CPU nothing changes."""
-        return torch.cuda.stream(self.stream)  # a no-op for None
+        thread's current stream; on the CPU nothing changes.  For the
+        block, :func:`current_logical` is this device (a trace counts its
+        ops per device by it)."""
+        stack = _scopes.__dict__.setdefault("stack", [])
+        stack.append(self)
+        try:
+            with torch.cuda.stream(self.stream):  # a no-op for None
+                yield
+        finally:
+            stack.pop()
 
     def run(self, fn: Callable[[Any], Any], batch: Any) -> Any:
         """``fn(batch)`` on this device's stream.
@@ -83,6 +93,16 @@ class LogicalDevice:
         if torch.is_tensor(out) and out.is_cuda:
             out.record_stream(caller)
         return out
+
+
+_scopes = threading.local()
+
+
+def current_logical() -> LogicalDevice | None:
+    """The logical device whose :meth:`LogicalDevice.scope` the calling
+    thread is in (the innermost), or None."""
+    stack = getattr(_scopes, "stack", None)
+    return stack[-1] if stack else None
 
 
 _logical: dict[tuple[str, int, int, int], LogicalDevice] = {}

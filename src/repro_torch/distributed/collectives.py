@@ -12,6 +12,8 @@ per-device tensors, ``parts[i]`` on ``devices[i]``:
 * ``psum_in_chunks`` — a gradient tree reduced in size-balanced buckets,
   each bucket one flat ring;
 * ``copy_leaves`` — tensors copied to every device of a group;
+* ``all_gather_`` — ZeRO-1's updated slices copied into every device's
+  copy of the parameters, in place;
 * ``broadcast`` and ``ring_sum`` — a tensor copied to every device of a
   group, and a group's parts summed with the ring, as autograd Functions
   that are each other's backward (MoE's expert-parallel branch).
@@ -28,12 +30,21 @@ stream waiting on every device, so its inputs and outputs are ordered for
 the caller; ``record_stream`` tells the caching allocator of each
 cross-stream use.  No step returns to the host.  On the CPU (logical
 devices without streams) the same steps run in order.
+
+An open trace (``launch/hlo_analysis.py``) counts each collective as one
+op, as the reference's analysis counts an XLA collective: its result
+bytes at each device, as collective bytes by type and as traffic — an
+all-reduce's buffer, an all-gather's gathered leaves, the leaves a copy
+brings ("collective-permute") — and none of the ring's steps inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
@@ -106,6 +117,15 @@ def _used_on(t: torch.Tensor, dev) -> None:
         t.record_stream(dev.stream)
 
 
+def _collective(kind: str, tensors, devices):
+    """A context: the block is one collective of ``kind`` whose result at
+    each of ``devices`` is ``tensors``' bytes, for an open trace (none
+    open: nothing)."""
+    if not _build.tracing():
+        return contextlib.nullcontext()
+    return _build.trace_collective(kind, sum(t.numel() * t.element_size() for t in tensors), devices)
+
+
 # -------------------------------------------------------------------- ring
 def ring_allreduce_(flats: list, devices) -> list:
     """The ring over ``flats`` in place: ``flats[i]`` a contiguous 1-d
@@ -152,18 +172,19 @@ def ring_allreduce(parts: list, devices) -> list:
         return [parts[0]]
     shape, n = parts[0].shape, parts[0].numel()
     pad = (-n) % p
-    caller = _enter(devices)
-    flats = []
-    for part, dev in zip(parts, devices):
-        with dev.scope():
-            _used_on(part, dev)
-            flat = torch.empty(n + pad, dtype=part.dtype, device=part.device)
-            flat[:n].copy_(part.reshape(-1))
-            flat[n:].zero_()
-            flats.append(flat)
-    ring_allreduce_(flats, devices)
-    outs = [f[:n].view(shape) for f in flats]
-    _leave(devices, caller, outs)
+    with _collective("all-reduce", parts[:1], devices):
+        caller = _enter(devices)
+        flats = []
+        for part, dev in zip(parts, devices):
+            with dev.scope():
+                _used_on(part, dev)
+                flat = torch.empty(n + pad, dtype=part.dtype, device=part.device)
+                flat[:n].copy_(part.reshape(-1))
+                flat[n:].zero_()
+                flats.append(flat)
+        ring_allreduce_(flats, devices)
+        outs = [f[:n].view(shape) for f in flats]
+        _leave(devices, caller, outs)
     return outs
 
 
@@ -193,26 +214,27 @@ def psum_in_chunks(trees: list, devices, num_buckets: int = 4) -> list:
     leaves = [tree_leaves(t) for t in trees]
     sizes = [leaf.numel() for leaf in leaves[0]]
     out = [[None] * len(sizes) for _ in trees]
-    caller = _enter(devices)
-    for bucket in bucket_leaves(sizes, num_buckets):
-        if not bucket:
-            continue
-        pad = (-sum(sizes[i] for i in bucket)) % p
-        flats = []
-        for ls, dev in zip(leaves, devices):
-            with dev.scope():
+    with _collective("all-reduce", leaves[0], devices):
+        caller = _enter(devices)
+        for bucket in bucket_leaves(sizes, num_buckets):
+            if not bucket:
+                continue
+            pad = (-sum(sizes[i] for i in bucket)) % p
+            flats = []
+            for ls, dev in zip(leaves, devices):
+                with dev.scope():
+                    for i in bucket:
+                        _used_on(ls[i], dev)
+                    tail = [torch.zeros(pad, dtype=ls[bucket[0]].dtype, device=ls[bucket[0]].device)] if pad else []
+                    flats.append(torch.cat([ls[i].reshape(-1) for i in bucket] + tail))
+            ring_allreduce_(flats, devices)
+            for k, flat in enumerate(flats):
+                offset = 0
                 for i in bucket:
-                    _used_on(ls[i], dev)
-                tail = [torch.zeros(pad, dtype=ls[bucket[0]].dtype, device=ls[bucket[0]].device)] if pad else []
-                flats.append(torch.cat([ls[i].reshape(-1) for i in bucket] + tail))
-        ring_allreduce_(flats, devices)
-        for k, flat in enumerate(flats):
-            offset = 0
-            for i in bucket:
-                leaf = leaves[k][i]
-                out[k][i] = flat[offset:offset + sizes[i]].view(leaf.shape).to(leaf.dtype)
-                offset += sizes[i]
-    _leave(devices, caller, [t for o in out for t in o])
+                    leaf = leaves[k][i]
+                    out[k][i] = flat[offset:offset + sizes[i]].view(leaf.shape).to(leaf.dtype)
+                    offset += sizes[i]
+        _leave(devices, caller, [t for o in out for t in o])
     return [tree_unflatten(tree, o) for tree, o in zip(trees, out)]
 
 
@@ -220,17 +242,38 @@ def psum_in_chunks(trees: list, devices, num_buckets: int = 4) -> list:
 def copy_leaves(leaves: list, devices) -> list:
     """One copy of each of ``leaves`` per device, made on that device's
     stream -> a list of copies per device."""
-    caller = _enter(devices)
-    outs = []
-    for dev in devices:
-        with dev.scope():
-            mine = []
-            for x in leaves:
-                _used_on(x, dev)
-                mine.append(torch.empty_like(x).copy_(x))
-            outs.append(mine)
-    _leave(devices, caller, [t for mine in outs for t in mine])
+    with _collective("collective-permute", leaves, devices):
+        caller = _enter(devices)
+        outs = []
+        for dev in devices:
+            with dev.scope():
+                mine = []
+                for x in leaves:
+                    _used_on(x, dev)
+                    mine.append(torch.empty_like(x).copy_(x))
+                outs.append(mine)
+        _leave(devices, caller, [t for mine in outs for t in mine])
     return outs
+
+
+def all_gather_(leaves: list[dict], devices, groups: list[list[int]], owned) -> None:
+    """ZeRO-1's all-gather, in place: for each device q, each other member
+    s of ``groups[q]`` (positions in ``devices``) and each leaf ``name`` of
+    ``leaves[q]`` (device q's copies, by name), the part device s owns —
+    ``owned(name, s, t)``, that part of ``t`` or None — is copied from
+    s's leaf into q's, on q's stream, between two barriers."""
+    barrier(devices)
+    with torch.no_grad():
+        for q, dev in enumerate(devices):
+            with _collective("all-gather", leaves[q].values(), [dev] if len(groups[q]) > 1 else []), dev.scope():
+                for s in groups[q]:
+                    if s == q:
+                        continue
+                    for name, mine in leaves[q].items():
+                        part = owned(name, s, mine)
+                        if part is not None:
+                            part.copy_(owned(name, s, leaves[s][name]))
+    barrier(devices)
 
 
 def _copy_to(x: torch.Tensor, devices) -> list:

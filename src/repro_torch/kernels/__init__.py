@@ -8,7 +8,9 @@ Each kernel package ships:
 
 The CUDA sources live in ``repro_torch/csrc`` and are built once per
 source hash by :mod:`repro_torch.kernels._build` (``nvcc`` for ``sm_90a``,
-loaded with ``ctypes``).
+loaded with ``ctypes``).  The LM kernels' ``ops.py`` also hold a cost
+function of the kernel's shapes (FLOPs by dtype, SFU exps, bytes), over
+the H100's peaks in :mod:`repro_torch.kernels.cost`.
 
 * idct          — dequantize + (scaled) 8x8 IDCT of coefficient rows
 * fused_preproc — bilinear gather resample + uint8 re-quantize + per-plane

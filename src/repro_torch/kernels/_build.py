@@ -8,6 +8,14 @@ a second process reuses the library.  Each ``.cu`` file compiles in its
 own ``nvcc`` process, all started together.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
+
+A trace (:func:`trace`, opened by ``launch/hlo_analysis.py``) runs the
+wrappers' card branch on meta tensors and launches nothing: while one is
+open on the calling thread, :func:`load_library` hands out a
+:class:`RecordingLibrary`, :func:`on_card` takes the meta device for the
+card, :func:`current_stream` answers 0 and :func:`sm_count` the H100's
+132, and each wrapper hands its launch's work (``kernels/cost.py``) to the
+trace with :func:`trace_launch` in place of counting a launch.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -104,8 +113,11 @@ def _build(out: Path) -> None:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use (thread-safe)."""
+    """The kernels' shared library, built on first use (thread-safe); under
+    a trace, the trace's :class:`RecordingLibrary`."""
     global _lib
+    if tracing():
+        return _trace.stack[-1][1]
     with _lock:
         if _lib is not None:
             return _lib
@@ -218,6 +230,8 @@ def stream_counters(kernel: str, device, stream: int, n: int):
     overlap."""
     import torch
 
+    if tracing():
+        return torch.empty(n, dtype=torch.int32, device=device)
     key = (kernel, device.index, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
@@ -255,3 +269,141 @@ def thread_launches():
         yield counts
     finally:
         stack.remove(counts)
+
+
+# ------------------------------------------------------------------ traces
+_trace = threading.local()
+TRACE_SM_COUNT = 132  # the H100 SXM's SMs, which a trace takes the card to have
+
+
+def tracing() -> bool:
+    """A trace is open on the calling thread."""
+    return bool(getattr(_trace, "stack", None))
+
+
+@contextlib.contextmanager
+def trace(sink):
+    """For the block, on the calling thread, the wrappers take meta tensors
+    for the card's and launch nothing: each launch's work goes to
+    ``sink.kernel_launch(name, cost)``, and the library is a
+    :class:`RecordingLibrary` (yielded)."""
+    lib = RecordingLibrary()
+    stack = _trace.__dict__.setdefault("stack", [])
+    stack.append((sink, lib))
+    try:
+        yield lib
+    finally:
+        stack.pop()
+
+
+def on_card(device) -> bool:
+    """``device`` takes the wrappers' card branch: a CUDA device, or inside
+    a trace the meta device (there a CUDA tensor raises: a trace launches
+    nothing, so it must not see real data)."""
+    if not tracing():
+        return device.type == "cuda"
+    if device.type == "cuda":
+        raise RuntimeError("a CUDA tensor reached a kernel's wrapper inside a trace, which launches nothing")
+    return device.type == "meta"
+
+
+def current_stream(device) -> int:
+    """The calling thread's current CUDA stream on ``device`` (0 in a
+    trace)."""
+    if tracing():
+        return 0
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+_sms: dict = {}
+
+
+def sm_count(device) -> int:
+    """``device``'s SMs (:data:`TRACE_SM_COUNT` in a trace)."""
+    if tracing():
+        return TRACE_SM_COUNT
+    if device.index not in _sms:
+        import torch
+
+        _sms[device.index] = torch.cuda.get_device_properties(device.index).multi_processor_count
+    return _sms[device.index]
+
+
+def trace_launch(name: str, cost) -> None:
+    """One launch of ``name``'s kernel in the open trace, with ``cost``
+    (a ``kernels.cost.KernelCost``)."""
+    _trace.stack[-1][0].kernel_launch(name, cost)
+
+
+def repeat(n: int):
+    """``range(n)`` for a loop whose iterations do the same work on equal
+    shapes (microbatches).  In a trace only the first two run, and the
+    second counts for the other n - 1 (``sink.repeated``), as the
+    reference's analysis multiplies a while body by its trip count."""
+    if not tracing() or n <= 2:
+        yield from range(n)
+        return
+    yield 0
+    with _trace.stack[-1][0].repeated(n - 2):
+        yield 1
+
+
+def trace_collective(kind: str, nbytes: int, devices):
+    """A context: the block is one collective of ``kind`` with ``nbytes``
+    of result at each of ``devices`` (logical devices), for the open
+    trace (``sink.collective``)."""
+    return _trace.stack[-1][0].collective(kind, nbytes, devices)
+
+
+def _state_stride() -> int:
+    """``kStateStride`` of ``csrc/selective_scan.cuh``, which the library
+    reports as ``repro_selective_scan_chunk``."""
+    m = re.search(r"constexpr int kStateStride = (\d+);", (CSRC / "selective_scan.cuh").read_text())
+    return int(m.group(1))
+
+
+# a meta tensor's pointer is its byte offset into a storage that starts at
+# 0, below this (16 TiB, more than any cache or model the port holds); a
+# real allocation's address on x86-64 Linux lies above it
+META_POINTER_LIMIT = 1 << 44
+
+
+class _Entry:
+    def __init__(self, lib: RecordingLibrary, name: str):
+        self.lib, self.name = lib, name
+        self.argtypes, self.restype = [], None
+
+    def __call__(self, *args):
+        for arg, kind in zip(args, self.argtypes):
+            if kind is _P and arg is not None and not 0 <= arg < META_POINTER_LIMIT:
+                raise ValueError(f"the recording library takes no real pointer: {self.name} got {arg:#x}")
+        self.lib.calls.append((self.name, args))
+        if self.name == "repro_selective_scan_chunk":
+            return _state_stride()
+        return 0
+
+
+class RecordingLibrary:
+    """The kernels' library as a trace sees it: each entry point checks its
+    arguments against the C signature, records the call and launches
+    nothing.  It returns 0: ``cudaSuccess`` from a launch, and a scratch
+    of no floats from ``repro_selective_scan_bwd_scratch`` (a trace leaves
+    K6 backward's scratch out); ``repro_selective_scan_chunk`` returns
+    ``kStateStride`` as the source states it.  A pointer that is not a
+    meta tensor's offset (:data:`META_POINTER_LIMIT`) raises, so this
+    library never stands in for the card on real data."""
+
+    def __init__(self):
+        self.calls: list = []
+        self._entries: dict = {}
+        _declare(self)
+
+    def __getattr__(self, name: str):
+        if not name.startswith("repro_"):
+            raise AttributeError(name)
+        entries = self.__dict__["_entries"]
+        if name not in entries:
+            entries[name] = _Entry(self, name)
+        return entries[name]

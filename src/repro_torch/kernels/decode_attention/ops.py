@@ -18,11 +18,10 @@ and the kernel leaves them at zero.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import _build, require_no_grad
+from repro_torch.kernels.cost import KernelCost, dtype_name
 from repro_torch.kernels.decode_attention import plain
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
@@ -51,9 +50,20 @@ def split_plan(bkvh: int, s: int, window: int | None, d: int, cache_bytes: int,
     return chunk, -(-span // chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def decode_attention_cost(b: int, s: int, h: int, kvh: int, d: int, window: int | None, q_dtype,
+                          cache_dtype, keys: int | None = None) -> KernelCost:
+    """One K4 launch's work: 4 D FLOPs a (query head, valid key) (q k and
+    p v), in the cache's dtype; the valid keys' K and V rows read once, q
+    read and out written once, the int32 lengths read.  ``keys`` is the
+    valid keys summed over the sequences, which the lengths decide; without
+    it (a trace, which does not see the lengths) every sequence counts its
+    cache at full length, ``min(S, window)`` keys."""
+    if keys is None:
+        keys = b * (s if window is None else min(s, window))
+    q_es = 2 if dtype_name(q_dtype) == "bfloat16" else 4
+    c_es = 2 if dtype_name(cache_dtype) == "bfloat16" else 4
+    nbytes = kvh * keys * d * 2 * c_es + 2 * b * h * d * q_es + b * 4
+    return KernelCost({dtype_name(cache_dtype): 4.0 * h * d * keys}, 0.0, nbytes)
 
 
 def _check_alignment(*caches: torch.Tensor) -> None:
@@ -117,16 +127,16 @@ def decode_attention_cache(
     if b * kvh > 65535:
         raise ValueError(f"at most 65535 sequence x KV head pairs per launch, got {b * kvh}")
     _check_alignment(k_cache, v_cache)
-    if q.device.type != "cuda":
+    if not _build.on_card(q.device):
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, got {q.device}")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or s == 0:
         return out.zero_()
     lens = lengths.to(torch.int32).contiguous()
-    chunk, n_split = split_plan(b * kvh, s, window, d, k_cache.element_size(), _sm_count(q.device.index))
+    chunk, n_split = split_plan(b * kvh, s, window, d, k_cache.element_size(), _build.sm_count(q.device))
     part = torch.empty(b * kvh * n_split * group * (2 + d), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q.device)
     status = lib.repro_decode_attention(
         _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
         q.data_ptr(), q.stride(0), q.stride(1),
@@ -137,6 +147,10 @@ def decode_attention_cache(
         b, s, kvh, group, d, chunk, n_split, scale, -1 if window is None else int(window), stream,
     )
     _build.check(lib, status, "decode_attention")
+    if _build.tracing():
+        _build.trace_launch("decode_attention", decode_attention_cost(
+            b, s, h, kvh, d, window, q.dtype, k_cache.dtype))
+        return out
     decode_attention_cache.launches += 1
     return out
 

@@ -49,9 +49,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import KernelCost, dtype_name
 from repro_torch.kernels.flash_attention import plain
 
 # the kernels' template instances, (q/k width, v width)
@@ -115,6 +117,39 @@ def tile_group(b: int, h: int, kvh: int, sk: int, d: int, dv: int) -> int:
     return min(b * h, kv_heads * (h // kvh))
 
 
+def attention_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask lets through, positions counted from 0
+    as the kernel counts them (causal: ``kpos <= qpos``; a window:
+    ``kpos > qpos - window``): what attention must compute."""
+    qpos = np.arange(sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qpos - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_attention_cost(b: int, sq: int, sk: int, h: int, kvh: int, d: int, dv: int, causal: bool,
+                         window: int | None, dtype, lse: bool = False) -> KernelCost:
+    """One K3 launch's work: 2 (D + DV) FLOPs a pair the mask lets through
+    (q k and p v), in the inputs' dtype; q, k, v read and out (and ``lse``,
+    f32) written once."""
+    es = 2 if dtype_name(dtype) == "bfloat16" else 4
+    pairs = attention_pairs(sq, sk, causal, window) * b * h
+    nbytes = es * (b * sq * h * (d + dv) + b * sk * kvh * (d + dv)) + (4 * b * h * sq if lse else 0)
+    return KernelCost({dtype_name(dtype): 2.0 * (d + dv) * pairs}, 0.0, nbytes)
+
+
+def flash_attention_bwd_cost(b: int, sq: int, sk: int, h: int, kvh: int, d: int, dv: int, causal: bool,
+                             window: int | None, dtype) -> KernelCost:
+    """One K3 backward's work: 5 products over the pairs the mask lets
+    through (s = q k, dP = dO v, dV += p dO, dQ += dS k, dK += dS q:
+    2 (3 D + 2 DV) FLOPs a pair); q, k, v, out, dO and lse read and dq,
+    dk, dv written once."""
+    es = 2 if dtype_name(dtype) == "bfloat16" else 4
+    pairs = attention_pairs(sq, sk, causal, window) * b * h
+    nbytes = es * (b * sq * h * (2 * d + 2 * dv) + b * sk * kvh * (2 * d + 2 * dv)) + 4 * b * h * sq
+    return KernelCost({dtype_name(dtype): 2.0 * (3 * d + 2 * dv) * pairs}, 0.0, nbytes)
+
+
 def _launch(q, k, v, causal: bool, window: int | None, scale: float, with_lse: bool):
     """K3 on CUDA tensors -> (out, lse or None)."""
     b, s, h, d = q.shape
@@ -125,14 +160,14 @@ def _launch(q, k, v, causal: bool, window: int | None, scale: float, with_lse: b
         raise ValueError("q/k/v need a contiguous head_dim")
     if q.dtype == torch.bfloat16:
         _check_tma(q, k, v)
-    if q.device.type != "cuda":
+    if not _build.on_card(q.device):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return out, lse
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q.device)
     status = lib.repro_flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -143,6 +178,10 @@ def _launch(q, k, v, causal: bool, window: int | None, scale: float, with_lse: b
         _build.stream_counters("flash_attention", q.device, stream, 2).data_ptr(), stream,
     )
     _build.check(lib, status, "flash_attention")
+    if _build.tracing():
+        _build.trace_launch("flash_attention", flash_attention_cost(
+            b, s, sk, h, k.shape[2], d, dv, causal, window, q.dtype, with_lse))
+        return out, lse
     flash_attention_bshd.launches += 1
     flash_attention_bshd.launches_by_dims[(d, dv)] += 1
     flash_attention_bshd.launches_cross += sk != s
@@ -240,7 +279,7 @@ def flash_attention_bwd_bshd(
     if q.device.type == "cpu":
         return plain.flash_attention_bwd_bshd(q, k, v, out, lse, dout, causal=causal, window=window,
                                               scale=scale)
-    if q.device.type != "cuda":
+    if not _build.on_card(q.device):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
     if (d, dv) not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernels take (q/k, v) head widths in {HEAD_DIMS}, got {(d, dv)}")
@@ -262,7 +301,7 @@ def flash_attention_bwd_bshd(
     dk_acc = torch.empty((b, sk, h, d), dtype=torch.float32, device=q.device) if per_head else None
     dv_acc = torch.empty((b, sk, h, dv), dtype=torch.float32, device=q.device) if per_head else None
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q.device)
     status = lib.repro_flash_attention_bwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), rows.data_ptr(), None if dk_acc is None else dk_acc.data_ptr(),
@@ -273,6 +312,10 @@ def flash_attention_bwd_bshd(
         scale, int(causal), -1 if window is None else int(window), stream,
     )
     _build.check(lib, status, "flash_attention_bwd")
+    if _build.tracing():
+        _build.trace_launch("flash_attention_bwd", flash_attention_bwd_cost(
+            b, s, sk, h, kvh, d, dv, causal, window, q.dtype))
+        return dq, dk, dv_
     flash_attention_bwd_bshd.launches += 1
     return dq, dk, dv_
 

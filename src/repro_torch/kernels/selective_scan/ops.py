@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import BOUND_STATE_STRIDE, KernelCost, dtype_name
 from repro_torch.kernels.selective_scan import plain
 
 NSTATES = (8, 16)  # the kernel's template instances: hymba-1.5b's 16, its smoke config's 8
@@ -71,7 +72,7 @@ def _check(xc, proj, a_log, dt_bias, d_skip, h0, z) -> None:
 def _check_device(xc: torch.Tensor, n: int, what: str) -> None:
     """What the kernels take beyond :func:`_check`: cuda tensors, N in
     :data:`NSTATES`, at most 65535 sequences."""
-    if xc.device.type != "cuda":
+    if not _build.on_card(xc.device):
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {xc.device}")
     if n not in NSTATES:
         raise ValueError(f"the kernel takes N in {NSTATES} states, got {n}")
@@ -89,6 +90,39 @@ def _check_rows(what: str, dense: list, vectors: list, z: torch.Tensor | None, d
             z is not None and not _aligned(z, (0, 1))):
         raise ValueError(f"{what} reads rows of x and z, a_log, dt_bias and the states 16 bytes at a time: "
                          "D * itemsize must be a multiple of 16 and each must start 16-byte aligned")
+
+
+def selective_scan_cost(b: int, s: int, d: int, n: int, dtype, h0: bool, gated: bool,
+                        chunks: bool = False) -> KernelCost:
+    """One K6 launch's work: on the SFUs an exp a (b, t, d, n), softplus's
+    exp and log a (b, t) and with a gate its exp and reciprocal a (b, t,
+    d); 6 f32 FLOPs a (b, t, d, n) (dt a, B x, the h FMA, h C); xc, proj,
+    a_log, dt_bias, d_skip (and h0, z) read once, out (f32 without a gate)
+    and h_last written once, with ``chunks`` a saved state every
+    :data:`~repro_torch.kernels.cost.BOUND_STATE_STRIDE` steps."""
+    es = 2 if dtype_name(dtype) == "bfloat16" else 4
+    elems, rows = b * s * d * n, b * s * d
+    nbytes = rows * es + b * s * (2 * n + 1) * es + d * n * 4 + 2 * d * 4 + rows * (es if gated else 4)
+    nbytes += (b * d * n * 4 if h0 else 0) + (rows * es if gated else 0) + b * d * n * 4
+    if chunks:
+        nbytes += b * -(-s // BOUND_STATE_STRIDE) * d * n * 4
+    exps = elems + (2 * rows if gated else 0) + 2 * b * s
+    return KernelCost({"float32": 6.0 * elems}, exps, nbytes)
+
+
+def selective_scan_bwd_cost(b: int, s: int, d: int, n: int, dtype, h0: bool, gated: bool,
+                            dh_last: bool = False) -> KernelCost:
+    """One K6 backward's work: at least an exp a (b, t, d, n) on the SFUs;
+    xc, proj, dout (and z, h0, dh_last), a saved state every
+    :data:`~repro_torch.kernels.cost.BOUND_STATE_STRIDE` steps and the
+    parameters read once; dxc, d proj (and dz, dh0) and the parameters'
+    gradients written once."""
+    es = 2 if dtype_name(dtype) == "bfloat16" else 4
+    rows, state = b * s * d, b * d * n * 4
+    nbytes = 2 * rows * es + rows * (es if gated else 4) + 2 * b * s * (2 * n + 1) * es
+    nbytes += b * -(-s // BOUND_STATE_STRIDE) * d * n * 4 + 2 * (3 * d * 4 + d * n * 4)
+    nbytes += (2 * rows * es if gated else 0) + (2 * state if h0 else 0) + (state if dh_last else 0)
+    return KernelCost({}, b * s * d * n, nbytes)
 
 
 def state_chunk() -> int:
@@ -126,13 +160,17 @@ def _forward(xc, proj, a_log, dt_bias, d_skip, h0, z, chunk: int, with_chunks: b
     h_chunks = None
     if with_chunks:
         h_chunks = torch.empty((bsz, -(-s // state_chunk()), d, n), dtype=f32, device=xc.device)
-    stream = torch.cuda.current_stream(xc.device).cuda_stream
+    stream = _build.current_stream(xc.device)
     status = lib.repro_selective_scan(
         _DTYPES[xc.dtype], xc.data_ptr(), proj.data_ptr(), None if z is None else z.data_ptr(),
         0 if z is None else z.stride(0), 0 if z is None else z.stride(1), a_log.data_ptr(),
         dt_bias.data_ptr(), d_skip.data_ptr(), None if h0 is None else h0.data_ptr(), out.data_ptr(),
         h_last.data_ptr(), None if h_chunks is None else h_chunks.data_ptr(), bsz, s, d, n, stream)
     _build.check(lib, status, "selective_scan")
+    if _build.tracing():
+        _build.trace_launch("selective_scan", selective_scan_cost(
+            bsz, s, d, n, xc.dtype, h0 is not None, z is not None, with_chunks))
+        return out, h_last, h_chunks
     selective_scan.launches += 1
     selective_scan.launches_step += s == 1
     return out, h_last, h_chunks
@@ -246,7 +284,7 @@ def selective_scan_bwd(
     da_log, ddt_bias, dd_skip = torch.empty_like(a_log), torch.empty_like(dt_bias), torch.empty_like(d_skip)
     dh0 = None if h0 is None else torch.empty((bsz, d, n), dtype=f32, device=xc.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    stream = torch.cuda.current_stream(xc.device).cuda_stream
+    stream = _build.current_stream(xc.device)
     status = lib.repro_selective_scan_bwd(
         _DTYPES[xc.dtype], xc.data_ptr(), proj.data_ptr(), ptr(z), 0 if z is None else z.stride(0),
         0 if z is None else z.stride(1), dout.data_ptr(), a_log.data_ptr(), dt_bias.data_ptr(),
@@ -254,6 +292,10 @@ def selective_scan_bwd(
         dproj.data_ptr(), ptr(dz), da_log.data_ptr(), ddt_bias.data_ptr(), dd_skip.data_ptr(), ptr(dh0),
         bsz, s, d, n, stream)
     _build.check(lib, status, "selective_scan_bwd")
+    if _build.tracing():
+        _build.trace_launch("selective_scan_bwd", selective_scan_bwd_cost(
+            bsz, s, d, n, xc.dtype, h0 is not None, z is not None, dh_last is not None))
+        return dxc, dproj, da_log, ddt_bias, dd_skip, dh0, dz
     selective_scan_bwd.launches += 1
     return dxc, dproj, da_log, ddt_bias, dd_skip, dh0, dz
 

@@ -22,6 +22,8 @@ from repro_torch.device import mesh_devices
 from repro_torch.distributed.sharding import MULTI_POD_RULES, SINGLE_POD_RULES, pop_mesh, push_mesh
 
 CHIPS_PER_POD = 256
+# indices of each axis a RoleMesh keeps: a group's first, middle and last member
+ROLE_SPAN = 3
 
 
 class Mesh:
@@ -75,7 +77,7 @@ class Mesh:
             if any(c[a] for a in self.axis_names if a not in data_axes and a != "model"):
                 continue
             out.setdefault(self.index(pos, data_axes), []).append((int(c.get("model", 0)), dev))
-        return [[dev for _, dev in sorted(out[i], key=lambda md: md[0])] for i in range(len(out))]
+        return [[dev for _, dev in sorted(out[i], key=lambda md: md[0])] for i in sorted(out)]
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)}, {[d.label for d in self.flat]})"
@@ -101,18 +103,39 @@ def make_mesh(shape, axes, devices=None) -> Mesh:
     return Mesh(grid.reshape(tuple(shape)), axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
     """16x16 (data, model) single pod; 2x16x16 (pod, data, model) for two
-    pods — 512 devices."""
+    pods — 512 devices (of ``devices``, default the card's)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, devices)
 
 
 def rules_for(multi_pod: bool) -> dict:
     return MULTI_POD_RULES if multi_pod else SINGLE_POD_RULES
 
 
-def make_host_mesh() -> Mesh:
+def make_host_mesh(devices=None) -> Mesh:
     """Degenerate 1x1 mesh for single-device tests/examples."""
-    return make_mesh((1, 1), ("data", "model"))
+    return make_mesh((1, 1), ("data", "model"), devices)
+
+
+class RoleMesh(Mesh):
+    """``mesh``'s devices at the first :data:`ROLE_SPAN` indices of each
+    axis, standing for the whole mesh: ``shape`` is ``mesh``'s, so each of
+    these devices gets the data shard, ZeRO slice and expert slice it has
+    on ``mesh``, and each group a collective runs over keeps its first,
+    middle and last roles.  A trace of the training mesh's step on it
+    counts per device what the whole mesh does, with 9 devices standing
+    for 256: every data shard's lead alike, every model device alike.  One
+    count grows with the "model" axis and is cut to the span: an
+    expert-parallel shard's lead adds up each model device's expert
+    gradients on its own stream (``train_loop._mesh_train_step``)."""
+
+    def __init__(self, mesh: Mesh):
+        super().__init__(mesh.devices[tuple(slice(0, ROLE_SPAN) for _ in mesh.devices.shape)], mesh.axis_names)
+        self._full = mesh.shape
+
+    @property
+    def shape(self) -> collections.OrderedDict:
+        return self._full

@@ -1,0 +1,303 @@
+"""Meta-tensor input specs + sharding assignments per (arch, shape): the
+port's ``repro.launch.specs``.
+
+Everything here is allocation-free: parameters (``TransformerLM`` on the
+meta device), optimiser state (``adamw_init``), caches
+(``decode.init_cache``) and batches are meta tensors made by the real
+constructors, so the dry run traces the exact program that training and
+serving run (``launch/hlo_analysis.py``).  The spec trees are the
+reference's, ``sharding.P`` tuples of mesh-axis names over the reference's
+layout (each layer group stacked under a leading layer axis).
+
+What the port runs on a mesh, which is what the dry run traces:
+
+* **train** — on one device the single-device step (``make_train_step``:
+  nothing to reduce or gather); on more, the training mesh's step
+  (``make_train_step(grad_pspecs=...)``) over ``zero.place_train_state``'s
+  state: every dense leaf whole on each model device (ROADMAP 26b), an
+  expert stack split over "model", ZeRO-1 moment slices.  It is traced on
+  the mesh's :class:`~repro_torch.launch.mesh.RoleMesh`: one device of
+  each role stands for all of them.
+* **prefill / decode** — the port serves an LM on one device and has no
+  tensor-parallel layout: on a mesh of more than one device the cell holds
+  its spec trees and a ``skip`` reason, and is not traced.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.shapes import SHAPES, InputShape
+from repro_torch.distributed import sharding as shmod
+from repro_torch.distributed import zero
+from repro_torch.distributed.sharding import P
+from repro_torch.distributed.zero import zero_pspecs
+from repro_torch.launch.mesh import RoleMesh
+from repro_torch.models import decode as D
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.kv_cache import CachePolicy, choose_cache_policy
+from repro_torch.training.optimizer import adamw_init
+from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+META = torch.device("meta")
+NOT_SERVED_ON_A_MESH = ("the port serves an LM on one device and has no tensor-parallel layout "
+                        "(ROADMAP 26b): no prefill or decode runs on this mesh")
+
+
+def _struct(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def param_structs(cfg: ModelConfig, dtype: torch.dtype | None = None) -> T.TransformerLM:
+    """The model on the meta device: matrices and the embedding in
+    ``dtype`` (default the config's), as ``init_lm`` builds it."""
+    return T.TransformerLM(cfg, META, dtype)
+
+
+# Per-device weight budget above which parameters get additional data-axis
+# (FSDP/ZeRO-3-style) sharding in the reference's layout.
+FSDP_THRESHOLD_BYTES = 4 << 30
+
+
+def maybe_fsdp_pspecs(cfg: ModelConfig, params, pspecs, mesh, bytes_per_param: int):
+    tp = dict(mesh.shape)["model"]
+    per_dev = cfg.param_count() * bytes_per_param / tp
+    if per_dev <= FSDP_THRESHOLD_BYTES:
+        return pspecs, False
+    return zero_pspecs(params, pspecs, mesh), True
+
+
+def batch_pspec() -> P:
+    rules = shmod.get_rules() or shmod.SINGLE_POD_RULES
+    return P(rules["batch"])
+
+
+@dataclasses.dataclass
+class LoweringSpec:
+    """Everything the dry run traces for one cell."""
+
+    fn: Any
+    args: tuple  # meta tensors (and the models holding them)
+    in_specs: tuple  # one spec tree per argument: the reference's in_shardings' specs
+    donate_argnums: tuple = ()
+    skip: str | None = None  # why the port runs no such layout (then nothing is traced)
+    argument_bytes: int = 0  # what the port places, on its busiest device
+    reference_argument_bytes: int | None = None  # per device under the spec trees (train cells)
+    device_args: list = dataclasses.field(default_factory=list)  # per device: the placed tensors
+
+
+def _spec_bytes(shapes, specs, mesh, bytes_per: int) -> int:
+    """Per-device bytes of a reference-layout tree of ``shapes`` under
+    ``specs`` (each dim split over the product of its axes' sizes)."""
+    if isinstance(specs, dict):
+        return sum(_spec_bytes(shapes[k], specs[k], mesh, bytes_per) for k in specs)
+    n = 1
+    parts = list(specs) + [None] * (len(shapes.shape) - len(specs))
+    for dim, axes in zip(shapes.shape, parts):
+        split = 1
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            if a is not None:
+                split *= mesh.shape[a]
+        n *= -(-dim // split)
+    return n * bytes_per
+
+
+# ------------------------------------------------------------------ train
+MICRO_BATCH_PER_DEVICE = 4  # activation-memory budget knob
+
+
+def _data_axis_size(mesh) -> int:
+    return shmod.data_axes_and_size(mesh, shmod.get_rules() or shmod.SINGLE_POD_RULES)[1]
+
+
+def train_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
+    data_size = _data_axis_size(mesh)
+    accum = max(1, shape.global_batch // (data_size * MICRO_BATCH_PER_DEVICE))
+    micro = shape.global_batch // accum
+    tcfg = TrainConfig(grad_accum=accum)
+
+    params = param_structs(cfg, torch.float32).requires_grad_(True)
+    pspecs = shmod.param_pspecs(params)
+    mspecs = zero_pspecs(params, pspecs, mesh)
+    pspecs, _ = maybe_fsdp_pspecs(cfg, params, pspecs, mesh, bytes_per_param=4)
+    state_specs = {"params": pspecs, "opt": {"m": mspecs, "v": mspecs, "count": P()}, "step": P()}
+
+    bp = batch_pspec()
+
+    def bshape(*tail):
+        return (accum, micro, *tail) if accum > 1 else (micro, *tail)
+
+    def bspec(*tail):
+        lead = (None,) if accum > 1 else ()
+        return P(*(lead + tuple(bp) + tail))
+
+    n_vis = cfg.num_vision_tokens if cfg.frontend == "vit_stub" else 0
+    batch: dict[str, Any] = {"tokens": _struct(bshape(shape.seq_len + 1 - n_vis), torch.int32)}
+    batch_specs: dict[str, Any] = {"tokens": bspec()}
+    if n_vis:
+        batch["vision_embeds"] = _struct(bshape(n_vis, cfg.d_model), torch.bfloat16)
+        batch_specs["vision_embeds"] = bspec(None, None)
+    if cfg.is_encdec:
+        batch["encoder_frames"] = _struct(bshape(cfg.encoder_seq_len, cfg.d_model), torch.bfloat16)
+        batch_specs["encoder_frames"] = bspec(None, None)
+
+    step = torch.zeros((), dtype=torch.int32, device=META)
+    state = {"params": params, "opt": adamw_init(dict(params.named_parameters())), "step": step}
+    shapes = zero._shapes(params)
+    scalars = 2 * 4  # count and step, int32
+    batch_bytes = sum(_nbytes(t) for t in batch.values())
+    ref_bytes = (_spec_bytes(shapes, pspecs, mesh, 4) + 2 * _spec_bytes(shapes, mspecs, mesh, 4) + scalars
+                 + batch_bytes // data_size)
+    if mesh.size == 1:
+        step_fn, placed = make_train_step(cfg, tcfg), [state]
+    else:
+        roles = RoleMesh(mesh)
+        with roles:
+            step_fn = make_train_step(cfg, tcfg, grad_pspecs=mspecs)
+            state = zero.place_train_state(state, roles, mspecs)
+        placed = [{"params": state["params"][q], "step": state["step"][q],
+                   "opt": {k: state["opt"][k][q] for k in ("m", "v", "count")}} for q in range(roles.size)]
+    per_device = [[*d["params"].parameters(), *d["opt"]["m"].values(), *d["opt"]["v"].values(),
+                   d["opt"]["count"], d["step"]] for d in placed]
+    return LoweringSpec(
+        fn=step_fn,
+        args=(state, batch),
+        in_specs=(state_specs, batch_specs),
+        donate_argnums=(0,),
+        argument_bytes=max(sum(_nbytes(t) for t in ts) for ts in per_device) + batch_bytes // data_size,
+        reference_argument_bytes=ref_bytes,
+        device_args=per_device,
+    )
+
+
+# ---------------------------------------------------------------- prefill
+def prefill_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
+    data_size = _data_axis_size(mesh)
+    policy = choose_cache_policy(cfg, dict(mesh.shape)["model"], shape.global_batch, data_size)
+
+    params = param_structs(cfg)
+    pspecs = shmod.param_pspecs(params)
+    pspecs, _ = maybe_fsdp_pspecs(cfg, params, pspecs, mesh, bytes_per_param=2)
+
+    n_vis = cfg.num_vision_tokens if cfg.frontend == "vit_stub" else 0
+    tokens = _struct((shape.global_batch, shape.seq_len - n_vis), torch.int32)
+    max_len = shape.seq_len
+
+    kw_structs: dict[str, Any] = {}
+    kw_specs: dict[str, Any] = {}
+    bp = batch_pspec()
+    if n_vis:
+        kw_structs["vision_embeds"] = _struct((shape.global_batch, n_vis, cfg.d_model), torch.bfloat16)
+        kw_specs["vision_embeds"] = P(*(tuple(bp) + (None, None)))
+    if cfg.is_encdec:
+        kw_structs["encoder_frames"] = _struct((shape.global_batch, cfg.encoder_seq_len, cfg.d_model),
+                                               torch.bfloat16)
+        kw_specs["encoder_frames"] = P(*(tuple(bp) + (None, None)))
+
+    def prefill_fn(params, tokens, kw=None):
+        return D.prefill(params, cfg, tokens, max_len=max_len, kv_repeat=policy.kv_repeat, **(kw or {}))
+
+    args, in_specs = (params, tokens), (pspecs, bp)
+    if kw_structs:
+        args, in_specs = args + (kw_structs,), in_specs + (kw_specs,)
+    leaves = list(params.parameters())
+    return LoweringSpec(
+        fn=prefill_fn, args=args, in_specs=in_specs,
+        skip=None if mesh.size == 1 else NOT_SERVED_ON_A_MESH,
+        argument_bytes=sum(_nbytes(t) for t in leaves + [tokens, *kw_structs.values()]),
+        device_args=[leaves],
+    )
+
+
+# ----------------------------------------------------------------- decode
+def cache_structs_and_specs(cfg: ModelConfig, shape: InputShape, policy: CachePolicy, mesh):
+    cache = D.init_cache(cfg, shape.global_batch, shape.seq_len, kv_repeat=policy.kv_repeat, device=META)
+    rules = shmod.get_rules() or shmod.SINGLE_POD_RULES
+    data_axes = rules["batch"]
+    if not isinstance(data_axes, tuple):
+        data_axes = (data_axes,)
+
+    def seq_mesh_axes():
+        out = []
+        for logical in policy.seq_axes:
+            if logical == "data":
+                out.extend(a for a in data_axes if a)
+            else:
+                out.append("model")
+        return tuple(out)
+
+    semantic_to_axes = {
+        "layers": None,
+        "batch": (data_axes if len(data_axes) > 1 else data_axes[0]) if policy.shard_batch else None,
+        "seq": (lambda sa: (sa if len(sa) > 1 else sa[0]) if sa else None)(seq_mesh_axes()),
+        "kv_heads": "model" if policy.shard_heads else None,
+        "head": None,
+        "rank": None,
+        "inner": "model",
+        "state": None,
+        "window": None,
+        "rec_heads": "model",
+        "hd": None,
+        "enc_seq": None,
+    }
+
+    specs = {}
+    for key, leaf in cache.items():
+        sem = D.CACHE_DIM_SEMANTICS.get(key, (None,) * leaf.ndim)
+        axes = []
+        for dim, s in zip(leaf.shape, sem):
+            ax = semantic_to_axes.get(s) if s else None
+            if ax is None:
+                axes.append(None)
+                continue
+            size = 1
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                size *= dict(mesh.shape)[a]
+            axes.append(ax if dim % size == 0 and dim >= size else None)
+        specs[key] = P(*axes)
+    return cache, specs
+
+
+def decode_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
+    data_size = _data_axis_size(mesh)
+    policy = choose_cache_policy(cfg, dict(mesh.shape)["model"], shape.global_batch, data_size)
+
+    params = param_structs(cfg)
+    pspecs = shmod.param_pspecs(params)
+    pspecs, _ = maybe_fsdp_pspecs(cfg, params, pspecs, mesh, bytes_per_param=2)
+    cache, cache_specs = cache_structs_and_specs(cfg, shape, policy, mesh)
+
+    token = _struct((shape.global_batch,), torch.int32)
+    lengths = _struct((shape.global_batch,), torch.int32)
+    bspec = batch_pspec() if shape.global_batch >= data_size else P()
+
+    def serve_step(params, token, cache, lengths):
+        return D.decode_step(params, cfg, token, cache, lengths, kv_repeat=policy.kv_repeat)
+
+    leaves = list(params.parameters())
+    return LoweringSpec(
+        fn=serve_step,
+        args=(params, token, cache, lengths),
+        in_specs=(pspecs, bspec, cache_specs, bspec),
+        donate_argnums=(2,),
+        skip=None if mesh.size == 1 else NOT_SERVED_ON_A_MESH,
+        argument_bytes=sum(_nbytes(t) for t in leaves + [token, lengths, *cache.values()]),
+        device_args=[leaves + list(cache.values())],
+    )
+
+
+def build_cell(cfg: ModelConfig, shape_name: str | InputShape, mesh) -> LoweringSpec:
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    if shape.kind == "train":
+        return train_cell(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return prefill_cell(cfg, shape, mesh)
+    return decode_cell(cfg, shape, mesh)

@@ -1,2 +1,3 @@
-"""Serving substrate of the port: the byte-level tokenizer and the batched
-slot engine over ``models/decode.py``."""
+"""Serving substrate of the port: the byte-level tokenizer, the batched
+slot engine over ``models/decode.py``, and the KV-cache placement policy
+(``serving/kv_cache.py``)."""

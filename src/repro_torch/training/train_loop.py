@@ -44,6 +44,7 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as S
 from repro_torch.distributed import zero
 from repro_torch.distributed.fault_tolerance import PreemptionHandler, StragglerMonitor
+from repro_torch.kernels import _build
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update, cosine_schedule
@@ -136,7 +137,7 @@ def make_train_step(
         if tcfg.grad_accum > 1:
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-            for i in range(tcfg.grad_accum):
+            for i in _build.repeat(tcfg.grad_accum):
                 mb_loss, mb_grads = value_and_grad(params, leaves, {k: v[i] for k, v in batch.items()})
                 loss = loss + mb_loss / tcfg.grad_accum
                 for acc, g in zip(grads, mb_grads):
@@ -236,7 +237,8 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                 for q in group] for mn in moe_names} for group in shards]
             grads: list[dict] = [{} for _ in devices]
             losses = {}
-            for mb in mb_batches:
+            for m in _build.repeat(len(mb_batches)):
+                mb = mb_batches[m]
                 parts = _split_rows(mb, data_size)
                 tensors = {}
                 for i, lead in enumerate(leads):
@@ -321,20 +323,14 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                     new_steps.append(state["step"][q] + 1)
             del reduced
             # the all-gather: each device's updated slices into every copy of its column
-            C.barrier(devices)
-            with torch.no_grad():
-                for q, dev in enumerate(devices):
-                    with dev.scope():
-                        for s in layout.column(q):
-                            if s == q:
-                                continue
-                            for n in names:
-                                if layout.zero_dim[n] is None:
-                                    continue
-                                sl = layout.moment_slice(n, s, named[s][n].shape)
-                                if sl is not None:
-                                    zero.take(named[q][n], sl).copy_(zero.take(named[s][n], sl))
-            C.barrier(devices)
+            sharded = [n for n in names if layout.zero_dim[n] is not None]
+
+            def owned(n, s, t):
+                sl = layout.moment_slice(n, s, named[s][n].shape)
+                return None if sl is None else zero.take(t, sl)
+
+            C.all_gather_([{n: named[q][n] for n in sharded} for q in range(len(devices))], devices,
+                          [layout.column(q) for q in range(len(devices))], owned)
             C._leave(devices, caller, [loss_total, *norms])
         state = {"params": copies, "opt": {"m": state["opt"]["m"], "v": state["opt"]["v"], "count": new_counts},
                  "step": new_steps}

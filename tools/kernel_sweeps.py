@@ -236,17 +236,17 @@ def k4_plans(dev, card: str, flush) -> None:
     kc, vc = (C._randn(rng, (b, s, 1, d), torch.bfloat16, dev) for _ in range(2))
     lens = torch.tensor([2048, 2052, 2056, 2060], dtype=torch.int32, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    shipped = da._sm_count
+    shipped = da._build.sm_count
     try:
         for factor in (0.25, 0.5, 1, 2):
-            da._sm_count = lambda index, n=int(n_sm * factor): n
+            da._build.sm_count = lambda device, n=int(n_sm * factor): n
             for window in (None, C.GEMMA_WINDOW):
                 ms = C.median_ms(lambda: da.decode_attention_cache(q, kc, vc, lens, window=window), flush)
                 chunk, n_split = da.split_plan(b, s, window, d, 2, int(n_sm * factor))
                 print(f"K4 plan for {factor} x {n_sm} SMs, window {window}: {n_split} chunks of "
                       f"{chunk} keys x {b}: {ms * 1e3:.2f} us [{card}]", flush=True)
     finally:
-        da._sm_count = shipped
+        da._build.sm_count = shipped
 
 
 def k2_stages(dev, card: str, flush) -> None:
