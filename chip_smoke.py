@@ -793,7 +793,9 @@ def _attn_bound(got: torch.Tensor, want: torch.Tensor, dt: torch.dtype) -> tuple
 
 def check_flash_attention(dev) -> dict:
     """K3 against its plain version: head_dim 256 (MQA, the Gemma3 prefill
-    shape 4 x 2048, window and none, in f32 and bf16) and 128/64 (GQA),
+    shape 4 x 2048, window and none, in f32 and bf16; a model device's
+    share of Gemma3-1B's training layer on the (2, 2) training mesh, 2 x
+    1024, 2 heads over 1, window 512 and none, bf16) and 128/64 (GQA),
     ragged S, causal and not; for the bf16 tensor-core kernel also the
     edges of its 128-row query and 64-key tiles (S = 1, 63, 65, 127, 129,
     2049), windows that end inside a tile (64, 100), groups 1/4/8, D
@@ -819,6 +821,9 @@ def check_flash_attention(dev) -> dict:
         (PREFILL_B, PREFILL_S, 4, 1, 256, True, None, torch.float32),
         (PREFILL_B, PREFILL_S, 4, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
         (PREFILL_B, PREFILL_S, 4, 1, 256, True, None, torch.bfloat16),
+        # a model device's heads of Gemma3-1B on the (2, 2) training mesh: 2 query heads over the 1 KV head
+        (TRAIN_B // 2, TRAIN_S, 2, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (TRAIN_B // 2, TRAIN_S, 2, 1, 256, True, None, torch.bfloat16),
         (2, 777, 4, 1, 256, True, 100, torch.float32),
         (2, 777, 4, 1, 256, True, None, torch.float32),
         (1, 300, 16, 8, 128, True, None, torch.float32),
@@ -1208,7 +1213,9 @@ def check_flash_attention_bwd(dev) -> float:
     """K3's backward (dQ kernel, then dK/dV kernel; bf16 with GQA also the
     group sum) against the plain backward on the same (q, k, v, out, lse,
     dO): Gemma3-1B's training layers (4 x 1024, 4 heads over 1 of 256,
-    causal, global and window 512) in bf16 and f32, then ragged S (1, 33,
+    causal, global and window 512) in bf16 and f32, a model device's share
+    of them on the (2, 2) training mesh (2 x 1024, 2 heads over 1) in
+    bf16, then ragged S (1, 33,
     777), GQA groups 2 and 4, D 64 and 128, non-causal, Sk != Sq, a window
     that ends inside a tile, and DeepSeek-V2's MLA layer (1 x 1024, 128
     heads of q/k 192 and v 128, group 1, causal) in bf16 and f32.  dq, dk
@@ -1225,6 +1232,9 @@ def check_flash_attention_bwd(dev) -> float:
         (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, GEMMA_WINDOW, torch.bfloat16),
         (TRAIN_B, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, GEMMA_WINDOW, torch.float32),
         (1, TRAIN_S, TRAIN_S, 4, 1, 256, 256, True, None, torch.float32),
+        # a model device's heads on the (2, 2) training mesh: 2 x 1024, 2 query heads over the 1 KV head
+        (TRAIN_B // 2, TRAIN_S, TRAIN_S, 2, 1, 256, 256, True, None, torch.bfloat16),
+        (TRAIN_B // 2, TRAIN_S, TRAIN_S, 2, 1, 256, 256, True, GEMMA_WINDOW, torch.bfloat16),
         (1, 1, 1, 4, 1, 256, 256, True, None, torch.bfloat16),
         (2, 33, 33, 4, 1, 256, 256, True, None, torch.bfloat16),
         (2, 777, 777, 4, 1, 256, 256, True, 100, torch.bfloat16),
@@ -3701,7 +3711,8 @@ def _same_norms(tag: str, metrics) -> None:
         raise AssertionError(f"{tag}: the devices' grad norms differ: {norms}")
 
 
-def _hold_step(tag: str, against: str, params: list, moments: list, lr: float, card: str) -> None:
+def _hold_step(tag: str, against: str, params: list, moments: list, lr: float, card: str,
+               hold_m: bool = True) -> None:
     """A mesh step's updated leaves and AdamW m held against another run
     of the same first step (m and v zero before it): ``params`` and
     ``moments`` are (name, got, want) triples.  A first AdamW step moves
@@ -3709,8 +3720,8 @@ def _hold_step(tag: str, against: str, params: list, moments: list, lr: float, c
     gradients differ only in rounding differ by at most 2·lr where an
     element's gradient changes sign (and by f32 rounding elsewhere); m is
     (1 - b1) times the clipped gradient, held per leaf within
-    MESH_GNORM_RTOL in L2.  Prints the share of elements whose update
-    differs by more than lr."""
+    MESH_GNORM_RTOL in L2 (with ``hold_m`` off, only printed).  Prints the
+    share of elements whose update differs by more than lr."""
     worst_p, flipped, n_el, worst_m, worst_name = 0.0, 0, 0, 0.0, None
     with torch.no_grad():
         for name, got, want in params:
@@ -3728,8 +3739,9 @@ def _hold_step(tag: str, against: str, params: list, moments: list, lr: float, c
                 worst_m, worst_name = err, name
     log(f"[train-mesh] {tag} first step against the {against}: updated leaves max|Δ| {worst_p:.3e} (bound 2·lr "
         f"{2 * lr:g}), {flipped} of {n_el} elements ({flipped / n_el:.2e}) updated more than lr apart; AdamW m "
-        f"|Δm| / |m| {worst_m:.3e} at worst ({worst_name}; bound {MESH_GNORM_RTOL:g} a leaf) [{card}]")
-    if worst_m > MESH_GNORM_RTOL:
+        f"|Δm| / |m| {worst_m:.3e} at worst ({worst_name}; "
+        f"{f'bound {MESH_GNORM_RTOL:g} a leaf' if hold_m else 'not held'}) [{card}]")
+    if hold_m and worst_m > MESH_GNORM_RTOL:
         raise AssertionError(f"{tag}: AdamW m of {worst_name} is {worst_m:.3e} from the {against}'s")
 
 
@@ -3737,12 +3749,17 @@ def _mesh_steps(step, placed, fn, cfg, tag: str, mesh, card: str, first: int, ch
     """MESH_TRAIN_STEPS more steps of ``step`` over ``fn``'s batches: each
     step's loss, grad norm, ms (synchronised), K3 launches and peak
     memory; asserts every device's grad norm the same and K3 forward 2 x
-    layers and backward one a layer per data shard a step; ``check(placed,
-    metrics)``, if given, sees the first step's outcome.  Returns (placed,
-    losses, median ms, launches)."""
+    layers and backward one a layer per data shard a step, on each of its
+    model devices where the heads split over them (``layers.heads_split``)
+    and on its lead alone where they do not; ``check(placed, metrics)``,
+    if given, sees the first step's outcome.  Returns (placed, losses,
+    median ms, launches)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers as L
 
     replicas = len(mesh.model_groups(("data",)))
+    tp = mesh.shape.get("model", 1)
+    replicas *= tp if tp > 1 and L.heads_split(cfg, tp) else 1
     want = (2 * cfg.num_layers * replicas, cfg.num_layers * replicas)
     losses, times, launches = [], [], {"flash_attention": 0, "flash_attention_bwd": 0}
     for i in range(first, first + MESH_TRAIN_STEPS):
@@ -3760,11 +3777,11 @@ def _mesh_steps(step, placed, fn, cfg, tag: str, mesh, card: str, first: int, ch
         launches["flash_attention_bwd"] += got[1]
         losses.append(loss)
         log(f"[train-mesh] {tag} step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, {times[-1]:.1f} ms, K3 "
-            f"{got[0]} forward / {got[1]} backward ({replicas} data shards), peak allocated "
+            f"{got[0]} forward / {got[1]} backward ({replicas} devices running attention), peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
         if got != want:
-            raise AssertionError(f"{tag}: K3 launches a step {got}, expected {want} "
-                                 f"({2 * cfg.num_layers} forward and {cfg.num_layers} backward a data shard)")
+            raise AssertionError(f"{tag}: K3 launches a step {got}, expected {want} ({2 * cfg.num_layers} forward "
+                                 f"and {cfg.num_layers} backward on each of {replicas} devices)")
         if check is not None and i == first:
             check(placed, metrics)
     return placed, losses, statistics.median(times), launches
@@ -3865,8 +3882,184 @@ def train_mesh_gemma(dev, card: str) -> dict:
     return launches
 
 
+class _ByDevice:
+    """A kernel wrapper, forwarded to, that also counts its launches by the
+    logical device whose scope each call ran in (its own ``launches``
+    attribute reads and writes go to the wrapper's)."""
+
+    def __init__(self, fn, counts: dict):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_counts", counts)
+
+    def __call__(self, *args, **kw):
+        from repro_torch.device import current_logical
+
+        before = self._fn.launches
+        out = self._fn(*args, **kw)
+        dev = current_logical()
+        label = "no device" if dev is None else dev.label
+        self._counts[label] = self._counts.get(label, 0) + self._fn.launches - before
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def _k3_by_device():
+    """For the block, K3's forward and backward launches by logical device:
+    yields ({label: forward launches}, {label: backward launches})."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fwd, bwd, real = {}, {}, (fa_ops.flash_attention_bshd, fa_ops.flash_attention_bwd_bshd)
+    fa_ops.flash_attention_bshd, fa_ops.flash_attention_bwd_bshd = _ByDevice(real[0], fwd), _ByDevice(real[1], bwd)
+    try:
+        yield fwd, bwd
+    finally:
+        fa_ops.flash_attention_bshd, fa_ops.flash_attention_bwd_bshd = real
+
+
+def _placed_bytes(placed: dict, q: int) -> int:
+    """What device ``q`` of a placed training state holds: its parameters,
+    its m and v slices, count and step."""
+    ts = [*placed["params"][q].parameters(), *placed["opt"]["m"][q].values(), *placed["opt"]["v"][q].values(),
+          placed["opt"]["count"][q], placed["step"][q]]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def train_mesh_gemma_tp(dev, card: str) -> dict:
+    """(c) Gemma3-1B at full width and depth (f32 master weights, bf16
+    compute) tensor- and data-parallel on four streams of the card,
+    ``make_mesh((2, 2), ("data", "model"))`` in the reference's layout:
+    each model device stores its slice of every "model"-ruled leaf (2 of
+    the 4 query heads' columns of wq, rows of wo, half of each MLP, half
+    the vocabulary; wk/wv's half-head slices, gathered before use) and
+    computes its heads (K3 at 2 x 1024, 2 heads over 1), its columns and
+    its vocab rows.  Per device the placed bytes equal the reference
+    layout's for the same spec trees.  The first step (step 1) from phase
+    4E's seeded state and batch: held to the single-device step on the
+    kernels (loss, grad norm, each device's slice of the updated leaves
+    within 2·lr an element; AdamW m printed, not held: the partial
+    outputs round in bf16 before their sum, about 2% of m a leaf where
+    the single-device step rounds once), and bitwise to the same step run
+    serially on the default stream (every leaf and m: no cross-stream
+    race); K3's launches per model device.  Then MESH_TRAIN_STEPS steps
+    (the loss falls)."""
+    from repro_torch import configs
+    from repro_torch import device as D
+    from repro_torch.data.pipeline import synthetic_lm_batch_fn
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import zero as Z
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_loop as loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = configs.get_config("gemma3-1b")
+    tcfg = loop.TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=MESH_TRAIN_STEPS + 2)
+    fn = synthetic_lm_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    batch = fn(0, 0, 0, 1)
+    mesh = make_mesh((2, 2), ("data", "model"), _mesh_devices(dev, 4))
+    serial_mesh = make_mesh((2, 2), ("data", "model"),
+                            [D.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
+    tag = f"{cfg.name} (2, 2)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.init_train_state(cfg, SEED, dev)
+    state["step"].fill_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed, specs = _place(state, mesh, S.SINGLE_POD_RULES)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    with S.use_rules(S.SINGLE_POD_RULES), mesh:
+        step = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)
+        pspecs = S.param_pspecs(state["params"])
+        shapes = Z._shapes(state["params"])
+        ref_bytes = LS._spec_bytes(shapes, pspecs, mesh, 4) + 2 * LS._spec_bytes(shapes, specs, mesh, 4) + 2 * 4
+    held = [_placed_bytes(placed, q) for q in range(mesh.size)]
+    whole = sum(t.numel() * t.element_size() for t in [*state["params"].parameters(), *state["opt"]["m"].values(),
+                                                        *state["opt"]["v"].values()])
+    log(f"[train-mesh] {tag}: placed per device {held} bytes ({held[0] / 2**30:.3f} GiB); the reference "
+        f"layout's spec trees give {ref_bytes} bytes a device; the whole state {whole / 2**30:.3f} GiB; placement "
+        f"{place_s:.1f} s [{card}]")
+    if any(b != ref_bytes for b in held):
+        raise AssertionError(f"{tag}: placed bytes {held} per device, the reference layout {ref_bytes}")
+    placed_s, _ = _place(state, serial_mesh, S.SINGLE_POD_RULES)
+    state, single = loop.make_train_step(cfg, tcfg)(state, batch)
+    loss1, gnorm1 = float(single["loss"]), float(single["grad_norm"])
+    want_p, want_m = dict(state["params"].named_parameters()), state["opt"]["m"]
+    del state, single
+    with S.use_rules(S.SINGLE_POD_RULES), serial_mesh:
+        placed_s, metrics_s = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)(placed_s, batch)
+    loss_s, gnorm_s = float(metrics_s["loss"]), float(metrics_s["grad_norm"])
+    placed_s["opt"]["v"] = None  # what is held: each device's leaves and m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_attention_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _k3_by_device() as (fwd, bwd):
+        placed, metrics = step(placed, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    got = (sum(fwd.values()), sum(bwd.values()))
+    launches = {"flash_attention": got[0], "flash_attention_bwd": got[1]}
+    log(f"[train-mesh] {tag} full ({cfg.num_layers} layers), {TRAIN_B}x{TRAIN_S} over 4 streams (2 data shards x 2 "
+        f"model devices, ZeRO-1): first step (step 1) loss {loss:.6f}, grad norm {gnorm:.6f}, {first_ms:.1f} ms; the "
+        f"single-device step on the kernels: loss {loss1:.6f}, grad norm {gnorm1:.6f}; relative "
+        f"{abs(loss - loss1) / abs(loss1):.3e} (bound {MESH_LOSS_RTOL:g}), {abs(gnorm - gnorm1) / gnorm1:.3e} "
+        f"(bound {MESH_GNORM_RTOL:g}); serially on the default stream: loss {loss_s:.6f}, grad norm {gnorm_s:.6f}; "
+        f"K3 forward launches by device {fwd}, backward {bwd} [{card}]")
+    if abs(loss - loss1) > MESH_LOSS_RTOL * abs(loss1) or abs(gnorm - gnorm1) > MESH_GNORM_RTOL * gnorm1:
+        raise AssertionError(f"{tag}: loss {loss} vs {loss1}, grad norm {gnorm} vs {gnorm1}")
+    labels = [d.label for d in mesh.flat]
+    if fwd != dict.fromkeys(labels, 2 * cfg.num_layers) or bwd != dict.fromkeys(labels, cfg.num_layers):
+        raise AssertionError(f"{tag}: K3 launches by device {fwd} forward, {bwd} backward; expected "
+                             f"{2 * cfg.num_layers} and {cfg.num_layers} on each of {labels}")
+    _same_norms(tag, metrics)
+    differ = [f"{d.label} {n}" for d, c, cs_ in zip(mesh.flat, placed["params"], placed_s["params"])
+              for (n, w), w_s in zip(c.named_parameters(), cs_.parameters()) if not torch.equal(w, w_s)]
+    differ += [f"{d.label} m {n}" for d, ms, ms_s in zip(mesh.flat, placed["opt"]["m"], placed_s["opt"]["m"])
+               for n, m in ms.items() if not torch.equal(m, ms_s[n])]
+    if (loss, gnorm) != (loss_s, gnorm_s) or differ:
+        raise AssertionError(f"{tag}: the step on streams differs from the serial run: loss {loss} / {loss_s}, "
+                             f"grad norm {gnorm} / {gnorm_s}, {len(differ)} tensors, e.g. {differ[:4]}")
+    n_tensors = sum(len(list(c.parameters())) + len(ms) for c, ms in zip(placed["params"], placed["opt"]["m"]))
+    log(f"[train-mesh] {tag}: the step on 4 streams bitwise the serial run's: loss, grad norm and all {n_tensors} "
+        f"leaves and m slices of the 4 devices [{card}]")
+    del placed_s
+    layout = Z.Layout(placed["params"][0], mesh, specs, S.SINGLE_POD_RULES)
+    params, moments = [], []
+    for q, (d, copy_q) in enumerate(zip(mesh.flat, placed["params"])):
+        for n, w in copy_q.named_parameters():
+            psl = layout.param_slice(n, q, want_p[n].shape)
+            params.append((f"{d.label} {n}", w, Z.take(want_p[n], psl)))
+            if n in placed["opt"]["m"][q]:
+                msl = layout.moment_slice(n, q, w.shape)
+                moments.append((f"{d.label} {n}", placed["opt"]["m"][q][n], Z.take(Z.take(want_m[n], psl), msl)))
+    _hold_step(tag, "single-device step", params, moments, tcfg.optimizer.lr, card, hold_m=False)
+    del want_p, want_m, layout, params, moments
+    torch.cuda.empty_cache()
+    placed, losses, med, more = _mesh_steps(step, placed, fn, cfg, tag, mesh, card, 2)
+    _add(launches, more)
+    losses = [loss] + losses
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: losses {losses}")
+    log(f"[train-mesh] {tag} full, tensor-parallel (heads, MLP columns, vocab) x data-parallel on 4 streams: step "
+        f"{med:.1f} ms median of {MESH_TRAIN_STEPS}, {TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+    del placed, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_mesh_olmoe(dev, card: str) -> dict:
-    """(c) OLMoE-1B-7B at full width and OLMOE_TRAIN_LAYERS layers
+    """(d) OLMoE-1B-7B at full width and OLMOE_TRAIN_LAYERS layers
     (``reduced``) on ``make_mesh((2, 2), ("data", "model"))`` under
     SINGLE_POD_RULES, four streams: one forward of ``moe_apply``'s
     expert-parallel branch on a layer's input bitwise its serial
@@ -3969,11 +4162,14 @@ def train_mesh_olmoe(dev, card: str) -> dict:
 def run_train_mesh(dev, card: str) -> dict:
     """Phase 4F, the training mesh on logical devices of the card: the
     collectives (:func:`check_collectives`), Gemma3-1B data-parallel on
-    two streams (:func:`train_mesh_gemma`), OLMoE-1B-7B expert-parallel on
-    four (:func:`train_mesh_olmoe`).  Returns the K3 launches of the
-    driven steps."""
+    two streams (:func:`train_mesh_gemma`), Gemma3-1B tensor- and
+    data-parallel in the reference's layout on four
+    (:func:`train_mesh_gemma_tp`), OLMoE-1B-7B expert-parallel (its
+    attention head-parallel) on four (:func:`train_mesh_olmoe`).  Returns
+    the K3 launches of the driven steps."""
     check_collectives(dev, card)
     launches = train_mesh_gemma(dev, card)
+    launches = _add(launches, train_mesh_gemma_tp(dev, card))
     return _add(launches, train_mesh_olmoe(dev, card))
 
 

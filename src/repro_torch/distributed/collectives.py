@@ -16,7 +16,12 @@ per-device tensors, ``parts[i]`` on ``devices[i]``:
   copy of the parameters, in place;
 * ``broadcast`` and ``ring_sum`` — a tensor copied to every device of a
   group, and a group's parts summed with the ring, as autograd Functions
-  that are each other's backward (MoE's expert-parallel branch).
+  that are each other's backward (Megatron's f and g: the tensor-parallel
+  layers' input and output, MoE's expert-parallel branch);
+* ``all_gather`` — a leaf's slices joined on each receiving device, as an
+  autograd Function whose backward is the reduce-scatter of the
+  receivers' gradients back to the slices (a "model"-split leaf that the
+  compute cannot use as its slice, gathered before use).
 
 On a card each step's work is enqueued on the receiving device's stream
 after a barrier of events over the group's streams: a receiver reads its
@@ -316,3 +321,61 @@ def ring_sum(parts: list, devices) -> torch.Tensor:
     first device's copy; under autograd its gradient is broadcast back to
     every part."""
     return _RingSum.apply(tuple(devices), *parts)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, dim, at, slices, *parts):
+        ctx.devices, ctx.dim, ctx.at, ctx.width = devices, dim, at, parts[0].shape[dim]
+        p = len(parts)
+        shape = list(parts[0].shape)
+        shape[dim] *= slices
+        outs = []
+        for r in at:
+            with devices[r].scope():
+                outs.append(torch.empty(shape, dtype=parts[0].dtype, device=parts[0].device))
+        with _collective("all-gather", outs[:1], [devices[r] for r in at]):
+            caller = _enter(devices)
+            barrier(devices)  # each part's last write, on whichever stream made it
+            for r, out in zip(at, outs):
+                with devices[r].scope():
+                    for i in range(slices):
+                        _used_on(parts[i % p], devices[r])
+                        out.narrow(dim, i * ctx.width, ctx.width).copy_(parts[i % p])
+            _leave(devices, caller, outs)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        devices, dim, k = ctx.devices, ctx.dim, ctx.width
+        got = [(r, g) for r, g in zip(ctx.at, grads) if g is not None]
+        outs = []
+        with _collective("reduce-scatter", [got[0][1].narrow(dim, 0, k)] if got else [], devices):
+            caller = _enter(devices)
+            for s, dev in enumerate(devices):
+                with dev.scope():
+                    acc = None
+                    for _, g in got:  # the receivers' gradients of slice s, in order
+                        _used_on(g, dev)
+                        piece = g.narrow(dim, s * k, k)
+                        acc = piece.clone(memory_format=torch.contiguous_format) if acc is None else acc.add_(piece)
+                    outs.append(acc)
+            _leave(devices, caller, [t for t in outs if t is not None])
+        return (None, None, None, None, *outs)
+
+
+def all_gather(parts: list, devices, dim: int, at=None, slices: int | None = None) -> list:
+    """``parts`` (``parts[i]`` on ``devices[i]``, equal shapes) joined along
+    ``dim`` in order, one whole tensor on each device at the positions
+    ``at`` (default: every device), each made on its receiver's stream.
+    Under autograd each part's gradient is the sum, over the receivers in
+    order, of their gradients' slice of it (a reduce-scatter; with one
+    receiver, a scatter).
+
+    ``slices`` (default ``len(parts)``) is the number of slices the whole
+    holds: a trace on a :class:`~repro_torch.launch.mesh.RoleMesh`, whose
+    group keeps fewer devices than the "model" axis has, fills the whole's
+    shape by cycling through the parts it has."""
+    at = tuple(range(len(devices))) if at is None else tuple(at)
+    slices = len(parts) if slices is None else slices
+    return list(_AllGather.apply(tuple(devices), dim, at, slices, *parts))

@@ -13,8 +13,9 @@ path in the reference's pytree, and a layer's parameter counts the
 leading layer axis its reference leaf is stacked under.  :class:`P` is
 ``PartitionSpec``'s counterpart.  The calling thread's current mesh
 (``with mesh:``, ``launch/mesh.py``) and the training mesh's data shard
-being computed (:func:`expert_shard`) are kept here with the rules, where
-MoE's expert-parallel branch reads them.
+being computed (:func:`expert_shard`, :func:`tensor_shard`: its model
+group and their "model"-split parameters) are kept here with the rules,
+where the layers read them.
 
 Serving: the runtime's sharded mode (``MeshConfig.sharded``) gives a
 replica group more than one device.  Its program runs one member program
@@ -28,12 +29,13 @@ import contextlib
 import dataclasses
 import re
 import threading
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.device import LogicalDevice
+from repro_torch.device import LogicalDevice, current_logical
 
 _ctx = threading.local()
 
@@ -153,18 +155,103 @@ def current_expert_shard() -> dict | None:
     return getattr(_ctx, "expert_groups", None)
 
 
+class TensorShard:
+    """One data shard's model group on the training mesh: its ``devices``
+    in model order and each one's copy of the parameters (``copies``, the
+    first the lead's, whose modules the forward runs on), where each leaf
+    of ``model_dims`` ({name: dim or None}) not None is stored as its
+    slice of that dim, one of ``tp`` (the "model" axis; a
+    :class:`~repro_torch.launch.mesh.RoleMesh` group may hold fewer
+    devices than that).
+
+    Layers ask it for a module's counterpart on each device
+    (:meth:`members`) and gather a split leaf before use (:meth:`gather`,
+    :meth:`whole`)."""
+
+    def __init__(self, devices, copies, model_dims: dict, tp: int):
+        self.devices, self.tp = list(devices), tp
+        lead = copies[0]
+        self._members = {id(mod): [c.get_submodule(name) for c in copies] for name, mod in lead.named_modules()}
+        named = [dict(c.named_parameters()) for c in copies]
+        self._parts = {id(named[0][n]): (dim, [ns[n] for ns in named])
+                       for n, dim in model_dims.items() if dim is not None}
+
+    def members(self, module) -> list:
+        """``module`` (the lead's) on each device of the group, in order."""
+        return self._members[id(module)]
+
+    def is_split(self, p) -> bool:
+        """``p`` (a leaf, or a module: any of its leaves) is stored split."""
+        if isinstance(p, torch.Tensor):
+            return id(p) in self._parts
+        return id(p) in self._members and any(id(w) in self._parts for w in p.parameters())
+
+    def gather(self, w, at=None) -> list:
+        """The split leaf ``w`` (the lead's slice) whole on the group's
+        devices at positions ``at`` (default: all), one tensor each; its
+        gradient is reduce-scattered back to the slices."""
+        from repro_torch.distributed import collectives as C
+
+        dim, parts = self._parts[id(w)]
+        return C.all_gather(parts, self.devices, dim, at, self.tp)
+
+    def whole(self, module):
+        """``module`` with every split leaf gathered whole on the lead (a
+        namespace of its leaves and submodules), or ``module`` itself when
+        none is split: what a layer that cannot use the slices computes
+        with."""
+        if not self.is_split(module):
+            return module
+        leaves = {name: None if w is None else (self.gather(w, (0,))[0] if self.is_split(w) else w)
+                  for name, w in module._parameters.items()}
+        subs = {name: None if m is None else self.whole(m) for name, m in module._modules.items()}
+        # attributes that are neither leaf nor submodule (a MoE's ``shared = None``)
+        plain = {k: v for k, v in vars(module).items() if not k.startswith("_") and k != "training"}
+        return SimpleNamespace(**plain, **leaves, **subs)
+
+
+@contextlib.contextmanager
+def tensor_shard(shard: TensorShard | None):
+    """For the block, layers compute one data shard of the training mesh
+    over its model group (``shard``), the "model"-split leaves as their
+    slices."""
+    prev = current_tensor_shard()
+    _ctx.tensor_shard = shard
+    try:
+        yield
+    finally:
+        _ctx.tensor_shard = prev
+
+
+def current_tensor_shard() -> TensorShard | None:
+    """The :class:`TensorShard` of the :func:`tensor_shard` block being
+    run, or None."""
+    return getattr(_ctx, "tensor_shard", None)
+
+
+def whole(module):
+    """``module`` with its split leaves gathered on the lead inside a
+    :func:`tensor_shard` block (:meth:`TensorShard.whole`); else
+    ``module``."""
+    shard = current_tensor_shard()
+    return module if shard is None else shard.whole(module)
+
+
 def remat_kwargs() -> dict:
     """``torch.utils.checkpoint`` keywords that recompute a layer under the
-    rules, mesh and expert shard current at its forward (the backward may
-    recompute on another thread, the autograd engine's); none when none is
-    set."""
+    rules, mesh, expert shard and tensor shard current at its forward, in
+    its logical device's scope (the backward may recompute on another
+    thread, the autograd engine's, on another device's stream); none when
+    none is set."""
     rules, mesh, groups = get_rules(), current_mesh(), current_expert_shard()
-    if rules is None and mesh is None and groups is None:
+    shard, dev = current_tensor_shard(), current_logical()
+    if rules is None and mesh is None and groups is None and shard is None and dev is None:
         return {}
 
     @contextlib.contextmanager
     def recompute():
-        with use_rules(rules), mesh or contextlib.nullcontext(), expert_shard(groups):
+        with (use_rules(rules), mesh or contextlib.nullcontext(), expert_shard(groups), tensor_shard(shard),
+              dev.scope() if dev is not None else contextlib.nullcontext()):
             yield
 
     return {"context_fn": lambda: (contextlib.nullcontext(), recompute())}

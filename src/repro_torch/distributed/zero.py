@@ -70,12 +70,13 @@ class Layout:
     ``mesh`` under ``specs`` (a reference-layout tree of moment specs,
     ``zero_pspecs``; they carry the parameter specs' "model" entries).
 
-    Each device holds a copy of every parameter, but an expert stack's
-    experts split over "model" (EP, the ``experts`` rule); every other
-    "model" entry of a spec (the dense tensor-parallel rules) is
-    replicated.  Each device holds and updates its ZeRO slice of ``m``
-    and ``v``: on the spec's data dimension, the device's part along the
-    data axes (for a layer group's leading layer axis, whole layers)."""
+    Each device holds, of every parameter whose spec has "model" on a
+    dim, its slice of that dim (the reference's layout: attention's heads,
+    the MLP's columns and rows, the vocabulary, an expert stack's
+    experts, ...), and a copy of every other parameter.  Each device holds
+    and updates its ZeRO slice of ``m`` and ``v``: on the spec's data
+    dimension, the device's part along the data axes (for a layer group's
+    leading layer axis, whole layers)."""
 
     def __init__(self, model, mesh, specs: dict, rules=None):
         from repro_torch.distributed.sharding import spec_at
@@ -100,16 +101,20 @@ class Layout:
             stacked = int(index is not None)
             spec = tuple(spec_at(specs, name))
             md = next((j for j, a in enumerate(spec) if a == "model"), None)
-            self.model_dim[name] = md - stacked if md is not None and "experts" in path and self.tp > 1 else None
+            self.model_dim[name] = md - stacked if md is not None and self.tp > 1 else None
             zd = next((j for j, a in enumerate(spec) if a == self.data_axes), None)
             self.zero_dim[name] = None if zd is None or self.data_size == 1 else zd - stacked  # -1: layers
             self.layer[name] = (index, n_layers[path]) if stacked else None
 
     def param_slice(self, name: str, pos: int, full_shape) -> tuple:
-        """The part of the full parameter the device at ``pos`` holds."""
+        """The part of the full parameter the device at ``pos`` holds;
+        raises when its "model" dim does not split evenly (as placing the
+        reference's sharding would)."""
         md = self.model_dim[name]
         if md is None:
             return WHOLE
+        if full_shape[md] % self.tp:
+            raise ValueError(f"{name}: dim {md} of {tuple(full_shape)} does not split over {self.tp} model devices")
         n = full_shape[md] // self.tp
         m = self.model_index[pos]
         return (md, m * n, (m + 1) * n)
@@ -137,8 +142,8 @@ def place_train_state(state: dict, mesh, specs: dict) -> dict:
     """A single-device training state (``train_loop.init_train_state``'s)
     placed on ``mesh`` under ``specs`` (``zero_pspecs``; the counterpart of
     ``jax.device_put(state, named(mesh, specs))``): per device, in
-    ``mesh.flat`` order, its copy of the parameters (a ``TransformerLM``
-    with its experts), its ``m``/``v`` slices ({name: tensor}, only the
+    ``mesh.flat`` order, its parameters (a ``TransformerLM`` holding
+    each "model"-split leaf's slice, :class:`Layout`), its ``m``/``v`` slices ({name: tensor}, only the
     parts it keeps), ``count`` and ``step``.  Each device's tensors are made
     on its stream; the caller's stream waits for them.  The data axes are
     the current rules'."""
@@ -181,8 +186,9 @@ def place_train_state(state: dict, mesh, specs: dict) -> dict:
 
 def gather_train_state(placed: dict, mesh, specs: dict) -> dict:
     """The inverse of :func:`place_train_state`: one state on the first
-    device's torch device, its experts joined over "model" and its moments
-    over the data axes; ``count`` and ``step`` the first device's."""
+    device's torch device, every "model"-split leaf joined from its slices
+    and the moments over the data axes; ``count`` and ``step`` the first
+    device's."""
     import torch
     from torch import nn
 

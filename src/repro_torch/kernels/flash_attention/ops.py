@@ -47,11 +47,13 @@ the plain launch, with no ``lse``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
+from repro_torch.device import current_logical
 from repro_torch.kernels import _build
 from repro_torch.kernels.cost import KernelCost, dtype_name
 from repro_torch.kernels.flash_attention import plain
@@ -200,19 +202,22 @@ def _forward(q, k, v, causal: bool, window: int | None, scale: float, with_lse: 
 
 class FlashAttention(torch.autograd.Function):
     """K3 with a gradient: forward with ``lse``, backward K3's backward
-    (plain versions on CPU tensors)."""
+    (plain versions on CPU tensors), in the logical device scope the
+    forward ran in (a model device's heads on the training mesh)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None, scale: float):
         out, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, scale)
+        ctx.device = current_logical()
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_bshd(q, k, v, out, lse, dout, *ctx.args)
+        with ctx.device.scope() if ctx.device is not None else contextlib.nullcontext():
+            dq, dk, dv = flash_attention_bwd_bshd(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -29,13 +29,17 @@ through an :class:`Analysis` (a ``TorchDispatchMode``).  It counts:
   from its creation until it is freed (the counterpart of
   ``memory_analysis()``), over the arguments;
 * **collective bytes by type** — each collective of
-  ``distributed/collectives.py`` reports a device's result bytes.
+  ``distributed/collectives.py`` reports a device's result bytes (the
+  training mesh's gradient reductions and all-gathers, and the
+  tensor-parallel layers' broadcasts, ring sums, leaf all-gathers and
+  their reduce-scatters).
 
 Counts are PER DEVICE.  An op inside a logical device's scope
 (``device.LogicalDevice.scope``: the training mesh runs every op of its
 step in one) counts for that device; a backward op outside any scope the
 backward itself opened counts for the device that made its first input
-(it runs where its forward ran); the summary takes each count's largest device and adds what
+(it runs where its forward ran; K3's backward launches in its forward's
+scope); the summary takes each count's largest device and adds what
 ran outside any scope.
 
 ``count_entry_modules`` is not ported: the port's one dispatch per batch

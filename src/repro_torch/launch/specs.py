@@ -14,13 +14,18 @@ What the port runs on a mesh, which is what the dry run traces:
 * **train** — on one device the single-device step (``make_train_step``:
   nothing to reduce or gather); on more, the training mesh's step
   (``make_train_step(grad_pspecs=...)``) over ``zero.place_train_state``'s
-  state: every dense leaf whole on each model device (ROADMAP 26b), an
-  expert stack split over "model", ZeRO-1 moment slices.  It is traced on
-  the mesh's :class:`~repro_torch.launch.mesh.RoleMesh`: one device of
-  each role stands for all of them.
-* **prefill / decode** — the port serves an LM on one device and has no
-  tensor-parallel layout: on a mesh of more than one device the cell holds
-  its spec trees and a ``skip`` reason, and is not traced.
+  state: every leaf whose spec has "model" on a dim stored as its slice
+  (the reference's layout: attention's heads, the MLP's columns and rows,
+  the vocabulary, expert stacks, routers, the recurrent stacks'
+  projections), ZeRO-1 moment slices of each device's part.  So the
+  placed bytes are the reference layout's, but for FSDP
+  (``maybe_fsdp_pspecs``), which the port does not run (ROADMAP 26b).  It
+  is traced on the mesh's :class:`~repro_torch.launch.mesh.RoleMesh`: one
+  device of each role stands for all of them.
+* **prefill / decode** — the port serves an LM on one device: serving on
+  a mesh waits for a slice of its own, so on a mesh of more than one
+  device the cell holds its spec trees and a ``skip`` reason, and is not
+  traced.
 """
 
 from __future__ import annotations
@@ -44,8 +49,8 @@ from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_loop import TrainConfig, make_train_step
 
 META = torch.device("meta")
-NOT_SERVED_ON_A_MESH = ("the port serves an LM on one device and has no tensor-parallel layout "
-                        "(ROADMAP 26b): no prefill or decode runs on this mesh")
+NOT_SERVED_ON_A_MESH = ("the port serves an LM on one device; prefill and decode on a mesh wait for "
+                        "their own slice (ROADMAP 26b): no prefill or decode runs on this mesh")
 
 
 def _struct(shape, dtype) -> torch.Tensor:

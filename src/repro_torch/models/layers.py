@@ -24,6 +24,15 @@ MLA's full-sequence attention is K3 at q/k width 192 and v width 128; its
 absorbed decode (``models/decode.py``) is plain torch, as the reference
 computes it in jnp.
 
+Inside a training mesh's tensor shard (``sharding.tensor_shard``: a data
+shard's model group, each device holding its slice of every "model"-ruled
+leaf) attention runs on each model device's whole heads
+(:func:`gqa_tp`, MLA's :func:`_mla_tp`) and the MLP on its columns, each
+with its input broadcast to the group and its partial outputs summed with
+the ring on the lead (Megatron's f and g); a layer whose heads do not
+split over the group runs on the lead over its leaves gathered
+(``TensorShard.whole``).
+
 MoE (:func:`moe_apply`) is the reference's single-device dispatch, and
 under a current mesh with "model" and rules set, its expert-parallel
 branch, taken under exactly the reference's condition: each data shard's
@@ -121,26 +130,85 @@ def attention_scores_blockwise(
 
 
 # ------------------------------------------------------------- GQA attention
-def gqa_project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KVH,hd) with rope + qk-norm."""
+def _project_heads(p, cfg, x, kv_x, wq, wk, wv, positions):
+    """x @ wq and kv_x @ wk / wv as heads of ``hd`` (as many as the
+    matrices' columns hold), with qk-norm and rope when ``positions`` is
+    given (self attention; cross attention has neither)."""
     b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    dt = x.dtype
-    q = (x @ p.wq.to(dt)).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p.wk.to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p.wv.to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
+    hd, dt = cfg.resolved_head_dim, x.dtype
+    q = (x @ wq.to(dt)).reshape(b, s, -1, hd)
+    k = (kv_x @ wk.to(dt)).reshape(b, kv_x.shape[1], -1, hd)
+    v = (kv_x @ wv.to(dt)).reshape(b, kv_x.shape[1], -1, hd)
+    if positions is None:
+        return q, k, v
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm.scale)
         k = rmsnorm(k, p.k_norm.scale)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    return q, k, v
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KVH,hd) with rope + qk-norm."""
+    return _project_heads(p, cfg, x, x, p.wq, p.wk, p.wv, positions)
+
+
+def heads_split(cfg, tp: int) -> bool:
+    """Attention runs on each of ``tp`` model devices' whole heads: the
+    query heads split evenly, and each device's share keeps GQA's map onto
+    its KV heads (whole groups, or a part of one group)."""
+    h = cfg.num_heads
+    if h % tp:
+        return False
+    local, group = h // tp, h // cfg.num_kv_heads
+    return local % group == 0 or group % local == 0
+
+
+def gqa_tp(p, cfg, x: torch.Tensor, positions, causal: bool, window: int | None, shard,
+           kv_x: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA attention head-parallel over ``shard``'s model group
+    (``sharding.TensorShard``; :func:`heads_split` holds): ``x`` (and the
+    cross attention's keys' source ``kv_x``, whose attention has no rope)
+    broadcast to the group, device m projecting its H/TP query heads with
+    its column slice of ``wq`` and its KV heads — with its own slices of
+    ``wk``/``wv`` when the KV heads split too, else the columns of the
+    gathered whole that its query heads read — running K3 on them, and
+    multiplying by its row slice of ``wo``; the partial outputs summed
+    with the ring on the lead."""
+    b, s, _ = x.shape
+    hd, dt, tp = cfg.resolved_head_dim, x.dtype, shard.tp
+    local, group = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
+    devices = shard.devices
+    xs = C.broadcast(x, devices)
+    kvs = xs if kv_x is None else C.broadcast(kv_x, devices)
+    kv_split = cfg.num_kv_heads % tp == 0
+    if not kv_split:
+        wks, wvs = shard.gather(p.wk), shard.gather(p.wv)
+    parts = []
+    for m, (dev, pm) in enumerate(zip(devices, shard.members(p))):
+        with dev.scope():
+            if kv_split:
+                wk, wv = pm.wk, pm.wv
+            else:
+                lo, n = m * local // group, max(local // group, 1)
+                wk, wv = (w[:, lo * hd:(lo + n) * hd] for w in (wks[m], wvs[m]))
+            q, k, v = _project_heads(pm, cfg, xs[m], kvs[m], pm.wq, wk, wv, positions if kv_x is None else None)
+            out = attention_scores_blockwise(q, k, v, causal=causal, window=window)
+            parts.append(out.reshape(b, s, local * hd) @ pm.wo.to(dt))
+    return C.ring_sum(parts, devices)
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
               window: int | None = None) -> torch.Tensor:
-    """Full-sequence GQA attention (forward / prefill)."""
+    """Full-sequence GQA attention (forward / prefill).  Inside a training
+    mesh's tensor shard (``sharding.tensor_shard``) head-parallel
+    (:func:`gqa_tp`), or, when the heads do not split, on the lead over the
+    gathered leaves."""
+    shard = S.current_tensor_shard()
+    if shard is not None and shard.is_split(p):
+        if heads_split(cfg, shard.tp):
+            return gqa_tp(p, cfg, x, positions, causal, window, shard)
+        p = shard.whole(p)
     b, s, _ = x.shape
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     out = attention_scores_blockwise(q, k, v, causal=causal, window=window)
@@ -200,20 +268,74 @@ def mla_apply_with_latent(p, cfg, x: torch.Tensor, positions: torch.Tensor, caus
     return out @ p.wo.to(x.dtype), c_kv, k_rope
 
 
+def _mla_tp(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool, window: int | None,
+            shard) -> torch.Tensor:
+    """MLA head-parallel over ``shard``'s model group: the lead computes
+    the replicated compressions (``wq_a`` -> ``q_norm``, ``wkv_a`` ->
+    ``kv_norm``, k_rope), broadcast to the group; device m expands its
+    H/TP heads with its column slices of ``wq_b`` (or ``wq``) and
+    ``wkv_b`` (head-major columns: whole heads), runs K3 on them and
+    multiplies by its row slice of ``wo``; the partial outputs summed with
+    the ring on the lead."""
+    b, s, _ = x.shape
+    dt, local = x.dtype, cfg.num_heads // shard.tp
+    q_in = rmsnorm(x @ p.wq_a.to(dt), p.q_norm.scale) if cfg.q_lora_rank else x
+    c_kv, k_rope = mla_compress(p, cfg, x, positions)
+    devices = shard.devices
+    cos, sin = rope_cos_sin(positions, cfg.rope_head_dim, cfg.rope_theta)
+    parts = []
+    for dev, pm, qm, cm, rm in zip(devices, shard.members(p), C.broadcast(q_in, devices),
+                                   C.broadcast(c_kv, devices), C.broadcast(k_rope, devices)):
+        with dev.scope():
+            q = (qm @ (pm.wq_b if cfg.q_lora_rank else pm.wq).to(dt)).reshape(
+                b, s, local, cfg.nope_head_dim + cfg.rope_head_dim)
+            q_nope, q_rope = q.split([cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
+            kv = (cm @ pm.wkv_b.to(dt)).reshape(b, s, local, cfg.nope_head_dim + cfg.v_head_dim)
+            k_nope, v = kv.split([cfg.nope_head_dim, cfg.v_head_dim], dim=-1)
+            q = torch.cat([q_nope, apply_rope(q_rope, cos, sin)], dim=-1)
+            k = torch.cat([k_nope, rm[:, :, None, :].expand(b, s, local, cfg.rope_head_dim)], dim=-1)
+            scale = (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
+            out = attention_scores_blockwise(q, k, v, causal=causal, window=window, scale=scale)
+            parts.append(out.reshape(b, s, local * cfg.v_head_dim) @ pm.wo.to(dt))
+    return C.ring_sum(parts, devices)
+
+
 def mla_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
               window: int | None = None) -> torch.Tensor:
-    """Full-sequence MLA attention (forward / prefill)."""
+    """Full-sequence MLA attention (forward / prefill).  Inside a training
+    mesh's tensor shard head-parallel (:func:`_mla_tp`), or, when the heads
+    do not split, on the lead over the gathered leaves."""
+    shard = S.current_tensor_shard()
+    if shard is not None and shard.is_split(p):
+        if cfg.num_heads % shard.tp == 0:
+            return _mla_tp(p, cfg, x, positions, causal, window, shard)
+        p = shard.whole(p)
     return mla_apply_with_latent(p, cfg, x, positions, causal, window)[0]
 
 
 # ----------------------------------------------------------------------- MLP
-def mlp_apply(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def _swiglu(p, x: torch.Tensor, act: str) -> torch.Tensor:
     dt = x.dtype
     g = x @ p.w_gate.to(dt)
     u = x @ p.w_up.to(dt)
     # jax.nn.gelu defaults to the tanh approximation
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     return (g * u) @ p.w_down.to(dt)
+
+
+def mlp_apply(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP.  Inside a training mesh's tensor shard column- then
+    row-parallel: ``x`` broadcast to the model group, device m's MLP over
+    its column slices of ``w_gate``/``w_up`` and row slice of ``w_down``,
+    the partial outputs summed with the ring on the lead."""
+    shard = S.current_tensor_shard()
+    if shard is None or not shard.is_split(p):
+        return _swiglu(p, x, act)
+    parts = []
+    for dev, pm, xm in zip(shard.devices, shard.members(p), C.broadcast(x, shard.devices)):
+        with dev.scope():
+            parts.append(_swiglu(pm, xm, act))
+    return C.ring_sum(parts, shard.devices)
 
 
 # ----------------------------------------------------------------------- MoE
@@ -341,7 +463,11 @@ def _moe_apply_ep(p, cfg, x: torch.Tensor, act: str, mesh, data_axes, data_size:
     groups = S.current_expert_shard()
     if groups is not None:
         t_local = b * s
-        shards = [(xt, groups[p])]
+        members = groups[p]
+        shard = S.current_tensor_shard()
+        if shard is not None and shard.is_split(p.router):  # stored split over "model": gathered on every device
+            members = [(dev, router, experts) for (dev, _, experts), router in zip(members, shard.gather(p.router))]
+        shards = [(xt, members)]
     else:
         t_local = (b // data_size) * s
         sliced = [SimpleNamespace(**{name: getattr(p.experts, name)[m * n_local:(m + 1) * n_local]
@@ -376,6 +502,7 @@ def moe_apply(p, cfg, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     ep = _expert_parallel(cfg, b, s)
     if ep is not None:
         return _moe_apply_ep(p, cfg, x, act, *ep)
+    p = S.whole(p)  # in a tensor shard, router and experts gathered on the lead
     t = b * s
     xt = x.reshape(t, d)
     y = _moe_dispatch_compute(xt, p.router, p.experts, cfg.num_experts, cfg.experts_per_token,

@@ -39,12 +39,15 @@ A GQA dense-FFN prefix, which no configuration has, is not ported (ROADMAP
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -476,15 +479,15 @@ def hybrid_mix(p: Block, cfg: ModelConfig, attn_out: torch.Tensor, mamba_out: to
 
 def _block_full(p: Block, cfg: ModelConfig, x, positions, is_local, causal=True):
     """One block, full sequence, no cache."""
-    if p.kind == "xlstm":
+    if p.kind == "xlstm":  # in a tensor shard, on the lead over the gathered leaves
         h = L.apply_norm(p.pre_norm, x, cfg.norm_type)
         if p.is_slstm:
-            return x + ssm.slstm_apply(p.slstm, h, cfg.num_heads)[0]
-        return x + ssm.mlstm_apply(p.mlstm, h, cfg.num_heads)[0]
+            return x + ssm.slstm_apply(S.whole(p.slstm), h, cfg.num_heads)[0]
+        return x + ssm.mlstm_apply(S.whole(p.mlstm), h, cfg.num_heads)[0]
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     y = _attn_full(p.attn, cfg, h, positions, is_local, causal)
     if p.kind == "hybrid":
-        y = hybrid_mix(p, cfg, y, ssm.mamba_apply(p.mamba, h, cfg.ssm_state)[0])
+        y = hybrid_mix(p, cfg, y, ssm.mamba_apply(S.whole(p.mamba), h, cfg.ssm_state)[0])
     x = x + y
     h = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
     return x + ffn(p, cfg, h)
@@ -492,8 +495,24 @@ def _block_full(p: Block, cfg: ModelConfig, x, positions, is_local, causal=True)
 
 # ------------------------------------------------------------------ forward
 def embed_tokens(params: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings (B, S, D) in the config dtype.  Inside a
+    training mesh's tensor shard vocab-parallel: device m looks up the
+    tokens in its vocab rows, zero for the others, and the partial
+    embeddings are summed with the ring on the lead (each token has one
+    owner, so the sum is exact)."""
     dt = torch_dtype(cfg.dtype)
-    x = params.embed[tokens].to(dt)
+    shard = S.current_tensor_shard()
+    if shard is not None and shard.is_split(params.embed):
+        parts, rows = [], params.embed.shape[0]
+        for m, (dev, pm, [t]) in enumerate(zip(shard.devices, shard.members(params),
+                                               C.copy_leaves([tokens], shard.devices))):
+            with dev.scope():
+                local = t - m * rows
+                own = (local >= 0) & (local < rows)
+                parts.append(pm.embed[local.clamp(0, rows - 1)].to(dt).masked_fill(~own[..., None], 0))
+        x = C.ring_sum(parts, shard.devices)
+    else:
+        x = params.embed[tokens].to(dt)
     if cfg.tie_embeddings:
         # sqrt(d_model) rounded to the config dtype, as a Python scalar (a
         # device tensor made here would cost a blocking copy every step)
@@ -501,17 +520,49 @@ def embed_tokens(params: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor) 
     return x
 
 
-def logits_from(params: TransformerLM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = L.apply_norm(params.final_norm, x, cfg.norm_type)
-    if cfg.tie_embeddings:
-        logits = x @ params.embed.to(x.dtype).T
-    else:
-        logits = x @ params.lm_head.to(x.dtype)
+def _head(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """``x`` (normed) times the vocab columns ``params`` holds, from
+    ``start`` on (tied: the embedding's rows), vocab padding masked."""
+    logits = x @ (params.embed.to(x.dtype).T if cfg.tie_embeddings else params.lm_head.to(x.dtype))
     if cfg.padded_vocab_size != cfg.vocab_size:
         # mask vocab-padding logits
-        pad = torch.arange(cfg.padded_vocab_size, device=x.device) >= cfg.vocab_size
+        pad = torch.arange(start, start + logits.shape[-1], device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def logits_parts(params: TransformerLM, cfg: ModelConfig, x: torch.Tensor, shard) -> list:
+    """The vocab-parallel logits over ``shard``'s model group: the final
+    norm on the lead, ``x`` broadcast, device m's logits over its vocab
+    slice (of the embedding's rows, tied, or of ``lm_head``'s columns) ->
+    [(device, its logits (B, S, V/TP), its first vocab index)]."""
+    x = L.apply_norm(params.final_norm, x, cfg.norm_type)
+    out = []
+    for dev, pm, xm in zip(shard.devices, shard.members(params), C.broadcast(x, shard.devices)):
+        with dev.scope():
+            width = pm.embed.shape[0] if cfg.tie_embeddings else pm.lm_head.shape[1]
+            start = len(out) * width
+            out.append((dev, _head(pm, cfg, xm, start), start))
+    return out
+
+
+def vocab_split(params: TransformerLM, cfg: ModelConfig):
+    """The current tensor shard when it holds the vocab split (the LM
+    head's leaf), else None."""
+    shard = S.current_tensor_shard()
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    return shard if shard is not None and shard.is_split(head) else None
+
+
+def logits_from(params: TransformerLM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head -> logits (B, S, V) in the config dtype.
+    Inside a tensor shard that splits the vocab, the slices
+    (:func:`logits_parts`) are gathered on the lead."""
+    shard = vocab_split(params, cfg)
+    if shard is not None:
+        parts = logits_parts(params, cfg, x, shard)
+        return C.all_gather([lg for _, lg, _ in parts], shard.devices, -1, (0,), shard.tp)[0]
+    return _head(params, cfg, L.apply_norm(params.final_norm, x, cfg.norm_type))
 
 
 def as_tokens(params: TransformerLM, tokens) -> torch.Tensor:
@@ -577,13 +628,21 @@ def _cross_attend(p_cross: CrossBlock, cfg: ModelConfig, x: torch.Tensor, enc_kv
 
 def _decoder_layer(blk: Block, cross: CrossBlock, cfg: ModelConfig, x, positions, enc_out):
     """One encoder-decoder layer: the decoder block, then its cross
-    attention over the encoder's output."""
+    attention over the encoder's output (in a tensor shard head-parallel,
+    ``layers.gqa_tp``, or over the gathered leaves)."""
     x = _block_full(blk, cfg, x, positions, None)
+    shard = S.current_tensor_shard()
+    if shard is not None and shard.is_split(cross.attn):
+        if L.heads_split(cfg, shard.tp):
+            h = L.apply_norm(cross.norm, x, cfg.norm_type)
+            return x + L.gqa_tp(cross.attn, cfg, h, None, False, None, shard, kv_x=enc_out)
+        cross = SimpleNamespace(norm=cross.norm, attn=shard.whole(cross.attn))
     return _cross_attend(cross, cfg, x, _encoder_kv(cross, cfg, enc_out))
 
 
-def _forward(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds, encoder_frames,
-             remat: bool) -> torch.Tensor:
+def _hidden(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds, encoder_frames,
+            remat: bool) -> torch.Tensor:
+    """The last layer's output (B, S_total, D), before the final norm."""
     tokens = as_tokens(params, tokens)
     x = embed_inputs(params, cfg, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -593,12 +652,12 @@ def _forward(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds, enc
         enc_out = encode(params, cfg, encoder_frames, remat)
         for blk, cross in zip(params.layers, params.cross):
             x = _run(_decoder_layer, remat, blk, cross, cfg, x, positions, enc_out)
-        return logits_from(params, cfg, x)
+        return x
     for blk in params.dense_prefix or ():
         x = _run(_block_full, remat, blk, cfg, x, positions, None)
     for blk, is_local in zip(params.layers, params.is_local):
         x = _run(_block_full, remat, blk, cfg, x, positions, is_local)
-    return logits_from(params, cfg, x)
+    return x
 
 
 @torch.no_grad()
@@ -611,7 +670,14 @@ def forward(
 ) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S_total, V); S_total counts the
     vision tokens."""
-    return _forward(params, cfg, tokens, vision_embeds, encoder_frames, remat=False)
+    return logits_from(params, cfg, _hidden(params, cfg, tokens, vision_embeds, encoder_frames, remat=False))
+
+
+def hidden_train(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds=None,
+                 encoder_frames=None) -> torch.Tensor:
+    """:func:`forward_train` up to the last layer's output (B, S_total, D),
+    before the final norm and the LM head."""
+    return _hidden(params, cfg, tokens, vision_embeds, encoder_frames, remat=True)
 
 
 def forward_train(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds=None,
@@ -620,4 +686,4 @@ def forward_train(params: TransformerLM, cfg: ModelConfig, tokens, vision_embeds
     with its cross attention) runs under ``torch.utils.checkpoint``, so the
     backward recomputes its activations, as the reference's
     ``jax.checkpoint`` does."""
-    return _forward(params, cfg, tokens, vision_embeds, encoder_frames, remat=True)
+    return logits_from(params, cfg, hidden_train(params, cfg, tokens, vision_embeds, encoder_frames))

@@ -21,11 +21,13 @@ configures trains there.
 
 ``make_train_step(grad_pspecs=...)`` under a current mesh
 (``launch/mesh.py``) is the training mesh: data-parallel over the
-rules' batch axes, MoE's experts split over "model" (expert parallel),
-ZeRO-1 moments (``distributed/zero.py``), the gradients reduced with the
-ring (``distributed/collectives.py``); its state is
-``zero.place_train_state``'s, one copy of the parameters per logical
-device.  Multi-host training is not ported: one process, host 0 of 1.
+rules' batch axes, tensor-parallel over "model" in the reference's layout
+(every leaf whose spec names "model" stored as its slice: attention's
+heads, the MLP's columns, the vocabulary, MoE's experts), ZeRO-1
+moments (``distributed/zero.py``), the gradients reduced with the ring
+(``distributed/collectives.py``); its state is
+``zero.place_train_state``'s, the parameters of each logical device.
+Multi-host training is not ported: one process, host 0 of 1.
 """
 
 from __future__ import annotations
@@ -53,12 +55,46 @@ log = logging.getLogger("repro_torch.train")
 
 def token_losses(params: T.TransformerLM, cfg: ModelConfig, tokens, targets, **fwd_kw) -> torch.Tensor:
     """Each token's next-token cross-entropy over f32 logits, with a 1e-4
-    z-loss (B, S).  The VLM's logits at its vision tokens are cropped."""
-    logits = T.forward_train(params, cfg, tokens, **fwd_kw).float()
+    z-loss (B, S).  The VLM's logits at its vision tokens are cropped.
+    Inside a training mesh's tensor shard that splits the vocabulary, over
+    the split logits (:func:`_vocab_parallel_losses`)."""
+    x = T.hidden_train(params, cfg, tokens, **fwd_kw)
     if cfg.frontend == "vit_stub" and fwd_kw.get("vision_embeds") is not None:
-        logits = logits[:, fwd_kw["vision_embeds"].shape[1]:]
+        x = x[:, fwd_kw["vision_embeds"].shape[1]:]
+    shard = T.vocab_split(params, cfg)
+    if shard is not None:
+        return _vocab_parallel_losses(params, cfg, x, targets, shard)
+    logits = T.logits_from(params, cfg, x).float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets[..., None])[..., 0] - logz
+    return -ll + 1e-4 * torch.square(logz)
+
+
+def _vocab_parallel_losses(params, cfg: ModelConfig, x, targets, shard) -> torch.Tensor:
+    """:func:`token_losses` over the model group's vocab slices
+    (``transformer.logits_parts``), never whole on one device: the rows'
+    maxima all-gathered (the max's gradient is none), each device's sum of
+    exps and its owned targets' logits (zero for the others) summed with
+    the ring on the lead; logz = max + log(sum)."""
+    parts = T.logits_parts(params, cfg, x, shard)
+    devices = shard.devices
+    maxes = []
+    for dev, logits, _ in parts:
+        with dev.scope():
+            maxes.append(logits.detach().float().amax(-1, keepdim=True))
+    maxes = C.all_gather(maxes, devices, -1, None, shard.tp)
+    sums, picked = [], []
+    for (dev, logits, start), mx, [t] in zip(parts, maxes, C.copy_leaves([targets], devices)):
+        with dev.scope():
+            logits, width = logits.float(), logits.shape[-1]
+            top = mx.amax(-1, keepdim=True)
+            sums.append(torch.exp(logits - top).sum(-1))
+            local = t - start
+            own = (local >= 0) & (local < width)
+            got = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+            picked.append(got.masked_fill(~own, 0))
+    logz = maxes[0].amax(-1) + torch.log(C.ring_sum(sums, devices))
+    ll = C.ring_sum(picked, devices) - logz
     return -ll + 1e-4 * torch.square(logz)
 
 
@@ -171,18 +207,25 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
     metrics)`` over ``zero.place_train_state``'s state.
 
     The batch (each microbatch under ``grad_accum``) splits over the
-    rules' batch axes.  Each data shard's forward and backward run on its
-    lead device (model index 0), on that device's stream; an MoE layer's
-    expert-parallel branch runs the shard's experts on its model devices
+    rules' batch axes.  Each data shard's forward and backward span its
+    model group (``sharding.tensor_shard``): the residual stream and the
+    replicated leaves' compute on its lead (model index 0), on that
+    device's stream; attention on each model device's heads, the MLP on
+    its columns, the vocabulary on its rows, each on its own stream; a
+    split leaf the compute cannot use as its slice gathered before use; an
+    MoE layer's expert-parallel branch on the shard's model devices
     (``sharding.expert_shard``).  Then, with the host never waiting:
 
-    * the gradients are summed with ``psum_in_chunks`` — an expert stack's
-      over the data devices of its model index, a router's (a part from
-      each model device) over the whole mesh, every other leaf's over the
-      shards' leads, which then copy it to their other model devices;
+    * a replicated leaf's gradients from the shard's other model devices
+      (qk-norm scales in head-parallel attention) are summed into the
+      lead's;
+    * the gradients are summed with ``psum_in_chunks`` — a "model"-split
+      leaf's (each device's slice) over the data devices of its model
+      index, every other leaf's over the shards' leads, which then copy it
+      to their other model devices;
     * the global norm and clip come from the reduced gradients (the same
-      bits on every device, each device's in ``metrics["grad_norms"]``;
-      an expert stack's squares summed over "model");
+      bits on every device, each device's in ``metrics["grad_norms"]``; a
+      split leaf's squares summed over "model");
     * each device runs AdamW (``optimizer.adamw_update``, the reference's
       order of operations) on its ZeRO slice of each parameter, ``m`` and
       ``v``;
@@ -223,18 +266,16 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
             layout = zero.Layout(copies[0], mesh, grad_pspecs, rules)
             named = [dict(c.named_parameters()) for c in copies]
             names = layout.names
-            experts = [n for n in names if layout.model_dim[n] is not None]
-            dense = [n for n in names if layout.model_dim[n] is None]
-            # a router's gradient has a part from each model device; every
-            # other dense leaf's comes from the shard's lead alone
-            routers = [n for n in dense if n.endswith("moe.router")] if len(shards[0]) > 1 else []
-            replicated = [n for n in dense if n not in routers]
+            split = [n for n in names if layout.model_dim[n] is not None]
+            replicated = [n for n in names if layout.model_dim[n] is None]
             caller = C._enter(devices)
             mb_batches = [batch] if accum == 1 else [{k: v[i] for k, v in batch.items()} for i in range(accum)]
             moe_names = [name for name, mod in copies[0].named_modules() if isinstance(mod, T.MoE)]
             ep_groups = [{copies[group[0]].get_submodule(mn): [
                 (devices[q], copies[q].get_submodule(mn).router, copies[q].get_submodule(mn).experts)
                 for q in group] for mn in moe_names} for group in shards]
+            tensor_shards = [S.TensorShard([devices[q] for q in group], [copies[q] for q in group], layout.model_dim,
+                                           layout.tp) if len(group) > 1 else None for group in shards]
             grads: list[dict] = [{} for _ in devices]
             losses = {}
             for m in _build.repeat(len(mb_batches)):
@@ -253,8 +294,8 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                     denoms = C.ring_allreduce(sums, [devices[q] for q in leads])
                 for i, group in enumerate(shards):
                     lead = group[0]
-                    with devices[lead].scope(), S.expert_shard(ep_groups[i]):
-                        leaves = [(q, n, named[q][n]) for q in group for n in (names if q == lead else experts + routers)]
+                    with devices[lead].scope(), S.expert_shard(ep_groups[i]), S.tensor_shard(tensor_shards[i]):
+                        leaves = [(q, n, named[q][n]) for q in group for n in names]
                         loss = shard_loss(copies[lead], tensors[i], None if denoms is None else denoms[i])
                         got = torch.autograd.grad(loss, [w for _, _, w in leaves], allow_unused=True)
                         part = loss.detach() if accum == 1 else loss.detach() / accum
@@ -271,14 +312,20 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                                 grads[q][n] = g
                         del got
             C.barrier(devices)  # every backward's gradients, on whichever stream made them
-            for q, dev in enumerate(devices):  # zeros where a device computed none of a leaf it reduces
-                with dev.scope():
-                    for n in (names if q in leads else experts + routers):
-                        if n not in grads[q]:
-                            grads[q][n] = torch.zeros(named[q][n].shape, dtype=torch.float32, device=named[q][n].device)
+            for group in shards:
+                # replicated leaves the shard's other model devices used too
+                extra = [n for n in replicated if any(n in grads[q] for q in group[1:])]
+                for q in group:  # zeros where a device computed none of a leaf it reduces
+                    with devices[q].scope():
+                        for n in (names if q == group[0] else split + extra):
+                            if n not in grads[q]:
+                                grads[q][n] = torch.zeros(named[q][n].shape, dtype=torch.float32,
+                                                          device=named[q][n].device)
+                if extra:
+                    trees = C.psum_in_chunks([[grads[q][n] for n in extra] for q in group], [devices[q] for q in group])
+                    grads[group[0]].update(zip(extra, trees[0]))
             reduced = [dict(g) for g in grads]
-            for group_names, groups in ((replicated, [leads]), (routers, [list(range(len(devices)))]),
-                                        (experts, [layout.column(q) for q in shards[0]])):
+            for group_names, groups in ((replicated, [leads]), (split, [layout.column(q) for q in shards[0]])):
                 if not group_names:
                     continue
                 for group in groups:
@@ -293,17 +340,17 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                         reduced[q].update(zip(replicated, mine))
             del grads
             loss_total = C.ring_allreduce([losses[i] for i in range(len(leads))], [devices[q] for q in leads])[0]
-            # the global norm: every leaf's squares; an expert stack's summed over "model"
-            norms, sq_experts = [], []
+            # the global norm: every leaf's squares; a split leaf's summed over "model"
+            norms, sq_split = [], []
             for q, dev in enumerate(devices):
                 with dev.scope():
-                    sq = torch.stack(torch._foreach_norm([reduced[q][n] for n in dense])).square().sum()
+                    sq = torch.stack(torch._foreach_norm([reduced[q][n] for n in replicated])).square().sum()
                     norms.append(sq)
-                    if experts:
-                        sq_experts.append(torch.stack(torch._foreach_norm([reduced[q][n] for n in experts])).square().sum())
-            if experts:
+                    if split:
+                        sq_split.append(torch.stack(torch._foreach_norm([reduced[q][n] for n in split])).square().sum())
+            if split:
                 for group in shards:
-                    total = C.ring_allreduce([sq_experts[q] for q in group], [devices[q] for q in group])
+                    total = C.ring_allreduce([sq_split[q] for q in group], [devices[q] for q in group])
                     for q, t in zip(group, total):
                         with devices[q].scope():
                             norms[q] = norms[q] + t

@@ -20,6 +20,12 @@ from the cell's shapes; the rest must agree within :data:`REST_RTOL`
 (2%: the Mamba einsum and conv in the reference's forward, about 1%), and
 the port's kernel terms must equal their cost functions summed over the
 launches the cell's layers make.
+
+Then the training mesh's placement: a train cell's argument bytes on its
+busiest device against the bytes of the reference's spec trees, on small
+meshes at the smoke configurations and on the 16x16 production mesh at
+full size (no trace: ``specs.build_cell`` places the state on meta
+tensors).
 """
 
 import dataclasses
@@ -43,9 +49,12 @@ from repro_torch.kernels.cost import KernelCost  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
+from repro_torch.distributed import sharding as Tsh  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import hlo_analysis as H  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch import specs as TS  # noqa: E402
+from repro_torch.launch.mesh import RoleMesh, make_host_mesh, make_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -144,3 +153,44 @@ def test_dot_flops_agree_with_reference(arch, kind):
         k = KernelCost(got[name]["flops"], got[name]["exps"], got[name]["bytes"])
         assert k.flops == pytest.approx(cost.flops, rel=1e-12), name
         assert (k.exps, k.bytes) == pytest.approx((cost.exps, cost.bytes), rel=1e-12), name
+
+
+# ------------------------------------------------- the reference's layout
+def _fsdp(cfg, mesh) -> bool:
+    """The reference adds FSDP to the parameters' specs on ``mesh``."""
+    params = TS.param_structs(cfg, torch.float32)
+    return TS.maybe_fsdp_pspecs(cfg, params, Tsh.param_pspecs(params), mesh, bytes_per_param=4)[1]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 4)])
+@pytest.mark.parametrize("arch", TC.ARCH_NAMES)
+def test_train_cell_places_the_reference_layout(arch, shape):
+    """A train cell on the (2, 2) and (4, 4) meshes (their RoleMesh) at the
+    smoke configurations places on its busiest device exactly the bytes of
+    the reference's spec trees: every "model"-split leaf as its slice, its
+    moments the ZeRO slices of that slice."""
+    cfg = TC.get_smoke_config(arch)
+    mesh = make_mesh(shape, ("data", "model"), H.trace_devices(16))
+    with Tsh.use_rules(Tsh.SINGLE_POD_RULES):
+        assert not _fsdp(cfg, mesh)
+        spec = TS.build_cell(cfg, InputShape("c", "train", SEQ, 16), mesh)
+    assert len(spec.device_args) == RoleMesh(mesh).size
+    assert spec.argument_bytes == spec.reference_argument_bytes
+
+
+@pytest.mark.parametrize("arch", TC.ARCH_NAMES)
+def test_train_4k_on_the_production_mesh_places_the_reference_layout(arch):
+    """train_4k on the 16x16 mesh at full size: the reference layout's
+    bytes to the byte where the reference adds no FSDP (gemma3-1b,
+    hymba-1.5b, internlm2-1.8b, olmoe-1b-7b, whisper-large-v3, xlstm-125m);
+    above its threshold, more by what FSDP would take off."""
+    cfg = TC.get_config(arch)
+    mesh = make_production_mesh(devices=H.trace_devices(256))
+    with Tsh.use_rules(Tsh.SINGLE_POD_RULES):
+        fsdp = _fsdp(cfg, mesh)
+        spec = TS.build_cell(cfg, SHAPES["train_4k"], mesh)
+    if fsdp:
+        assert spec.argument_bytes > spec.reference_argument_bytes
+    else:
+        assert spec.argument_bytes == spec.reference_argument_bytes
+    assert fsdp == (arch in ("qwen3-32b", "internlm2-20b", "internvl2-26b", "deepseek-v2-236b"))

@@ -194,10 +194,11 @@ def test_multi_pod_rules_split_over_pod_and_data(monkeypatch):
 @pytest.mark.parametrize("arch,shape", [("gemma3-1b", (2, 1)), ("gemma3-1b", (4, 1)), ("olmoe-1b-7b", (2, 2))])
 def test_copies_equal_and_moments_sliced(arch, shape, monkeypatch):
     """After a step every copy of a parameter (every device of a model
-    index; for a leaf that is not an expert stack, every device) holds the
-    same bits, every device clipped with the same grad norm, and each
-    device holds only its ZeRO slice of m and v: the spec's data dimension
-    cut in data_size parts, or whole layers of a layer group."""
+    index; for a leaf whose spec does not split it over "model", every
+    device) holds the same bits, every device clipped with the same grad
+    norm, a split leaf is its 1/TP slice, and each device holds only its
+    ZeRO slice of m and v: the spec's data dimension cut in data_size
+    parts, or whole layers of a layer group."""
     _, cfg, _, state, _ = _states(arch)
     batch = _batch(cfg, b=4, s=128 if cfg.is_moe else 12)
     mesh = _mesh(shape, monkeypatch)
@@ -210,16 +211,17 @@ def test_copies_equal_and_moments_sliced(arch, shape, monkeypatch):
         col = q % tp
         for name, w in named[q].items():
             assert torch.equal(w, named[col][name]), (q, name)
-            if "experts" not in T._jax_path(name)[0]:
+            if "model" not in tuple(S.spec_at(specs, name)):
                 assert torch.equal(w, named[0][name]), (q, name)
     for name, w in got["params"].named_parameters():
-        path, index = T._jax_path(name)
+        index = T._jax_path(name)[1]
         spec = tuple(S.spec_at(specs, name))
         stacked = index is not None
         held = [(q, new["opt"]["m"][q].get(name)) for q in range(mesh.size)]
         local = list(named[0][name].shape)
-        if "experts" in path and tp > 1:
-            assert local[0] == w.shape[0] // tp
+        if "model" in spec and tp > 1:
+            md = spec.index("model") - stacked
+            assert local[md] == w.shape[md] // tp, name
         zd = next((j for j, a in enumerate(spec) if a == "data"), None)
         if zd is None:
             assert all(m is not None and list(m.shape) == local for _, m in held), name
