@@ -3590,6 +3590,13 @@ MESH_COMPRESSED_ATOL = 2e-2  # the int8 all-reduce against the exact sum, of the
 MESH_TRAIN_STEPS = 3  # steps after the first, on each mesh
 MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-3, 1e-2  # the first mesh step against the single-device one
 OLMOE_TRAIN_LAYERS = 2  # of 16: f32 weights, grads and AdamW state of all 16 (~110 GB) do not fit
+# FSDP on (2, 2): the bytes a device stores (parameters, m and v parts, count and step) under the FSDP tree
+GEMMA_FSDP_BYTES = 2_999_701_256
+QWEN_FSDP_LAYERS = 2  # of 64: full widths, 2.531 B params (28.30 GiB of f32 state whole)
+# AdamW's rate for (f): at d_model 5120 its sign-like first steps at the default 3e-4 drive the loss up
+# on one device as on the mesh (tools/fsdp_lr_probe.py)
+QWEN_FSDP_LR = 3e-5
+QWEN_FSDP_BYTES = 7_597_089_800
 
 
 def _mesh_devices(dev, n: int) -> list:
@@ -3692,15 +3699,16 @@ def check_collectives(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _place(state, mesh, rules):
+def _place(state, mesh, rules, fsdp: bool = False):
     """``state`` placed on ``mesh`` under ``rules`` -> (the placed state,
-    the ZeRO specs)."""
+    the ZeRO specs); with ``fsdp`` the parameters too are placed under the
+    ZeRO specs (what ``maybe_fsdp_pspecs`` returns above its threshold)."""
     from repro_torch.distributed import sharding as S
     from repro_torch.distributed import zero as Z
 
     with S.use_rules(rules), mesh:
         specs = Z.zero_pspecs(state["params"], S.param_pspecs(state["params"]), mesh)
-        return Z.place_train_state(state, mesh, specs), specs
+        return Z.place_train_state(state, mesh, specs, param_specs=specs if fsdp else None), specs
 
 
 def _same_norms(tag: str, metrics) -> None:
@@ -3930,7 +3938,7 @@ def _placed_bytes(placed: dict, q: int) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def train_mesh_gemma_tp(dev, card: str) -> dict:
+def train_mesh_gemma_tp(dev, card: str, fsdp: bool = False) -> dict:
     """(c) Gemma3-1B at full width and depth (f32 master weights, bf16
     compute) tensor- and data-parallel on four streams of the card,
     ``make_mesh((2, 2), ("data", "model"))`` in the reference's layout:
@@ -3947,7 +3955,16 @@ def train_mesh_gemma_tp(dev, card: str) -> dict:
     the single-device step rounds once), and bitwise to the same step run
     serially on the default stream (every leaf and m: no cross-stream
     race); K3's launches per model device.  Then MESH_TRAIN_STEPS steps
-    (the loss falls)."""
+    (the loss falls).
+
+    (e) With ``fsdp``, the same with the parameters placed under the ZeRO
+    specs too (``zero_pspecs`` of ``param_pspecs``: what
+    ``maybe_fsdp_pspecs`` returns above its threshold): each device stores
+    its data part of every leaf (whole layers: data index 0 layers 0-12,
+    index 1 layers 13-25; the embedding and the final norm on d_model),
+    2,999,701,256 bytes with m and v (GEMMA_FSDP_BYTES), each layer
+    gathered over the data axes inside its remat and AdamW updating the
+    stored parts in place."""
     from repro_torch import configs
     from repro_torch import device as D
     from repro_torch.data.pipeline import synthetic_lm_batch_fn
@@ -3965,21 +3982,23 @@ def train_mesh_gemma_tp(dev, card: str) -> dict:
     mesh = make_mesh((2, 2), ("data", "model"), _mesh_devices(dev, 4))
     serial_mesh = make_mesh((2, 2), ("data", "model"),
                             [D.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
-    tag = f"{cfg.name} (2, 2)"
+    tag = f"{cfg.name} (2, 2){' FSDP' if fsdp else ''}"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = loop.init_train_state(cfg, SEED, dev)
     state["step"].fill_(1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    placed, specs = _place(state, mesh, S.SINGLE_POD_RULES)
+    placed, specs = _place(state, mesh, S.SINGLE_POD_RULES, fsdp)
     torch.cuda.synchronize()
     place_s = time.perf_counter() - t0
     with S.use_rules(S.SINGLE_POD_RULES), mesh:
-        step = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)
-        pspecs = S.param_pspecs(state["params"])
+        step = loop.make_train_step(cfg, tcfg, grad_pspecs=specs, param_pspecs=specs if fsdp else None)
+        pspecs = specs if fsdp else S.param_pspecs(state["params"])
         shapes = Z._shapes(state["params"])
         ref_bytes = LS._spec_bytes(shapes, pspecs, mesh, 4) + 2 * LS._spec_bytes(shapes, specs, mesh, 4) + 2 * 4
+    if fsdp and ref_bytes != GEMMA_FSDP_BYTES:
+        raise AssertionError(f"{tag}: the FSDP spec trees give {ref_bytes} bytes a device, not {GEMMA_FSDP_BYTES}")
     held = [_placed_bytes(placed, q) for q in range(mesh.size)]
     whole = sum(t.numel() * t.element_size() for t in [*state["params"].parameters(), *state["opt"]["m"].values(),
                                                         *state["opt"]["v"].values()])
@@ -3988,13 +4007,14 @@ def train_mesh_gemma_tp(dev, card: str) -> dict:
         f"{place_s:.1f} s [{card}]")
     if any(b != ref_bytes for b in held):
         raise AssertionError(f"{tag}: placed bytes {held} per device, the reference layout {ref_bytes}")
-    placed_s, _ = _place(state, serial_mesh, S.SINGLE_POD_RULES)
+    placed_s, _ = _place(state, serial_mesh, S.SINGLE_POD_RULES, fsdp)
     state, single = loop.make_train_step(cfg, tcfg)(state, batch)
     loss1, gnorm1 = float(single["loss"]), float(single["grad_norm"])
     want_p, want_m = dict(state["params"].named_parameters()), state["opt"]["m"]
     del state, single
     with S.use_rules(S.SINGLE_POD_RULES), serial_mesh:
-        placed_s, metrics_s = loop.make_train_step(cfg, tcfg, grad_pspecs=specs)(placed_s, batch)
+        placed_s, metrics_s = loop.make_train_step(cfg, tcfg, grad_pspecs=specs,
+                                                   param_pspecs=specs if fsdp else None)(placed_s, batch)
     loss_s, gnorm_s = float(metrics_s["loss"]), float(metrics_s["grad_norm"])
     placed_s["opt"]["v"] = None  # what is held: each device's leaves and m
     torch.cuda.empty_cache()
@@ -4009,7 +4029,7 @@ def train_mesh_gemma_tp(dev, card: str) -> dict:
     got = (sum(fwd.values()), sum(bwd.values()))
     launches = {"flash_attention": got[0], "flash_attention_bwd": got[1]}
     log(f"[train-mesh] {tag} full ({cfg.num_layers} layers), {TRAIN_B}x{TRAIN_S} over 4 streams (2 data shards x 2 "
-        f"model devices, ZeRO-1): first step (step 1) loss {loss:.6f}, grad norm {gnorm:.6f}, {first_ms:.1f} ms; the "
+        f"model devices, {'FSDP' if fsdp else 'ZeRO-1'}): first step (step 1) loss {loss:.6f}, grad norm {gnorm:.6f}, {first_ms:.1f} ms; the "
         f"single-device step on the kernels: loss {loss1:.6f}, grad norm {gnorm1:.6f}; relative "
         f"{abs(loss - loss1) / abs(loss1):.3e} (bound {MESH_LOSS_RTOL:g}), {abs(gnorm - gnorm1) / gnorm1:.3e} "
         f"(bound {MESH_GNORM_RTOL:g}); serially on the default stream: loss {loss_s:.6f}, grad norm {gnorm_s:.6f}; "
@@ -4032,15 +4052,18 @@ def train_mesh_gemma_tp(dev, card: str) -> dict:
     log(f"[train-mesh] {tag}: the step on 4 streams bitwise the serial run's: loss, grad norm and all {n_tensors} "
         f"leaves and m slices of the 4 devices [{card}]")
     del placed_s
-    layout = Z.Layout(placed["params"][0], mesh, specs, S.SINGLE_POD_RULES)
+    layout = Z.Layout(placed["params"][0], mesh, specs, S.SINGLE_POD_RULES, specs if fsdp else None)
     params, moments = [], []
     for q, (d, copy_q) in enumerate(zip(mesh.flat, placed["params"])):
         for n, w in copy_q.named_parameters():
             psl = layout.param_slice(n, q, want_p[n].shape)
-            params.append((f"{d.label} {n}", w, Z.take(want_p[n], psl)))
+            dsl = layout.data_slice(n, q, layout.model_shape(n))  # the moments' part; under FSDP the stored one
+            if layout.fsdp_dim[n] is None:
+                params.append((f"{d.label} {n}", w, Z.take(want_p[n], psl)))
+            elif dsl is not None:
+                params.append((f"{d.label} {n}", w, Z.take(Z.take(want_p[n], psl), dsl)))
             if n in placed["opt"]["m"][q]:
-                msl = layout.moment_slice(n, q, w.shape)
-                moments.append((f"{d.label} {n}", placed["opt"]["m"][q][n], Z.take(Z.take(want_m[n], psl), msl)))
+                moments.append((f"{d.label} {n}", placed["opt"]["m"][q][n], Z.take(Z.take(want_m[n], psl), dsl)))
     _hold_step(tag, "single-device step", params, moments, tcfg.optimizer.lr, card, hold_m=False)
     del want_p, want_m, layout, params, moments
     torch.cuda.empty_cache()
@@ -4049,7 +4072,8 @@ def train_mesh_gemma_tp(dev, card: str) -> dict:
     losses = [loss] + losses
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{tag}: losses {losses}")
-    log(f"[train-mesh] {tag} full, tensor-parallel (heads, MLP columns, vocab) x data-parallel on 4 streams: step "
+    log(f"[train-mesh] {tag} full, tensor-parallel (heads, MLP columns, vocab) x data-parallel"
+        f"{' (FSDP)' if fsdp else ''} on 4 streams: step "
         f"{med:.1f} ms median of {MESH_TRAIN_STEPS}, {TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"[{card}]")
@@ -4159,18 +4183,161 @@ def train_mesh_olmoe(dev, card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _gather_sizes():
+    """For the block, the bytes each FSDP gather scope (``sharding.gathered``:
+    a layer, the embedding, the head) holds on the card while it is open:
+    yields the list they are appended to."""
+    from repro_torch.distributed import sharding as S
+
+    sizes, real = [], S.gathered
+
+    @contextlib.contextmanager
+    def probe(*modules, **kw):
+        before = torch.cuda.memory_allocated()
+        with real(*modules, **kw):
+            sizes.append(torch.cuda.memory_allocated() - before)
+            yield
+
+    S.gathered = probe
+    try:
+        yield sizes
+    finally:
+        S.gathered = real
+
+
+def train_mesh_qwen_fsdp(dev, card: str) -> dict:
+    """(f) qwen3-32b at full width and QWEN_FSDP_LAYERS layers (``reduced``)
+    on ``make_mesh((2, 2), ("data", "model"))`` under SINGLE_POD_RULES, four
+    streams, where ``maybe_fsdp_pspecs`` itself returns FSDP (2.531 B f32
+    parameters, 5.06 GB a model device, above its 4 GiB): each device
+    stores QWEN_FSDP_BYTES (its data part of each leaf: whole layers, the
+    embedding and the LM head on d_model) and each layer gathers its
+    leaves inside its remat.  The step's loss, from the same seeded state
+    and batch, within MESH_LOSS_RTOL of a single-device forward without
+    gradients (run and freed before placement: the whole state and a
+    placed one do not fit together with its activations), a finite grad
+    norm on every device alike, then MESH_TRAIN_STEPS more steps at AdamW's
+    QWEN_FSDP_LR (the loss falls, K3 32 heads over 4 KV heads a model
+    device); peak allocated and step ms, and what each gather holds while
+    its layer runs (:func:`_gather_sizes`): the largest must be one layer's
+    or the head's leaves on a shard's two model devices, far below the
+    step's sum of gathers."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import synthetic_lm_batch_fn
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import zero as Z
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_loop as loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    full = configs.get_config("qwen3-32b")
+    cfg = dataclasses.replace(full, num_layers=QWEN_FSDP_LAYERS)
+    tcfg = loop.TrainConfig(optimizer=AdamWConfig(lr=QWEN_FSDP_LR), warmup_steps=1, total_steps=MESH_TRAIN_STEPS + 2)
+    fn = synthetic_lm_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    batch = fn(0, 1, 0, 1)
+    mesh = make_mesh((2, 2), ("data", "model"), _mesh_devices(dev, 4))
+    tag = f"{full.name} reduced FSDP"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.init_train_state(cfg, SEED, dev)
+    state["step"].fill_(1)
+    n_params = sum(w.numel() for w in state["params"].parameters())
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    with torch.no_grad():
+        loss1 = float(loop.lm_loss(state["params"], cfg, tokens[:, :-1], tokens[:, 1:]))
+    del tokens
+    torch.cuda.empty_cache()
+    single_peak = torch.cuda.max_memory_allocated()
+    with S.use_rules(S.SINGLE_POD_RULES), mesh:
+        pspecs = S.param_pspecs(state["params"])
+        specs = Z.zero_pspecs(state["params"], pspecs, mesh)
+        fsdp_specs, fsdp = LS.maybe_fsdp_pspecs(cfg, state["params"], pspecs, mesh, bytes_per_param=4)
+        shapes = Z._shapes(state["params"])
+        want_bytes = 3 * LS._spec_bytes(shapes, fsdp_specs, mesh, 4) + 2 * 4
+        if not fsdp or fsdp_specs != specs or want_bytes != QWEN_FSDP_BYTES:
+            raise AssertionError(f"{tag}: maybe_fsdp_pspecs gave FSDP {fsdp}, its tree the moments' "
+                                 f"{fsdp_specs == specs}, {want_bytes} bytes a device (want {QWEN_FSDP_BYTES})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed = Z.place_train_state(state, mesh, specs, param_specs=fsdp_specs)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        step = loop.make_train_step(cfg, tcfg, grad_pspecs=specs, param_pspecs=fsdp_specs)
+    del state
+    torch.cuda.empty_cache()
+    held = [_placed_bytes(placed, q) for q in range(mesh.size)]
+    log(f"[train-mesh] {tag}: {n_params / 1e9:.3f} B f32 params ({cfg.param_count() * 4 / 2 / 1e9:.2f} GB a model "
+        f"device, above maybe_fsdp_pspecs' {LS.FSDP_THRESHOLD_BYTES / 2**30:.0f} GiB): placed per device {held} bytes "
+        f"({held[0] / 2**30:.3f} GiB), _spec_bytes of the FSDP tree {want_bytes}; placement {place_s:.1f} s; the "
+        f"single-device no-grad forward peaked at {single_peak / 2**30:.2f} GiB [{card}]")
+    if any(b != want_bytes for b in held):
+        raise AssertionError(f"{tag}: placed bytes {held} per device, the FSDP tree's {want_bytes}")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    _zero_attention_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _gather_sizes() as sizes:
+        placed, metrics = step(placed, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    got = (fa_ops.flash_attention_bshd.launches, fa_ops.flash_attention_bwd_bshd.launches)
+    log(f"[train-mesh] {tag}: {len(sizes)} gathers in the step (forward and recompute), each holding at most "
+        f"{max(sizes) / 2**30:.3f} GiB while its layer runs, {sum(sizes) / 2**30:.3f} GiB in all [{card}]")
+    if max(sizes) > sum(sizes) / 3:
+        raise AssertionError(f"{tag}: a gather holds {max(sizes)} bytes of the step's {sum(sizes)}")
+    launches = {"flash_attention": got[0], "flash_attention_bwd": got[1]}
+    log(f"[train-mesh] {tag} ({QWEN_FSDP_LAYERS} of {full.num_layers} layers), {TRAIN_B}x{TRAIN_S} over 4 streams: "
+        f"first step (step 1) loss {loss:.6f}, grad norm {gnorm:.6f}, {first_ms:.1f} ms, K3 {got[0]} forward / "
+        f"{got[1]} backward; the single-device forward "
+        f"without gradients: loss {loss1:.6f}; relative {abs(loss - loss1) / abs(loss1):.3e} (bound "
+        f"{MESH_LOSS_RTOL:g}); peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over "
+        f"{resident / 2**30:.2f} GiB resident [{card}]")
+    if not np.isfinite(gnorm) or abs(loss - loss1) > MESH_LOSS_RTOL * abs(loss1):
+        raise AssertionError(f"{tag}: loss {loss} vs {loss1} single-device, grad norm {gnorm}")
+    if got != (2 * 4 * cfg.num_layers, 4 * cfg.num_layers):
+        raise AssertionError(f"{tag}: K3 launches {got} a step, not {2 * cfg.num_layers} forward and "
+                             f"{cfg.num_layers} backward on each of the 4 devices")
+    _same_norms(tag, metrics)
+    placed, losses, med, more = _mesh_steps(step, placed, fn, cfg, tag, mesh, card, 2)
+    _add(launches, more)
+    losses = [loss] + losses
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: losses {losses}")
+    log(f"[train-mesh] {full.name} full width, reduced to {QWEN_FSDP_LAYERS} of {full.num_layers} layers, FSDP x "
+        f"tensor-parallel on (2, 2) streams: step {med:.1f} ms median of {MESH_TRAIN_STEPS}, "
+        f"{TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del placed, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_train_mesh(dev, card: str) -> dict:
     """Phase 4F, the training mesh on logical devices of the card: the
     collectives (:func:`check_collectives`), Gemma3-1B data-parallel on
     two streams (:func:`train_mesh_gemma`), Gemma3-1B tensor- and
     data-parallel in the reference's layout on four
     (:func:`train_mesh_gemma_tp`), OLMoE-1B-7B expert-parallel (its
-    attention head-parallel) on four (:func:`train_mesh_olmoe`).  Returns
-    the K3 launches of the driven steps."""
+    attention head-parallel) on four (:func:`train_mesh_olmoe`), then FSDP
+    on four: Gemma3-1B under the FSDP tree (:func:`train_mesh_gemma_tp`
+    with ``fsdp``) and qwen3-32b at 2 layers, where ``maybe_fsdp_pspecs``
+    chooses it (:func:`train_mesh_qwen_fsdp`).  Returns the K3 launches of
+    the driven steps."""
     check_collectives(dev, card)
     launches = train_mesh_gemma(dev, card)
     launches = _add(launches, train_mesh_gemma_tp(dev, card))
-    return _add(launches, train_mesh_olmoe(dev, card))
+    launches = _add(launches, train_mesh_olmoe(dev, card))
+    t0 = time.perf_counter()
+    launches = _add(launches, train_mesh_gemma_tp(dev, card, fsdp=True))
+    launches = _add(launches, train_mesh_qwen_fsdp(dev, card))
+    log(f"[train-mesh] FSDP parts (e) and (f) took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
 
 
 def run_paper_images(dev, card: str) -> dict:

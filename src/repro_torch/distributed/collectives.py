@@ -21,7 +21,10 @@ per-device tensors, ``parts[i]`` on ``devices[i]``:
 * ``all_gather`` — a leaf's slices joined on each receiving device, as an
   autograd Function whose backward is the reduce-scatter of the
   receivers' gradients back to the slices (a "model"-split leaf that the
-  compute cannot use as its slice, gathered before use).
+  compute cannot use as its slice, gathered before use; an FSDP leaf's
+  feature slices, over its data column);
+* ``send`` — a tensor copied from one device to another, its gradient
+  sent back (an FSDP layer copied from the data index that owns it).
 
 On a card each step's work is enqueued on the receiving device's stream
 after a barrier of events over the group's streams: a receiver reads its
@@ -379,3 +382,37 @@ def all_gather(parts: list, devices, dim: int, at=None, slices: int | None = Non
     at = tuple(range(len(devices))) if at is None else tuple(at)
     slices = len(parts) if slices is None else slices
     return list(_AllGather.apply(tuple(devices), dim, at, slices, *parts))
+
+
+class _Send(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, src, dst, x):
+        ctx.devices, ctx.src = devices, src
+        with devices[dst].scope():
+            out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        with _collective("all-gather", [out], [devices[dst]]):
+            caller = _enter(devices)
+            barrier(devices)  # the source's last write, on whichever stream made it
+            with devices[dst].scope():
+                _used_on(x, devices[dst])
+                out.copy_(x)
+            _leave(devices, caller, [out])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        devices, src = ctx.devices, ctx.src
+        with _collective("reduce-scatter", [g], [devices[src]]):
+            caller = _enter(devices)
+            with devices[src].scope():
+                _used_on(g, devices[src])
+                out = g.clone(memory_format=torch.contiguous_format)
+            _leave(devices, caller, [out])
+        return None, None, None, out
+
+
+def send(x: torch.Tensor, devices, src: int, dst: int) -> torch.Tensor:
+    """``x`` (on ``devices[src]``) copied to ``devices[dst]``, made on its
+    stream; under autograd its gradient is copied back to ``devices[src]``
+    on that device's stream."""
+    return _Send.apply(tuple(devices), src, dst, x)

@@ -14,7 +14,9 @@ leading layer axis its reference leaf is stacked under.  :class:`P` is
 ``PartitionSpec``'s counterpart.  The calling thread's current mesh
 (``with mesh:``, ``launch/mesh.py``) and the training mesh's data shard
 being computed (:func:`expert_shard`, :func:`tensor_shard`: its model
-group and their "model"-split parameters) are kept here with the rules,
+group and their "model"-split parameters; :func:`data_shards`: under
+FSDP each device's stored data part of every leaf, which
+:func:`gathered` joins around each layer) are kept here with the rules,
 where the layers read them.
 
 Serving: the runtime's sharded mode (``MeshConfig.sharded``) gives a
@@ -141,7 +143,7 @@ def data_axes_and_size(mesh, rules=None) -> tuple:
 def expert_shard(groups: dict | None):
     """For the block, MoE layers compute one data shard of the training
     mesh's batch: ``groups`` maps each of the shard's MoE modules to its
-    model devices' (device, router, experts), in model order."""
+    model devices' (device, MoE module), in model order."""
     prev = current_expert_shard()
     _ctx.expert_groups = groups
     try:
@@ -195,6 +197,15 @@ class TensorShard:
         dim, parts = self._parts[id(w)]
         return C.all_gather(parts, self.devices, dim, at, self.tp)
 
+    def substitute(self, stored, parts):
+        """For the block being run, ``parts`` (the split leaf ``stored``'s
+        slices gathered over the data axes, one a device of the group, the
+        lead's first) are that leaf (FSDP, :func:`gathered`); returns a
+        function that ends it."""
+        key, prev = id(parts[0]), self._parts.get(id(parts[0]))  # the lead's own layer: the stored leaf
+        self._parts[key] = (self._parts[id(stored)][0], parts)
+        return lambda: self._parts.__setitem__(key, prev) if prev is not None else self._parts.pop(key)
+
     def whole(self, module):
         """``module`` with every split leaf gathered whole on the lead (a
         namespace of its leaves and submodules), or ``module`` itself when
@@ -237,21 +248,107 @@ def whole(module):
     return module if shard is None else shard.whole(module)
 
 
+class DataShards:
+    """The training mesh's FSDP leaves for one step: each device's stored
+    part of every data-split leaf (``copies``, one ``TransformerLM`` a
+    device) and where each part lives (``layout``, a ``zero.Layout``:
+    ``fsdp_dim``, ``column``, ``owner``).  :func:`gathered` reads it."""
+
+    def __init__(self, devices, copies, layout):
+        self.devices, self.layout = list(devices), layout
+        self.named = [dict(c.named_parameters()) for c in copies]
+        self._where = {id(mod): (q, name) for q, c in enumerate(copies) for name, mod in c.named_modules()}
+
+    def gather(self, name: str, q: int) -> torch.Tensor:
+        """Leaf ``name``'s "model" slice whole on device ``q``: a feature
+        dim's parts all-gathered over ``q``'s data column (each part's
+        gradient the scatter of ``q``'s), or a layer copied from the data
+        index that owns it (its gradient sent back; the stored tensor
+        itself when ``q`` owns it)."""
+        from repro_torch.distributed import collectives as C
+
+        lay, devs = self.layout, self.devices
+        dim = lay.fsdp_dim[name]
+        if dim == -1:
+            owner, held = lay.owner(name, q)  # held: a RoleMesh's stand-in layer where the owner is absent
+            if (owner, held) == (q, name):
+                return self.named[q][name]
+            pair = [devs[owner], devs[q]] if owner != q else [devs[q]]
+            return C.send(self.named[owner][held], pair, 0, len(pair) - 1)
+        col = lay.column(q)
+        return C.all_gather([self.named[s][name] for s in col], [devs[s] for s in col], dim,
+                            (col.index(q),), lay.data_size)[0]
+
+
+@contextlib.contextmanager
+def data_shards(shards: DataShards | None):
+    """For the block, the training mesh's step keeps ``shards``' FSDP
+    leaves: :func:`gathered` gathers them."""
+    prev = current_data_shards()
+    _ctx.data_shards = shards
+    try:
+        yield
+    finally:
+        _ctx.data_shards = prev
+
+
+def current_data_shards() -> DataShards | None:
+    return getattr(_ctx, "data_shards", None)
+
+
+@contextlib.contextmanager
+def gathered(*modules, leaves=None):
+    """For the block, under :func:`data_shards`, every data-split leaf of
+    ``modules`` (the lead's; with ``leaves``, only those of each module's
+    own leaves) is its "model" slice gathered over the data axes, in each
+    device's module of the current tensor shard (or the lead's alone); the
+    tensor shard's :meth:`TensorShard.gather` and :meth:`TensorShard.whole`
+    then join those slices.  Afterwards the stored parts are back and the
+    gathered ones free.  Outside a :func:`data_shards` block: nothing."""
+    fsdp = current_data_shards()
+    if fsdp is None:
+        yield
+        return
+    shard = current_tensor_shard()
+    undo = []
+    try:
+        for mod in modules:
+            members = shard.members(mod) if shard is not None else [mod]
+            where = [fsdp._where[id(m)] for m in members]
+            subs = leaves if leaves is not None else [n for n, _ in mod.named_parameters()]
+            for sub in subs:
+                owner, _, leaf = sub.rpartition(".")
+                name = f"{where[0][1]}.{sub}" if where[0][1] else sub
+                if fsdp.layout.fsdp_dim[name] is None:
+                    continue
+                parts = [fsdp.gather(name, q) for q, _ in where]
+                for m, part in zip(members, parts):
+                    holder = m.get_submodule(owner)
+                    undo.append(lambda h=holder, k=leaf, old=holder._parameters[leaf]: h._parameters.__setitem__(k, old))
+                    holder._parameters[leaf] = part
+                if shard is not None and shard.is_split(fsdp.named[where[0][0]][name]):
+                    undo.append(shard.substitute(fsdp.named[where[0][0]][name], parts))
+        yield
+    finally:
+        for fn in reversed(undo):
+            fn()
+
+
 def remat_kwargs() -> dict:
     """``torch.utils.checkpoint`` keywords that recompute a layer under the
-    rules, mesh, expert shard and tensor shard current at its forward, in
-    its logical device's scope (the backward may recompute on another
-    thread, the autograd engine's, on another device's stream); none when
-    none is set."""
+    rules, mesh, expert shard, tensor shard and data shards current at its
+    forward, in its logical device's scope (the backward may recompute on
+    another thread, the autograd engine's, on another device's stream);
+    none when none is set."""
     rules, mesh, groups = get_rules(), current_mesh(), current_expert_shard()
-    shard, dev = current_tensor_shard(), current_logical()
-    if rules is None and mesh is None and groups is None and shard is None and dev is None:
+    shard, fsdp, dev = current_tensor_shard(), current_data_shards(), current_logical()
+    if rules is None and mesh is None and groups is None and shard is None and fsdp is None and dev is None:
         return {}
 
     @contextlib.contextmanager
     def recompute():
         with (use_rules(rules), mesh or contextlib.nullcontext(), expert_shard(groups), tensor_shard(shard),
-              dev.scope() if dev is not None else contextlib.nullcontext()):
+              data_shards(fsdp), dev.scope() if dev is not None else contextlib.nullcontext()):
             yield
 
     return {"context_fn": lambda: (contextlib.nullcontext(), recompute())}

@@ -10,9 +10,18 @@ each parameter, and all-gathers the updated slices into every copy.
 Specs are over the reference's layout (each layer group stacked under a
 leading layer axis), so a stacked leaf's first free dimension may be the
 layer axis: a device then owns whole layers of it.
+
+Above the reference's threshold (``launch/specs.py``
+``maybe_fsdp_pspecs``) the parameters' specs are these same ZeRO specs:
+FSDP.  Each device then stores only its moments' part of each parameter
+(:class:`Layout`), each layer gathers its leaves before use
+(``sharding.DataShards``) and AdamW updates the stored parts in place,
+with no all-gather after it.
 """
 
 from __future__ import annotations
+
+import functools
 
 from repro_torch.distributed.sharding import P, data_axes_and_size
 
@@ -68,7 +77,9 @@ WHOLE = (None, 0, 0)
 class Layout:
     """Where a ``TransformerLM``'s parameters and AdamW moments live on
     ``mesh`` under ``specs`` (a reference-layout tree of moment specs,
-    ``zero_pspecs``; they carry the parameter specs' "model" entries).
+    ``zero_pspecs``; they carry the parameter specs' "model" entries) and
+    ``param_specs`` (the parameters' tree; default: ``specs`` without
+    their data axes).
 
     Each device holds, of every parameter whose spec has "model" on a
     dim, its slice of that dim (the reference's layout: attention's heads,
@@ -76,13 +87,20 @@ class Layout:
     experts, ...), and a copy of every other parameter.  Each device holds
     and updates its ZeRO slice of ``m`` and ``v``: on the spec's data
     dimension, the device's part along the data axes (for a layer group's
-    leading layer axis, whole layers)."""
+    leading layer axis, whole layers).
 
-    def __init__(self, model, mesh, specs: dict, rules=None):
+    FSDP: a parameter whose spec in ``param_specs`` names the data axes
+    (``maybe_fsdp_pspecs``' tree, equal to ``specs``) is stored as that
+    same part of its "model" slice, its moments' part (``fsdp_dim``: the
+    dim of the layer's leaf, or -1 for whole layers; a device that owns
+    none of a layer holds an empty tensor for it), and gathered before
+    use (``sharding.DataShards``)."""
+
+    def __init__(self, model, mesh, specs: dict, rules=None, param_specs: dict | None = None):
         from repro_torch.distributed.sharding import spec_at
         from repro_torch.models.transformer import _jax_path
 
-        self.mesh = mesh
+        self.mesh, self.cfg = mesh, model.cfg
         self.data_axes, self.data_size = data_axes_and_size(mesh, rules)
         axes = self.data_axes if isinstance(self.data_axes, tuple) else (self.data_axes,)
         self.data_axis_names = tuple(a for a in axes if a in mesh.shape)
@@ -95,7 +113,7 @@ class Layout:
             path = _jax_path(name)[0]
             n_layers[path] = n_layers.get(path, 0) + 1
         self.names = [name for name, _ in named]
-        self.model_dim, self.zero_dim, self.layer = {}, {}, {}
+        self.model_dim, self.zero_dim, self.fsdp_dim, self.layer = {}, {}, {}, {}
         for name, _ in named:
             path, index = _jax_path(name)
             stacked = int(index is not None)
@@ -104,12 +122,21 @@ class Layout:
             self.model_dim[name] = md - stacked if md is not None and self.tp > 1 else None
             zd = next((j for j, a in enumerate(spec) if a == self.data_axes), None)
             self.zero_dim[name] = None if zd is None or self.data_size == 1 else zd - stacked  # -1: layers
+            pd = None
+            if param_specs is not None:
+                pspec = tuple(spec_at(param_specs, name))
+                pd = next((j for j, a in enumerate(pspec) if a == self.data_axes), None)
+                if pd is not None and pd != zd:
+                    raise ValueError(f"{name}: parameter spec {pspec} splits another dim over the data axes "
+                                     f"than its moments' {spec}")
+            self.fsdp_dim[name] = None if pd is None or self.data_size == 1 else pd - stacked
             self.layer[name] = (index, n_layers[path]) if stacked else None
 
     def param_slice(self, name: str, pos: int, full_shape) -> tuple:
-        """The part of the full parameter the device at ``pos`` holds;
-        raises when its "model" dim does not split evenly (as placing the
-        reference's sharding would)."""
+        """The "model" slice of the full parameter the device at ``pos``
+        holds (or holds a data part of, under FSDP); raises when its
+        "model" dim does not split evenly (as placing the reference's
+        sharding would)."""
         md = self.model_dim[name]
         if md is None:
             return WHOLE
@@ -119,17 +146,70 @@ class Layout:
         m = self.model_index[pos]
         return (md, m * n, (m + 1) * n)
 
-    def moment_slice(self, name: str, pos: int, local_shape) -> tuple | None:
-        """The part of the device's parameter whose moments it keeps and
-        updates (None: no part of it)."""
+    @functools.cached_property
+    def shape(self) -> dict:
+        """Each leaf's whole shape (the placed copies hold parts of it)."""
+        import torch
+
+        from repro_torch.models.transformer import TransformerLM
+
+        return {name: tuple(w.shape) for name, w in TransformerLM(self.cfg, "meta", torch.float32).named_parameters()}
+
+    def model_shape(self, name: str) -> tuple:
+        """The shape of a device's "model" slice of ``name``."""
+        shape = list(self.shape[name])
+        if self.model_dim[name] is not None:
+            shape[self.model_dim[name]] //= self.tp
+        return tuple(shape)
+
+    def data_slice(self, name: str, pos: int, model_shape) -> tuple | None:
+        """The part of the device's "model" slice (of ``model_shape``) on
+        the data axes: whose moments it keeps and updates, and under FSDP
+        what it stores (None: no part of it)."""
         zd, ds, dd = self.zero_dim[name], self.data_size, self.data_index[pos]
         if zd is None:
             return WHOLE
         if zd == -1:
-            index, n_layers = self.layer[name]
-            return WHOLE if index // (n_layers // ds) == dd else None
-        n = local_shape[zd] // ds
+            return WHOLE if self.layer_owner(name) == dd else None
+        n = model_shape[zd] // ds
         return (zd, dd * n, (dd + 1) * n)
+
+    def moment_slice(self, name: str, pos: int, local_shape) -> tuple | None:
+        """The part of the device's parameter (of ``local_shape``) whose
+        moments it keeps and updates (None: no part of it); under FSDP the
+        whole stored part."""
+        if self.fsdp_dim[name] is not None:
+            return WHOLE if self.holds(name, pos) else None
+        return self.data_slice(name, pos, local_shape)
+
+    def holds(self, name: str, pos: int) -> bool:
+        """The device at ``pos`` stores some of ``name`` (under FSDP, a
+        layer it does not own: none)."""
+        return self.fsdp_dim[name] != -1 or self.layer_owner(name) == self.data_index[pos]
+
+    def layer_owner(self, name: str) -> int:
+        """The data index that owns layer leaf ``name``: the layers split
+        in equal contiguous runs over the data axes."""
+        index, n_layers = self.layer[name]
+        return index // (n_layers // self.data_size)
+
+    def owner(self, name: str, pos: int) -> tuple[int, str]:
+        """(the position in ``pos``'s data column that stores the layer leaf
+        ``name``, FSDP over whole layers, and that leaf's name).  On a
+        :class:`~repro_torch.launch.mesh.RoleMesh`, which keeps the first
+        data indices only, an absent owner has a stand-in: the column's
+        device at (``pos``'s data index + the owner's) modulo the column's
+        length, so that each device stands in as often as an owner is sent
+        to on the whole mesh, and its own layer at the same offset in its
+        run of layers (the same shape)."""
+        want, column = self.layer_owner(name), self.column(pos)
+        q = next((q for q in column if self.data_index[q] == want), None)
+        if q is not None:
+            return q, name
+        q = column[(self.data_index[pos] + want) % len(column)]
+        index, n_layers = self.layer[name]
+        per = n_layers // self.data_size
+        return q, name.replace(f".{index}.", f".{self.data_index[q] * per + index % per}.", 1)
 
     def column(self, pos: int) -> list[int]:
         """The positions that hold the same part of every parameter as
@@ -138,12 +218,14 @@ class Layout:
                       key=lambda q: self.data_index[q])
 
 
-def place_train_state(state: dict, mesh, specs: dict) -> dict:
+def place_train_state(state: dict, mesh, specs: dict, param_specs: dict | None = None) -> dict:
     """A single-device training state (``train_loop.init_train_state``'s)
     placed on ``mesh`` under ``specs`` (``zero_pspecs``; the counterpart of
-    ``jax.device_put(state, named(mesh, specs))``): per device, in
+    ``jax.device_put(state, named(mesh, specs))``) and ``param_specs`` (the
+    parameters' tree: FSDP where it names the data axes): per device, in
     ``mesh.flat`` order, its parameters (a ``TransformerLM`` holding
-    each "model"-split leaf's slice, :class:`Layout`), its ``m``/``v`` slices ({name: tensor}, only the
+    each "model"-split leaf's slice and each FSDP leaf's data part,
+    :class:`Layout`), its ``m``/``v`` slices ({name: tensor}, only the
     parts it keeps), ``count`` and ``step``.  Each device's tensors are made
     on its stream; the caller's stream waits for them.  The data axes are
     the current rules'."""
@@ -154,7 +236,7 @@ def place_train_state(state: dict, mesh, specs: dict) -> dict:
     from repro_torch.models.transformer import TransformerLM
 
     src = state["params"]
-    layout = Layout(src, mesh, specs)
+    layout = Layout(src, mesh, specs, param_specs=param_specs)
     devices = mesh.flat
     caller = C._enter(devices)
     params, ms, vs, counts, steps = [], [], [], [], []
@@ -163,18 +245,23 @@ def place_train_state(state: dict, mesh, specs: dict) -> dict:
             copy = TransformerLM(src.cfg, "meta", torch.float32)
             m, v = {}, {}
             for name, w in src.named_parameters():
-                part = take(w.detach(), layout.param_slice(name, pos, w.shape))
+                psl = layout.param_slice(name, pos, w.shape)
+                part = take(w.detach(), psl)
+                sl = layout.data_slice(name, pos, part.shape)
                 C._used_on(w, dev)
-                mine = torch.empty(part.shape, dtype=w.dtype, device=dev.device)
-                mine.copy_(part)
+                if layout.fsdp_dim[name] is None:
+                    mine = torch.empty(part.shape, dtype=w.dtype, device=dev.device).copy_(part)
+                elif sl is None:  # a layer another data index owns
+                    mine = torch.empty((0, *part.shape[1:]), dtype=w.dtype, device=dev.device)
+                else:
+                    mine = take(part, sl).clone()
                 owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
                 setattr(copy.get_submodule(owner), leaf, nn.Parameter(mine, requires_grad=w.requires_grad))
-                sl = layout.moment_slice(name, pos, mine.shape)
                 if sl is not None:
                     for key, out in (("m", m), ("v", v)):
                         full = state["opt"][key][name]
                         C._used_on(full, dev)
-                        out[name] = take(take(full, layout.param_slice(name, pos, w.shape)), sl).clone()
+                        out[name] = take(take(full, psl), sl).clone()
             params.append(copy)
             ms.append(m)
             vs.append(v)
@@ -184,11 +271,11 @@ def place_train_state(state: dict, mesh, specs: dict) -> dict:
     return {"params": params, "opt": {"m": ms, "v": vs, "count": counts}, "step": steps}
 
 
-def gather_train_state(placed: dict, mesh, specs: dict) -> dict:
+def gather_train_state(placed: dict, mesh, specs: dict, param_specs: dict | None = None) -> dict:
     """The inverse of :func:`place_train_state`: one state on the first
-    device's torch device, every "model"-split leaf joined from its slices
-    and the moments over the data axes; ``count`` and ``step`` the first
-    device's."""
+    device's torch device, every "model"-split leaf joined from its slices,
+    every FSDP leaf and the moments over the data axes; ``count`` and
+    ``step`` the first device's."""
     import torch
     from torch import nn
 
@@ -196,7 +283,7 @@ def gather_train_state(placed: dict, mesh, specs: dict) -> dict:
     from repro_torch.models.transformer import TransformerLM
 
     copies = placed["params"]
-    layout = Layout(copies[0], mesh, specs)
+    layout = Layout(copies[0], mesh, specs, param_specs=param_specs)
     devices = mesh.flat
     dev = devices[0].device
     caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
@@ -206,16 +293,17 @@ def gather_train_state(placed: dict, mesh, specs: dict) -> dict:
     out = {"m": {}, "v": {}}
     with torch.no_grad():
         for name, w in named[0].items():
-            full_shape = list(w.shape)
-            if layout.model_dim[name] is not None:
-                full_shape[layout.model_dim[name]] *= layout.tp
+            full_shape = layout.shape[name]
             full = torch.empty(full_shape, dtype=w.dtype, device=dev)
             moments = {key: torch.empty(full_shape, dtype=torch.float32, device=dev) for key in out}
             for pos in range(mesh.size):
                 psl = layout.param_slice(name, pos, full_shape)
+                sl = layout.data_slice(name, pos, layout.model_shape(name))
                 reads = [named[pos][name]]
-                take(full, psl).copy_(named[pos][name])
-                sl = layout.moment_slice(name, pos, named[pos][name].shape)
+                if layout.fsdp_dim[name] is None:
+                    take(full, psl).copy_(reads[0])
+                elif sl is not None:
+                    take(take(full, psl), sl).copy_(reads[0])
                 if sl is not None:
                     for key in out:
                         reads.append(placed["opt"][key][pos][name])

@@ -127,10 +127,15 @@ class RoleMesh(Mesh):
     on ``mesh``, and each group a collective runs over keeps its first,
     middle and last roles.  A trace of the training mesh's step on it
     counts per device what the whole mesh does, with 9 devices standing
-    for 256: every data shard's lead alike, every model device alike.  One
-    count grows with the "model" axis and is cut to the span: an
-    expert-parallel shard's lead adds up each model device's expert
-    gradients on its own stream (``train_loop._mesh_train_step``)."""
+    for 256: every data shard's lead alike, every model device alike.  Two
+    counts grow with an axis and are cut to the span: an expert-parallel
+    shard's lead adds up each model device's expert gradients on its own
+    stream (``train_loop._mesh_train_step``), and under FSDP a stored
+    feature slice receives a scatter of the gradient from each data
+    shard's gather and sums them (``sharding.DataShards``).  A layer
+    stored whole on a data index the span leaves out is gathered from a
+    stand-in (``zero.Layout.owner``), so each device sends as many layers
+    as an owner does on the whole mesh."""
 
     def __init__(self, mesh: Mesh):
         super().__init__(mesh.devices[tuple(slice(0, ROLE_SPAN) for _ in mesh.devices.shape)], mesh.axis_names)

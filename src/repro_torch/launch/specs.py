@@ -17,11 +17,16 @@ What the port runs on a mesh, which is what the dry run traces:
   state: every leaf whose spec has "model" on a dim stored as its slice
   (the reference's layout: attention's heads, the MLP's columns and rows,
   the vocabulary, expert stacks, routers, the recurrent stacks'
-  projections), ZeRO-1 moment slices of each device's part.  So the
-  placed bytes are the reference layout's, but for FSDP
-  (``maybe_fsdp_pspecs``), which the port does not run (ROADMAP 26b).  It
-  is traced on the mesh's :class:`~repro_torch.launch.mesh.RoleMesh`: one
-  device of each role stands for all of them.
+  projections), ZeRO-1 moment slices of each device's part.  Above
+  :data:`FSDP_THRESHOLD_BYTES` (``maybe_fsdp_pspecs``) the parameters'
+  specs are the moments' and the state is placed under them: each device
+  stores only its data part of every leaf, each layer gathers its leaves
+  before use and the gathers' backward reduces their gradients back
+  (FSDP, ``zero.Layout``).  So the placed bytes are the reference
+  layout's for every cell.  It is traced on the mesh's
+  :class:`~repro_torch.launch.mesh.RoleMesh`: one device of each role
+  stands for all of them (a layer whose owner is not on it is gathered
+  from a stand-in, and counted).
 * **prefill / decode** — the port serves an LM on one device: serving on
   a mesh waits for a slice of its own, so on a mesh of more than one
   device the cell holds its spec trees and a ``skip`` reason, and is not
@@ -166,8 +171,8 @@ def train_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
     else:
         roles = RoleMesh(mesh)
         with roles:
-            step_fn = make_train_step(cfg, tcfg, grad_pspecs=mspecs)
-            state = zero.place_train_state(state, roles, mspecs)
+            step_fn = make_train_step(cfg, tcfg, grad_pspecs=mspecs, param_pspecs=pspecs)
+            state = zero.place_train_state(state, roles, mspecs, param_specs=pspecs)
         placed = [{"params": state["params"][q], "step": state["step"][q],
                    "opt": {k: state["opt"][k][q] for k in ("m", "v", "count")}} for q in range(roles.size)]
     per_device = [[*d["params"].parameters(), *d["opt"]["m"].values(), *d["opt"]["v"].values(),

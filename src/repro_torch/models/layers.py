@@ -463,7 +463,7 @@ def _moe_apply_ep(p, cfg, x: torch.Tensor, act: str, mesh, data_axes, data_size:
     groups = S.current_expert_shard()
     if groups is not None:
         t_local = b * s
-        members = groups[p]
+        members = [(dev, m.router, m.experts) for dev, m in groups[p]]  # under FSDP: the gathered leaves
         shard = S.current_tensor_shard()
         if shard is not None and shard.is_split(p.router):  # stored split over "model": gathered on every device
             members = [(dev, router, experts) for (dev, _, experts), router in zip(members, shard.gather(p.router))]

@@ -39,6 +39,7 @@ A GQA dense-FFN prefix, which no configuration has, is not ported (ROADMAP
 
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -499,20 +500,22 @@ def embed_tokens(params: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor) 
     training mesh's tensor shard vocab-parallel: device m looks up the
     tokens in its vocab rows, zero for the others, and the partial
     embeddings are summed with the ring on the lead (each token has one
-    owner, so the sum is exact)."""
+    owner, so the sum is exact).  Under FSDP the embedding is gathered
+    over the data axes first (``sharding.gathered``)."""
     dt = torch_dtype(cfg.dtype)
     shard = S.current_tensor_shard()
-    if shard is not None and shard.is_split(params.embed):
-        parts, rows = [], params.embed.shape[0]
-        for m, (dev, pm, [t]) in enumerate(zip(shard.devices, shard.members(params),
-                                               C.copy_leaves([tokens], shard.devices))):
-            with dev.scope():
-                local = t - m * rows
-                own = (local >= 0) & (local < rows)
-                parts.append(pm.embed[local.clamp(0, rows - 1)].to(dt).masked_fill(~own[..., None], 0))
-        x = C.ring_sum(parts, shard.devices)
-    else:
-        x = params.embed[tokens].to(dt)
+    with S.gathered(params, leaves=("embed",)):
+        if shard is not None and shard.is_split(params.embed):
+            parts, rows = [], params.embed.shape[0]
+            for m, (dev, pm, [t]) in enumerate(zip(shard.devices, shard.members(params),
+                                                   C.copy_leaves([tokens], shard.devices))):
+                with dev.scope():
+                    local = t - m * rows
+                    own = (local >= 0) & (local < rows)
+                    parts.append(pm.embed[local.clamp(0, rows - 1)].to(dt).masked_fill(~own[..., None], 0))
+            x = C.ring_sum(parts, shard.devices)
+        else:
+            x = params.embed[tokens].to(dt)
     if cfg.tie_embeddings:
         # sqrt(d_model) rounded to the config dtype, as a Python scalar (a
         # device tensor made here would cost a blocking copy every step)
@@ -536,14 +539,23 @@ def logits_parts(params: TransformerLM, cfg: ModelConfig, x: torch.Tensor, shard
     norm on the lead, ``x`` broadcast, device m's logits over its vocab
     slice (of the embedding's rows, tied, or of ``lm_head``'s columns) ->
     [(device, its logits (B, S, V/TP), its first vocab index)]."""
-    x = L.apply_norm(params.final_norm, x, cfg.norm_type)
-    out = []
-    for dev, pm, xm in zip(shard.devices, shard.members(params), C.broadcast(x, shard.devices)):
-        with dev.scope():
-            width = pm.embed.shape[0] if cfg.tie_embeddings else pm.lm_head.shape[1]
-            start = len(out) * width
-            out.append((dev, _head(pm, cfg, xm, start), start))
+    with _gathered_head(params, cfg):
+        x = L.apply_norm(params.final_norm, x, cfg.norm_type)
+        out = []
+        for dev, pm, xm in zip(shard.devices, shard.members(params), C.broadcast(x, shard.devices)):
+            with dev.scope():
+                width = pm.embed.shape[0] if cfg.tie_embeddings else pm.lm_head.shape[1]
+                start = len(out) * width
+                out.append((dev, _head(pm, cfg, xm, start), start))
     return out
+
+
+@contextlib.contextmanager
+def _gathered_head(params: TransformerLM, cfg: ModelConfig):
+    """For the block, the final norm and the LM head's leaf gathered over
+    the data axes (FSDP: ``sharding.gathered``)."""
+    with S.gathered(params.final_norm), S.gathered(params, leaves=("embed" if cfg.tie_embeddings else "lm_head",)):
+        yield
 
 
 def vocab_split(params: TransformerLM, cfg: ModelConfig):
@@ -562,7 +574,8 @@ def logits_from(params: TransformerLM, cfg: ModelConfig, x: torch.Tensor) -> tor
     if shard is not None:
         parts = logits_parts(params, cfg, x, shard)
         return C.all_gather([lg for _, lg, _ in parts], shard.devices, -1, (0,), shard.tp)[0]
-    return _head(params, cfg, L.apply_norm(params.final_norm, x, cfg.norm_type))
+    with _gathered_head(params, cfg):
+        return _head(params, cfg, L.apply_norm(params.final_norm, x, cfg.norm_type))
 
 
 def as_tokens(params: TransformerLM, tokens) -> torch.Tensor:
@@ -580,17 +593,25 @@ def embed_inputs(params: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     if params.vis_proj is None:
         raise ValueError(f"{cfg.name} has no vision frontend for vision_embeds")
     dt = x.dtype
-    vis = torch.as_tensor(vision_embeds, device=x.device).to(dt) @ params.vis_proj.to(dt)
+    with S.gathered(params, leaves=("vis_proj",)):
+        vis = torch.as_tensor(vision_embeds, device=x.device).to(dt) @ params.vis_proj.to(dt)
     return torch.cat([vis, x], dim=1)
 
 
 def _run(fn, remat: bool, *args):
     """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint`` (its
     activations recomputed in the backward, as the reference's
-    ``jax.checkpoint`` around each scanned layer)."""
+    ``jax.checkpoint`` around each scanned layer).  Under FSDP the layers
+    among ``args`` are gathered inside it (``sharding.gathered``): the
+    forward frees them after the layer, and the recompute gathers them
+    again, as the reference all-gathers its parameters layer by layer."""
+    def gathered_fn(*args):
+        with S.gathered(*(a for a in args if isinstance(a, nn.Module))):
+            return fn(*args)
+
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False, **S.remat_kwargs())
-    return fn(*args)
+        return checkpoint(gathered_fn, *args, use_reentrant=False, **S.remat_kwargs())
+    return gathered_fn(*args)
 
 
 def encode(params: TransformerLM, cfg: ModelConfig, frames, remat: bool = False) -> torch.Tensor:
@@ -600,7 +621,8 @@ def encode(params: TransformerLM, cfg: ModelConfig, frames, remat: bool = False)
     positions = torch.arange(x.shape[1], device=x.device)
     for blk in params.encoder.layers:
         x = _run(_block_full, remat, blk, cfg, x, positions, None, False)
-    return L.apply_norm(params.encoder.final_norm, x, cfg.norm_type)
+    with S.gathered(params.encoder.final_norm):
+        return L.apply_norm(params.encoder.final_norm, x, cfg.norm_type)
 
 
 def _encoder_kv(p_cross: CrossBlock, cfg: ModelConfig, enc_out: torch.Tensor):

@@ -24,7 +24,9 @@ configures trains there.
 rules' batch axes, tensor-parallel over "model" in the reference's layout
 (every leaf whose spec names "model" stored as its slice: attention's
 heads, the MLP's columns, the vocabulary, MoE's experts), ZeRO-1
-moments (``distributed/zero.py``), the gradients reduced with the ring
+moments (``distributed/zero.py``), FSDP where the parameters' specs name
+the data axes too (each leaf stored as its data part and gathered layer
+by layer), the gradients reduced with the ring
 (``distributed/collectives.py``); its state is
 ``zero.place_train_state``'s, the parameters of each logical device.
 Multi-host training is not ported: one process, host 0 of 1.
@@ -35,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -129,6 +132,7 @@ def make_train_step(
     tcfg: TrainConfig,
     loss_fn: Callable | None = None,
     grad_pspecs=None,
+    param_pspecs=None,
 ) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -142,13 +146,15 @@ def make_train_step(
 
     ``grad_pspecs`` (``zero.zero_pspecs``' tree) makes it the training
     mesh's step over the mesh current here, under the rules current here
-    (:func:`_mesh_train_step`)."""
+    (:func:`_mesh_train_step`); ``param_pspecs``, the parameters' tree the
+    state was placed under (``zero.place_train_state``), makes it FSDP
+    where it names the data axes."""
     schedule = cosine_schedule(tcfg.warmup_steps, tcfg.total_steps)
     if grad_pspecs is not None:
         mesh = S.current_mesh()
         if mesh is None:
             raise ValueError("grad_pspecs needs a current mesh: make the step inside `with make_mesh(...):`")
-        return _mesh_train_step(cfg, tcfg, loss_fn, grad_pspecs, mesh, S.get_rules(), schedule)
+        return _mesh_train_step(cfg, tcfg, loss_fn, grad_pspecs, param_pspecs, mesh, S.get_rules(), schedule)
     loss_fn = loss_fn or lm_loss
 
     def compute_loss(params, batch):
@@ -202,7 +208,8 @@ def _split_rows(batch: dict, n: int) -> list[dict]:
     return parts
 
 
-def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, mesh, rules, schedule):
+def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, param_pspecs, mesh, rules,
+                     schedule):
     """The training mesh's step: ``train_step(state, batch) -> (state,
     metrics)`` over ``zero.place_train_state``'s state.
 
@@ -214,22 +221,30 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
     its columns, the vocabulary on its rows, each on its own stream; a
     split leaf the compute cannot use as its slice gathered before use; an
     MoE layer's expert-parallel branch on the shard's model devices
-    (``sharding.expert_shard``).  Then, with the host never waiting:
+    (``sharding.expert_shard``).  Under FSDP (``param_pspecs`` naming the
+    data axes) each layer, the embedding, the final norm and the LM head
+    gather their leaves' data parts just before use
+    (``sharding.gathered``), and the gathers' backward brings each part's
+    gradient back to the device that stores it, summed over the shards in
+    order; each shard's backward takes every device's parts.  Then, with
+    the host never waiting:
 
     * a replicated leaf's gradients from the shard's other model devices
       (qk-norm scales in head-parallel attention) are summed into the
-      lead's;
+      lead's (an FSDP one's over each data index's model devices);
     * the gradients are summed with ``psum_in_chunks`` — a "model"-split
       leaf's (each device's slice) over the data devices of its model
       index, every other leaf's over the shards' leads, which then copy it
-      to their other model devices;
+      to their other model devices (an FSDP part's is whole already);
     * the global norm and clip come from the reduced gradients (the same
       bits on every device, each device's in ``metrics["grad_norms"]``; a
-      split leaf's squares summed over "model");
+      split leaf's squares summed over "model", an FSDP part's over its
+      data column too);
     * each device runs AdamW (``optimizer.adamw_update``, the reference's
       order of operations) on its ZeRO slice of each parameter, ``m`` and
       ``v``;
-    * the updated slices are all-gathered into every copy.
+    * the updated slices are all-gathered into every copy (an FSDP part
+      is updated in place, with nothing to gather).
 
     The loss keeps the reference's denominators: with a ``loss_mask``,
     sum(per_tok * mask) / max(sum(mask), 1) over the whole (micro)batch,
@@ -263,19 +278,22 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
         if len(copies) != mesh.size:
             raise ValueError(f"a state of {len(copies)} copies on a mesh of {mesh.size} devices")
         with mesh, S.use_rules(rules):
-            layout = zero.Layout(copies[0], mesh, grad_pspecs, rules)
+            layout = zero.Layout(copies[0], mesh, grad_pspecs, rules, param_pspecs)
             named = [dict(c.named_parameters()) for c in copies]
             names = layout.names
-            split = [n for n in names if layout.model_dim[n] is not None]
-            replicated = [n for n in names if layout.model_dim[n] is None]
+            # FSDP leaves (each device's data part), and the rest: "model"-split or replicated
+            fsdp = [n for n in names if layout.fsdp_dim[n] is not None]
+            split = [n for n in names if layout.model_dim[n] is not None and layout.fsdp_dim[n] is None]
+            replicated = [n for n in names if layout.model_dim[n] is None and layout.fsdp_dim[n] is None]
+            held = [[n for n in fsdp if layout.holds(n, q)] for q in range(len(devices))]
             caller = C._enter(devices)
             mb_batches = [batch] if accum == 1 else [{k: v[i] for k, v in batch.items()} for i in range(accum)]
             moe_names = [name for name, mod in copies[0].named_modules() if isinstance(mod, T.MoE)]
-            ep_groups = [{copies[group[0]].get_submodule(mn): [
-                (devices[q], copies[q].get_submodule(mn).router, copies[q].get_submodule(mn).experts)
-                for q in group] for mn in moe_names} for group in shards]
+            ep_groups = [{copies[group[0]].get_submodule(mn): [(devices[q], copies[q].get_submodule(mn)) for q in group]
+                          for mn in moe_names} for group in shards]
             tensor_shards = [S.TensorShard([devices[q] for q in group], [copies[q] for q in group], layout.model_dim,
                                            layout.tp) if len(group) > 1 else None for group in shards]
+            data_shards = S.DataShards(devices, copies, layout) if fsdp else None
             grads: list[dict] = [{} for _ in devices]
             losses = {}
             for m in _build.repeat(len(mb_batches)):
@@ -294,17 +312,33 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                     denoms = C.ring_allreduce(sums, [devices[q] for q in leads])
                 for i, group in enumerate(shards):
                     lead = group[0]
-                    with devices[lead].scope(), S.expert_shard(ep_groups[i]), S.tensor_shard(tensor_shards[i]):
+                    with (devices[lead].scope(), S.expert_shard(ep_groups[i]), S.tensor_shard(tensor_shards[i]),
+                          S.data_shards(data_shards)):
+                        # the group's own leaves, and every FSDP part its layers gather from the others
                         leaves = [(q, n, named[q][n]) for q in group for n in names]
+                        leaves += [(q, n, named[q][n]) for q in range(len(devices)) if q not in group for n in held[q]]
                         loss = shard_loss(copies[lead], tensors[i], None if denoms is None else denoms[i])
-                        got = torch.autograd.grad(loss, [w for _, _, w in leaves], allow_unused=True)
+                        with warnings.catch_warnings():
+                            # an FSDP part's gradient comes from a gather run on another device's stream: the
+                            # engine's wait for it is the order wanted
+                            warnings.filterwarnings("ignore", "The AccumulateGrad node's stream does not match")
+                            got = torch.autograd.grad(loss, [w for _, _, w in leaves], allow_unused=True)
                         part = loss.detach() if accum == 1 else loss.detach() / accum
                         losses[i] = part if i not in losses else losses[i] + part
-                        # on the lead's stream, where autograd leaves every gradient ready
+                        # on the lead's stream, where autograd leaves every gradient ready; an FSDP part's
+                        # summed over the shards (and microbatches) in order, on its own device's stream
+                        if fsdp:
+                            C._enter(devices)
                         for (q, n, w), g in zip(leaves, got):
                             if g is None:
                                 continue
-                            if accum > 1:
+                            if layout.fsdp_dim[n] is not None:
+                                with devices[q].scope():
+                                    C._used_on(g, devices[q])
+                                    if n not in grads[q]:
+                                        grads[q][n] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                                    grads[q][n].add_(g if accum == 1 else g / accum)
+                            elif accum > 1:
                                 if n not in grads[q]:
                                     grads[q][n] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                                 grads[q][n].add_(g / accum)
@@ -317,13 +351,20 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                 extra = [n for n in replicated if any(n in grads[q] for q in group[1:])]
                 for q in group:  # zeros where a device computed none of a leaf it reduces
                     with devices[q].scope():
-                        for n in (names if q == group[0] else split + extra):
+                        for n in (split + replicated if q == group[0] else split + extra) + held[q]:
                             if n not in grads[q]:
                                 grads[q][n] = torch.zeros(named[q][n].shape, dtype=torch.float32,
                                                           device=named[q][n].device)
                 if extra:
                     trees = C.psum_in_chunks([[grads[q][n] for n in extra] for q in group], [devices[q] for q in group])
                     grads[group[0]].update(zip(extra, trees[0]))
+                # an FSDP leaf replicated over "model" (a norm's scale): each model device's share of it
+                rep = [n for n in held[group[0]] if layout.model_dim[n] is None]
+                if len(group) > 1 and rep:
+                    trees = C.psum_in_chunks([[grads[q][n] for n in rep] for q in group], [devices[q] for q in group])
+                    for q, tree in zip(group, trees):
+                        grads[q].update(zip(rep, tree))
+            # an FSDP part's gradient is whole: the gathers' backward reduced it to its device
             reduced = [dict(g) for g in grads]
             for group_names, groups in ((replicated, [leads]), (split, [layout.column(q) for q in shards[0]])):
                 if not group_names:
@@ -340,18 +381,34 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                         reduced[q].update(zip(replicated, mine))
             del grads
             loss_total = C.ring_allreduce([losses[i] for i in range(len(leads))], [devices[q] for q in leads])[0]
-            # the global norm: every leaf's squares; a split leaf's summed over "model"
-            norms, sq_split = [], []
+            # the global norm: every leaf's squares; a split leaf's summed over "model", an FSDP part's
+            # over its data column too
+            norms, sq_split, sq_fsdp = [], [], []
             for q, dev in enumerate(devices):
                 with dev.scope():
-                    sq = torch.stack(torch._foreach_norm([reduced[q][n] for n in replicated])).square().sum()
-                    norms.append(sq)
+                    norms.append(_sum_squares([reduced[q][n] for n in replicated], dev))
                     if split:
-                        sq_split.append(torch.stack(torch._foreach_norm([reduced[q][n] for n in split])).square().sum())
+                        sq_split.append(_sum_squares([reduced[q][n] for n in split], dev))
+                    if fsdp:
+                        sq_fsdp.append([_sum_squares([reduced[q][n] for n in held[q] if layout.model_dim[n] is None], dev),
+                                        _sum_squares([reduced[q][n] for n in held[q] if layout.model_dim[n] is not None],
+                                                     dev)])
             if split:
                 for group in shards:
                     total = C.ring_allreduce([sq_split[q] for q in group], [devices[q] for q in group])
                     for q, t in zip(group, total):
+                        with devices[q].scope():
+                            norms[q] = norms[q] + t
+            if fsdp:
+                for group in shards:  # over "model", then each column's sum over the data axes
+                    total = C.ring_allreduce([sq_fsdp[q][1] for q in group], [devices[q] for q in group])
+                    for q, t in zip(group, total):
+                        with devices[q].scope():
+                            sq_fsdp[q] = sq_fsdp[q][0] + t
+                for q0 in shards[0]:
+                    column = layout.column(q0)
+                    total = C.ring_allreduce([sq_fsdp[q] for q in column], [devices[q] for q in column])
+                    for q, t in zip(column, total):
                         with devices[q].scope():
                             norms[q] = norms[q] + t
             new_counts, new_steps = [], []
@@ -369,21 +426,31 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                     new_counts.append(new_opt["count"])
                     new_steps.append(state["step"][q] + 1)
             del reduced
-            # the all-gather: each device's updated slices into every copy of its column
-            sharded = [n for n in names if layout.zero_dim[n] is not None]
+            # the all-gather: each device's updated slices into every copy of its column (an FSDP
+            # part is the whole of what its device stores: nothing to gather)
+            sharded = [n for n in split + replicated if layout.zero_dim[n] is not None]
 
             def owned(n, s, t):
                 sl = layout.moment_slice(n, s, named[s][n].shape)
                 return None if sl is None else zero.take(t, sl)
 
-            C.all_gather_([{n: named[q][n] for n in sharded} for q in range(len(devices))], devices,
-                          [layout.column(q) for q in range(len(devices))], owned)
+            if sharded:
+                C.all_gather_([{n: named[q][n] for n in sharded} for q in range(len(devices))], devices,
+                              [layout.column(q) for q in range(len(devices))], owned)
             C._leave(devices, caller, [loss_total, *norms])
         state = {"params": copies, "opt": {"m": state["opt"]["m"], "v": state["opt"]["v"], "count": new_counts},
                  "step": new_steps}
         return state, {"loss": loss_total, "grad_norm": norms[0], "grad_norms": norms}
 
     return train_step
+
+
+def _sum_squares(ts: list, dev) -> torch.Tensor:
+    """The sum of the squares of every element of ``ts`` (f32, 0 for
+    none), on ``dev``."""
+    if not ts:
+        return torch.zeros((), dtype=torch.float32, device=dev.device)
+    return torch.stack(torch._foreach_norm(ts)).square().sum()
 
 
 def init_train_state(cfg: ModelConfig, key=None, device: str | torch.device | None = "cuda") -> dict:

@@ -181,16 +181,22 @@ def test_train_cell_places_the_reference_layout(arch, shape):
 @pytest.mark.parametrize("arch", TC.ARCH_NAMES)
 def test_train_4k_on_the_production_mesh_places_the_reference_layout(arch):
     """train_4k on the 16x16 mesh at full size: the reference layout's
-    bytes to the byte where the reference adds no FSDP (gemma3-1b,
-    hymba-1.5b, internlm2-1.8b, olmoe-1b-7b, whisper-large-v3, xlstm-125m);
-    above its threshold, more by what FSDP would take off."""
+    bytes to the byte for every arch, those above the reference's FSDP
+    threshold (qwen3-32b, internlm2-20b, internvl2-26b, deepseek-v2-236b)
+    included: there each device's parameters are placed under the FSDP
+    tree (``zero_pspecs`` of the parameters' specs, the moments' tree), to
+    the byte, and a layer another data index owns takes no byte."""
     cfg = TC.get_config(arch)
     mesh = make_production_mesh(devices=H.trace_devices(256))
     with Tsh.use_rules(Tsh.SINGLE_POD_RULES):
         fsdp = _fsdp(cfg, mesh)
         spec = TS.build_cell(cfg, SHAPES["train_4k"], mesh)
-    if fsdp:
-        assert spec.argument_bytes > spec.reference_argument_bytes
-    else:
-        assert spec.argument_bytes == spec.reference_argument_bytes
+    assert spec.argument_bytes == spec.reference_argument_bytes
     assert fsdp == (arch in ("qwen3-32b", "internlm2-20b", "internvl2-26b", "deepseek-v2-236b"))
+    state, state_specs = spec.args[0], spec.in_specs[0]
+    assert (state_specs["params"] == state_specs["opt"]["m"]) == fsdp
+    shapes = TS.zero._shapes(TS.param_structs(cfg, torch.float32))
+    want = TS._spec_bytes(shapes, state_specs["params"], mesh, 4)
+    for copy in state["params"]:
+        assert sum(w.numel() * w.element_size() for w in copy.parameters()) == want
+        assert any(w.numel() == 0 for w in copy.parameters()) == (fsdp and arch != "deepseek-v2-236b")
