@@ -75,7 +75,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    more steps, K3 forward 52 and backward 26 launches a data shard a
    step); OLMoE-1B-7B at full width and 2 layers (``reduced``) on a
    (2, 2) mesh, its expert-parallel MoE forward bitwise its serial
-   definition, then 3 steps;
+   definition, then 3 steps; phase 4G serves on (2, 2) streams
+   (``decode.make_mesh_prefill`` / ``make_mesh_decode_step``, the cache
+   split by heads and rows): Gemma3-1B full (prefill 4 x 2048, 16 greedy
+   steps from a 2112-key cache), qwen3-32b and OLMoE-1B-7B at full width
+   and 2 layers (``reduced``; OLMoE's prefill expert-parallel, its decode
+   routing the whole batch on the first shard's model group, the experts
+   split), each against the single-device run, bitwise its serial run,
+   K3/K4 once a layer on each model device as the dry run counts, placed
+   bytes the spec trees' at 2 bytes plus the port's f32 leaves;
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -795,7 +803,10 @@ def check_flash_attention(dev) -> dict:
     """K3 against its plain version: head_dim 256 (MQA, the Gemma3 prefill
     shape 4 x 2048, window and none, in f32 and bf16; a model device's
     share of Gemma3-1B's training layer on the (2, 2) training mesh, 2 x
-    1024, 2 heads over 1, window 512 and none, bf16) and 128/64 (GQA),
+    1024, 2 heads over 1, window 512 and none, bf16; a model device's
+    share in phase 4G's prefill, 2 x 2048: Gemma3-1B's 2 heads over 1,
+    window 512 and none, qwen3-32b's 32 over 4 and OLMoE's 8 over 8 of
+    128, bf16) and 128/64 (GQA),
     ragged S, causal and not; for the bf16 tensor-core kernel also the
     edges of its 128-row query and 64-key tiles (S = 1, 63, 65, 127, 129,
     2049), windows that end inside a tile (64, 100), groups 1/4/8, D
@@ -824,6 +835,12 @@ def check_flash_attention(dev) -> dict:
         # a model device's heads of Gemma3-1B on the (2, 2) training mesh: 2 query heads over the 1 KV head
         (TRAIN_B // 2, TRAIN_S, 2, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
         (TRAIN_B // 2, TRAIN_S, 2, 1, 256, True, None, torch.bfloat16),
+        # a model device's heads in phase 4G's prefill on (2, 2): a data shard's 2 x 2048 rows, Gemma3-1B's 2 query
+        # heads over its 1 KV head, qwen3-32b's 32 over 4 and OLMoE's 8 over 8
+        (PREFILL_B // 2, PREFILL_S, 2, 1, 256, True, GEMMA_WINDOW, torch.bfloat16),
+        (PREFILL_B // 2, PREFILL_S, 2, 1, 256, True, None, torch.bfloat16),
+        (PREFILL_B // 2, PREFILL_S, 32, 4, 128, True, None, torch.bfloat16),
+        (PREFILL_B // 2, PREFILL_S, 8, 8, 128, True, None, torch.bfloat16),
         (2, 777, 4, 1, 256, True, 100, torch.float32),
         (2, 777, 4, 1, 256, True, None, torch.float32),
         (1, 300, 16, 8, 128, True, None, torch.float32),
@@ -1381,7 +1398,10 @@ def check_decode_attention(dev) -> float:
     """K4 against its plain version on layer slices of a stacked cache (so
     through strides): head_dim 256 (MQA, the Gemma3 decode shape 4 x 2112
     with q in f32 and bf16, the decode phase's lengths 2048..2060, and the
-    serve shape) and 128/64 (GQA, up to 8 heads a group), window and none,
+    serve shape; a model device's cache slice in phase 4G's decode, 2 rows
+    of 2112 keys from 2048: Gemma3-1B's 2 heads over 1, window 512 and
+    none, qwen3-32b's 32 over 4 and OLMoE's 8 over 8 of 128) and 128/64
+    (GQA, up to 8 heads a group), window and none,
     ragged lengths (int32, and int64 the wrapper converts), q f32/bf16 and
     the cache f32/bf16; and sequences with no valid key (length 0, length
     >= S + window), whose rows must be the mean of the cache's S value
@@ -1403,6 +1423,12 @@ def check_decode_attention(dev) -> float:
         (PREFILL_B, s, 4, 1, 256, None, torch.bfloat16, torch.bfloat16, decode_lens),
         (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, None, torch.bfloat16, torch.float32, None),
         (SERVE_SLOTS, SERVE_MAX_LEN, 4, 1, 256, 40, torch.float32, torch.float32, None),
+        # a model device's cache slice in phase 4G's decode on (2, 2): a data shard's 2 rows of the 2112-key cache,
+        # Gemma3-1B's 2 query heads over its 1 cache head (kv 1 stored twice), qwen3-32b's 32 over 4, OLMoE's 8 over 8
+        (PREFILL_B // 2, s, 2, 1, 256, w, torch.bfloat16, torch.bfloat16, [PREFILL_S, PREFILL_S + 9]),
+        (PREFILL_B // 2, s, 2, 1, 256, None, torch.bfloat16, torch.bfloat16, [PREFILL_S + 4, PREFILL_S + 15]),
+        (PREFILL_B // 2, s, 32, 4, 128, None, torch.bfloat16, torch.bfloat16, [PREFILL_S + 1, PREFILL_S + 3]),
+        (PREFILL_B // 2, s, 8, 8, 128, None, torch.bfloat16, torch.bfloat16, [PREFILL_S, PREFILL_S + 2]),
         (5, 300, 16, 8, 128, None, torch.float32, torch.float32, None),
         (5, 300, 16, 8, 128, 64, torch.bfloat16, torch.float32, None),
         (3, 1000, 8, 1, 64, None, torch.float32, torch.bfloat16, None),
@@ -4340,6 +4366,247 @@ def run_train_mesh(dev, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- phase 4G: serving on a mesh
+# (2, 2) streams: two data shards of two model devices.  Gemma3-1B at full size (kv 1 stored twice: one cache
+# head a model device), qwen3-32b and OLMoE-1B-7B at full width and 2 layers (``reduced``)
+SERVE_MESH_MODELS = (("gemma3-1b", None, DECODE_STEPS), ("qwen3-32b", 2, CUT_DECODE_STEPS),
+                     ("olmoe-1b-7b", 2, CUT_DECODE_STEPS))
+
+
+@contextlib.contextmanager
+def _launches_by_device():
+    """For the block, K3's and K4's launches by logical device: yields
+    ({label: K3 launches}, {label: K4 launches})."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    k3, k4, real = {}, {}, (fa_ops.flash_attention_bshd, da_ops.decode_attention_cache)
+    fa_ops.flash_attention_bshd, da_ops.decode_attention_cache = _ByDevice(real[0], k3), _ByDevice(real[1], k4)
+    try:
+        yield k3, k4
+    finally:
+        fa_ops.flash_attention_bshd, da_ops.decode_attention_cache = real
+
+
+def _lead_routing(record: list, leads: set):
+    """Record every MoE routing the shards' leads make (top-k ids, in
+    order): a shard's other model devices route the same tokens again for
+    their own experts (the expert-parallel branch)."""
+    from unittest import mock
+
+    from repro_torch.device import current_logical
+    from repro_torch.models import layers as L
+
+    gates = L.moe_gates
+
+    def recording(xt, router, k):
+        w, idx = gates(xt, router, k)
+        if current_logical() is None or current_logical().label in leads:
+            record.append(idx)
+        return w, idx
+
+    return mock.patch.object(L, "moe_gates", recording)
+
+
+def _mesh_routing_note(differ: list) -> str:
+    if not differ[1]:
+        return ""
+    return (f"; the single device's own gates would route {int(differ[0])} of {differ[1]} MoE token-layers to other "
+            f"experts (it takes the mesh's)")
+
+
+def _per_layer(record: list, tokens: int) -> list:
+    """The mesh's lead routings joined into one (tokens, k) routing a layer
+    call, in the shards' row order (the single-device run's calls)."""
+    out, part = [], []
+    for idx in record:
+        part.append(idx)
+        if sum(p.shape[0] for p in part) == tokens:
+            out.append(torch.cat(part))
+            part = []
+    if part:
+        raise AssertionError(f"mesh routings of {[p.shape[0] for p in part]} rows do not make {tokens}")
+    return out
+
+
+def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
+    """One model served on (2, 2) streams of the card
+    (``decode.make_mesh_prefill`` / ``make_mesh_decode_step`` over
+    ``zero.place_params``' copies, the cache split by heads and rows as
+    ``choose_cache_policy`` says), bf16, seeded weights: a prefill of
+    PREFILL_B x PREFILL_S into a DECODE_MAX_LEN cache, then ``steps``
+    greedy decode steps.  Held: each call's logits against the same
+    weights' single-device run on the same tokens within LM_LOGIT_RTOL (an
+    MoE model's single-device run takes the mesh's routing, and how many
+    token-layers its own gates would route elsewhere is logged); the same
+    calls on a mesh of the same devices without streams (every op on the
+    default stream in program order) bitwise, logits and every cache
+    slice; K3 once a layer on each model device in prefill and K4 once a
+    layer a step on each, equal to the dry run's per-device count of the
+    same (2, 2) cell; each device's placed bytes (weights, cache) equal to
+    the reference layout's spec trees' at 2 bytes, plus 2 for each element
+    of the leaves the port keeps in f32.  Prefill and decode ms, mesh and
+    single device."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import device as Dv
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import zero as Z
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.serving.kv_cache import choose_cache_policy
+
+    full = configs.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    tag = f"{full.name}{'' if layers is None else f' reduced to {layers} of {full.num_layers} layers'}"
+    b, s, max_len, vocab = PREFILL_B, PREFILL_S, DECODE_MAX_LEN, cfg.vocab_size
+    t0 = time.perf_counter()
+    trace_mesh = make_mesh((2, 2), ("data", "model"), H.trace_devices(4))
+    traced = {kind: dryrun.run_cell(cfg, InputShape(f"4g_{kind}", kind, n, b), trace_mesh)
+              for kind, n in (("prefill", s), ("decode", max_len))}
+    want_k3 = traced["prefill"]["hlo"]["launches"].get("flash_attention")
+    want_k4 = traced["decode"]["hlo"]["launches"].get("decode_attention")
+    trace_s = time.perf_counter() - t0
+    model, _ = _build_lm(dev, cfg, f"{tag} (phase 4G)")
+    mesh = make_mesh((2, 2), ("data", "model"), _mesh_devices(dev, 4))
+    serial = make_mesh((2, 2), ("data", "model"),
+                       [Dv.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
+    with S.use_rules(S.SINGLE_POD_RULES):
+        policy = choose_cache_policy(cfg, 2, b, 2)
+        pspecs = S.param_pspecs(model)
+        placed = Z.place_params(model, mesh, pspecs)
+        prefill, step = D.make_mesh_prefill(cfg, mesh, pspecs, policy), D.make_mesh_decode_step(cfg, mesh, pspecs,
+                                                                                                   policy)
+        prefill_s, step_s = (D.make_mesh_prefill(cfg, serial, pspecs, policy),
+                             D.make_mesh_decode_step(cfg, serial, pspecs, policy))
+        want_params, surplus = LS._param_spec_bytes(LS.param_structs(cfg), pspecs, mesh)
+        whole_cache = D.init_cache(cfg, b, max_len, policy.kv_repeat, device="meta")
+        want_cache = LS._spec_bytes(whole_cache, D.cache_pspecs(whole_cache, policy, mesh), mesh, 2)
+    rng = np.random.default_rng(SEED + 6)
+    prompts = torch.from_numpy(rng.integers(0, vocab, size=(b, s))).to(dev)
+    leads = {mesh.flat[0].label, mesh.flat[2].label}
+
+    # ---- prefill: single device, then the mesh (a warm-up call each), then the serial mesh
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    with S.use_rules(S.SINGLE_POD_RULES), mesh:
+        ep = cfg.is_moe and L._expert_parallel(cfg, b, s) is not None
+    shards = 2 if ep else 1
+
+    def single_prefill():
+        """The single-device prefill of the same function: with the
+        expert-parallel branch each data shard's rows route alone (a
+        capacity a shard's tokens), so each shard's rows run alone."""
+        rows = b // shards
+        parts = [D.prefill(model, cfg, prompts[i * rows:(i + 1) * rows], max_len=max_len,
+                           kv_repeat=policy.kv_repeat) for i in range(shards)]
+        if shards == 1:
+            return parts[0]
+        return (torch.cat([p[0] for p in parts]), {k: torch.cat([p[1][k] for p in parts], 1) for k in parts[0][1]},
+                torch.cat([p[2] for p in parts]))
+
+    single_prefill()
+    prefill(placed, prompts, max_len=max_len)
+    routing, differ = [], [0, 0]
+    _zero_attention_counts()
+    with _launches_by_device() as (k3, k4), _lead_routing(routing, leads):
+        (logits, cache, lens), mesh_prefill_ms = timed(lambda: prefill(placed, prompts, max_len=max_len))
+    launches = {"flash_attention": sum(k3.values())}
+    per_layer = _per_layer(routing, b * s // shards)  # each layer's routing, a shard's at a time under EP
+    per_layer = [per_layer[layer * shards + i] for i in range(shards) for layer in range(len(per_layer) // shards)]
+    with _pinned_routing(per_layer, differ):
+        (single_logits, single_cache, single_lens), single_prefill_ms = timed(single_prefill)
+    serial_logits, serial_cache, serial_lens = prefill_s(placed, prompts, max_len=max_len)
+    err, scale = _rel_err(logits, single_logits, vocab)
+    labels = [d.label for d in mesh.flat]
+    held = [sum(t.numel() * t.element_size() for t in c.parameters()) for c in placed]
+    held_cache = [sum(t.numel() * t.element_size() for t in mine.values()) for mine in cache]
+    routed = ("; MoE expert-parallel per data shard (each shard's rows alone on one device)" if ep else
+              "; MoE routing the whole batch" if cfg.is_moe else "")
+    log(f"[serve-mesh] {tag} on (2, 2) streams (cache policy {policy}{routed}): prefill {b}x{s} in "
+        f"{mesh_prefill_ms:.1f} ms against {single_prefill_ms:.1f} ms on one device; last-token logits vs the single "
+        f"device's: max|d| / "
+        f"max|logit| {err:.3e} (max|logit| {scale:.3e}, tolerance {LM_LOGIT_RTOL}){_mesh_routing_note(differ)}; K3 "
+        f"launches by device {k3} (dry run of the (2, 2) cell: {want_k3} a device, traced in {trace_s:.1f} s); placed "
+        f"bytes a device: weights {held}, cache {held_cache}; the reference layout's spec trees at 2 bytes give "
+        f"{want_params} and {want_cache}, and the port's f32 norm scales and routers add {surplus} [{card}]")
+    if not err <= LM_LOGIT_RTOL:
+        raise AssertionError(f"{tag}: mesh prefill logits differ from the single device's by {err}")
+    if k3 != dict.fromkeys(labels, cfg.num_layers) or want_k3 != cfg.num_layers or set(k4):
+        raise AssertionError(f"{tag}: prefill launches K3 {k3}, K4 {k4}; the dry run's {want_k3} a device")
+    if any(n != want_params + surplus for n in held) or any(n != want_cache for n in held_cache):
+        raise AssertionError(f"{tag}: placed bytes {held} / {held_cache}, the spec trees' {want_params} + {surplus} "
+                             f"/ {want_cache}")
+    if lens.tolist() != single_lens.tolist() or not torch.equal(logits, serial_logits):
+        raise AssertionError(f"{tag}: prefill lengths {lens.tolist()}, or its logits differ from the serial run's")
+
+    # ---- decode: the mesh's greedy tokens fed to all three
+    tok = logits.argmax(-1)
+    mesh_ms, single_ms, worst, agree, n_tok = [], [], 0.0, 0, 0
+    routing, differ = [], [0, 0]
+    by_step = []
+    for i in range(steps):
+        with _launches_by_device() as (k3, k4), _lead_routing(routing, leads):
+            (lg, cache, lens), ms = timed(lambda: step(placed, tok, cache, lens))
+        by_step.append(dict(k4))
+        mesh_ms.append(ms)
+        per_layer = _per_layer(routing[-cfg.num_layers:] if cfg.is_moe else [], b)
+        with _pinned_routing(per_layer, differ):
+            (slg, single_cache, single_lens), ms = timed(
+                lambda: D.decode_step(model, cfg, tok, single_cache, single_lens, kv_repeat=policy.kv_repeat))
+        single_ms.append(ms)
+        serial_lg, serial_cache, serial_lens = step_s(placed, tok, serial_cache, serial_lens)
+        worst = max(worst, _rel_err(lg, slg, vocab)[0])
+        if not torch.equal(lg, serial_lg):
+            raise AssertionError(f"{tag}: decode step {i} logits differ from the serial run's")
+        nxt = lg.argmax(-1)
+        agree += int((nxt == slg.argmax(-1)).sum())
+        n_tok += b
+        tok = nxt
+    launches["decode_attention"] = sum(sum(c.values()) for c in by_step)
+    racy = [f"{mesh.flat[q].label} {k}" for q, (mine, theirs) in enumerate(zip(cache, serial_cache))
+            for k in mine if not torch.equal(mine[k], theirs[k])]
+    log(f"[serve-mesh] {tag}: decode {steps} steps x {b} from {s} keys: {statistics.median(mesh_ms):.2f} ms/step "
+        f"median on the mesh against {statistics.median(single_ms):.2f} on one device (host clock, synchronised); "
+        f"logits vs the single device's: max|d| / max|logit| {worst:.3e} (tolerance {LM_LOGIT_RTOL})"
+        f"{_mesh_routing_note(differ)}; greedy tokens the single device's own argmax agrees with: {agree} of {n_tok}; K4 "
+        f"launches by device a step {by_step[0]} (dry run: {want_k4} a device); the mesh on streams bitwise the serial "
+        f"run: every call's logits and {'all' if not racy else 'NOT all'} {sum(len(c) for c in cache)} cache slices "
+        f"[{card}]")
+    if not worst <= LM_LOGIT_RTOL:
+        raise AssertionError(f"{tag}: mesh decode logits differ from the single device's by {worst}")
+    if any(c != dict.fromkeys(labels, cfg.num_layers) for c in by_step) or want_k4 != cfg.num_layers:
+        raise AssertionError(f"{tag}: K4 launches by device a step {by_step}, the dry run's {want_k4}")
+    if racy:
+        raise AssertionError(f"{tag}: cache slices differ from the serial run's: {racy}")
+    del model, placed, cache, serial_cache, single_cache, prefill, step, prefill_s, step_s
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_serve_mesh(dev, card: str) -> dict:
+    """Phase 4G, prefill and decode on (2, 2) streams of the card
+    (:func:`serve_mesh_model` for each of SERVE_MESH_MODELS, each freed
+    before the next).  Returns the K3 and K4 launches."""
+    launches = {}
+    for arch, layers, steps in SERVE_MESH_MODELS:
+        t0 = time.perf_counter()
+        _add(launches, serve_mesh_model(dev, card, arch, layers, steps))
+        log(f"[serve-mesh] {arch} took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def run_paper_images(dev, card: str) -> dict:
     """Phase 6A: each image dataset in the paper's four formats through a
     ``SmolRuntime`` over ResNet-18/34/50 (full depth and width, seeded
@@ -4688,6 +4955,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_train_mesh(dev, card))
     log(f"[train-mesh] phase 4F took {time.perf_counter() - t0:.1f} s [{card}]")
+    # ---- phase 4G: prefill and decode on (2, 2) streams (Gemma3-1B, qwen3-32b and OLMoE at 2 layers)
+    t0 = time.perf_counter()
+    _add(launches, run_serve_mesh(dev, card))
+    log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s [{card}]")
     # ---- phase 5: the vision serving path over phase 3's model and corpus
     t0 = time.perf_counter()
     run_vision_serving(dev, corpus, full, thumb, res, card)

@@ -139,6 +139,21 @@ def data_axes_and_size(mesh, rules=None) -> tuple:
     return data_axes, mesh.shape.get(data_axes, 1)
 
 
+def splits_over_data(pspecs, mesh, rules=None) -> bool:
+    """Some leaf of the spec tree ``pspecs`` is split over the data axes of
+    ``mesh``, and they have more than one index (FSDP:
+    ``maybe_fsdp_pspecs``' tree above its threshold); ``rules`` default:
+    the current ones."""
+    data_axes, size = data_axes_and_size(mesh, rules)
+
+    def names(specs) -> bool:
+        if isinstance(specs, dict):
+            return any(names(v) for v in specs.values())
+        return any(a == data_axes for a in specs)
+
+    return size > 1 and names(pspecs)
+
+
 @contextlib.contextmanager
 def expert_shard(groups: dict | None):
     """For the block, MoE layers compute one data shard of the training

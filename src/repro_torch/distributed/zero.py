@@ -17,6 +17,10 @@ FSDP.  Each device then stores only its moments' part of each parameter
 (:class:`Layout`), each layer gathers its leaves before use
 (``sharding.DataShards``) and AdamW updates the stored parts in place,
 with no all-gather after it.
+
+Serving on a mesh places the weights alone, under the serving specs
+(:func:`place_params`, :func:`gather_params`: the same :class:`Layout`
+with no moments).
 """
 
 from __future__ import annotations
@@ -218,6 +222,33 @@ class Layout:
                       key=lambda q: self.data_index[q])
 
 
+def _place_leaf(copy, name: str, w, layout: Layout, pos: int, dev) -> tuple:
+    """Put the device at ``pos``'s part of parameter ``name`` (``w``, the
+    whole leaf) into ``copy``, made on ``dev`` (the caller is in its scope):
+    its "model" slice, under FSDP that slice's data part (an empty tensor
+    for a layer another data index owns), else a copy.  Returns (the
+    "model" slice, its data part: ``Layout.param_slice``,
+    ``Layout.data_slice``)."""
+    import torch
+    from torch import nn
+
+    from repro_torch.distributed import collectives as C
+
+    psl = layout.param_slice(name, pos, w.shape)
+    part = take(w.detach(), psl)
+    sl = layout.data_slice(name, pos, part.shape)
+    C._used_on(w, dev)
+    if layout.fsdp_dim[name] is None:
+        mine = torch.empty(part.shape, dtype=w.dtype, device=dev.device).copy_(part)
+    elif sl is None:  # a layer another data index owns
+        mine = torch.empty((0, *part.shape[1:]), dtype=w.dtype, device=dev.device)
+    else:
+        mine = take(part, sl).clone()
+    owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    setattr(copy.get_submodule(owner), leaf, nn.Parameter(mine, requires_grad=w.requires_grad))
+    return psl, sl
+
+
 def place_train_state(state: dict, mesh, specs: dict, param_specs: dict | None = None) -> dict:
     """A single-device training state (``train_loop.init_train_state``'s)
     placed on ``mesh`` under ``specs`` (``zero_pspecs``; the counterpart of
@@ -230,7 +261,6 @@ def place_train_state(state: dict, mesh, specs: dict, param_specs: dict | None =
     on its stream; the caller's stream waits for them.  The data axes are
     the current rules'."""
     import torch
-    from torch import nn
 
     from repro_torch.distributed import collectives as C
     from repro_torch.models.transformer import TransformerLM
@@ -245,18 +275,7 @@ def place_train_state(state: dict, mesh, specs: dict, param_specs: dict | None =
             copy = TransformerLM(src.cfg, "meta", torch.float32)
             m, v = {}, {}
             for name, w in src.named_parameters():
-                psl = layout.param_slice(name, pos, w.shape)
-                part = take(w.detach(), psl)
-                sl = layout.data_slice(name, pos, part.shape)
-                C._used_on(w, dev)
-                if layout.fsdp_dim[name] is None:
-                    mine = torch.empty(part.shape, dtype=w.dtype, device=dev.device).copy_(part)
-                elif sl is None:  # a layer another data index owns
-                    mine = torch.empty((0, *part.shape[1:]), dtype=w.dtype, device=dev.device)
-                else:
-                    mine = take(part, sl).clone()
-                owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
-                setattr(copy.get_submodule(owner), leaf, nn.Parameter(mine, requires_grad=w.requires_grad))
+                psl, sl = _place_leaf(copy, name, w, layout, pos, dev)
                 if sl is not None:
                     for key, out in (("m", m), ("v", v)):
                         full = state["opt"][key][name]
@@ -269,6 +288,55 @@ def place_train_state(state: dict, mesh, specs: dict, param_specs: dict | None =
             steps.append(state["step"].clone())
     C._leave(devices, caller, [])
     return {"params": params, "opt": {"m": ms, "v": vs, "count": counts}, "step": steps}
+
+
+def place_params(model, mesh, pspecs: dict) -> list:
+    """A single-device model (the serving weights, in their dtypes) placed
+    on ``mesh`` under ``pspecs``, as :func:`place_train_state` places a
+    state's parameters: per device, in ``mesh.flat`` order, a
+    ``TransformerLM`` holding its slice of every leaf whose spec has
+    "model" on a dim (under FSDP, a tree naming the data axes, that
+    slice's data part) and a copy of every other leaf, made on its stream;
+    the caller's stream waits for them.  The data axes are the current
+    rules'."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.transformer import TransformerLM
+
+    layout = Layout(model, mesh, pspecs, param_specs=pspecs)
+    devices = mesh.flat
+    caller = C._enter(devices)
+    copies = []
+    for pos, dev in enumerate(devices):
+        with dev.scope(), torch.no_grad():
+            copy = TransformerLM(model.cfg, "meta", torch.float32)
+            for name, w in model.named_parameters():
+                _place_leaf(copy, name, w, layout, pos, dev)
+            copies.append(copy)
+    C._leave(devices, caller, [])
+    return copies
+
+
+def _join_leaf(named: list, name: str, layout: Layout, mesh, dev, caller):
+    """Parameter ``name`` whole on torch device ``dev``, joined from every
+    device's part (``named``: each device's {name: tensor}); each part read
+    is marked as used on ``caller``'s stream (None on the CPU)."""
+    import torch
+
+    full_shape = layout.shape[name]
+    w = named[0][name]
+    full = torch.empty(full_shape, dtype=w.dtype, device=dev)
+    for pos in range(mesh.size):
+        psl = layout.param_slice(name, pos, full_shape)
+        sl = layout.data_slice(name, pos, layout.model_shape(name))
+        if layout.fsdp_dim[name] is None:
+            take(full, psl).copy_(named[pos][name])
+        elif sl is not None:
+            take(take(full, psl), sl).copy_(named[pos][name])
+        if caller is not None:
+            named[pos][name].record_stream(caller)
+    return full
 
 
 def gather_train_state(placed: dict, mesh, specs: dict, param_specs: dict | None = None) -> dict:
@@ -293,24 +361,18 @@ def gather_train_state(placed: dict, mesh, specs: dict, param_specs: dict | None
     out = {"m": {}, "v": {}}
     with torch.no_grad():
         for name, w in named[0].items():
+            full = _join_leaf(named, name, layout, mesh, dev, caller)
             full_shape = layout.shape[name]
-            full = torch.empty(full_shape, dtype=w.dtype, device=dev)
             moments = {key: torch.empty(full_shape, dtype=torch.float32, device=dev) for key in out}
             for pos in range(mesh.size):
                 psl = layout.param_slice(name, pos, full_shape)
                 sl = layout.data_slice(name, pos, layout.model_shape(name))
-                reads = [named[pos][name]]
-                if layout.fsdp_dim[name] is None:
-                    take(full, psl).copy_(reads[0])
-                elif sl is not None:
-                    take(take(full, psl), sl).copy_(reads[0])
                 if sl is not None:
                     for key in out:
-                        reads.append(placed["opt"][key][pos][name])
-                        take(take(moments[key], psl), sl).copy_(reads[-1])
-                if caller is not None:
-                    for t in reads:
-                        t.record_stream(caller)
+                        got = placed["opt"][key][pos][name]
+                        take(take(moments[key], psl), sl).copy_(got)
+                        if caller is not None:
+                            got.record_stream(caller)
             owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
             setattr(model.get_submodule(owner), leaf, nn.Parameter(full, requires_grad=w.requires_grad))
             for key in out:
@@ -318,3 +380,28 @@ def gather_train_state(placed: dict, mesh, specs: dict, param_specs: dict | None
     return {"params": model, "opt": {"m": out["m"], "v": out["v"],
                                      "count": placed["opt"]["count"][0].to(dev)},
             "step": placed["step"][0].to(dev)}
+
+
+def gather_params(copies: list, mesh, pspecs: dict):
+    """The inverse of :func:`place_params`: one model on the first
+    device's torch device, every "model"-split leaf joined from its
+    slices."""
+    import torch
+    from torch import nn
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.transformer import TransformerLM
+
+    layout = Layout(copies[0], mesh, pspecs, param_specs=pspecs)
+    devices = mesh.flat
+    dev = devices[0].device
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    C._leave(devices, caller, [])  # the caller's stream reads after every device's writes
+    named = [dict(c.named_parameters()) for c in copies]
+    model = TransformerLM(copies[0].cfg, "meta", torch.float32)
+    with torch.no_grad():
+        for name, w in named[0].items():
+            owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+            full = _join_leaf(named, name, layout, mesh, dev, caller)
+            setattr(model.get_submodule(owner), leaf, nn.Parameter(full, requires_grad=w.requires_grad))
+    return model

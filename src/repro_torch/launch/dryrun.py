@@ -7,12 +7,16 @@ is allocated and nothing launched, so no card is needed.  It computes
 nothing, so it is no fallback.  A record holds the per-device dot FLOPs,
 the kernels' work and launches, traffic and collective bytes (``hlo``),
 memory per device (``memory``: the arguments the port places, the peak
-of what the step makes over them, and for a train cell the arguments
-under the reference's spec trees) and the roofline at the H100's peaks
-(``roofline``: each dtype's FLOPs at its peak, the traffic at the HBM's
-rate, the collective bytes over one NVLink direction).  Where the port
-does not run the cell's layout (prefill and decode on a mesh of more than
-one device), the record says so under ``skipped`` and holds no number.
+of what the step makes over them, and for a train cell or a prefill or
+decode cell on a mesh the arguments under the reference's spec trees,
+for the latter beside what the port's f32 leaves add to them) and the
+roofline at the H100's peaks (``roofline``: each dtype's FLOPs at its
+peak, the traffic at the HBM's rate, the collective bytes over one
+NVLink direction).  Where the port
+does not run the cell's layout (prefill and decode on a mesh whose cache
+splits by sequence, MLA, the encoder-decoder, the recurrent states or
+parameters under FSDP: ``decode.mesh_serving_gap``), the record says so
+under ``skipped`` and holds no number.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k
@@ -79,6 +83,8 @@ def run_cell(cfg, shape: InputShape, mesh, rules=shmod.SINGLE_POD_RULES) -> dict
     }
     if spec.reference_argument_bytes is not None:
         rec["memory"]["reference_layout_argument_bytes"] = spec.reference_argument_bytes
+    if spec.dtype_surplus_bytes is not None:
+        rec["memory"]["dtype_surplus_bytes"] = spec.dtype_surplus_bytes
     rec["hlo"] = summary.to_json()
     rec["roofline"] = summary.roofline()
     return rec

@@ -27,10 +27,23 @@ What the port runs on a mesh, which is what the dry run traces:
   :class:`~repro_torch.launch.mesh.RoleMesh`: one device of each role
   stands for all of them (a layer whose owner is not on it is gathered
   from a stand-in, and counted).
-* **prefill / decode** — the port serves an LM on one device: serving on
-  a mesh waits for a slice of its own, so on a mesh of more than one
-  device the cell holds its spec trees and a ``skip`` reason, and is not
-  traced.
+* **prefill / decode** — on one device ``decode.prefill`` and
+  ``decode.decode_step``; on more, the mesh's steps
+  (``decode.make_mesh_prefill``, ``decode.make_mesh_decode_step``) over
+  ``zero.place_params``' copies: every leaf whose serving spec has
+  "model" on a dim stored as its slice in the config's dtype, and for
+  decode the cache placed per device (``decode.init_mesh_cache``: its
+  data shard's rows, its model index's cache heads after ``kv_repeat``),
+  traced on the mesh's :class:`~repro_torch.launch.mesh.RoleMesh`.  The
+  argument bytes of the busiest device are the spec trees'
+  (``reference_argument_bytes``: every parameter and cache entry at the
+  reference's 2 bytes, plus the tokens over the data axes) plus
+  ``dtype_surplus_bytes``, what the port's f32 norm scales and MoE
+  routers add (the reference casts every leaf to bf16).
+  A cell whose cache ``choose_cache_policy`` splits by sequence, MLA, an
+  encoder-decoder, a recurrent state or parameters under FSDP
+  (``decode.mesh_serving_gap``) keeps its spec trees and a ``skip``
+  reason, and is not traced.
 """
 
 from __future__ import annotations
@@ -54,8 +67,6 @@ from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_loop import TrainConfig, make_train_step
 
 META = torch.device("meta")
-NOT_SERVED_ON_A_MESH = ("the port serves an LM on one device; prefill and decode on a mesh wait for "
-                        "their own slice (ROADMAP 26b): no prefill or decode runs on this mesh")
 
 
 def _struct(shape, dtype) -> torch.Tensor:
@@ -100,13 +111,17 @@ class LoweringSpec:
     donate_argnums: tuple = ()
     skip: str | None = None  # why the port runs no such layout (then nothing is traced)
     argument_bytes: int = 0  # what the port places, on its busiest device
-    reference_argument_bytes: int | None = None  # per device under the spec trees (train cells)
+    reference_argument_bytes: int | None = None  # per device under the spec trees (cells on a mesh)
+    # serving cells on a mesh: what the port's leaves wider than the reference's bf16 (its f32 norm scales and MoE
+    # routers) add per device, so that argument_bytes == reference_argument_bytes + dtype_surplus_bytes
+    dtype_surplus_bytes: int | None = None
     device_args: list = dataclasses.field(default_factory=list)  # per device: the placed tensors
 
 
 def _spec_bytes(shapes, specs, mesh, bytes_per: int) -> int:
     """Per-device bytes of a reference-layout tree of ``shapes`` under
-    ``specs`` (each dim split over the product of its axes' sizes)."""
+    ``specs`` (each dim split over the product of its axes' sizes), at
+    ``bytes_per`` bytes an element."""
     if isinstance(specs, dict):
         return sum(_spec_bytes(shapes[k], specs[k], mesh, bytes_per) for k in specs)
     n = 1
@@ -189,13 +204,42 @@ def train_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
 
 
 # ---------------------------------------------------------------- prefill
-def prefill_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
+def _serving(cfg: ModelConfig, shape: InputShape, mesh):
+    """(data size, cache policy, the model on meta, its serving specs,
+    why the mesh's steps do not serve the cell or None) of a prefill or
+    decode cell."""
     data_size = _data_axis_size(mesh)
-    policy = choose_cache_policy(cfg, dict(mesh.shape)["model"], shape.global_batch, data_size)
-
+    tp = dict(mesh.shape)["model"]
+    policy = choose_cache_policy(cfg, tp, shape.global_batch, data_size)
     params = param_structs(cfg)
     pspecs = shmod.param_pspecs(params)
     pspecs, _ = maybe_fsdp_pspecs(cfg, params, pspecs, mesh, bytes_per_param=2)
+    skip = None if mesh.size == 1 else D.mesh_serving_gap(cfg, policy, pspecs, mesh)
+    return data_size, policy, params, pspecs, skip
+
+
+def _placed_params(params, pspecs, mesh) -> tuple:
+    """(the mesh's RoleMesh, ``params`` placed on it under ``pspecs``)."""
+    roles = RoleMesh(mesh)
+    return roles, zero.place_params(params, roles, pspecs)
+
+
+def _param_spec_bytes(params, pspecs, mesh) -> tuple[int, int]:
+    """(per-device bytes of the serving weights under ``pspecs`` at the
+    reference's 2 bytes a parameter, what the port's leaves wider than
+    that add: its f32 norm scales and MoE routers)."""
+    shapes = T.stack_jax_layout(params.named_parameters())
+
+    def surplus(shapes, specs) -> int:
+        if isinstance(specs, dict):
+            return sum(surplus(shapes[k], specs[k]) for k in specs)
+        return _spec_bytes(shapes, specs, mesh, max(shapes.element_size() - 2, 0))
+
+    return _spec_bytes(shapes, pspecs, mesh, 2), surplus(shapes, pspecs)
+
+
+def prefill_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
+    data_size, policy, params, pspecs, skip = _serving(cfg, shape, mesh)
 
     n_vis = cfg.num_vision_tokens if cfg.frontend == "vit_stub" else 0
     tokens = _struct((shape.global_batch, shape.seq_len - n_vis), torch.int32)
@@ -211,96 +255,75 @@ def prefill_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
         kw_structs["encoder_frames"] = _struct((shape.global_batch, cfg.encoder_seq_len, cfg.d_model),
                                                torch.bfloat16)
         kw_specs["encoder_frames"] = P(*(tuple(bp) + (None, None)))
+    inputs = sum(_nbytes(t) for t in [tokens, *kw_structs.values()])
 
-    def prefill_fn(params, tokens, kw=None):
-        return D.prefill(params, cfg, tokens, max_len=max_len, kv_repeat=policy.kv_repeat, **(kw or {}))
+    if mesh.size == 1 or skip:
+        def prefill_fn(params, tokens, kw=None):
+            return D.prefill(params, cfg, tokens, max_len=max_len, kv_repeat=policy.kv_repeat, **(kw or {}))
 
-    args, in_specs = (params, tokens), (pspecs, bp)
+        first, placed, ref_bytes, surplus, data_size = params, [params], None, None, 1
+    else:
+        roles, placed = _placed_params(params, pspecs, mesh)
+        step = D.make_mesh_prefill(cfg, roles, pspecs, policy)
+
+        def prefill_fn(params, tokens, kw=None):
+            return step(params, tokens, max_len=max_len, **(kw or {}))
+
+        weights, surplus = _param_spec_bytes(params, pspecs, mesh)
+        first, ref_bytes = placed, weights + inputs // data_size
+    args, in_specs = (first, tokens), (pspecs, bp)
     if kw_structs:
         args, in_specs = args + (kw_structs,), in_specs + (kw_specs,)
-    leaves = list(params.parameters())
+    per_device = [list(c.parameters()) for c in placed]
     return LoweringSpec(
-        fn=prefill_fn, args=args, in_specs=in_specs,
-        skip=None if mesh.size == 1 else NOT_SERVED_ON_A_MESH,
-        argument_bytes=sum(_nbytes(t) for t in leaves + [tokens, *kw_structs.values()]),
-        device_args=[leaves],
+        fn=prefill_fn, args=args, in_specs=in_specs, skip=skip,
+        argument_bytes=max(sum(_nbytes(t) for t in ts) for ts in per_device) + inputs // data_size,
+        reference_argument_bytes=ref_bytes,
+        dtype_surplus_bytes=surplus,
+        device_args=per_device,
     )
 
 
 # ----------------------------------------------------------------- decode
 def cache_structs_and_specs(cfg: ModelConfig, shape: InputShape, policy: CachePolicy, mesh):
     cache = D.init_cache(cfg, shape.global_batch, shape.seq_len, kv_repeat=policy.kv_repeat, device=META)
-    rules = shmod.get_rules() or shmod.SINGLE_POD_RULES
-    data_axes = rules["batch"]
-    if not isinstance(data_axes, tuple):
-        data_axes = (data_axes,)
-
-    def seq_mesh_axes():
-        out = []
-        for logical in policy.seq_axes:
-            if logical == "data":
-                out.extend(a for a in data_axes if a)
-            else:
-                out.append("model")
-        return tuple(out)
-
-    semantic_to_axes = {
-        "layers": None,
-        "batch": (data_axes if len(data_axes) > 1 else data_axes[0]) if policy.shard_batch else None,
-        "seq": (lambda sa: (sa if len(sa) > 1 else sa[0]) if sa else None)(seq_mesh_axes()),
-        "kv_heads": "model" if policy.shard_heads else None,
-        "head": None,
-        "rank": None,
-        "inner": "model",
-        "state": None,
-        "window": None,
-        "rec_heads": "model",
-        "hd": None,
-        "enc_seq": None,
-    }
-
-    specs = {}
-    for key, leaf in cache.items():
-        sem = D.CACHE_DIM_SEMANTICS.get(key, (None,) * leaf.ndim)
-        axes = []
-        for dim, s in zip(leaf.shape, sem):
-            ax = semantic_to_axes.get(s) if s else None
-            if ax is None:
-                axes.append(None)
-                continue
-            size = 1
-            for a in (ax if isinstance(ax, tuple) else (ax,)):
-                size *= dict(mesh.shape)[a]
-            axes.append(ax if dim % size == 0 and dim >= size else None)
-        specs[key] = P(*axes)
-    return cache, specs
+    return cache, D.cache_pspecs(cache, policy, mesh)
 
 
 def decode_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
-    data_size = _data_axis_size(mesh)
-    policy = choose_cache_policy(cfg, dict(mesh.shape)["model"], shape.global_batch, data_size)
-
-    params = param_structs(cfg)
-    pspecs = shmod.param_pspecs(params)
-    pspecs, _ = maybe_fsdp_pspecs(cfg, params, pspecs, mesh, bytes_per_param=2)
+    data_size, policy, params, pspecs, skip = _serving(cfg, shape, mesh)
     cache, cache_specs = cache_structs_and_specs(cfg, shape, policy, mesh)
 
     token = _struct((shape.global_batch,), torch.int32)
     lengths = _struct((shape.global_batch,), torch.int32)
     bspec = batch_pspec() if shape.global_batch >= data_size else P()
+    inputs = _nbytes(token) + _nbytes(lengths)
 
-    def serve_step(params, token, cache, lengths):
-        return D.decode_step(params, cfg, token, cache, lengths, kv_repeat=policy.kv_repeat)
+    if mesh.size == 1 or skip:
+        def serve_step(params, token, cache, lengths):
+            return D.decode_step(params, cfg, token, cache, lengths, kv_repeat=policy.kv_repeat)
 
-    leaves = list(params.parameters())
+        args = (params, token, cache, lengths)
+        per_device = [list(params.parameters()) + list(cache.values())]
+        ref_bytes, surplus, data_size = None, None, 1
+    else:
+        roles, placed = _placed_params(params, pspecs, mesh)
+        serve_step = D.make_mesh_decode_step(cfg, roles, pspecs, policy)
+        caches = D.init_mesh_cache(cfg, roles, policy, shape.global_batch, shape.seq_len)
+        args = (placed, token, caches, lengths)
+        per_device = [list(c.parameters()) + list(mine.values()) for c, mine in zip(placed, caches)]
+        weights, surplus = _param_spec_bytes(params, pspecs, mesh)
+        ref_bytes = weights + _spec_bytes(cache, cache_specs, mesh, 2) + inputs // data_size
     return LoweringSpec(
         fn=serve_step,
-        args=(params, token, cache, lengths),
+        args=args,
         in_specs=(pspecs, bspec, cache_specs, bspec),
         donate_argnums=(2,),
-        skip=None if mesh.size == 1 else NOT_SERVED_ON_A_MESH,
-        argument_bytes=sum(_nbytes(t) for t in leaves + [token, lengths, *cache.values()]),
-        device_args=[leaves + list(cache.values())],
+        skip=skip,
+        argument_bytes=max(sum(_nbytes(t) for t in ts) for ts in per_device) + inputs // data_size,
+        reference_argument_bytes=ref_bytes,
+        dtype_surplus_bytes=surplus,
+        device_args=per_device,
     )
 
 

@@ -43,13 +43,26 @@ What differs:
   CUDA graph.
 * ``lax.scan`` over layers and ``lax.cond`` on ``is_local`` become a
   Python loop and a Python branch.
+* **On a mesh.**  The reference lowers the same functions under GSPMD on
+  any mesh.  Here :func:`make_mesh_prefill` and
+  :func:`make_mesh_decode_step` drive the logical devices of a mesh
+  explicitly, as the training mesh does: the weights placed under the
+  serving specs (``zero.place_params``), the cache split by heads over
+  "model" and by rows over the data axes (:func:`cache_pspecs`,
+  :func:`init_mesh_cache`, :func:`place_cache`), attention head-parallel
+  on each model device's cache slice.  What they do not serve yet raises
+  (:func:`mesh_serving_gap`).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as S
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -158,25 +171,15 @@ def _gqa_decode(p_attn, cfg, x, k_cache, v_cache, lengths, window, kv_repeat):
     """x: (B, D); k/v_cache: this layer's (B, S, KVHe, hd) views of the
     stacked cache, updated in place."""
     bsz, _ = x.shape
-    hd = cfg.resolved_head_dim
-    dt = x.dtype
-    q = (x @ p_attn.wq.to(dt)).reshape(bsz, cfg.num_heads, hd)
-    k = (x @ p_attn.wk.to(dt)).reshape(bsz, cfg.num_kv_heads, hd)
-    v = (x @ p_attn.wv.to(dt)).reshape(bsz, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = L.rmsnorm(q, p_attn.q_norm.scale)
-        k = L.rmsnorm(k, p_attn.k_norm.scale)
-    cos, sin = L.rope_cos_sin(lengths, hd, cfg.rope_theta)  # (B, hd/2)
-    q = L.apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
-    k = L.apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
+    q, k, v = (t[:, 0] for t in L.gqa_project_qkv(p_attn, cfg, x[:, None], lengths[:, None]))
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=1)
         v = v.repeat_interleave(kv_repeat, dim=1)
     _scatter_rows_(k_cache, k, lengths)
     _scatter_rows_(v_cache, v, lengths)
     out = decode_ops.decode_attention_cache(q, k_cache, v_cache, lengths + 1, window=window)
-    out = out.reshape(bsz, cfg.num_heads * hd)
-    return out @ p_attn.wo.to(dt)
+    out = out.reshape(bsz, cfg.num_heads * cfg.resolved_head_dim)
+    return out @ p_attn.wo.to(x.dtype)
 
 
 def _mla_decode(p_attn, cfg, x, ckv_cache, krope_cache, lengths):
@@ -283,6 +286,22 @@ def decode_step(
 
 
 # ------------------------------------------------------------------ prefill
+def _gqa_prefill(p_attn, cfg, h, positions, window, k_cache, v_cache, kv_repeat):
+    """GQA attention over the full prompt h (B, S, D); writes this layer's
+    k / v rows (repeated ``kv_repeat`` times) into ``k_cache`` /
+    ``v_cache`` (B, S_max, KVHe, hd)."""
+    b, s, _ = h.shape
+    q, k, v = L.gqa_project_qkv(p_attn, cfg, h, positions)
+    out = L.attention_scores_blockwise(q, k, v, causal=True, window=window)
+    y = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim) @ p_attn.wo.to(h.dtype)
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    k_cache[:, :s] = k
+    v_cache[:, :s] = v
+    return y
+
+
 def _block_prefill(p, cfg, x, positions, is_local, cache_l, kv_repeat):
     """One block over the full prompt; writes this layer's cache: k / v
     (GQA) or c_kv / k_rope (MLA) rows, the hybrid's Mamba states, the
@@ -297,20 +316,13 @@ def _block_prefill(p, cfg, x, positions, is_local, cache_l, kv_repeat):
             _write_(cache_l, ("mlstm_c", "mlstm_n"), state)
         return x + y
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
-    b, s, _ = h.shape
     if cfg.attn_type == "mla":
-        y, row_a, row_b = L.mla_apply_with_latent(p.attn, cfg, h, positions, causal=True)
-        names = ("c_kv", "k_rope")
+        s = h.shape[1]
+        y, c_kv, k_rope = L.mla_apply_with_latent(p.attn, cfg, h, positions, causal=True)
+        cache_l["c_kv"][:, :s] = c_kv
+        cache_l["k_rope"][:, :s] = k_rope
     else:
-        q, row_a, row_b = L.gqa_project_qkv(p.attn, cfg, h, positions)
-        out = L.attention_scores_blockwise(q, row_a, row_b, causal=True, window=_window(cfg, is_local))
-        y = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim) @ p.attn.wo.to(h.dtype)
-        if kv_repeat > 1:
-            row_a = row_a.repeat_interleave(kv_repeat, dim=2)
-            row_b = row_b.repeat_interleave(kv_repeat, dim=2)
-        names = ("k", "v")
-    cache_l[names[0]][:, :s] = row_a
-    cache_l[names[1]][:, :s] = row_b
+        y = _gqa_prefill(p.attn, cfg, h, positions, _window(cfg, is_local), cache_l["k"], cache_l["v"], kv_repeat)
     if p.kind == "hybrid":
         m_out, state = ssm.mamba_apply(p.mamba, h, cfg.ssm_state)
         _write_(cache_l, ("ssm", "conv"), state)
@@ -357,3 +369,470 @@ def prefill(
     logits = T.logits_from(params, cfg, x[:, -1:, :])[:, 0]
     lengths = torch.full((bsz,), s, dtype=torch.int32, device=x.device)
     return logits, cache, lengths
+
+
+# ------------------------------------------------------------- on a mesh
+# Serving on a mesh of logical devices (``launch/mesh.py``) in the
+# reference's layout: the weights under the serving specs
+# (``sharding.param_pspecs``, placed by ``zero.place_params``), the KV cache
+# split as ``serving.kv_cache.choose_cache_policy`` says — by heads over
+# "model" (each KV head stored ``kv_repeat`` times) and by rows over the
+# data axes — each device holding its slice (:func:`cache_pspecs`).
+def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None:
+    """Why the mesh's prefill and decode do not serve ``cfg`` under
+    ``policy`` (a ``CachePolicy``) with the parameters under ``pspecs`` on
+    ``mesh``, or None when they do: the next slice of ROADMAP 26b takes
+    the sequence-split caches, MLA, the encoder-decoder's cross cache, the
+    recurrent states and parameters under FSDP (a spec tree naming the
+    current rules' data axes, ``sharding.splits_over_data``)."""
+    tp = mesh.shape.get("model", 1)
+    what = None
+    if cfg.attn_type == "mla":
+        what = "MLA's compressed cache (choose_cache_policy splits its sequence)"
+    elif cfg.family == "ssm":
+        what = "a recurrent state (the xLSTM's mLSTM and sLSTM states)"
+    elif cfg.family == "hybrid":
+        what = "a recurrent state (Mamba's beside the attention cache)"
+    elif cfg.is_encdec:
+        what = "the encoder-decoder's cross K/V cache"
+    elif policy.seq_axes:
+        what = (f"a KV cache split by sequence over {'/'.join(policy.seq_axes)} (sequence-parallel decode: "
+                "K4 returning its log-sum-exp to merge partial softmaxes)")
+    elif not (policy.shard_heads and policy.shard_batch):
+        what = "a KV cache that splits neither by heads nor by rows"
+    elif S.splits_over_data(pspecs, mesh):
+        what = "parameters under FSDP at 2 bytes (maybe_fsdp_pspecs)"
+    elif not L.heads_split(cfg, tp):
+        what = f"{cfg.num_heads} query heads over {tp} model devices, which split no whole GQA groups"
+    if what is None:
+        return None
+    return (f"{cfg.name}: {what} is not served on a mesh yet (ROADMAP 26b: the serving mesh's next slice); "
+            "prefill and decode on a mesh serve GQA caches split by heads and rows")
+
+
+def _semantic_axes(policy) -> dict:
+    """Each cache dim's semantic axis -> the mesh axes ``policy`` splits it
+    over (the current rules' batch axes for rows)."""
+    rules = S.get_rules() or S.SINGLE_POD_RULES
+    data_axes = rules["batch"]
+    if not isinstance(data_axes, tuple):
+        data_axes = (data_axes,)
+    seq = []
+    for logical in policy.seq_axes:
+        if logical == "data":
+            seq.extend(a for a in data_axes if a)
+        else:
+            seq.append("model")
+    return {
+        "batch": (data_axes if len(data_axes) > 1 else data_axes[0]) if policy.shard_batch else None,
+        "seq": (tuple(seq) if len(seq) > 1 else seq[0]) if seq else None,
+        "kv_heads": "model" if policy.shard_heads else None,
+        "inner": "model",
+        "rec_heads": "model",
+    }
+
+
+def _axes_size(axes, mesh) -> int:
+    n = 1
+    for a in (axes if isinstance(axes, tuple) else (axes,)) if axes is not None else ():
+        n *= mesh.shape[a]
+    return n
+
+
+def _leaf_axes(key: str, ndim: int, policy) -> list:
+    sem = _semantic_axes(policy)
+    return [sem.get(x) if x else None for x in CACHE_DIM_SEMANTICS.get(key, (None,) * ndim)]
+
+
+def cache_pspecs(cache: dict, policy, mesh) -> dict:
+    """The reference's spec of each cache leaf (``launch/specs.py``
+    ``cache_structs_and_specs``): each dim by its semantic axis
+    (:data:`CACHE_DIM_SEMANTICS`) — rows over the current rules' batch axes
+    with ``policy.shard_batch``, the sequence over ``policy.seq_axes``, KV
+    heads over "model" with ``policy.shard_heads``, a recurrent state's
+    channels and heads over "model" — where the dim splits evenly."""
+    specs = {}
+    for key, leaf in cache.items():
+        axes = _leaf_axes(key, len(leaf.shape), policy)
+        specs[key] = S.P(*[ax if ax is not None and dim % _axes_size(ax, mesh) == 0 and dim >= _axes_size(ax, mesh)
+                         else None for dim, ax in zip(leaf.shape, axes)])
+    return specs
+
+
+def _placed_specs(cache: dict, policy, mesh) -> dict:
+    """:func:`cache_pspecs`, raising where a dim the policy splits does not
+    split evenly (the mesh's steps hold every split dim as slices)."""
+    specs = cache_pspecs(cache, policy, mesh)
+    for key, leaf in cache.items():
+        for d, (got, want) in enumerate(zip(specs[key], _leaf_axes(key, len(leaf.shape), policy))):
+            if got != want:
+                raise ValueError(f"{key}: dim {d} of {tuple(leaf.shape)} does not split over {want} "
+                                 f"({_axes_size(want, mesh)} devices)")
+    return specs
+
+
+def _spec_part(spec, shape, mesh, pos: int) -> tuple:
+    """The slices of a tensor of ``shape`` that ``spec`` gives the device at
+    flat position ``pos`` of ``mesh``: each dim split over its axes' sizes
+    (row-major over a tuple of axes)."""
+    out = []
+    for dim, axes in zip(shape, list(spec) + [None] * (len(shape) - len(spec))):
+        if axes is None:
+            out.append(slice(None))
+            continue
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        i, width = mesh.index(pos, axes), dim // _axes_size(axes, mesh)
+        out.append(slice(i * width, (i + 1) * width))
+    return tuple(out)
+
+
+def init_mesh_cache(cfg: ModelConfig, mesh, policy, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16) -> list[dict]:
+    """A zero-filled GQA cache (k and v, :func:`init_cache`'s) for ``batch``
+    sequences of up to ``max_len`` on ``mesh``: per device, in
+    ``mesh.flat`` order, its slice of each leaf (:func:`cache_pspecs`),
+    made on its stream.  The whole is never made (a trace would count it)."""
+    shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, policy.kv_repeat), cfg.resolved_head_dim)
+    whole = {k: SimpleNamespace(shape=shape) for k in ("k", "v")}
+    specs = _placed_specs(whole, policy, mesh)
+    out = []
+    for pos, dev in enumerate(mesh.flat):
+        with dev.scope():
+            out.append({k: torch.zeros(_part_shape(specs[k], shape, mesh), dtype=dtype, device=dev.device)
+                        for k in whole})
+    return out
+
+
+def _part_shape(spec, shape, mesh) -> tuple:
+    """The shape of a device's part of a tensor of ``shape`` under
+    ``spec``."""
+    return tuple(n // _axes_size(ax, mesh) for n, ax in zip(shape, list(spec) + [None] * (len(shape) - len(spec))))
+
+
+def place_cache(cache: dict, mesh, policy) -> list[dict]:
+    """A single-device cache placed on ``mesh``: per device its slice of
+    every leaf (:func:`cache_pspecs`), a copy made on its stream."""
+    specs = _placed_specs(cache, policy, mesh)
+    devices = mesh.flat
+    caller = C._enter(devices)
+    out = []
+    for pos, dev in enumerate(devices):
+        with dev.scope():
+            mine = {}
+            for k, v in cache.items():
+                C._used_on(v, dev)
+                part = v[_spec_part(specs[k], v.shape, mesh, pos)]
+                mine[k] = torch.empty(part.shape, dtype=v.dtype, device=dev.device).copy_(part)
+            out.append(mine)
+    C._leave(devices, caller, [])
+    return out
+
+
+def gather_cache(placed: list[dict], mesh, policy) -> dict:
+    """The inverse of :func:`place_cache`: the whole cache on the first
+    device's torch device, each leaf joined from the devices' slices."""
+    devices = mesh.flat
+    dev = devices[0].device
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    C._leave(devices, caller, [])  # the caller's stream reads after every device's writes
+    out = {}
+    for k, first in placed[0].items():
+        spec = S.P(*_leaf_axes(k, first.ndim, policy))
+        shape = [n * _axes_size(ax, mesh) for n, ax in zip(first.shape, spec)]
+        whole = torch.empty(shape, dtype=first.dtype, device=dev)
+        for pos in range(mesh.size):
+            part = placed[pos][k]
+            whole[_spec_part(spec, shape, mesh, pos)].copy_(part)
+            if caller is not None:
+                part.record_stream(caller)
+        out[k] = whole
+    return out
+
+
+def _model_dims(model: T.TransformerLM, pspecs: dict, tp: int) -> dict:
+    """{parameter name: the dim of its layer's leaf stored split over
+    "model", or None} under ``pspecs`` (``zero.Layout.model_dim``)."""
+    out = {}
+    for name, _ in model.named_parameters():
+        spec = tuple(S.spec_at(pspecs, name))
+        md = next((j for j, a in enumerate(spec) if a == "model"), None)
+        out[name] = md - (T._jax_path(name)[1] is not None) if md is not None and tp > 1 else None
+    return out
+
+
+def _cache_heads(k: torch.Tensor, cfg: ModelConfig, tp: int, m: int, kv_repeat: int) -> torch.Tensor:
+    """Model device ``m``'s cache heads from its KV heads ``k`` (..., n, hd;
+    ``layers.tp_kv_heads``): cache head j of the repeated layout holds KV
+    head j // kv_repeat, and device m holds cache heads m·c .. (m+1)·c - 1."""
+    lo, n = L.tp_kv_heads(cfg, tp, m)
+    c = cfg.num_kv_heads * kv_repeat // tp
+    want = [(m * c + i) // kv_repeat - lo for i in range(c)]
+    reps = c // n
+    if want != [i // reps for i in range(c)]:
+        raise ValueError(f"{cfg.name}: cache heads {m * c}..{(m + 1) * c - 1} of device {m} are not its KV heads "
+                         f"{lo}..{lo + n - 1} repeated")
+    return k if reps == 1 else k.repeat_interleave(reps, dim=-2)
+
+
+class _MeshServing:
+    """What the mesh's prefill and decode steps share: ``cfg`` on ``mesh``
+    under the serving specs ``pspecs`` and the cache ``policy``, the
+    current rules' batch axes; raises ``NotImplementedError`` for what the
+    slice does not serve (:func:`mesh_serving_gap`)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, pspecs: dict, policy):
+        rules = S.get_rules()
+        if rules is None:
+            raise ValueError("serving on a mesh needs logical-axis rules: build the step inside `use_rules(...)`")
+        self.cfg, self.mesh, self.pspecs, self.policy, self.rules = cfg, mesh, pspecs, policy, rules
+        self.data_axes, self.data_size = S.data_axes_and_size(mesh, rules)
+        self.tp = mesh.shape.get("model", 1)
+        gap = mesh_serving_gap(cfg, policy, pspecs, mesh)
+        if gap is not None:
+            raise NotImplementedError(gap)
+        batch_axes = self.data_axes if isinstance(self.data_axes, tuple) else (self.data_axes,)
+        stray = [a for a, n in mesh.shape.items() if n > 1 and a not in batch_axes and a != "model"]
+        if stray:
+            raise ValueError(f"mesh axes {stray} are neither the rules' batch axes {batch_axes} nor 'model'")
+        self.devices = mesh.flat
+        pos_of = {id(dev): pos for pos, dev in enumerate(self.devices)}
+        self.shards = [[pos_of[id(dev)] for dev in group] for group in mesh.model_groups(self.data_axes)]
+        self.leads = [self.devices[group[0]] for group in self.shards]
+
+    def contexts(self, copies: list) -> tuple:
+        """Per data shard its ``TensorShard`` (None for a model group of
+        one) and its MoE modules' expert groups, over the placed
+        ``copies``."""
+        if len(copies) != self.mesh.size:
+            raise ValueError(f"{len(copies)} parameter copies on a mesh of {self.mesh.size} devices")
+        dims = _model_dims(copies[0], self.pspecs, self.tp)
+        moe = [name for name, mod in copies[0].named_modules() if isinstance(mod, T.MoE)]
+        shards, experts = [], []
+        for group in self.shards:
+            devs = [self.devices[q] for q in group]
+            shards.append(S.TensorShard(devs, [copies[q] for q in group], dims, self.tp) if len(group) > 1 else None)
+            experts.append({copies[group[0]].get_submodule(n): [(self.devices[q], copies[q].get_submodule(n))
+                                                                for q in group] for n in moe})
+        return shards, experts
+
+    def rows(self, value, i: int, b: int, dtype=None) -> torch.Tensor:
+        """Data shard ``i``'s ``b`` rows of ``value`` (a tensor, or
+        array-like) copied onto its lead (the caller is in its scope)."""
+        dev = self.leads[i]
+        value = torch.as_tensor(value)
+        if value.shape[0] != b * self.data_size:
+            raise ValueError(f"{value.shape[0]} rows do not split over {self.data_size} data shards")
+        part = value[i * b:(i + 1) * b]
+        if part.device.type == dev.device.type:
+            C._used_on(part, dev)
+        return torch.empty(part.shape, dtype=dtype or part.dtype, device=dev.device).copy_(part)
+
+    def moe_route_whole(self, bsz: int, s: int) -> bool:
+        """A MoE layer routes the whole batch of ``bsz`` x ``s`` tokens
+        at once: the reference's expert-parallel branch is not taken for
+        it (``layers._expert_parallel`` on the global batch)."""
+        return self.cfg.is_moe and L._expert_parallel(self.cfg, bsz, s) is None
+
+    def ffn(self, copies, shards, experts, layer: int, hs: list, whole: bool) -> list:
+        """Each data shard's FFN output of ``layer`` over its normed rows
+        ``hs``: per shard under its tensor shard (the MLP's columns, or the
+        MoE's expert-parallel branch over its own tokens); with ``whole``,
+        the MoE routes every shard's rows at once, as the reference
+        routes the global batch below its expert-parallel threshold: the
+        rows gathered on the first shard's lead, routed on its model group
+        with the experts split (``layers.moe_apply_whole``), each shard's
+        rows sent back."""
+        if not whole:
+            out = []
+            for i, group in enumerate(self.shards):
+                blk = copies[group[0]].layers[layer]
+                with self.leads[i].scope(), S.tensor_shard(shards[i]), S.expert_shard(experts[i]):
+                    out.append(T.ffn(blk, self.cfg, hs[i]))
+            return out
+        b = hs[0].shape[0]
+        lead = self.leads[0]
+        xs = hs[0] if len(hs) == 1 else C.all_gather(hs, self.leads, 0, (0,), self.data_size)[0]
+        with lead.scope(), S.tensor_shard(shards[0]), S.expert_shard(experts[0]):
+            y = L.moe_apply_whole(copies[self.shards[0][0]].layers[layer].moe, self.cfg,
+                                  xs.reshape(-1, 1, xs.shape[-1]), self.cfg.mlp_act).reshape(xs.shape)
+            out = [y[:b]]
+        for i in range(1, len(hs)):
+            out.append(C.send(y[i * b:(i + 1) * b], [lead, self.leads[i]], 0, 1))
+        return out
+
+    def run(self, params, embed, attend, bsz: int, s: int) -> torch.Tensor:
+        """Every layer over the data shards, under each shard's tensor
+        shard on its lead: ``embed(i, group, lead copy)`` gives shard i's
+        residual rows; a layer runs, per shard, its attention norm,
+        ``attend(i, group, shard, layer, p_attn, h, window)`` (the
+        attention output, on the lead; it writes the cache), the residual
+        and the MLP norm, then every shard's FFN (:meth:`ffn`; the MoE
+        routes the whole batch of ``bsz`` x ``s`` tokens at once where the
+        reference would).  Returns the logits of each shard's last
+        position, joined in the shards' row order on the mesh's first
+        device (vocab-parallel under its tensor shard)."""
+        cfg = self.cfg
+        shards, experts = self.contexts(params)
+        xs = []
+        for i, group in enumerate(self.shards):
+            with self.leads[i].scope(), S.tensor_shard(shards[i]):
+                xs.append(embed(i, group, params[group[0]]))
+        whole = self.moe_route_whole(bsz, s)
+        for layer in range(cfg.num_layers):
+            window = _window(cfg, params[0].is_local[layer])
+            hs = []
+            for i, group in enumerate(self.shards):
+                blk = params[group[0]].layers[layer]
+                with self.leads[i].scope(), S.tensor_shard(shards[i]):
+                    h = L.apply_norm(blk.attn_norm, xs[i], cfg.norm_type)
+                    xs[i] = xs[i] + attend(i, group, shards[i], layer, blk.attn, h, window)
+                    hs.append(L.apply_norm(blk.mlp_norm, xs[i], cfg.norm_type))
+            for i, y in enumerate(self.ffn(params, shards, experts, layer, hs, whole)):
+                with self.leads[i].scope():
+                    xs[i] = xs[i] + y
+            del hs
+        parts = []
+        for i, group in enumerate(self.shards):
+            last = xs[i][:, -1:] if xs[i].dim() == 3 else xs[i][:, None]
+            with self.leads[i].scope(), S.tensor_shard(shards[i]):
+                parts.append(T.logits_from(params[group[0]], cfg, last)[:, 0])
+        return parts[0] if len(parts) == 1 else C.all_gather(parts, self.leads, 0, (0,), self.data_size)[0]
+
+
+def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
+    """The mesh's prefill: ``prefill_fn(params, tokens, max_len,
+    cache_dtype=bf16, vision_embeds=None) -> (last-token logits (B, V) on
+    the mesh's first device, the cache — per device its slice, as
+    :func:`init_mesh_cache` —, lengths (B,) on the first device)`` over
+    ``zero.place_params``' copies (``params``, one a device in
+    ``mesh.flat`` order, under ``pspecs``).  Build it inside the rules'
+    ``use_rules``; ``policy``: ``choose_cache_policy``'s for the cell.
+
+    The rows (tokens, a VLM's vision embeddings) split over the data
+    shards.  Each shard runs on its model group
+    (``sharding.tensor_shard``): the residual stream on its lead; the
+    embedding on each device's vocab rows; attention on each model
+    device's H/TP heads (``layers.gqa_tp_kv``: K3 on its query heads and
+    KV heads), which writes its K/V rows, repeated to its cache heads,
+    into its own cache slice; the MLP on its columns; the logits on its
+    vocab rows.  Layer by layer every shard's attention runs, then the
+    FFN: a MoE layer takes the expert-parallel branch per shard where the
+    reference's global batch would, else routes every shard's rows at once
+    on the first shard's model group (:meth:`_MeshServing.ffn`)."""
+    plan = _MeshServing(cfg, mesh, pspecs, policy)
+
+    @torch.no_grad()
+    def prefill_fn(params, tokens, max_len: int, cache_dtype: torch.dtype = torch.bfloat16, vision_embeds=None):
+        tokens = torch.as_tensor(tokens)
+        bsz, n_text = tokens.shape
+        b = bsz // plan.data_size
+        s = n_text + (0 if vision_embeds is None else vision_embeds.shape[1])
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
+        with mesh, S.use_rules(plan.rules):
+            caller = C._enter(plan.devices)
+            caches = init_mesh_cache(cfg, mesh, policy, bsz, max_len, cache_dtype)
+            positions = []
+
+            def embed(i, group, lead):
+                tok = plan.rows(tokens, i, b, torch.long)
+                vis = None if vision_embeds is None else plan.rows(vision_embeds, i, b)
+                positions.append(torch.arange(s, device=plan.leads[i].device))
+                return T.embed_inputs(lead, cfg, tok, vis)
+
+            def attend(i, group, shard, layer, p_attn, h, window):
+                if shard is None:
+                    mine = caches[group[0]]
+                    return _gqa_prefill(p_attn, cfg, h, positions[i], window, mine["k"][layer], mine["v"][layer],
+                                        policy.kv_repeat)
+                y, kvs = L.gqa_tp_kv(p_attn, cfg, h, positions[i], True, window, shard)
+                for m, (q, (k, v)) in enumerate(zip(group, kvs)):
+                    with plan.devices[q].scope():
+                        caches[q]["k"][layer][:, :s] = _cache_heads(k, cfg, plan.tp, m, policy.kv_repeat)
+                        caches[q]["v"][layer][:, :s] = _cache_heads(v, cfg, plan.tp, m, policy.kv_repeat)
+                return y
+
+            logits = plan.run(params, embed, attend, bsz, s)
+            with plan.devices[0].scope():
+                lengths = torch.full((bsz,), s, dtype=torch.int32, device=plan.devices[0].device)
+            C._leave(plan.devices, caller, [logits, lengths])
+        return logits, caches, lengths
+
+    return prefill_fn
+
+
+def _gqa_decode_tp(p_attn, cfg, x, layer_caches: list, lens: list, window, shard, kv_repeat):
+    """One token's GQA attention head-parallel over ``shard``'s model
+    group: ``x`` (B, D) broadcast, device m computing q for its H/TP heads
+    and k, v for its KV heads (``layers.tp_kv_weights``), scattering its
+    token's row, repeated to its cache heads, into its cache slice
+    (``layer_caches[m]``: this layer's (k, v), (B, S, c, hd)) at its
+    lengths (``lens[m]``: (lengths, lengths + 1) on that device), running
+    K4 on its query heads over its slice and multiplying by its row slice
+    of ``wo``; the partial outputs summed with the ring on the lead."""
+    bsz, hd, local = x.shape[0], cfg.resolved_head_dim, cfg.num_heads // shard.tp
+    parts = []
+    for m, (dev, pm, (wk, wv), xm, (kc, vc), (ln, ln1)) in enumerate(zip(
+            shard.devices, shard.members(p_attn), L.tp_kv_weights(p_attn, cfg, shard),
+            C.broadcast(x, shard.devices), layer_caches, lens)):
+        with dev.scope():
+            q, k, v = L.project_heads(pm, cfg, xm[:, None], xm[:, None], pm.wq, wk, wv, ln[:, None])
+            _scatter_rows_(kc, _cache_heads(k[:, 0], cfg, shard.tp, m, kv_repeat), ln)
+            _scatter_rows_(vc, _cache_heads(v[:, 0], cfg, shard.tp, m, kv_repeat), ln)
+            out = decode_ops.decode_attention_cache(q[:, 0], kc, vc, ln1, window=window)
+            parts.append(out.reshape(bsz, local * hd) @ pm.wo.to(x.dtype))
+    return C.ring_sum(parts, shard.devices)
+
+
+def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
+    """The mesh's decode step: ``decode_fn(params, token, cache, lengths)
+    -> (logits (B, V) on the mesh's first device, the cache — each device's
+    slice updated in place —, lengths + 1 on the first device)`` over
+    ``zero.place_params``' copies and :func:`make_mesh_prefill`'s (or
+    :func:`place_cache`'s) cache.  Build it inside the rules' ``use_rules``.
+
+    Each data shard takes its rows of ``token`` and ``lengths``; on its
+    model group attention is head-parallel (:func:`_gqa_decode_tp`: K4 on
+    each device's query heads over its cache slice), the MLP and the
+    vocabulary as in prefill.  A MoE layer with one token a row is under
+    the reference's expert-parallel threshold, so it routes the whole
+    batch at once: one capacity over all B tokens, and the reference's
+    drops.  It runs eagerly (no CUDA graph: ``DecodeGraph`` is
+    single-device)."""
+    plan = _MeshServing(cfg, mesh, pspecs, policy)
+
+    @torch.no_grad()
+    def decode_fn(params, token, cache: list, lengths):
+        token, lengths = torch.as_tensor(token), torch.as_tensor(lengths)
+        bsz = token.shape[0]
+        b = bsz // plan.data_size
+        with mesh, S.use_rules(plan.rules):
+            caller = C._enter(plan.devices)
+            lens = [None] * len(plan.devices)
+
+            def embed(i, group, lead):
+                tok = plan.rows(token, i, b, torch.long)
+                ln = plan.rows(lengths, i, b)
+                copies = [[ln]] if len(group) == 1 else C.copy_leaves([ln], [plan.devices[q] for q in group])
+                for q, [mine] in zip(group, copies):
+                    with plan.devices[q].scope():
+                        lens[q] = (mine, mine + 1)
+                return T.embed_tokens(lead, cfg, tok[:, None])[:, 0]
+
+            def attend(i, group, shard, layer, p_attn, h, window):
+                if shard is None:
+                    mine = cache[group[0]]
+                    return _gqa_decode(p_attn, cfg, h, mine["k"][layer], mine["v"][layer], lens[group[0]][0],
+                                       window, policy.kv_repeat)
+                return _gqa_decode_tp(p_attn, cfg, h, [(cache[q]["k"][layer], cache[q]["v"][layer]) for q in group],
+                                      [lens[q] for q in group], window, shard, policy.kv_repeat)
+
+            logits = plan.run(params, embed, attend, bsz, 1)
+            with plan.devices[0].scope():
+                if lengths.device.type == plan.devices[0].device.type:
+                    C._used_on(lengths, plan.devices[0])
+                new_lengths = lengths.to(plan.devices[0].device) + 1
+            C._leave(plan.devices, caller, [logits, new_lengths])
+        return logits, cache, new_lengths
+
+    return decode_fn

@@ -130,7 +130,7 @@ def attention_scores_blockwise(
 
 
 # ------------------------------------------------------------- GQA attention
-def _project_heads(p, cfg, x, kv_x, wq, wk, wv, positions):
+def project_heads(p, cfg, x, kv_x, wq, wk, wv, positions):
     """x @ wq and kv_x @ wk / wv as heads of ``hd`` (as many as the
     matrices' columns hold), with qk-norm and rope when ``positions`` is
     given (self attention; cross attention has neither)."""
@@ -150,7 +150,7 @@ def _project_heads(p, cfg, x, kv_x, wq, wk, wv, positions):
 
 def gqa_project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KVH,hd) with rope + qk-norm."""
-    return _project_heads(p, cfg, x, x, p.wq, p.wk, p.wv, positions)
+    return project_heads(p, cfg, x, x, p.wq, p.wk, p.wv, positions)
 
 
 def heads_split(cfg, tp: int) -> bool:
@@ -164,38 +164,61 @@ def heads_split(cfg, tp: int) -> bool:
     return local % group == 0 or group % local == 0
 
 
-def gqa_tp(p, cfg, x: torch.Tensor, positions, causal: bool, window: int | None, shard,
-           kv_x: torch.Tensor | None = None) -> torch.Tensor:
+def tp_kv_heads(cfg, tp: int, m: int) -> tuple[int, int]:
+    """(first, count) of the KV heads that model device ``m`` of ``tp``
+    reads (:func:`heads_split` holds): its own slice's when the KV heads
+    split over ``tp``, else the one KV head its query heads, a part of one
+    group, map to."""
+    local, group = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
+    return m * local // group, max(local // group, 1)
+
+
+def tp_kv_weights(p, cfg, shard) -> list:
+    """Per device of ``shard``'s model group, the columns of ``wk`` and
+    ``wv`` for its KV heads (:func:`tp_kv_heads`): its own slices when the
+    KV heads split over the group, else those columns of the leaves
+    gathered whole on every device."""
+    if cfg.num_kv_heads % shard.tp == 0:
+        return [(pm.wk, pm.wv) for pm in shard.members(p)]
+    hd = cfg.resolved_head_dim
+    wks, wvs = shard.gather(p.wk), shard.gather(p.wv)
+    out = []
+    for m, (wk, wv) in enumerate(zip(wks, wvs)):
+        lo, n = tp_kv_heads(cfg, shard.tp, m)
+        out.append((wk[:, lo * hd:(lo + n) * hd], wv[:, lo * hd:(lo + n) * hd]))
+    return out
+
+
+def gqa_tp_kv(p, cfg, x: torch.Tensor, positions, causal: bool, window: int | None, shard,
+              kv_x: torch.Tensor | None = None) -> tuple[torch.Tensor, list]:
     """GQA attention head-parallel over ``shard``'s model group
     (``sharding.TensorShard``; :func:`heads_split` holds): ``x`` (and the
     cross attention's keys' source ``kv_x``, whose attention has no rope)
     broadcast to the group, device m projecting its H/TP query heads with
-    its column slice of ``wq`` and its KV heads — with its own slices of
-    ``wk``/``wv`` when the KV heads split too, else the columns of the
-    gathered whole that its query heads read — running K3 on them, and
-    multiplying by its row slice of ``wo``; the partial outputs summed
-    with the ring on the lead."""
+    its column slice of ``wq`` and its KV heads (:func:`tp_kv_weights`),
+    running K3 on them, and multiplying by its row slice of ``wo``; the
+    partial outputs summed with the ring on the lead.  Returns (that sum,
+    per device its (k, v), (B, S_k, n, hd) after rope, on that device:
+    what prefill writes into its cache slice)."""
     b, s, _ = x.shape
-    hd, dt, tp = cfg.resolved_head_dim, x.dtype, shard.tp
-    local, group = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
+    hd, dt, local = cfg.resolved_head_dim, x.dtype, cfg.num_heads // shard.tp
     devices = shard.devices
     xs = C.broadcast(x, devices)
     kvs = xs if kv_x is None else C.broadcast(kv_x, devices)
-    kv_split = cfg.num_kv_heads % tp == 0
-    if not kv_split:
-        wks, wvs = shard.gather(p.wk), shard.gather(p.wv)
-    parts = []
-    for m, (dev, pm) in enumerate(zip(devices, shard.members(p))):
+    parts, kv_out = [], []
+    for dev, pm, (wk, wv), xm, kvm in zip(devices, shard.members(p), tp_kv_weights(p, cfg, shard), xs, kvs):
         with dev.scope():
-            if kv_split:
-                wk, wv = pm.wk, pm.wv
-            else:
-                lo, n = m * local // group, max(local // group, 1)
-                wk, wv = (w[:, lo * hd:(lo + n) * hd] for w in (wks[m], wvs[m]))
-            q, k, v = _project_heads(pm, cfg, xs[m], kvs[m], pm.wq, wk, wv, positions if kv_x is None else None)
+            q, k, v = project_heads(pm, cfg, xm, kvm, pm.wq, wk, wv, positions if kv_x is None else None)
             out = attention_scores_blockwise(q, k, v, causal=causal, window=window)
             parts.append(out.reshape(b, s, local * hd) @ pm.wo.to(dt))
-    return C.ring_sum(parts, devices)
+            kv_out.append((k, v))
+    return C.ring_sum(parts, devices), kv_out
+
+
+def gqa_tp(p, cfg, x: torch.Tensor, positions, causal: bool, window: int | None, shard,
+           kv_x: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`gqa_tp_kv`'s summed output alone."""
+    return gqa_tp_kv(p, cfg, x, positions, causal, window, shard, kv_x)[0]
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
@@ -448,6 +471,34 @@ def _expert_parallel(cfg, b: int, s: int):
     return None
 
 
+def _expert_members(p) -> list:
+    """The current expert shard's (``sharding.expert_shard``) members for
+    MoE module ``p``: per model device (device, router, its experts), the
+    router gathered on every device where it is stored split over
+    "model" (under FSDP: the gathered leaves)."""
+    members = [(dev, m.router, m.experts) for dev, m in S.current_expert_shard()[p]]
+    shard = S.current_tensor_shard()
+    if shard is not None and shard.is_split(p.router):
+        members = [(dev, router, experts) for (dev, _, experts), router in zip(members, shard.gather(p.router))]
+    return members
+
+
+def _moe_over_group(xt: torch.Tensor, members: list, cfg, cap: int, n_local: int, act: str,
+                    dt: torch.dtype) -> torch.Tensor:
+    """Tokens ``xt`` (T, D) broadcast to ``members`` (model order), device m
+    routing all of them at capacity ``cap`` to its experts m·n_local ..
+    (m+1)·n_local - 1 on its stream; the partial outputs summed with the
+    ring on the first."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    devices = [dev for dev, _, _ in members]
+    parts = []
+    for m, ((dev, router, experts), xm) in enumerate(zip(members, C.broadcast(xt, devices))):
+        with dev.scope():
+            parts.append(_moe_dispatch_compute(xm, router, experts, e, k, cap, act, dt,
+                                               local_expert_range=(m * n_local, n_local)))
+    return C.ring_sum(parts, devices)
+
+
 def _moe_apply_ep(p, cfg, x: torch.Tensor, act: str, mesh, data_axes, data_size: int) -> torch.Tensor:
     """The expert-parallel branch: per data shard, its tokens broadcast to
     the shard's model devices, device m routing them to experts
@@ -457,17 +508,11 @@ def _moe_apply_ep(p, cfg, x: torch.Tensor, act: str, mesh, data_axes, data_size:
     slice of ``p``'s experts; in one, ``x`` is the shard's rows and each
     device its own copy's."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    n_local = e // mesh.shape["model"]
+    n_local = cfg.num_experts // mesh.shape["model"]
     xt = x.reshape(b * s, d)
-    groups = S.current_expert_shard()
-    if groups is not None:
+    if S.current_expert_shard() is not None:
         t_local = b * s
-        members = [(dev, m.router, m.experts) for dev, m in groups[p]]  # under FSDP: the gathered leaves
-        shard = S.current_tensor_shard()
-        if shard is not None and shard.is_split(p.router):  # stored split over "model": gathered on every device
-            members = [(dev, router, experts) for (dev, _, experts), router in zip(members, shard.gather(p.router))]
-        shards = [(xt, members)]
+        shards = [(xt, _expert_members(p))]
     else:
         t_local = (b // data_size) * s
         sliced = [SimpleNamespace(**{name: getattr(p.experts, name)[m * n_local:(m + 1) * n_local]
@@ -476,16 +521,26 @@ def _moe_apply_ep(p, cfg, x: torch.Tensor, act: str, mesh, data_axes, data_size:
         shards = [(xt[i * t_local:(i + 1) * t_local], [(dev, p.router, sliced[m]) for m, dev in enumerate(devs)])
                   for i, devs in enumerate(mesh.model_groups(data_axes))]
     cap = moe_capacity(cfg, t_local)
-    ys = []
-    for x_shard, members in shards:
-        devices = [dev for dev, _, _ in members]
-        parts = []
-        for m, ((dev, router, experts), xm) in enumerate(zip(members, C.broadcast(x_shard, devices))):
-            with dev.scope():
-                parts.append(_moe_dispatch_compute(xm, router, experts, e, k, cap, act, x.dtype,
-                                                   local_expert_range=(m * n_local, n_local)))
-        ys.append(C.ring_sum(parts, devices))
+    ys = [_moe_over_group(x_shard, members, cfg, cap, n_local, act, x.dtype) for x_shard, members in shards]
     y = ys[0] if len(ys) == 1 else torch.cat(ys)
+    if p.shared is not None:
+        y = y + mlp_apply(p.shared, xt, act)
+    return y.reshape(b, s, d)
+
+
+def moe_apply_whole(p, cfg, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``x`` (B, S, D) routed as one batch, one capacity over its B·S
+    tokens — as the reference routes a data-split mesh's global batch
+    below its expert-parallel threshold — on the current expert shard's
+    model group (``sharding.expert_shard``; the caller gathered every data
+    shard's rows on its lead): each model device routes every token to its
+    own experts and the partial outputs are ring-summed, so rows move and
+    the experts stay split."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    shard = S.current_tensor_shard()
+    n_local = cfg.num_experts // (1 if shard is None else shard.tp)
+    y = _moe_over_group(xt, _expert_members(p), cfg, moe_capacity(cfg, b * s), n_local, act, x.dtype)
     if p.shared is not None:
         y = y + mlp_apply(p.shared, xt, act)
     return y.reshape(b, s, d)

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Phase 4G of ``chip_smoke.py`` alone, with the K3 and K4 checks against
+their plain versions before it: prefill and decode on (2, 2) streams of one
+card.
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 tools/serve_mesh_phase.py                 # K3/K4 checks, then 4G
+    KERNELS=0 python3 tools/serve_mesh_phase.py       # 4G only
+    ONLY=olmoe-1b-7b python3 tools/serve_mesh_phase.py
+
+It builds the kernels, runs ``check_flash_attention`` and
+``check_decode_attention`` (every case, the serving mesh's per-device
+shapes among them) unless ``KERNELS=0``, then ``run_serve_mesh`` for the
+models of ``SERVE_MESH_MODELS`` (or those named in ``ONLY``, comma
+separated).  Every line carries the card's name and power limit.  A
+watchdog ends the process after ``WATCHDOG_S`` seconds (default 700).  It
+exits non-zero without a card or on any miss.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def _watchdog(seconds: float) -> None:
+    time.sleep(seconds)
+    print("watchdog: out of time", flush=True)
+    os._exit(3)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    threading.Thread(target=_watchdog, args=(float(os.environ.get("WATCHDOG_S", "700")),), daemon=True).start()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    card = cs.card_line()
+    cs.log(f"[env] kernels ready in {time.perf_counter() - t0:.1f} s; card {card}")
+    only = os.environ.get("ONLY")
+    if only:
+        cs.SERVE_MESH_MODELS = tuple(m for m in cs.SERVE_MESH_MODELS if m[0] in only.split(","))
+    dev = torch.device("cuda")
+    if os.environ.get("KERNELS", "1") == "1":
+        t0 = time.perf_counter()
+        cs.check_flash_attention(dev)
+        cs.check_decode_attention(dev)
+        cs.log(f"[kernels] K3 and K4 checks took {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches = cs.run_serve_mesh(dev, card)
+    cs.log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s, launches {launches} [{card}]")
+    return 0
+
+
+if __name__ == "__main__":
+    code = main()
+    sys.stdout.flush()
+    os._exit(code)
