@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    one library call's, and the least time the card could take (the
    bound); K1 at phase 3's batch (point 8) and 6C's (point 4); K3 also
    with S_k != S_q (whisper's cross attention); for K4 also per layer,
-   beside the launch floor of an empty kernel; K6 (the selective scan,
+   beside the launch floor of an empty kernel, and K4 with its
+   log-sum-exp on a model device's slice of a sequence-split cache (the
+   lengths less the slice's first key), 8 such slices merged against one
+   launch over the whole cache; K6 (the selective scan,
    from the x_proj output to the gated rows) at hymba-1.5b's layer, S =
    1, 37 and 2048, with and without h0, ``z=None`` (y in f32) and gated,
    timed at the prefill layer and at a decode step; K3's row log-sum-exp
@@ -83,7 +86,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    routing the whole batch on the first shard's model group, the experts
    split), each against the single-device run, bitwise its serial run,
    K3/K4 once a layer on each model device as the dry run counts, placed
-   bytes the spec trees' at 2 bytes plus the port's f32 leaves;
+   bytes the spec trees' at 2 bytes plus the port's f32 leaves; then the
+   cache split by sequence (Gemma3-1B's 4 heads over 1 split no group):
+   (a) Gemma3-1B full on (1, 8), the same prefill and steps, K3 on the
+   lead alone and K4 on every device with its log-sum-exp, the partials
+   merged; (b) Gemma3-1B full on (2, 8) at batch 1 over a seeded random
+   cache of long_500k's 524,288 keys placed with ``place_cache``, 4 steps,
+   held the same way;
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -214,6 +223,9 @@ FORWARD_LOGIT_RTOL = 2**-7
 # largest |logit|: both run bf16 activations; the attention outputs round to
 # bf16 one step apart now and then, and 26 layers carry that on
 LM_LOGIT_RTOL = 5e-2
+# K4's log-sum-exp (natural log, f32) vs the plain one's: the kernel sums exp of f32 scores over its chunks in
+# another order (~1e-6 relative of sums of a few hundred); scores of random q, k are ~N(0, 1), lse ~ 6-12
+DECODE_LSE_ATOL = 1e-4
 # phase 4E: Gemma3-1B trained at full size, f32 master weights, bf16 compute
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 10
 HYMBA_TRAIN_STEPS = 6  # hymba-1.5b's steps in phase 4E, at the same 4 x 1024
@@ -1486,7 +1498,134 @@ def check_decode_attention(dev) -> float:
             raise AssertionError(f"decode_attention disagrees with its plain version: {err}, bound {tol}")
         if qdt == torch.float32:
             worst = max(worst, err)
-    _expect_zero_counters("decode_attention", f"after {len(cases)} launches")
+    worst = max(worst, check_decode_attention_lse(dev))
+    _expect_zero_counters("decode_attention", f"after {len(cases)} launches and the lse cases")
+    return worst
+
+
+def check_decode_attention_lse(dev) -> float:
+    """K4 with its log-sum-exp (``return_lse``) against the plain version
+    at phase 4G's sequence-split shapes: head_dim 256, Gemma3-1B's 4 heads
+    over 1, a bf16 cache, q f32 — a model device's slice of the 2112-key
+    cache over 8 (264 keys) called with the global lengths less its first
+    key (below 0 and above S among them), a 512-key window straddling two
+    slices, and slices with no valid key (lse -1e30, the output the mean of
+    V); the output held as every f32 case, the lse within DECODE_LSE_ATOL.
+    Then 8 slices' (out, lse) merged (``merge_partials``) against one K4
+    call on the whole cache, within the f32 bound.  The same at phase 4G
+    (b)'s shapes: batch 1, a seeded random bf16 cache of LONG_KEYS keys
+    over its 16 devices (32,768 keys a slice, where K4 takes 64-key chunks
+    and 512 splits), at the last decode step's length LONG_FROM +
+    LONG_STEPS — with no window every slice up to device 15, which holds
+    the last keys; with the 512-key window the keys straddling devices 14
+    and 15, and 14 slices with no valid key, whose output averages V's
+    32,768 rows — each slice against the plain version, then the 16 merged
+    as the model merges them (each group of 8, then the two) against one K4
+    call over all LONG_KEYS keys.  Returns the largest output error."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plain as da_plain
+
+    rng = np.random.default_rng(SEED + 14)
+    s, n = DECODE_MAX_LEN, 8
+    w = s // n
+    b, h, d, dt = PREFILL_B, 4, 256, torch.float32
+    q = _randn(rng, (b, h, d), dt, dev)
+    kc, vc = (_randn(rng, (2, b, s, 1, d), torch.bfloat16, dev) for _ in range(2))
+    glob = [  # (global lengths, window): decode's, a window across slices 1 and 2, past the cache, none valid
+        ([PREFILL_S, PREFILL_S + 5, PREFILL_S + 9, PREFILL_S + 15], None),
+        ([PREFILL_S, PREFILL_S + 5, PREFILL_S + 9, PREFILL_S + 15], GEMMA_WINDOW),
+        ([w + 100, 2 * w + 40, 2 * w + 200, w + 1], GEMMA_WINDOW),
+        ([0, s + GEMMA_WINDOW, 5, 3 * w], GEMMA_WINDOW),
+    ]
+    worst = 0.0
+    for lens_list, window in glob:
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        outs, lses = [], []
+        for j in range(n):
+            ks, vs = kc[1][:, j * w:(j + 1) * w], vc[1][:, j * w:(j + 1) * w]
+            local = lens - j * w
+            got, lse = da_ops.decode_attention_cache(q, ks, vs, local, window=window, return_lse=True)
+            want, want_lse = da_plain.decode_attention(q, ks, vs, local, window=window, return_lse=True)
+            torch.cuda.synchronize()
+            err, inside, tol = _attn_bound(got, want, dt)
+            lse_err = (lse - want_lse).abs().max().item()
+            empty = want_lse <= da_plain.NEG_INF
+            inside &= lse_err <= DECODE_LSE_ATOL and bool((lse[empty] == want_lse[empty]).all())
+            log(f"  decode_attention lse slice {j} of {n} ({w} keys from {j * w}) lengths "
+                f"{local.tolist()} window={window}: max|kernel-plain| out {err:.3e} (bound {tol}), lse {lse_err:.3e} "
+                f"(bound {DECODE_LSE_ATOL}); no valid key in {int(empty[:, 0].sum())} rows")
+            if not (lse.dtype == torch.float32 and lse.shape == (b, h) and inside):
+                raise AssertionError(f"decode_attention's lse disagrees with its plain version: {err} / {lse_err}")
+            worst = max(worst, err)
+            outs.append(got)
+            lses.append(lse)
+        merged = da_ops.merge_partials(outs, lses)
+        whole = da_ops.decode_attention_cache(q, kc[1], vc[1], lens, window=window)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(merged, whole, dt)
+        log(f"  decode_attention: {n} slices merged vs one launch over the {s}-key cache, lengths {lens_list} "
+            f"window={window}: max|merged-whole|={err:.3e} (bound {tol})")
+        if not inside:
+            raise AssertionError(f"{n} merged K4 slices differ from the whole cache's K4 by {err}")
+        worst = max(worst, err)
+    return max(worst, _check_decode_attention_lse_long(dev))
+
+
+def _check_decode_attention_lse_long(dev) -> float:
+    """K4 with its lse at phase 4G (b)'s per-device shape, and the 16
+    slices merged against one launch over the whole cache
+    (:func:`check_decode_attention_lse`).  Returns the largest output
+    error."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plain as da_plain
+
+    n, group = LONG_MESH[0] * LONG_MESH[1], LONG_MESH[1]
+    w, h, d, dt = LONG_KEYS // n, 4, 256, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    q = torch.empty((1, h, d), dtype=dt, device=dev).normal_(generator=gen)
+    kc, vc = (torch.empty((1, LONG_KEYS, 1, d), dtype=torch.bfloat16, device=dev).normal_(generator=gen)
+              for _ in range(2))
+    lens = torch.full((1,), LONG_FROM + LONG_STEPS, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for window in (None, GEMMA_WINDOW):
+        outs, lses, keyless, errs = [], [], [], []
+        for j in range(n):
+            ks, vs = kc[:, j * w:(j + 1) * w], vc[:, j * w:(j + 1) * w]
+            local = lens - j * w
+            got, lse = da_ops.decode_attention_cache(q, ks, vs, local, window=window, return_lse=True)
+            want, want_lse = da_plain.decode_attention(q, ks, vs, local, window=window, return_lse=True)
+            torch.cuda.synchronize()
+            err, inside, tol = _attn_bound(got, want, dt)
+            lse_err = (lse - want_lse).abs().max().item()
+            empty = bool((want_lse <= da_plain.NEG_INF).all())
+            if empty:
+                keyless.append(j)
+                inside &= bool((lse == want_lse).all())
+            else:
+                inside &= lse_err <= DECODE_LSE_ATOL
+            errs.append((err, 0.0 if empty else lse_err))
+            if j in (0, n - 2, n - 1) or (empty and len(keyless) == 1):  # the named slices, the first keyless
+                log(f"  decode_attention lse B=1 slice {j} of {n} ({w} keys from {j * w}) length "
+                    f"{int(local.item())} window={window}: max|kernel-plain| out {err:.3e} (bound {tol}), lse "
+                    f"{lse_err:.3e} (bound {DECODE_LSE_ATOL}){'; no valid key' if empty else ''}")
+            if not (lse.dtype == torch.float32 and lse.shape == (1, h) and inside):
+                raise AssertionError(f"decode_attention's lse disagrees with its plain version at B=1, slice {j} "
+                                     f"of {n}, window {window}: {err} / {lse_err}")
+            outs.append(got)
+            lses.append(lse)
+        halves = [da_ops.merge_partials(outs[i:i + group], lses[i:i + group], return_lse=True)
+                  for i in range(0, n, group)]
+        merged = da_ops.merge_partials([o for o, _ in halves], [lse for _, lse in halves])
+        whole = da_ops.decode_attention_cache(q, kc, vc, lens, window=window)
+        torch.cuda.synchronize()
+        err, inside, tol = _attn_bound(merged, whole, dt)
+        log(f"  decode_attention lse B=1, {n} slices of {w} keys, window={window}: every slice max|kernel-plain| "
+            f"out {max(e for e, _ in errs):.3e}, lse {max(e for _, e in errs):.3e}; no valid key in slices "
+            f"{keyless}; merged by {group}s then {n // group} vs one launch over {LONG_KEYS} keys at length "
+            f"{int(lens.item())}: max|merged-whole|={err:.3e} (bound {tol})")
+        if not inside:
+            raise AssertionError(f"{n} merged K4 slices differ from the whole {LONG_KEYS}-key cache's K4 by {err}")
+        worst = max(worst, err, *(e for e, _ in errs))
     return worst
 
 
@@ -1564,6 +1703,26 @@ def time_decode_attention(dev, flush) -> dict:
     log(f"  decode_attention per decode step ({N_GLOBAL} global + {N_LOCAL} local launches): "
         f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, SDPA "
         f"{totals['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the log-sum-exp variant at phase 4G (a)'s slice shape: a model device's 264 keys of the 2112-key cache
+    # over 8, q f32, lengths less the slice's first key — device 0 (every key valid in a global layer) and
+    # device 7 (the decode lengths' last keys, valid in every layer)
+    n_dev, qf = 8, q.float()
+    w = s // n_dev
+    for j, window in ((0, None), (n_dev - 1, None), (n_dev - 1, GEMMA_WINDOW)):
+        ks, vs = kc[:, j * w:(j + 1) * w], vc[:, j * w:(j + 1) * w]
+        local = lens - j * w
+        kernel = median_ms(lambda: da_ops.decode_attention_cache(qf, ks, vs, local, window=window,
+                                                                 return_lse=True), flush)
+        plain = median_ms(lambda: da_plain.decode_attention(qf, ks, vs, local, window=window, return_lse=True),
+                          flush)
+        hi = np.clip(lens_np - j * w, 0, w)
+        lo = np.clip(lens_np - j * w - window, 0, None) if window else np.zeros_like(hi)
+        keys = int(np.maximum(hi - lo, 0).sum())
+        slice_bound, slice_by = da_ops.decode_attention_cost(b, w, h, kvh, d, window, torch.float32, dt, keys=keys,
+                                                             lse=True).bound_ms()
+        log(f"  decode_attention with lse, device {j}'s slice of {n_dev} ({b} seqs x {w} keys from {j * w}, "
+            f"{keys} valid, window {window}, q f32, bf16 cache): kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {slice_bound:.4f} ms ({slice_by})")
     # OLMoE's decode layer (4 sequences at 1024.. keys, 16 heads of 128, group 1), logged
     s, h, d = MOE_MAX_LEN, OLMOE_HEADS, OLMOE_HD
     q = _randn(rng, (b, h, d), dt, dev)
@@ -4368,9 +4527,16 @@ def run_train_mesh(dev, card: str) -> dict:
 
 # ------------------------------------------------- phase 4G: serving on a mesh
 # (2, 2) streams: two data shards of two model devices.  Gemma3-1B at full size (kv 1 stored twice: one cache
-# head a model device), qwen3-32b and OLMoE-1B-7B at full width and 2 layers (``reduced``)
-SERVE_MESH_MODELS = (("gemma3-1b", None, DECODE_STEPS), ("qwen3-32b", 2, CUT_DECODE_STEPS),
-                     ("olmoe-1b-7b", 2, CUT_DECODE_STEPS))
+# head a model device), qwen3-32b and OLMoE-1B-7B at full width and 2 layers (``reduced``).  (a) Gemma3-1B at
+# full size on (1, 8): its 4 heads over 1 KV head split no group over 8, so its cache splits by sequence over
+# "model" (264 keys of the 2112 a device)
+SERVE_MESH_MODELS = (("gemma3-1b", None, DECODE_STEPS, (2, 2)), ("qwen3-32b", 2, CUT_DECODE_STEPS, (2, 2)),
+                     ("olmoe-1b-7b", 2, CUT_DECODE_STEPS, (2, 2)), ("gemma3-1b", None, DECODE_STEPS, (1, 8)))
+# (b) Gemma3-1B at full size on (2, 8) at batch 1 over long_500k's 524,288 keys (32,768 a device: the sequence
+# splits over "data" and "model"), a seeded random bf16 cache; decode from a length whose local layers' 512-key
+# window straddles devices 14 and 15
+SERVE_MESH_LONG = True
+LONG_MESH, LONG_KEYS, LONG_FROM, LONG_STEPS = (2, 8), 524_288, 491_720, 4
 
 
 @contextlib.contextmanager
@@ -4429,11 +4595,12 @@ def _per_layer(record: list, tokens: int) -> list:
     return out
 
 
-def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
-    """One model served on (2, 2) streams of the card
+def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)) -> dict:
+    """One model served on ``shape`` streams of the card
     (``decode.make_mesh_prefill`` / ``make_mesh_decode_step`` over
-    ``zero.place_params``' copies, the cache split by heads and rows as
-    ``choose_cache_policy`` says), bf16, seeded weights: a prefill of
+    ``zero.place_params``' copies, the cache split as
+    ``choose_cache_policy`` says: by heads and rows, or by sequence where
+    the heads do not split), bf16, seeded weights: a prefill of
     PREFILL_B x PREFILL_S into a DECODE_MAX_LEN cache, then ``steps``
     greedy decode steps.  Held: each call's logits against the same
     weights' single-device run on the same tokens within LM_LOGIT_RTOL (an
@@ -4441,9 +4608,10 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
     token-layers its own gates would route elsewhere is logged); the same
     calls on a mesh of the same devices without streams (every op on the
     default stream in program order) bitwise, logits and every cache
-    slice; K3 once a layer on each model device in prefill and K4 once a
-    layer a step on each, equal to the dry run's per-device count of the
-    same (2, 2) cell; each device's placed bytes (weights, cache) equal to
+    slice; K3 once a layer on each model device in prefill (on each data
+    shard's lead alone with a sequence-split cache: attention runs whole
+    there) and K4 once a layer a step on each, equal to the dry run's
+    per-device count of the same cell; each device's placed bytes (weights, cache) equal to
     the reference layout's spec trees' at 2 bytes, plus 2 for each element
     of the leaves the port keeps in f32.  Prefill and decode ms, mesh and
     single device."""
@@ -4466,19 +4634,20 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
     cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
     tag = f"{full.name}{'' if layers is None else f' reduced to {layers} of {full.num_layers} layers'}"
     b, s, max_len, vocab = PREFILL_B, PREFILL_S, DECODE_MAX_LEN, cfg.vocab_size
+    n_dev, on = shape[0] * shape[1], f"({shape[0]}, {shape[1]}) streams"
     t0 = time.perf_counter()
-    trace_mesh = make_mesh((2, 2), ("data", "model"), H.trace_devices(4))
+    trace_mesh = make_mesh(shape, ("data", "model"), H.trace_devices(n_dev))
     traced = {kind: dryrun.run_cell(cfg, InputShape(f"4g_{kind}", kind, n, b), trace_mesh)
               for kind, n in (("prefill", s), ("decode", max_len))}
     want_k3 = traced["prefill"]["hlo"]["launches"].get("flash_attention")
     want_k4 = traced["decode"]["hlo"]["launches"].get("decode_attention")
     trace_s = time.perf_counter() - t0
     model, _ = _build_lm(dev, cfg, f"{tag} (phase 4G)")
-    mesh = make_mesh((2, 2), ("data", "model"), _mesh_devices(dev, 4))
-    serial = make_mesh((2, 2), ("data", "model"),
+    mesh = make_mesh(shape, ("data", "model"), _mesh_devices(dev, n_dev))
+    serial = make_mesh(shape, ("data", "model"),
                        [Dv.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
     with S.use_rules(S.SINGLE_POD_RULES):
-        policy = choose_cache_policy(cfg, 2, b, 2)
+        policy = choose_cache_policy(cfg, shape[1], b, shape[0])
         pspecs = S.param_pspecs(model)
         placed = Z.place_params(model, mesh, pspecs)
         prefill, step = D.make_mesh_prefill(cfg, mesh, pspecs, policy), D.make_mesh_decode_step(cfg, mesh, pspecs,
@@ -4490,7 +4659,7 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
         want_cache = LS._spec_bytes(whole_cache, D.cache_pspecs(whole_cache, policy, mesh), mesh, 2)
     rng = np.random.default_rng(SEED + 6)
     prompts = torch.from_numpy(rng.integers(0, vocab, size=(b, s))).to(dev)
-    leads = {mesh.flat[0].label, mesh.flat[2].label}
+    leads = {mesh.flat[i * shape[1]].label for i in range(shape[0])}
 
     # ---- prefill: single device, then the mesh (a warm-up call each), then the serial mesh
     def timed(fn):
@@ -4534,16 +4703,17 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
     held_cache = [sum(t.numel() * t.element_size() for t in mine.values()) for mine in cache]
     routed = ("; MoE expert-parallel per data shard (each shard's rows alone on one device)" if ep else
               "; MoE routing the whole batch" if cfg.is_moe else "")
-    log(f"[serve-mesh] {tag} on (2, 2) streams (cache policy {policy}{routed}): prefill {b}x{s} in "
+    log(f"[serve-mesh] {tag} on {on} (cache policy {policy}{routed}): prefill {b}x{s} in "
         f"{mesh_prefill_ms:.1f} ms against {single_prefill_ms:.1f} ms on one device; last-token logits vs the single "
         f"device's: max|d| / "
         f"max|logit| {err:.3e} (max|logit| {scale:.3e}, tolerance {LM_LOGIT_RTOL}){_mesh_routing_note(differ)}; K3 "
-        f"launches by device {k3} (dry run of the (2, 2) cell: {want_k3} a device, traced in {trace_s:.1f} s); placed "
+        f"launches by device {k3} (dry run of the {shape} cell: {want_k3} a device, traced in {trace_s:.1f} s); placed "
         f"bytes a device: weights {held}, cache {held_cache}; the reference layout's spec trees at 2 bytes give "
         f"{want_params} and {want_cache}, and the port's f32 norm scales and routers add {surplus} [{card}]")
     if not err <= LM_LOGIT_RTOL:
         raise AssertionError(f"{tag}: mesh prefill logits differ from the single device's by {err}")
-    if k3 != dict.fromkeys(labels, cfg.num_layers) or want_k3 != cfg.num_layers or set(k4):
+    k3_on = leads if policy.seq_axes else labels  # attention whole on the leads where the heads do not split
+    if k3 != dict.fromkeys(k3_on, cfg.num_layers) or want_k3 != cfg.num_layers or set(k4):
         raise AssertionError(f"{tag}: prefill launches K3 {k3}, K4 {k4}; the dry run's {want_k3} a device")
     if any(n != want_params + surplus for n in held) or any(n != want_cache for n in held_cache):
         raise AssertionError(f"{tag}: placed bytes {held} / {held_cache}, the spec trees' {want_params} + {surplus} "
@@ -4595,15 +4765,140 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int) -> dict:
     return launches
 
 
+def serve_mesh_long(dev, card: str) -> dict:
+    """(b) Gemma3-1B at full size, bf16, seeded weights, on (2, 8) streams
+    of the card at batch 1 over long_500k's cache: ``choose_cache_policy``
+    splits its sequence over ("data", "model"), LONG_KEYS / 16 keys a
+    device.  A seeded random bf16 cache (both leaves, every layer) is
+    placed with ``place_cache``, once for the mesh and once for the same
+    mesh without streams; LONG_STEPS greedy decode steps from LONG_FROM
+    (a local layer's 512-key window straddles devices 14 and 15) on the
+    mesh (the first data index's model group runs the layers, every device
+    K4 on its slice, the partials merged within each model group, then
+    over the groups), on the serial mesh and on one device over the whole
+    cache.  Held: the logits within LM_LOGIT_RTOL of the single device's,
+    bitwise the serial run's (logits and every cache slice); K4 once a
+    layer a step on every device and K3 never, equal to the dry run's
+    per-device count of the same cell; each device's placed bytes (weights,
+    cache) equal to the reference layout's spec trees' at 2 bytes plus 2
+    for each element of the port's f32 leaves.  Decode ms, mesh and one
+    device."""
+    from repro_torch import configs
+    from repro_torch import device as Dv
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import zero as Z
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decode as D
+    from repro_torch.serving.kv_cache import choose_cache_policy
+
+    cfg = configs.get_config("gemma3-1b")
+    shape, keys, start, steps = LONG_MESH, LONG_KEYS, LONG_FROM, LONG_STEPS
+    n_dev, vocab = shape[0] * shape[1], cfg.vocab_size
+    t0 = time.perf_counter()
+    traced = dryrun.run_cell(cfg, InputShape("4g_long", "decode", keys, 1),
+                             make_mesh(shape, ("data", "model"), H.trace_devices(n_dev)))
+    want_k4 = traced["hlo"]["launches"]
+    trace_s = time.perf_counter() - t0
+    model, _ = _build_lm(dev, cfg, "gemma3-1b (phase 4G (b))")
+    mesh = make_mesh(shape, ("data", "model"), _mesh_devices(dev, n_dev))
+    serial = make_mesh(shape, ("data", "model"),
+                       [Dv.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
+    with S.use_rules(S.SINGLE_POD_RULES):
+        policy = choose_cache_policy(cfg, shape[1], 1, shape[0])
+        pspecs = S.param_pspecs(model)
+        placed = Z.place_params(model, mesh, pspecs)
+        step, step_s = D.make_mesh_decode_step(cfg, mesh, pspecs, policy), D.make_mesh_decode_step(
+            cfg, serial, pspecs, policy)
+        want_params, surplus = LS._param_spec_bytes(LS.param_structs(cfg), pspecs, mesh)
+        whole_meta = D.init_cache(cfg, 1, keys, policy.kv_repeat, device="meta")
+        want_cache = LS._spec_bytes(whole_meta, D.cache_pspecs(whole_meta, policy, mesh), mesh, 2)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cache = D.init_cache(cfg, 1, keys, policy.kv_repeat, device=dev)
+    for leaf in cache.values():
+        for layer in leaf:
+            layer.normal_(generator=gen)
+    with S.use_rules(S.SINGLE_POD_RULES):
+        placed_cache, serial_cache = D.place_cache(cache, mesh, policy), D.place_cache(cache, serial, policy)
+    torch.cuda.synchronize()
+    whole_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    held = [sum(t.numel() * t.element_size() for t in c.parameters()) for c in placed]
+    held_cache = [sum(t.numel() * t.element_size() for t in mine.values()) for mine in placed_cache]
+    log(f"[serve-mesh] gemma3-1b (b) on ({shape[0]}, {shape[1]}) streams (cache policy {policy}): a seeded random "
+        f"bf16 cache of 1 x {keys} keys, {whole_gb:.2f} GB whole, {sum(held_cache) / 1e9:.2f} GB placed "
+        f"({held_cache[0]} B a device), made and placed twice in {time.perf_counter() - t0:.1f} s; placed bytes a "
+        f"device: weights {held}; the reference layout's spec trees at 2 bytes give {want_params} and "
+        f"{want_cache}, and the port's f32 norm scales add {surplus} [{card}]")
+    if any(n != want_params + surplus for n in held) or any(n != want_cache for n in held_cache):
+        raise AssertionError(f"gemma3-1b (b): placed bytes {held} / {held_cache}, the spec trees' {want_params} + "
+                             f"{surplus} / {want_cache}")
+    lens_m = lens_s = lens_ser = torch.full((1,), start, dtype=torch.int32, device=dev)
+    tok = torch.from_numpy(np.random.default_rng(SEED + 8).integers(0, vocab, size=1)).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    labels = [d.label for d in mesh.flat]
+    mesh_ms, single_ms, worst, by_step = [], [], 0.0, []
+    _zero_attention_counts()
+    for i in range(steps):
+        with _launches_by_device() as (k3, k4):
+            (lg, placed_cache, lens_m), ms = timed(lambda: step(placed, tok, placed_cache, lens_m))
+        by_step.append((dict(k3), dict(k4)))
+        mesh_ms.append(ms)
+        (slg, cache, lens_s), ms = timed(lambda: D.decode_step(model, cfg, tok, cache, lens_s))
+        single_ms.append(ms)
+        serial_lg, serial_cache, lens_ser = step_s(placed, tok, serial_cache, lens_ser)
+        worst = max(worst, _rel_err(lg, slg, vocab)[0])
+        if not torch.equal(lg, serial_lg):
+            raise AssertionError(f"gemma3-1b (b): decode step {i} logits differ from the serial run's")
+        tok = lg.argmax(-1)
+    racy = [f"{mesh.flat[q].label} {k}" for q, (mine, theirs) in enumerate(zip(placed_cache, serial_cache))
+            for k in mine if not torch.equal(mine[k], theirs[k])]
+    log(f"[serve-mesh] gemma3-1b (b): decode {steps} steps x 1 from {start} of {keys} keys: "
+        f"{statistics.median(mesh_ms):.2f} ms/step median on the mesh against {statistics.median(single_ms):.2f} on "
+        f"one device over the whole cache (host clock, synchronised); logits vs the single device's: max|d| / "
+        f"max|logit| {worst:.3e} (tolerance {LM_LOGIT_RTOL}); K4 launches by device a step {by_step[0][1]}, K3 "
+        f"{by_step[0][0]} (dry run of the {shape} long_500k-size cell: {want_k4} a device, traced in {trace_s:.1f} "
+        f"s); lengths {lens_m.tolist()}; the mesh on streams bitwise the serial run: every step's logits and "
+        f"{'all' if not racy else 'NOT all'} {sum(len(c) for c in placed_cache)} cache slices [{card}]")
+    if not worst <= LM_LOGIT_RTOL:
+        raise AssertionError(f"gemma3-1b (b): mesh decode logits differ from the single device's by {worst}")
+    if (any(k3 or k4 != dict.fromkeys(labels, cfg.num_layers) for k3, k4 in by_step)
+            or want_k4 != {"decode_attention": cfg.num_layers}):
+        raise AssertionError(f"gemma3-1b (b): launches by device a step {by_step}, the dry run's {want_k4}")
+    if racy:
+        raise AssertionError(f"gemma3-1b (b): cache slices differ from the serial run's: {racy}")
+    if lens_m.tolist() != [start + steps] or lens_s.tolist() != [start + steps]:
+        raise AssertionError(f"gemma3-1b (b): lengths {lens_m.tolist()} / {lens_s.tolist()}")
+    del model, placed, cache, placed_cache, serial_cache, step, step_s
+    torch.cuda.empty_cache()
+    return {"decode_attention": sum(sum(k4.values()) for _, k4 in by_step)}
+
+
 def run_serve_mesh(dev, card: str) -> dict:
-    """Phase 4G, prefill and decode on (2, 2) streams of the card
-    (:func:`serve_mesh_model` for each of SERVE_MESH_MODELS, each freed
+    """Phase 4G, prefill and decode on streams of the card
+    (:func:`serve_mesh_model` for each of SERVE_MESH_MODELS on its mesh,
+    then, with SERVE_MESH_LONG, :func:`serve_mesh_long`; each model freed
     before the next).  Returns the K3 and K4 launches."""
     launches = {}
-    for arch, layers, steps in SERVE_MESH_MODELS:
+    for arch, layers, steps, shape in SERVE_MESH_MODELS:
         t0 = time.perf_counter()
-        _add(launches, serve_mesh_model(dev, card, arch, layers, steps))
-        log(f"[serve-mesh] {arch} took {time.perf_counter() - t0:.1f} s [{card}]")
+        _add(launches, serve_mesh_model(dev, card, arch, layers, steps, shape))
+        log(f"[serve-mesh] {arch} on {shape} took {time.perf_counter() - t0:.1f} s [{card}]")
+    if SERVE_MESH_LONG:
+        t0 = time.perf_counter()
+        _add(launches, serve_mesh_long(dev, card))
+        log(f"[serve-mesh] gemma3-1b (b) on {LONG_MESH} at {LONG_KEYS} keys took {time.perf_counter() - t0:.1f} s "
+            f"[{card}]")
     return launches
 
 
@@ -4955,7 +5250,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _add(launches, run_train_mesh(dev, card))
     log(f"[train-mesh] phase 4F took {time.perf_counter() - t0:.1f} s [{card}]")
-    # ---- phase 4G: prefill and decode on (2, 2) streams (Gemma3-1B, qwen3-32b and OLMoE at 2 layers)
+    # ---- phase 4G: prefill and decode on (2, 2) streams (Gemma3-1B, qwen3-32b and OLMoE at 2 layers), then
+    # Gemma3-1B's sequence-split cache on (1, 8) and at long_500k's length on (2, 8)
     t0 = time.perf_counter()
     _add(launches, run_serve_mesh(dev, card))
     log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s [{card}]")

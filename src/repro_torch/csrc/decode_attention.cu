@@ -12,7 +12,16 @@
 // float32 or bfloat16, the cache in float32 or bfloat16 independently.
 // Where no key is valid (length 0, or length >= S + window) every score
 // is the reference's -1e30, its softmax is uniform, and the result is the
-// mean of v[b, 0:S, kvh]: so it is here too.
+// mean of v[b, 0:S, kvh]: so it is here too.  Lengths below 0 or above S
+// mask as they would in a longer cache: a device holding keys
+// [off, off + S) of a sequence split by sequence is called with
+// length - off.
+//
+// Optionally each head's log-sum-exp, lse[b, h] = log sum_pos exp(score)
+// over the same valid keys (natural log, f32), and -1e30 where none is
+// valid: the partial softmaxes of a sequence split over devices merge by
+// it (kernels/decode_attention/ops.py `merge_partials`); a slice with no
+// valid key then weighs 0.
 //
 // What bounds it on an H100: every valid key of the cache is read once for
 // G query heads, 4 * G * D FLOP against 2 * D * sizeof(cache) bytes — a few
@@ -129,6 +138,7 @@ struct Args {
   long long vsb, vss, vsh;
   const int* lengths;  // (B,)
   void* out;       // (B, KVH * G, D) contiguous, q's dtype
+  float* lse;      // (B, KVH * G) f32, or null: not wanted
   float* part;     // (B * KVH, n_split, G, D) acc, then (B * KVH, n_split, G, 2) max/sum
   int* arrivals;   // (B * KVH,) blocks arrived; 0 between launches
   int S, KVH, G, chunk, window;  // window <= 0: none
@@ -419,6 +429,12 @@ flash_decode_kernel(const Args a) {
   __syncthreads();
 
   TQ* out = static_cast<TQ*>(a.out) + static_cast<long long>(bk) * G * D;
+  if (a.lse != nullptr && threadIdx.x < G) {
+    // the merged max and sum of this head: log sum exp = m + log(l); no
+    // valid key (l = 0) gives the reference's masked score
+    const float l = sm_l[threadIdx.x];
+    a.lse[static_cast<long long>(bk) * G + threadIdx.x] = l == 0.0f ? kNegInf : sm_m[threadIdx.x] + logf(l);
+  }
   if (sm_l[0] == 0.0f) {
     // no valid key for this (sequence, KV head): the reference's uniform
     // softmax over all S masked scores, i.e. the mean of V's S rows
@@ -488,7 +504,8 @@ __global__ void empty_kernel() {}
 // dtypes: 0 float32, 1 bfloat16.  q (B, KVH * G, D) with (batch, head)
 // strides; k/v (B, S, KVH, D) with (batch, seq, head) strides, contiguous D,
 // 16-byte aligned pointers and strides; lengths (B,) int32; out
-// (B, KVH * G, D) contiguous; part f32 scratch of
+// (B, KVH * G, D) contiguous; lse (B, KVH * G) f32 contiguous, or null;
+// part f32 scratch of
 // B * KVH * n_split * G * (2 + D); arrivals (B * KVH,) int32, zero, and
 // zero again when the launch is done.  Chunks of `chunk` keys from
 // max(0, length - window): n_split = ceil(min(S, window) / chunk) (S
@@ -496,7 +513,7 @@ __global__ void empty_kernel() {}
 extern "C" int repro_decode_attention(int q_dtype, int c_dtype, const void* q, long long qsb,
                                       long long qsh, const void* k, long long ksb, long long kss,
                                       long long ksh, const void* v, long long vsb, long long vss,
-                                      long long vsh, const void* lengths, void* out,
+                                      long long vsh, const void* lengths, void* out, void* lse,
                                       void* part, void* arrivals, int B, int S, int KVH, int G,
                                       int D, int chunk, int n_split, float scale, int window,
                                       void* stream) {
@@ -507,7 +524,8 @@ extern "C" int repro_decode_attention(int q_dtype, int c_dtype, const void* q, l
       static_cast<long long>(n_split) * chunk < span || static_cast<long long>(n_split - 1) * chunk >= span)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, qsb, qsh, k, ksb, kss, ksh, v, vsb, vss, vsh, static_cast<const int*>(lengths), out,
-         static_cast<float*>(part), static_cast<int*>(arrivals), S, KVH, G, chunk, window, scale};
+         static_cast<float*>(lse), static_cast<float*>(part), static_cast<int*>(arrivals),
+         S, KVH, G, chunk, window, scale};
   auto st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return dispatch_cache<float>(c_dtype, D, a, static_cast<int>(bkvh), n_split, st);
   if (q_dtype == 1)

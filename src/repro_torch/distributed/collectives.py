@@ -328,9 +328,11 @@ def ring_sum(parts: list, devices) -> torch.Tensor:
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, devices, dim, at, slices, *parts):
+    def forward(ctx, devices, dim, at, slices, alone, *parts):
         ctx.devices, ctx.dim, ctx.at, ctx.width = devices, dim, at, parts[0].shape[dim]
         p = len(parts)
+        # each of the whole axis' ``slices`` devices gathers alone: the last one here stands for those absent
+        ctx.times = slices - p + 1 if alone and at[-1] == p - 1 else 1
         shape = list(parts[0].shape)
         shape[dim] *= slices
         outs = []
@@ -353,7 +355,8 @@ class _AllGather(torch.autograd.Function):
         devices, dim, k = ctx.devices, ctx.dim, ctx.width
         got = [(r, g) for r, g in zip(ctx.at, grads) if g is not None]
         outs = []
-        with _collective("reduce-scatter", [got[0][1].narrow(dim, 0, k)] if got else [], devices):
+        with _build.counted(ctx.times), \
+                _collective("reduce-scatter", [got[0][1].narrow(dim, 0, k)] if got else [], devices):
             caller = _enter(devices)
             for s, dev in enumerate(devices):
                 with dev.scope():
@@ -364,10 +367,10 @@ class _AllGather(torch.autograd.Function):
                         acc = piece.clone(memory_format=torch.contiguous_format) if acc is None else acc.add_(piece)
                     outs.append(acc)
             _leave(devices, caller, [t for t in outs if t is not None])
-        return (None, None, None, None, *outs)
+        return (None, None, None, None, None, *outs)
 
 
-def all_gather(parts: list, devices, dim: int, at=None, slices: int | None = None) -> list:
+def all_gather(parts: list, devices, dim: int, at=None, slices: int | None = None, alone: bool = False) -> list:
     """``parts`` (``parts[i]`` on ``devices[i]``, equal shapes) joined along
     ``dim`` in order, one whole tensor on each device at the positions
     ``at`` (default: every device), each made on its receiver's stream.
@@ -378,10 +381,15 @@ def all_gather(parts: list, devices, dim: int, at=None, slices: int | None = Non
     ``slices`` (default ``len(parts)``) is the number of slices the whole
     holds: a trace on a :class:`~repro_torch.launch.mesh.RoleMesh`, whose
     group keeps fewer devices than the "model" axis has, fills the whole's
-    shape by cycling through the parts it has."""
+    shape by cycling through the parts it has.  ``alone``: each device of
+    the whole axis gathers the parts in a call of its own (FSDP's data
+    column), so each part receives a scatter from ``slices`` such calls;
+    on a RoleMesh, whose last device of the axis stands for the devices it
+    leaves out, a trace counts that device's scatter ``slices -
+    len(parts) + 1`` times."""
     at = tuple(range(len(devices))) if at is None else tuple(at)
     slices = len(parts) if slices is None else slices
-    return list(_AllGather.apply(tuple(devices), dim, at, slices, *parts))
+    return list(_AllGather.apply(tuple(devices), dim, at, slices, alone, *parts))
 
 
 class _Send(torch.autograd.Function):

@@ -292,7 +292,7 @@ class DataShards:
             return C.send(self.named[owner][held], pair, 0, len(pair) - 1)
         col = lay.column(q)
         return C.all_gather([self.named[s][name] for s in col], [devs[s] for s in col], dim,
-                            (col.index(q),), lay.data_size)[0]
+                            (col.index(q),), lay.data_size, alone=True)[0]
 
 
 @contextlib.contextmanager

@@ -185,7 +185,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         _P, _L, _L,  # q, its (batch, head) strides
         _P, _L, _L, _L,  # k cache, its (batch, seq, head) strides
         _P, _L, _L, _L,  # v cache, its strides
-        _P, _P, _P, _P,  # lengths, out, partials, arrival counters
+        _P, _P, _P, _P, _P,  # lengths, out, lse (null: none), partials, arrival counters
         _I, _I, _I, _I, _I, _I, _I,  # B, S, KVH, group, D, chunk, splits
         _F, _I, _P,  # scale, window (-1 = none), stream
     ]
@@ -348,6 +348,17 @@ def repeat(n: int):
     yield 0
     with _trace.stack[-1][0].repeated(n - 2):
         yield 1
+
+
+def counted(factor: float):
+    """A context: in an open trace the block's counts (not its memory)
+    count ``factor`` (an integer) times — work a
+    :class:`~repro_torch.launch.mesh.RoleMesh` device does for each of the
+    whole mesh's devices it stands for; with no trace open, or a factor of
+    1, nothing."""
+    if not tracing() or factor == 1:
+        return contextlib.nullcontext()
+    return _trace.stack[-1][0].repeated(factor - 1)
 
 
 def trace_collective(kind: str, nbytes: int, devices):

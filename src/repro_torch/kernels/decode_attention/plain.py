@@ -4,8 +4,12 @@ The same function as ``csrc/decode_attention.cu``, written as
 ``repro.models.layers.decode_attention_jnp`` writes it: the G query heads
 of each KV head contract against the cache in its (B, S, KVH, D) layout,
 keys at ``pos >= length`` (and, with a window, ``pos < length - window``)
-are masked, softmax and value sum in f32, result in q's dtype.  The CPU
-path and the card check in ``chip_smoke.py`` use it.
+are masked, softmax and value sum in f32, result in q's dtype.  Lengths
+below 0 or above S mask as they would in a longer cache (a slice of a
+sequence-split cache, called with ``lengths - off``).  With
+``return_lse`` also each head's f32 log-sum-exp of the masked scores,
+-1e30 where no key is valid.  The CPU path and the card check in
+``chip_smoke.py`` use it.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ def decode_attention(
     lengths: torch.Tensor,  # (B,) int — valid keys per sequence
     window: int | None = None,
     scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     b, h, d = q.shape
     kvh = k_cache.shape[2]
     group = h // kvh
@@ -37,4 +42,8 @@ def decode_attention(
     sc = sc.masked_fill(~mask, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(mask.any(-1), torch.logsumexp(sc, dim=-1), NEG_INF)
+    return out, lse.reshape(b, h)

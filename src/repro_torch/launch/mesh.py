@@ -127,12 +127,18 @@ class RoleMesh(Mesh):
     on ``mesh``, and each group a collective runs over keeps its first,
     middle and last roles.  A trace of the training mesh's step on it
     counts per device what the whole mesh does, with 9 devices standing
-    for 256: every data shard's lead alike, every model device alike.  Two
-    counts grow with an axis and are cut to the span: an expert-parallel
-    shard's lead adds up each model device's expert gradients on its own
-    stream (``train_loop._mesh_train_step``), and under FSDP a stored
-    feature slice receives a scatter of the gradient from each data
-    shard's gather and sums them (``sharding.DataShards``).  A layer
+    for 256: every data shard's lead alike, every model device alike.
+    Where a count grows with an axis, the axis' last device here stands
+    for the devices the span leaves out and its share counts for theirs
+    too (``_build.counted``): a shard's lead adds up each model device's
+    gradients on its own stream over microbatches
+    (``train_loop._mesh_train_step``); under FSDP a stored feature slice
+    receives a scatter of the gradient from each data shard's gather
+    (``sharding.DataShards``, ``collectives.all_gather(alone=True)``); a
+    gather of attention partials over a whole axis holds a slice for each
+    of its devices (``all_gather(slices=...)``, ``models/decode.py``).
+    The autograd engine's sums of a stored slice's scatters run outside
+    any such block and are not scaled (a trace's traffic).  A layer
     stored whole on a data index the span leaves out is gathered from a
     stand-in (``zero.Layout.owner``), so each device sends as many layers
     as an owner does on the whole mesh."""

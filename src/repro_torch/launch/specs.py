@@ -296,7 +296,8 @@ def decode_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
 
     token = _struct((shape.global_batch,), torch.int32)
     lengths = _struct((shape.global_batch,), torch.int32)
-    bspec = batch_pspec() if shape.global_batch >= data_size else P()
+    split = shape.global_batch >= data_size  # else every device takes the rows whole
+    bspec = batch_pspec() if split else P()
     inputs = _nbytes(token) + _nbytes(lengths)
 
     if mesh.size == 1 or skip:
@@ -313,6 +314,7 @@ def decode_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
         args = (placed, token, caches, lengths)
         per_device = [list(c.parameters()) + list(mine.values()) for c, mine in zip(placed, caches)]
         weights, surplus = _param_spec_bytes(params, pspecs, mesh)
+        data_size = data_size if split else 1
         ref_bytes = weights + _spec_bytes(cache, cache_specs, mesh, 2) + inputs // data_size
     return LoweringSpec(
         fn=serve_step,

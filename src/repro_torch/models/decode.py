@@ -50,7 +50,10 @@ What differs:
   serving specs (``zero.place_params``), the cache split by heads over
   "model" and by rows over the data axes (:func:`cache_pspecs`,
   :func:`init_mesh_cache`, :func:`place_cache`), attention head-parallel
-  on each model device's cache slice.  What they do not serve yet raises
+  on each model device's cache slice; or, where the heads do not split,
+  the cache split by sequence, each device running K4 over its keys and
+  the partial softmaxes merged by their log-sum-exp
+  (:func:`_gqa_decode_seq`).  What they do not serve yet raises
   (:func:`mesh_serving_gap`).
 """
 
@@ -159,11 +162,14 @@ def _layer_caches(params: T.TransformerLM, cache: dict):
 # ------------------------------------------------------------------ helpers
 def _scatter_rows_(cache: torch.Tensor, rows: torch.Tensor, lengths: torch.Tensor) -> None:
     """cache (B, S, ...) <- rows (B, ...) at per-sequence positions, in
-    place; positions >= S are dropped (JAX's scatter drops them too)."""
+    place; positions >= S are dropped (JAX's scatter drops them too), and
+    so are negative ones: a slice of a sequence-split cache holding keys
+    [off, off + S) is written at ``lengths - off``, and only the slice
+    that holds the position writes it."""
     b, s = cache.shape[:2]
     idx = torch.arange(b, device=cache.device)
-    pos = lengths.clamp(max=s - 1)
-    keep = (lengths < s).view(b, *([1] * (rows.dim() - 1)))
+    pos = lengths.clamp(min=0, max=s - 1)
+    keep = ((lengths >= 0) & (lengths < s)).view(b, *([1] * (rows.dim() - 1)))
     cache[idx, pos] = torch.where(keep, rows.to(cache.dtype), cache[idx, pos])
 
 
@@ -377,14 +383,17 @@ def prefill(
 # (``sharding.param_pspecs``, placed by ``zero.place_params``), the KV cache
 # split as ``serving.kv_cache.choose_cache_policy`` says — by heads over
 # "model" (each KV head stored ``kv_repeat`` times) and by rows over the
-# data axes — each device holding its slice (:func:`cache_pspecs`).
+# data axes, or by sequence over "model" (and the data axes at a batch
+# smaller than they are) — each device holding its slice
+# (:func:`cache_pspecs`).
 def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None:
     """Why the mesh's prefill and decode do not serve ``cfg`` under
     ``policy`` (a ``CachePolicy``) with the parameters under ``pspecs`` on
-    ``mesh``, or None when they do: the next slice of ROADMAP 26b takes
-    the sequence-split caches, MLA, the encoder-decoder's cross cache, the
-    recurrent states and parameters under FSDP (a spec tree naming the
-    current rules' data axes, ``sharding.splits_over_data``)."""
+    ``mesh``, or None when they do: the next slices of ROADMAP 26b take
+    MLA, the encoder-decoder's cross cache, the recurrent states,
+    parameters under FSDP (a spec tree naming the current rules' data
+    axes, ``sharding.splits_over_data``) and a cache split by sequence over
+    the data axes while its heads split over "model"."""
     tp = mesh.shape.get("model", 1)
     what = None
     if cfg.attn_type == "mla":
@@ -395,19 +404,19 @@ def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None
         what = "a recurrent state (Mamba's beside the attention cache)"
     elif cfg.is_encdec:
         what = "the encoder-decoder's cross K/V cache"
-    elif policy.seq_axes:
-        what = (f"a KV cache split by sequence over {'/'.join(policy.seq_axes)} (sequence-parallel decode: "
-                "K4 returning its log-sum-exp to merge partial softmaxes)")
-    elif not (policy.shard_heads and policy.shard_batch):
+    elif policy.seq_axes and policy.shard_heads:
+        what = (f"a KV cache split by sequence over {'/'.join(policy.seq_axes)} while its heads split over "
+                "'model'")
+    elif not policy.seq_axes and not (policy.shard_heads and policy.shard_batch):
         what = "a KV cache that splits neither by heads nor by rows"
     elif S.splits_over_data(pspecs, mesh):
         what = "parameters under FSDP at 2 bytes (maybe_fsdp_pspecs)"
-    elif not L.heads_split(cfg, tp):
+    elif not policy.seq_axes and not L.heads_split(cfg, tp):
         what = f"{cfg.num_heads} query heads over {tp} model devices, which split no whole GQA groups"
     if what is None:
         return None
-    return (f"{cfg.name}: {what} is not served on a mesh yet (ROADMAP 26b: the serving mesh's next slice); "
-            "prefill and decode on a mesh serve GQA caches split by heads and rows")
+    return (f"{cfg.name}: {what} is not served on a mesh yet (ROADMAP 26b: the serving mesh's next slices); "
+            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence")
 
 
 def _semantic_axes(policy) -> dict:
@@ -578,7 +587,14 @@ class _MeshServing:
     """What the mesh's prefill and decode steps share: ``cfg`` on ``mesh``
     under the serving specs ``pspecs`` and the cache ``policy``, the
     current rules' batch axes; raises ``NotImplementedError`` for what the
-    slice does not serve (:func:`mesh_serving_gap`)."""
+    slice does not serve (:func:`mesh_serving_gap`).
+
+    ``shards`` are the model groups (flat positions, model order) that
+    compute rows: every data index's with ``policy.shard_batch``, else the
+    first alone (the rows do not split; the reference repeats them on
+    every data index).  With a cache split by sequence (``seq``: its mesh
+    axes) every group of ``groups`` holds keys of the shards' rows: a
+    shard's own group where the rows split, else every group."""
 
     def __init__(self, cfg: ModelConfig, mesh, pspecs: dict, policy):
         rules = S.get_rules()
@@ -596,8 +612,26 @@ class _MeshServing:
             raise ValueError(f"mesh axes {stray} are neither the rules' batch axes {batch_axes} nor 'model'")
         self.devices = mesh.flat
         pos_of = {id(dev): pos for pos, dev in enumerate(self.devices)}
-        self.shards = [[pos_of[id(dev)] for dev in group] for group in mesh.model_groups(self.data_axes)]
+        self.groups = [[pos_of[id(dev)] for dev in group] for group in mesh.model_groups(self.data_axes)]
+        self.row_split = self.data_size if policy.shard_batch else 1
+        self.shards = self.groups if policy.shard_batch else self.groups[:1]
         self.leads = [self.devices[group[0]] for group in self.shards]
+        self.seq = _semantic_axes(policy)["seq"]
+        if isinstance(self.seq, str):
+            self.seq = (self.seq,)
+
+    def holders(self, i: int) -> list:
+        """The model groups holding data shard ``i``'s cache rows: its own,
+        or with a sequence-split cache whose rows do not split, every
+        group."""
+        return [self.shards[i]] if self.seq is None or self.policy.shard_batch else self.groups
+
+    def offset(self, pos: int, width: int) -> int:
+        """The first key of the cache slice of ``width`` keys that the
+        device at flat position ``pos`` holds: its index over the
+        sequence's mesh axes (row-major, as :func:`cache_pspecs` splits
+        them) times the width; 0 where the sequence does not split."""
+        return 0 if self.seq is None else self.mesh.index(pos, self.seq) * width
 
     def contexts(self, copies: list) -> tuple:
         """Per data shard its ``TensorShard`` (None for a model group of
@@ -620,8 +654,8 @@ class _MeshServing:
         array-like) copied onto its lead (the caller is in its scope)."""
         dev = self.leads[i]
         value = torch.as_tensor(value)
-        if value.shape[0] != b * self.data_size:
-            raise ValueError(f"{value.shape[0]} rows do not split over {self.data_size} data shards")
+        if value.shape[0] != b * self.row_split:
+            raise ValueError(f"{value.shape[0]} rows do not split over {self.row_split} data shards")
         part = value[i * b:(i + 1) * b]
         if part.device.type == dev.device.type:
             C._used_on(part, dev)
@@ -651,7 +685,7 @@ class _MeshServing:
             return out
         b = hs[0].shape[0]
         lead = self.leads[0]
-        xs = hs[0] if len(hs) == 1 else C.all_gather(hs, self.leads, 0, (0,), self.data_size)[0]
+        xs = hs[0] if len(hs) == 1 else C.all_gather(hs, self.leads, 0, (0,), self.row_split)[0]
         with lead.scope(), S.tensor_shard(shards[0]), S.expert_shard(experts[0]):
             y = L.moe_apply_whole(copies[self.shards[0][0]].layers[layer].moe, self.cfg,
                                   xs.reshape(-1, 1, xs.shape[-1]), self.cfg.mlp_act).reshape(xs.shape)
@@ -696,7 +730,7 @@ class _MeshServing:
             last = xs[i][:, -1:] if xs[i].dim() == 3 else xs[i][:, None]
             with self.leads[i].scope(), S.tensor_shard(shards[i]):
                 parts.append(T.logits_from(params[group[0]], cfg, last)[:, 0])
-        return parts[0] if len(parts) == 1 else C.all_gather(parts, self.leads, 0, (0,), self.data_size)[0]
+        return parts[0] if len(parts) == 1 else C.all_gather(parts, self.leads, 0, (0,), self.row_split)[0]
 
 
 def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
@@ -718,7 +752,14 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
     vocab rows.  Layer by layer every shard's attention runs, then the
     FFN: a MoE layer takes the expert-parallel branch per shard where the
     reference's global batch would, else routes every shard's rows at once
-    on the first shard's model group (:meth:`_MeshServing.ffn`)."""
+    on the first shard's model group (:meth:`_MeshServing.ffn`).
+
+    With a cache split by sequence (heads that do not split over "model")
+    attention runs whole on the shard's lead over the leaves gathered there
+    (``sharding.whole``; K3 on every head), and each model device receives
+    its key slice of the layer's K and V (``collectives.send``).  Rows
+    that do not split over the data axes raise, as the reference's
+    prefill cannot shard them either."""
     plan = _MeshServing(cfg, mesh, pspecs, policy)
 
     @torch.no_grad()
@@ -729,9 +770,13 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
         s = n_text + (0 if vision_embeds is None else vision_embeds.shape[1])
         if s > max_len:
             raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
+        if plan.row_split != plan.data_size:
+            raise ValueError(f"a prefill of {bsz} rows does not split over {plan.data_size} data shards "
+                             f"(cache policy {policy}): prefill at the data size or more, then place the cache")
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
             caches = init_mesh_cache(cfg, mesh, policy, bsz, max_len, cache_dtype)
+            width = caches[0]["k"].shape[2]
             positions = []
 
             def embed(i, group, lead):
@@ -740,7 +785,32 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
                 positions.append(torch.arange(s, device=plan.leads[i].device))
                 return T.embed_inputs(lead, cfg, tok, vis)
 
+            def attend_seq(i, group, shard, layer, p_attn, h, window):
+                p = S.whole(p_attn)
+                q, k, v = L.gqa_project_qkv(p, cfg, h, positions[i])
+                out = L.attention_scores_blockwise(q, k, v, causal=True, window=window)
+                y = out.reshape(*h.shape[:2], cfg.num_heads * cfg.resolved_head_dim) @ p.wo.to(h.dtype)
+                if policy.kv_repeat > 1:
+                    k = k.repeat_interleave(policy.kv_repeat, dim=2)
+                    v = v.repeat_interleave(policy.kv_repeat, dim=2)
+                for q_pos in group:  # each model device its keys [lo, lo + n) of the prompt
+                    lo = plan.offset(q_pos, width)
+                    n = min(s, lo + width) - lo
+                    if n <= 0:
+                        continue
+                    kk, vv = k[:, lo:lo + n], v[:, lo:lo + n]
+                    dev = plan.devices[q_pos]
+                    if q_pos != group[0]:
+                        pair = [plan.devices[group[0]], dev]
+                        kk, vv = C.send(kk, pair, 0, 1), C.send(vv, pair, 0, 1)
+                    with dev.scope():
+                        caches[q_pos]["k"][layer][:, :n] = kk
+                        caches[q_pos]["v"][layer][:, :n] = vv
+                return y
+
             def attend(i, group, shard, layer, p_attn, h, window):
+                if plan.seq is not None:
+                    return attend_seq(i, group, shard, layer, p_attn, h, window)
                 if shard is None:
                     mine = caches[group[0]]
                     return _gqa_prefill(p_attn, cfg, h, positions[i], window, mine["k"][layer], mine["v"][layer],
@@ -784,6 +854,56 @@ def _gqa_decode_tp(p_attn, cfg, x, layer_caches: list, lens: list, window, shard
     return C.ring_sum(parts, shard.devices)
 
 
+def _gqa_decode_seq(p_attn, cfg, x, lengths, plan, holders: list, layer_caches: dict, lens: dict, window,
+                    kv_repeat):
+    """One token's GQA attention over a cache split by sequence: on the
+    lead, over the leaves gathered there (``sharding.whole``), q (as f32)
+    and the token's k, v from ``x`` (B, D) at ``lengths`` (the global
+    cache fill); q, k and v copied to every device of ``holders`` (model
+    groups of flat positions, the lead's group first), each writing the row
+    where its slice holds the position (:func:`_scatter_rows_` at
+    ``lens[pos][0]``, the lengths less its slice's first key) and running
+    K4 with its log-sum-exp over its slice (``lens[pos][1]`` valid-key
+    lengths; ``layer_caches[pos]``: this layer's (k, v)).  The partials
+    merge in f32 (``decode_attention.ops.merge_partials``): within each
+    group on its lead, then over the groups' leads on the first; a gather
+    of partials holds a slice for each device of the whole axis (a
+    RoleMesh's trace counts the mesh's).  Returns the output times ``wo``
+    on the lead, in ``x``'s dtype."""
+    bsz, hd, dt = x.shape[0], cfg.resolved_head_dim, x.dtype
+    p = S.whole(p_attn)
+    q, k, v = (t[:, 0] for t in L.gqa_project_qkv(p, cfg, x[:, None], lengths[:, None]))
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=1)
+        v = v.repeat_interleave(kv_repeat, dim=1)
+    flat = [q_pos for group in holders for q_pos in group]
+    copies = dict(zip(flat, C.copy_leaves([q.float(), k, v], [plan.devices[q_pos] for q_pos in flat])))
+    packed = {}
+    for q_pos in flat:
+        qm, km, vm = copies[q_pos]
+        kc, vc = layer_caches[q_pos]
+        with plan.devices[q_pos].scope():
+            _scatter_rows_(kc, km, lens[q_pos][0])
+            _scatter_rows_(vc, vm, lens[q_pos][0])
+            out, lse = decode_ops.decode_attention_cache(qm, kc, vc, lens[q_pos][1], window=window, return_lse=True)
+            packed[q_pos] = torch.cat([out, lse[..., None]], -1)[None]  # (1, B, H, hd + 1)
+
+    def merge(parts: list, devices: list, slices: int, last: bool):
+        whole = C.all_gather(parts, devices, 0, (0,), slices)[0]
+        with devices[0].scope():
+            if last:
+                return decode_ops.merge_partials(whole[..., :hd], whole[..., hd], dtype=dt)
+            out, lse = decode_ops.merge_partials(whole[..., :hd], whole[..., hd], return_lse=True)
+            return torch.cat([out, lse[..., None]], -1)[None]
+
+    tp = plan.mesh.shape.get("model", 1)
+    leads = [plan.devices[group[0]] for group in holders]
+    merged = [merge([packed[q_pos] for q_pos in group], [plan.devices[q_pos] for q_pos in group], tp,
+                    len(holders) == 1) for group in holders]
+    out = merged[0] if len(holders) == 1 else merge(merged, leads, plan.data_size, True)
+    return out.reshape(bsz, cfg.num_heads * hd) @ p.wo.to(dt)
+
+
 def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
     """The mesh's decode step: ``decode_fn(params, token, cache, lengths)
     -> (logits (B, V) on the mesh's first device, the cache — each device's
@@ -798,28 +918,47 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
     the reference's expert-parallel threshold, so it routes the whole
     batch at once: one capacity over all B tokens, and the reference's
     drops.  It runs eagerly (no CUDA graph: ``DecodeGraph`` is
-    single-device)."""
+    single-device).
+
+    With a cache split by sequence attention is :func:`_gqa_decode_seq`:
+    the token's q, k, v on the shard's lead, K4 on every device holding
+    keys of its rows, the partial softmaxes merged back on the lead.
+    Where the rows do not split over the data axes (a batch smaller than
+    they are, the sequence split over them too) the first data index's
+    model group runs the layers once and every device of the mesh runs
+    K4 on its slice; the reference repeats the layers on every data
+    index."""
     plan = _MeshServing(cfg, mesh, pspecs, policy)
 
     @torch.no_grad()
     def decode_fn(params, token, cache: list, lengths):
         token, lengths = torch.as_tensor(token), torch.as_tensor(lengths)
         bsz = token.shape[0]
-        b = bsz // plan.data_size
+        b = bsz // plan.row_split
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
-            lens = [None] * len(plan.devices)
+            lens, glob = [None] * len(plan.devices), {}
+            width = cache[0]["k"].shape[2]
 
             def embed(i, group, lead):
                 tok = plan.rows(token, i, b, torch.long)
                 ln = plan.rows(lengths, i, b)
-                copies = [[ln]] if len(group) == 1 else C.copy_leaves([ln], [plan.devices[q] for q in group])
-                for q, [mine] in zip(group, copies):
+                glob[i] = ln
+                holders = [q for g in plan.holders(i) for q in g]
+                copies = [[ln]] if len(holders) == 1 else C.copy_leaves([ln], [plan.devices[q] for q in holders])
+                for q, [mine] in zip(holders, copies):
                     with plan.devices[q].scope():
+                        off = plan.offset(q, width)
+                        mine = mine if off == 0 else mine - off
                         lens[q] = (mine, mine + 1)
                 return T.embed_tokens(lead, cfg, tok[:, None])[:, 0]
 
             def attend(i, group, shard, layer, p_attn, h, window):
+                if plan.seq is not None:
+                    holders = plan.holders(i)
+                    layer_caches = {q: (cache[q]["k"][layer], cache[q]["v"][layer]) for g in holders for q in g}
+                    return _gqa_decode_seq(p_attn, cfg, h, glob[i], plan, holders, layer_caches, lens, window,
+                                           policy.kv_repeat)
                 if shard is None:
                     mine = cache[group[0]]
                     return _gqa_decode(p_attn, cfg, h, mine["k"][layer], mine["v"][layer], lens[group[0]][0],

@@ -329,6 +329,7 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                         # summed over the shards (and microbatches) in order, on its own device's stream
                         if fsdp:
                             C._enter(devices)
+                        members = []  # the last model device's sums on the lead's stream
                         for (q, n, w), g in zip(leaves, got):
                             if g is None:
                                 continue
@@ -338,13 +339,21 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, loss_fn, grad_pspecs, 
                                     if n not in grads[q]:
                                         grads[q][n] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                                     grads[q][n].add_(g if accum == 1 else g / accum)
+                            elif accum > 1 and q == group[-1] != lead:
+                                members.append((q, n, w, g))
                             elif accum > 1:
                                 if n not in grads[q]:
                                     grads[q][n] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                                 grads[q][n].add_(g / accum)
                             else:
                                 grads[q][n] = g
-                        del got
+                        # on a RoleMesh the last model device stands for those the group leaves out
+                        with _build.counted(layout.tp - len(group) + 1):
+                            for q, n, w, g in members:
+                                if n not in grads[q]:
+                                    grads[q][n] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                                grads[q][n].add_(g / accum)
+                        del got, members
             C.barrier(devices)  # every backward's gradients, on whichever stream made them
             for group in shards:
                 # replicated leaves the shard's other model devices used too

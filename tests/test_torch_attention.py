@@ -219,16 +219,19 @@ def test_k4_split_plan_fills_the_card_at_the_gemma_decode_shape():
 
 
 # ------------------------- K4: the kernel's split-and-merge arithmetic
-def _k4_emulation(q, k, v, lengths, window, n_sm=H100_SMS):
+def _k4_emulation(q, k, v, lengths, window, n_sm=H100_SMS, return_lse=False):
     """csrc/decode_attention.cu's arithmetic in torch, at the plan the
     wrapper picks: per chunk a max, p = exp(s - max), its sum and p V;
     then the last block's merge over the chunks in split order, skipping
-    empty chunks; with no valid key at all, the mean of V's S rows."""
+    empty chunks; with no valid key at all, the mean of V's S rows.  With
+    ``return_lse`` also the merged max + log(sum) per head (-1e30 with no
+    valid key), as the kernel writes it."""
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     chunk, n_split = da.split_plan(b * kvh, s, window, d, k.element_size(), n_sm)
     out = torch.empty((b, h, d))
+    lse = torch.empty((b, h))
     for bi in range(b):
         for kv in range(kvh):
             qg = q[bi, kv * g:(kv + 1) * g].float()
@@ -251,10 +254,12 @@ def _k4_emulation(q, k, v, lengths, window, n_sm=H100_SMS):
                     acc += a * torch.exp(m - mx)[:, None]
             if (total == 0).all():
                 res = v[bi, :, kv].float().mean(0).expand(g, d)
+                lse[bi, kv * g:(kv + 1) * g] = -1e30
             else:
                 res = acc / total[:, None]
+                lse[bi, kv * g:(kv + 1) * g] = mx + torch.log(total)
             out[bi, kv * g:(kv + 1) * g] = res
-    return out.to(q.dtype)
+    return (out.to(q.dtype), lse) if return_lse else out.to(q.dtype)
 
 
 @pytest.mark.parametrize(
@@ -300,6 +305,130 @@ def test_k4_no_valid_key_gives_the_mean_of_v(window, length):
     np.testing.assert_allclose(got.numpy(), pallas, atol=F32_ATOL)
     plain = da.decode_attention_cache(*_t(q, k, v), torch.from_numpy(lens), window=window)
     np.testing.assert_allclose(plain.numpy(), pallas, atol=F32_ATOL)
+
+
+# ------------------- K4's log-sum-exp and the merge of a sequence-split cache
+def _reference_lse(q, k, lengths, window):
+    """The reference's masked scores' log-sum-exp: decode_attention_jnp's
+    scores (f32, the grouped einsum, masked to -1e30), logsumexp'd."""
+    import jax
+
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    qg = jnp.asarray(q.reshape(b, kvh, h // kvh, d))
+    sc = jnp.einsum("bkgd,bskd->bkgs", qg, jnp.asarray(k)) * d**-0.5
+    pos = jnp.arange(k.shape[1])[None, None, None, :]
+    lens = jnp.asarray(lengths)[:, None, None, None]
+    mask = pos < lens
+    if window is not None:
+        mask &= pos >= lens - window
+    return np.asarray(jax.nn.logsumexp(jnp.where(mask, sc, -1e30), axis=-1)).reshape(b, h)
+
+
+@pytest.mark.parametrize(
+    "h,kvh,s,d,window,lengths",
+    [
+        (4, 1, 64, 32, None, [0, 1, 40, 64, 80]),
+        (4, 1, 64, 32, 8, [-5, 3, 60, 70, 72 + 9]),  # below 0; past S + window: no valid key
+        (8, 2, 100, 16, 30, [100, 129, 130, 31, 2]),
+        (4, 4, 48, 64, None, [-1, 48, 1000, 24, 7]),
+    ],
+)
+def test_k4_lse_is_the_reference_masked_logsumexp(h, kvh, s, d, window, lengths):
+    """The plain version's log-sum-exp is the reference's masked scores'
+    (decode_attention_jnp's f32 scores at -1e30 where masked): -1e30 with
+    no valid key, lengths below 0 and above S included; the kernel's
+    arithmetic (max + log(sum) over its chunks) gives the same."""
+    b = len(lengths)
+    q, k, v = _normal(b, h, d), _normal(b, s, kvh, d), _normal(b, s, kvh, d)
+    lens = np.asarray(lengths, np.int32)
+    out, lse = da.decode_attention_cache(*_t(q, k, v), torch.from_numpy(lens), window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    want = _reference_lse(q, k, lens, window)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=F32_ATOL)
+    hi = np.minimum(np.maximum(lens, 0), s)
+    lo = np.maximum(0, lens - window) if window is not None else np.zeros_like(lens)
+    empty = hi <= lo
+    assert empty.any() and (lse.numpy()[empty] == -1e30).all()
+    assert torch.equal(out, da.decode_attention_cache(*_t(q, k, v), torch.from_numpy(lens), window=window))
+    got_out, got_lse = _k4_emulation(*_t(q, k, v), torch.from_numpy(lens), window, return_lse=True)
+    np.testing.assert_allclose(got_lse.numpy(), lse.numpy(), rtol=1e-6, atol=F32_ATOL)
+    np.testing.assert_allclose(got_out.numpy(), out.numpy(), atol=F32_ATOL)
+
+
+@pytest.mark.parametrize(
+    "n,s,window,lengths",
+    [
+        (2, 64, None, [1, 33, 64, 0]),  # the second slice empty for the first row; all empty for the last
+        (4, 64, 8, [13, 20, 64 + 8, 35]),  # 8-key windows straddling 16-key slices; past S + window
+        (8, 64, 16, [3, 17, 64, 1]),  # most slices empty
+        (8, 256, 40, [0, 100, 130, 256 + 40]),  # two rows with no valid key anywhere: the mean of V
+    ],
+)
+def test_k4_merge_of_slices_equals_the_whole_cache(n, s, window, lengths):
+    """A cache split by sequence into ``n`` slices: K4 on each slice with
+    the lengths shifted by its first key (``lengths - off``, below 0 and
+    above the slice among them) and the same window, merged by
+    ``merge_partials``, is the reference's decode_attention_jnp on the
+    whole cache — with windows straddling a boundary, slices with no valid
+    key (weight 0), and rows with none at all (every slice's mean of V
+    weighted alike: the whole cache's mean, the reference's uniform
+    softmax)."""
+    b, h, kvh, d = len(lengths), 4, 1, 32
+    q, k, v = _normal(b, h, d), _normal(b, s, kvh, d), _normal(b, s, kvh, d)
+    lens = np.asarray(lengths, np.int32)
+    w = s // n
+    outs, lses = [], []
+    for j in range(n):
+        kc, vc = (torch.from_numpy(x[:, j * w:(j + 1) * w]) for x in (k, v))
+        out, lse = da.decode_attention_cache(torch.from_numpy(q), kc, vc, torch.from_numpy(lens - j * w),
+                                             window=window, return_lse=True)
+        outs.append(out)
+        lses.append(lse)
+    got = da.merge_partials(outs, lses)
+    want = np.asarray(RL.decode_attention_jnp(*map(jnp.asarray, (q, k, v, lens)), window=window))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+    none = [i for i, n_ in enumerate(lens) if not (max(0, n_ - (window or n_)) < min(n_, s))]
+    if none:
+        np.testing.assert_allclose(got.numpy()[none], np.broadcast_to(v.mean(1), (b, h, d))[none], atol=F32_ATOL)
+    # merged in two levels (halves, then the halves' merges) it is the same
+    half = n // 2
+    first, lse1 = da.merge_partials(outs[:half], lses[:half], return_lse=True)
+    second, lse2 = da.merge_partials(outs[half:], lses[half:], return_lse=True)
+    np.testing.assert_allclose(da.merge_partials([first, second], [lse1, lse2]).numpy(), want, atol=F32_ATOL)
+    # the merged log-sum-exp is the whole cache's
+    _, whole = da.decode_attention_cache(*_t(q, k, v), torch.from_numpy(lens), window=window, return_lse=True)
+    _, both = da.merge_partials(outs, lses, return_lse=True)
+    np.testing.assert_allclose(both.numpy(), whole.numpy(), rtol=1e-6, atol=F32_ATOL)
+
+
+def test_merge_partials_casts_at_the_end():
+    """The partials merge in f32 and the result takes the asked dtype."""
+    outs = torch.from_numpy(_normal(3, 2, 4, 8))
+    lses = torch.from_numpy(_normal(3, 2, 4))
+    f32 = da.merge_partials(outs, lses)
+    bf16 = da.merge_partials(outs, lses, dtype=torch.bfloat16)
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, f32.bfloat16())
+
+
+def test_scatter_rows_drops_positions_outside_the_slice():
+    """``decode._scatter_rows_`` writes a row where 0 <= position < S and
+    drops it elsewhere: past the slice (JAX drops an out-of-bounds
+    scatter) and before it (a slice starting after the sequence's
+    position, written at ``lengths - off``), which would otherwise wrap to
+    the slice's end."""
+    from repro_torch.models import decode as D
+
+    cache = torch.zeros((4, 6, 1, 2))
+    rows = torch.arange(1, 9, dtype=torch.float32).reshape(4, 1, 2)
+    D._scatter_rows_(cache, rows, torch.tensor([-1, 0, 5, 6]))
+    want = torch.zeros((4, 6, 1, 2))
+    want[1, 0], want[2, 5] = rows[1], rows[2]
+    assert torch.equal(cache, want)
+    D._scatter_rows_(cache, rows, torch.tensor([-6, -7, -100, 3]))
+    want[3, 3] = rows[3]
+    assert torch.equal(cache, want)
 
 
 # --------------------------------- the model-layout functions the LM calls

@@ -289,12 +289,15 @@ def test_role_mesh_trace_equals_a_full_trace_under_fsdp(monkeypatch, shape):
     indices 0-2: layers by whole layers, a stand-in for the owner of
     layers 6-7; the embedding, the head and the final norm on a feature
     dim) counts what a trace of every device counts, per device — its
-    gathers, its launches, FLOPs and placed bytes — but for what each
-    stored feature slice receives from the other data shards' gathers:
-    their reduce-scatters and the sums over them, which the RoleMesh
-    counts for its 3 data shards of 4.  The bytes made are left out too: the grad
-    norm's ring over a data column pads its buffer to a multiple of the
-    column's 3 devices, not 4."""
+    gathers and the reduce-scatters each stored feature slice receives
+    from every data shard's gather (the RoleMesh's last data shard stands
+    for the one it leaves out, ``_build.counted``), its launches, FLOPs
+    and placed bytes.  Its traffic is short by exactly the autograd
+    engine's sums of those scatters, which run outside the collective: a
+    stored slice adds up one gradient fewer for the data shard left out,
+    and each such add reads two slices and writes one.  The bytes made are
+    left out: the grad norm's ring over a data column pads its buffer to a
+    multiple of the column's 3 devices, not 4."""
     cfg = dataclasses.replace(configs.get_smoke_config("qwen3-32b"), num_layers=8, head_dim=64)
     monkeypatch.setattr(LS, "FSDP_THRESHOLD_BYTES", 0)
     cell = InputShape("c", "train", 32, 16)
@@ -302,13 +305,19 @@ def test_role_mesh_trace_equals_a_full_trace_under_fsdp(monkeypatch, shape):
     short = dryrun.run_cell(cfg, cell, mesh)
     monkeypatch.setattr(LS, "RoleMesh", lambda m: m)
     full = dryrun.run_cell(cfg, cell, mesh)
-    fed = ("traffic_bytes", "collective_bytes", "total_collective_bytes", "temp_bytes")
+    fed = ("traffic_bytes", "temp_bytes")
     assert {k: v for k, v in short["hlo"].items() if k not in fed} == {
         k: v for k, v in full["hlo"].items() if k not in fed}
     got, want = short["hlo"]["collective_bytes"], full["hlo"]["collective_bytes"]
-    assert {k: v for k, v in got.items() if k != "reduce-scatter"} == {
-        k: v for k, v in want.items() if k != "reduce-scatter"}
-    assert 0 < got["reduce-scatter"] < want["reduce-scatter"]
+    assert got == want and got["reduce-scatter"] > 0
+    model = T.TransformerLM(cfg, "meta", torch.float32)
+    with S.use_rules(S.SINGLE_POD_RULES), mesh:
+        specs = _fsdp_specs({"params": model}, mesh)
+        layout = Z.Layout(model, mesh, specs, param_specs=specs)
+    stored = sum(p.numel() * 4 // shape[0] // (shape[1] if layout.model_dim[n] is not None else 1)
+                 for n, p in model.named_parameters() if layout.fsdp_dim[n] not in (None, -1))
+    assert stored > 0
+    assert full["hlo"]["traffic_bytes"] - short["hlo"]["traffic_bytes"] == 3 * (shape[0] - 3) * stored
     for key in ("argument_bytes", "reference_layout_argument_bytes"):
         assert short["memory"][key] == full["memory"][key], key
     assert short["memory"]["argument_bytes"] == short["memory"]["reference_layout_argument_bytes"]

@@ -393,6 +393,30 @@ def test_role_mesh_equals_a_full_trace(monkeypatch, arch, shape, seq):
     assert short["hlo"]["total_collective_bytes"] > 0
 
 
+def test_role_mesh_counts_an_expert_parallel_leads_sums(monkeypatch):
+    """OLMoE on (2, 4), whose model axis passes the RoleMesh's 3 indices,
+    over microbatches: each shard's lead adds up every model device's
+    gradients on its own stream, and the RoleMesh's last model device
+    stands for the one it leaves out (``_build.counted``).  The trace
+    counts what a trace of every device counts — FLOPs, launches,
+    collective bytes, argument bytes — and the traffic within 64 bytes
+    (scalars the autograd engine makes for each model device's backward,
+    counted on the lead; the sums alone were 2.18 MB short).  The bytes
+    made are left out: the accumulators the lead makes for the other
+    model devices count as its own."""
+    cfg, cell = _widened("olmoe-1b-7b"), InputShape("c", "train", 128, 16)
+    mesh = make_mesh((2, 4), ("data", "model"), H.trace_devices(8))
+    short = dryrun.run_cell(cfg, cell, mesh)
+    monkeypatch.setattr(specs, "RoleMesh", lambda m: m)
+    full = dryrun.run_cell(cfg, cell, mesh)
+    fed = ("traffic_bytes", "temp_bytes")
+    assert {k: v for k, v in short["hlo"].items() if k not in fed} == {
+        k: v for k, v in full["hlo"].items() if k not in fed}
+    assert abs(short["hlo"]["traffic_bytes"] - full["hlo"]["traffic_bytes"]) <= 64
+    for key in ("argument_bytes", "reference_layout_argument_bytes"):
+        assert short["memory"][key] == full["memory"][key], key
+
+
 def test_repeated_microbatches_count_as_a_full_loop(monkeypatch):
     """Five microbatches traced as two, the second counted four times, give
     the counts of tracing all five."""

@@ -4,11 +4,15 @@ CPU: ``zero.place_params`` puts each model device's slice of every
 ``decode.make_mesh_prefill`` / ``make_mesh_decode_step`` split the rows
 over the data shards and the heads over "model", and each device keeps its
 slice of the KV cache (``choose_cache_policy``: heads over "model" after
-``kv_repeat``, rows over the data axes).
+``kv_repeat``, rows over the data axes; or, where the heads do not split,
+the sequence over "model", and over the data axes too at a batch smaller
+than they are: K4 on each device's keys, the partial softmaxes merged by
+their log-sum-exp).
 
 Meshes of logical CPU devices (``REPRO_TORCH_FORCE_DEVICE_COUNT``) of
-shapes (1, 2), (2, 1) and (2, 2); the smoke configurations of the five
-served architectures with the reference's weights (``from_jax_params``).
+shapes (1, 2), (2, 1) and (2, 2), and (1, 8) and (2, 8) for the smoke
+gemma3-1b's sequence split; the smoke configurations of the five served
+architectures with the reference's weights (``from_jax_params``).
 Tolerances: logits against the reference's single-device ``prefill`` /
 ``decode_step`` (JAX, f32) within ``test_torch_lm.py``'s ``RTOL`` (1e-4 of
 the largest |logit|: f32 sums in another order, the partial outputs' ring
@@ -33,14 +37,15 @@ from repro import configs as ref_configs  # noqa: E402
 from repro.distributed import sharding as Rsh  # noqa: E402
 from repro.models import decode as RD  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.configs.shapes import SHAPES  # noqa: E402
+from repro_torch.configs.shapes import SHAPES, InputShape  # noqa: E402
 from repro_torch.device import current_logical  # noqa: E402
 from repro_torch.distributed import sharding as S  # noqa: E402
 from repro_torch.distributed import zero as Z  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import hlo_analysis as H  # noqa: E402
 from repro_torch.launch import specs as TS  # noqa: E402
-from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -95,17 +100,20 @@ def _reference(arch):
     return _REF[arch]
 
 
-def _serve(cfg, model, mesh, toks, vis, steps=STEPS):
+def _serve(cfg, model, mesh, toks, vis, steps=STEPS, policy=None, max_len=None):
     """Place ``model`` on ``mesh``, prefill and decode ``steps`` tokens ->
-    (logits per call, the placed cache, the policy, the placed params)."""
+    (logits per call, the placed cache, the policy, the placed params);
+    ``policy`` default: ``choose_cache_policy``'s, ``max_len`` default:
+    :func:`_max_len`."""
+    max_len = max_len or _max_len(cfg)
     with S.use_rules(S.SINGLE_POD_RULES):
-        policy = choose_cache_policy(cfg, mesh.shape["model"], toks.shape[0], mesh.shape["data"])
+        policy = policy or choose_cache_policy(cfg, mesh.shape["model"], toks.shape[0], mesh.shape["data"])
         pspecs = S.param_pspecs(model)
         placed = Z.place_params(model, mesh, pspecs)
         prefill = D.make_mesh_prefill(cfg, mesh, pspecs, policy)
         step = D.make_mesh_decode_step(cfg, mesh, pspecs, policy)
     kw = {} if vis is None else {"vision_embeds": torch.from_numpy(vis)}
-    lg, cache, lens = prefill(placed, torch.from_numpy(toks[:, :N_PRE]), max_len=_max_len(cfg),
+    lg, cache, lens = prefill(placed, torch.from_numpy(toks[:, :N_PRE]), max_len=max_len,
                               cache_dtype=torch.float32, **kw)
     out = [lg]
     for t in range(steps):
@@ -117,6 +125,21 @@ def _serve(cfg, model, mesh, toks, vis, steps=STEPS):
 
 
 # ----------------------------------------------------------------- logits
+def _spied(monkeypatch) -> dict:
+    """The logical devices K3's and K4's plain versions run on, by kernel."""
+    seen = {"k3": set(), "k4": set()}
+
+    def spy(key, fn):
+        def wrapped(*args, **kw):
+            seen[key].add(current_logical().label)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(L, "attention_scores_blockwise", spy("k3", L.attention_scores_blockwise))
+    monkeypatch.setattr(da_ops, "decode_attention_cache", spy("k4", da_ops.decode_attention_cache))
+    return seen
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_mesh_logits_against_reference(arch, mesh, monkeypatch):
@@ -127,17 +150,7 @@ def test_mesh_logits_against_reference(arch, mesh, monkeypatch):
     want = _reference(arch)
     _, cfg, _, model, toks, vis = _setup(arch)
     m = _mesh(MESHES[mesh], monkeypatch)
-    seen = {"k3": set(), "k4": set()}
-    k3, k4 = L.attention_scores_blockwise, da_ops.decode_attention_cache
-
-    def spy(key, fn):
-        def wrapped(*args, **kw):
-            seen[key].add(current_logical().label)
-            return fn(*args, **kw)
-        return wrapped
-
-    monkeypatch.setattr(L, "attention_scores_blockwise", spy("k3", k3))
-    monkeypatch.setattr(da_ops, "decode_attention_cache", spy("k4", k4))
+    seen = _spied(monkeypatch)
     got, _, _, _ = _serve(cfg, model, m, toks, vis)
     for g, w in zip(got, want):
         assert g.shape == (B, cfg.padded_vocab_size) and g.device == m.flat[0].device
@@ -179,6 +192,148 @@ def test_cache_slices_are_the_single_device_caches(arch, mesh, monkeypatch):
         back = D.gather_cache(cache, m, policy)
     assert {k: v.shape for k, v in back.items()} == {k: v.shape for k, v in single.items()}
     assert all(torch.equal(back[k][0], single[k][0]) for k in back)
+
+
+# ------------------------------------------------ the sequence-split cache
+# (arch, mesh shape, a forced cache policy or None for choose_cache_policy's, max_len or None for _max_len's)
+SEQ_CASES = {
+    "gemma3-1b-1x8": ("gemma3-1b", (1, 8), None, 64),
+    "internlm2-1.8b-1x2": ("internlm2-1.8b", (1, 2), CachePolicy(1, False, True, ("model",)), None),
+    "internlm2-1.8b-2x2": ("internlm2-1.8b", (2, 2), CachePolicy(1, False, True, ("model",)), None),
+}
+_SEQ_REF: dict = {}
+
+
+def _reference_run(arch, rows: int, max_len: int):
+    """The reference's single-device logits over the first ``rows`` rows of
+    :func:`_setup`'s tokens: prefill of N_PRE tokens into a ``max_len``
+    cache, then STEPS decode steps (cached)."""
+    key = (arch, rows, max_len)
+    if key not in _SEQ_REF:
+        ref_cfg, _, params, _, toks, _ = _setup(arch)
+        jp = jax.tree.map(jnp.asarray, params)
+        lg, cache, lens = RD.prefill(jp, ref_cfg, jnp.asarray(toks[:rows, :N_PRE]), max_len=max_len,
+                                     cache_dtype=jnp.float32)
+        out = [np.asarray(lg)]
+        for t in range(STEPS):
+            lg, cache, lens = RD.decode_step(jp, ref_cfg, jnp.asarray(toks[:rows, N_PRE + t]), cache, lens)
+            out.append(np.asarray(lg))
+        _SEQ_REF[key] = out
+    return _SEQ_REF[key]
+
+
+def _single_run(cfg, model, toks, max_len, policy, rows=None):
+    """The port's single-device cache after prefill and STEPS decode steps
+    of the first ``rows`` rows (default: all)."""
+    toks = toks[:rows]
+    _, single, lens = D.prefill(model, cfg, torch.from_numpy(toks[:, :N_PRE]), max_len=max_len,
+                                kv_repeat=policy.kv_repeat, cache_dtype=torch.float32)
+    for t in range(STEPS):
+        _, single, lens = D.decode_step(model, cfg, torch.from_numpy(toks[:, N_PRE + t]), single, lens,
+                                        kv_repeat=policy.kv_repeat)
+    return single
+
+
+def _hold_slices(cache, single, policy, m, rows: int, width: int) -> None:
+    """Each device's k and v slice is the same slice of the single-device
+    cache (its rows, its keys): bitwise in the first layer, within
+    CACHE_RTOL of the largest |entry| after it."""
+    with S.use_rules(S.SINGLE_POD_RULES):
+        specs = D.cache_pspecs(single, policy, m)
+    for q, mine in enumerate(cache):
+        for key, whole in single.items():
+            want = _spec_slice(whole.numpy(), specs[key], m, q)
+            got = mine[key].numpy()
+            assert got.shape == want.shape == (whole.shape[0], rows, width, *whole.shape[3:]), (key, q)
+            assert np.array_equal(got[0], want[0]), (key, q)
+            assert np.abs(got - want).max() <= CACHE_RTOL * np.abs(want).max(), (key, q)
+
+
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_sequence_split_logits_against_reference(case, monkeypatch):
+    """A cache split by sequence over "model" (choose_cache_policy's for
+    the smoke gemma3-1b's 4 heads over 1 KV head on 8 model devices; forced
+    for internlm2-1.8b on (1, 2) and (2, 2)): prefill's last-token logits
+    and STEPS decode steps' within RTOL of the reference's single-device
+    run.  K3 ran on each data shard's lead alone (the heads do not split:
+    attention runs whole there) and K4 on every device; on (1, 8) a 64-key
+    cache gives each device 8 keys, so devices 2-7 hold no valid key and
+    their partials weigh 0 in the merge."""
+    arch, shape, policy, max_len = SEQ_CASES[case]
+    _, cfg, _, model, toks, vis = _setup(arch)
+    max_len = max_len or _max_len(cfg)
+    want = _reference_run(arch, B, max_len)
+    m = _mesh(shape, monkeypatch)
+    seen = _spied(monkeypatch)
+    got, _, used, _ = _serve(cfg, model, m, toks, vis, policy=policy, max_len=max_len)
+    assert used.seq_axes == ("model",) and not used.shard_heads and used.shard_batch
+    for g, w in zip(got, want):
+        assert g.shape == (B, cfg.padded_vocab_size) and g.device == m.flat[0].device
+        _close(g, w, RTOL, cfg.vocab_size)
+    leads = {m.flat[i * shape[1]].label for i in range(shape[0])}
+    assert seen == {"k3": leads, "k4": {dev.label for dev in m.flat}}, (case, seen)
+
+
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_sequence_split_cache_slices_are_the_single_device_caches(case, monkeypatch):
+    """After prefill and the decode steps each device's slice of k and v
+    holds its data shard's rows and its model index's keys (64 / 8 on
+    (1, 8)) of the port's single-device cache: bitwise in the first layer,
+    within CACHE_RTOL after it; a device whose keys lie past the 13
+    written holds zeros, and ``gather_cache`` joins the slices back."""
+    arch, shape, policy, max_len = SEQ_CASES[case]
+    _, cfg, _, model, toks, vis = _setup(arch)
+    max_len = max_len or _max_len(cfg)
+    m = _mesh(shape, monkeypatch)
+    _, cache, policy, _ = _serve(cfg, model, m, toks, vis, policy=policy, max_len=max_len)
+    single = _single_run(cfg, model, toks, max_len, policy)
+    width = max_len // shape[1]
+    _hold_slices(cache, single, policy, m, B // shape[0], width)
+    for q in range(m.size):
+        if m.coords(q)["model"] * width >= N_PRE + STEPS:
+            assert all(not mine.any() for mine in cache[q].values()), q
+    with S.use_rules(S.SINGLE_POD_RULES):
+        back = D.gather_cache(cache, m, policy)
+    assert {k: v.shape for k, v in back.items()} == {k: v.shape for k, v in single.items()}
+    assert all(torch.equal(back[k][0], single[k][0]) for k in back)
+
+
+def test_sequence_split_over_data_at_batch_one(monkeypatch):
+    """The smoke gemma3-1b on (2, 8) at batch 1: choose_cache_policy splits
+    the sequence over ("data", "model"), 4 keys a device of a 64-key cache.
+    The mesh's prefill of one row raises (the rows do not split over the
+    data axes, as in the reference); the port's single-device prefill cache
+    placed with ``place_cache``, then STEPS decode steps: logits within
+    RTOL of the reference's decode steps, the layers on the first data
+    index's lead, K4 on all 16 devices (the merge in two levels), and each
+    device's cache slice the single-device cache's."""
+    arch, max_len = "gemma3-1b", 64
+    _, cfg, _, model, toks, _ = _setup(arch)
+    want = _reference_run(arch, 1, max_len)
+    m = _mesh((2, 8), monkeypatch)
+    with S.use_rules(S.SINGLE_POD_RULES):
+        policy = choose_cache_policy(cfg, 8, 1, 2)
+        pspecs = S.param_pspecs(model)
+        placed = Z.place_params(model, m, pspecs)
+        prefill = D.make_mesh_prefill(cfg, m, pspecs, policy)
+        step = D.make_mesh_decode_step(cfg, m, pspecs, policy)
+    assert policy == CachePolicy(1, False, False, ("data", "model"))
+    with pytest.raises(ValueError, match="does not split over 2 data shards"):
+        prefill(placed, torch.from_numpy(toks[:1, :N_PRE]), max_len=max_len, cache_dtype=torch.float32)
+    lg, single, lens = D.prefill(model, cfg, torch.from_numpy(toks[:1, :N_PRE]), max_len=max_len,
+                                 cache_dtype=torch.float32)
+    _close(lg, want[0], RTOL, cfg.vocab_size)
+    with S.use_rules(S.SINGLE_POD_RULES):
+        cache = D.place_cache(single, m, policy)
+    expect = _single_run(cfg, model, toks, max_len, policy, rows=1)
+    seen = _spied(monkeypatch)
+    for t in range(STEPS):
+        lg, cache2, lens = step(placed, torch.from_numpy(toks[:1, N_PRE + t]), cache, lens)
+        assert cache2 is cache and lg.device == m.flat[0].device
+        _close(lg, want[t + 1], RTOL, cfg.vocab_size)
+    assert lens.tolist() == [N_PRE + STEPS]
+    assert seen == {"k3": set(), "k4": {dev.label for dev in m.flat}}
+    _hold_slices(cache, expect, policy, m, 1, max_len // 16)
 
 
 # ------------------------------------------------------------------ MoE
@@ -303,17 +458,25 @@ def test_placed_params_and_cache_are_the_reference_specs_slices(arch, mesh, monk
     assert all(torch.equal(back[k], cache[k]) for k in cache)
 
 
+# gemma3-1b's 4 heads over 1 KV head split no group at TP 16: its cache splits by sequence, over "model" at
+# prefill_32k / decode_32k and over the data axes too at long_500k's batch of 1
+PRODUCTION_CELLS = ([(arch, shape) for arch in SERVED for shape in ("prefill_32k", "decode_32k")]
+                    + [("gemma3-1b", shape) for shape in ("prefill_32k", "decode_32k", "long_500k")])
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch,shape", PRODUCTION_CELLS)
 def test_production_cells_place_the_reference_layout(arch, shape, multi_pod):
     """At full size on the 16x16 and 2x16x16 meshes (their RoleMesh, meta
     tensors) the busiest device's argument bytes equal the spec trees':
     the serving weights under ``param_pspecs`` (no FSDP: under the 4 GiB
     threshold at 2 bytes a parameter), for decode the cache under
-    ``cache_structs_and_specs``, and the inputs over the data axes, all at
-    the reference's 2 bytes, plus 2 bytes for each element of the leaves
-    the port keeps in f32 (``dtype_surplus_bytes``)."""
+    ``cache_structs_and_specs``, and the inputs over the data axes (whole
+    where the batch does not split), all at the reference's 2 bytes, plus 2
+    bytes for each element of the leaves the port keeps in f32
+    (``dtype_surplus_bytes``).  A decode device's cache slice holds its
+    rows, keys and heads: gemma3-1b's 8 rows x 2048 keys at decode_32k on
+    16x16, 1 x 2048 at long_500k (1 x 1024 on 2x16x16)."""
     cfg = configs.get_config(arch)
     mesh = make_production_mesh(multi_pod=multi_pod, devices=H.trace_devices(512 if multi_pod else 256))
     rules = S.MULTI_POD_RULES if multi_pod else S.SINGLE_POD_RULES
@@ -328,11 +491,37 @@ def test_production_cells_place_the_reference_layout(arch, shape, multi_pod):
     assert spec.dtype_surplus_bytes == 2 * sum(w.numel() for w in wide.values())
     assert spec.argument_bytes == spec.reference_argument_bytes + spec.dtype_surplus_bytes
     assert len(placed) == len(spec.device_args) == (18 if multi_pod else 9)  # the RoleMesh's devices
-    if shape == "decode_32k":
-        cache = spec.args[2][0]
-        policy = choose_cache_policy(cfg, 16, SHAPES[shape].global_batch, 32 if multi_pod else 16)
-        assert cache["k"].shape == (cfg.num_layers, 128 // (32 if multi_pod else 16), SHAPES[shape].seq_len,
-                                    cfg.num_kv_heads * policy.kv_repeat // 16, cfg.resolved_head_dim)
+    if SHAPES[shape].kind == "decode":
+        cache, cell, data = spec.args[2][0], SHAPES[shape], 32 if multi_pod else 16
+        policy = choose_cache_policy(cfg, 16, cell.global_batch, data)
+        heads = cfg.num_kv_heads * policy.kv_repeat
+        keys = cell.seq_len // (16 * (data if "data" in policy.seq_axes else 1) if policy.seq_axes else 1)
+        assert cache["k"].shape == (cfg.num_layers, cell.global_batch // data if policy.shard_batch else 1, keys,
+                                    heads // 16 if policy.shard_heads else heads, cfg.resolved_head_dim)
+        if arch == "gemma3-1b":
+            assert cache["k"].shape[1:3] == {"decode_32k": (8 // (2 if multi_pod else 1), 2048),
+                                             "long_500k": (1, 2048 // (2 if multi_pod else 1))}[shape]
+
+
+@pytest.mark.parametrize("kind,batch", [("decode", 1), ("decode", 4), ("prefill", 4)])
+def test_role_mesh_trace_equals_a_full_trace_of_a_sequence_split_cell(kind, batch, monkeypatch):
+    """The smoke gemma3-1b (at head width 64, which the kernels take) on
+    (2, 8) with a 64-key cache: its cache splits by sequence over "model"
+    at batch 4 and over ("data", "model") at batch 1.  A trace on the
+    mesh's RoleMesh (3 data indices of 2, 3 model indices of 8) counts
+    what a trace of all 16 devices counts, per device: the gathers of
+    partials, which hold a slice for each device of the whole axis, the
+    sends of prefill's key slices, the launches (K4 on every device, K3 on
+    the leads), FLOPs, traffic and bytes."""
+    cfg = dataclasses.replace(configs.get_smoke_config("gemma3-1b"), head_dim=64)
+    cell = InputShape("c", kind, 64, batch)
+    mesh = make_mesh((2, 8), ("data", "model"), H.trace_devices(16))
+    short = dryrun.run_cell(cfg, cell, mesh)
+    monkeypatch.setattr(TS, "RoleMesh", lambda m: m)
+    full = dryrun.run_cell(cfg, cell, mesh)
+    assert short["hlo"] == full["hlo"] and short["memory"] == full["memory"]
+    assert short["hlo"]["launches"] == {"flash_attention" if kind == "prefill" else "decode_attention": cfg.num_layers}
+    assert short["hlo"]["collective_bytes"]["all-gather"] > 0
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-32b"])
@@ -373,7 +562,7 @@ def _not_served():
     """(arch, a policy, a FSDP flag) for each case the slice leaves out."""
     heads = CachePolicy(1, True, True, ())
     return {
-        "sequence-parallel": ("internlm2-1.8b", CachePolicy(1, False, True, ("model",)), False),
+        "sequence-over-data-with-heads": ("internlm2-1.8b", CachePolicy(1, True, False, ("data",)), False),
         "mla": ("deepseek-v2-236b", CachePolicy(1, False, True, ("model",)), False),
         "encoder-decoder": ("whisper-large-v3", heads, False),
         "ssm": ("xlstm-125m", CachePolicy(1, False, True, ()), False),

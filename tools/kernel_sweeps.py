@@ -181,7 +181,7 @@ def k4_stages(dev, card: str) -> None:
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.repro_decode_attention.argtypes = [I, I, P, L, L, P, L, L, L, P, L, L, L, P, P, P, P,
+    lib.repro_decode_attention.argtypes = [I, I, P, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P,
                                            I, I, I, I, I, I, I, F, I, P, P]
     lib.repro_decode_attention.restype = I
     rng = np.random.default_rng(C.SEED + 5)
@@ -203,7 +203,7 @@ def k4_stages(dev, card: str) -> None:
             torch.cuda._sleep(2_000_000)
             status = lib.repro_decode_attention(
                 1, 1, q.data_ptr(), q.stride(0), q.stride(1), kc.data_ptr(), *kc.stride()[:3],
-                vc.data_ptr(), *vc.stride()[:3], lens.data_ptr(), out.data_ptr(),
+                vc.data_ptr(), *vc.stride()[:3], lens.data_ptr(), out.data_ptr(), None,
                 part.data_ptr(), counters.data_ptr(), b, s, 1, h, d, chunk, n_split, d**-0.5,
                 -1 if window is None else window, torch.cuda.current_stream(dev).cuda_stream,
                 stamps.data_ptr())
