@@ -25,9 +25,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    launch over the whole cache; K6 (the selective scan,
    from the x_proj output to the gated rows) at hymba-1.5b's layer, S =
    1, 37 and 2048, with and without h0, ``z=None`` (y in f32) and gated,
-   timed at the prefill layer and at a decode step; K3's row log-sum-exp
-   (the backward's input) and K3's backward (dQ, then dK/dV) against their
-   plain versions at Gemma3-1B's training layers (4 x 1024, global and
+   and at the serving mesh's per-shard shapes (2 rows of 2048 and S = 1
+   at 2 rows and 1), timed at the prefill layer and at a decode step;
+   K3's row log-sum-exp (the backward's input) and K3's backward (dQ,
+   then dK/dV) against their plain versions at Gemma3-1B's training layers (4 x 1024, global and
    window 512, bf16 and f32) and ragged, GQA, D 64/128 and Sk != Sq
    cases, the backward timed per training step beside SDPA's backward;
    K3 also over K and V expanded (stride 0) over the batch or the KV
@@ -92,7 +93,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    lead alone and K4 on every device with its log-sum-exp, the partials
    merged; (b) Gemma3-1B full on (2, 8) at batch 1 over a seeded random
    cache of long_500k's 524,288 keys placed with ``place_cache``, 4 steps,
-   held the same way;
+   held the same way; then the recurrent states: xlstm-125m full on (2, 2)
+   (its 4 mLSTM heads split) and (1, 8) (the heads whole on every device,
+   96 sLSTM channels a device), hymba-1.5b full on (2, 2) (Mamba's
+   channels split beside its sequence-split attention cache), each layer's
+   recurrent branch on the data shard's lead (K6 there for Mamba) and the
+   new state sent to every holder; (c) hymba-1.5b full on (2, 8) at batch
+   1 over 524,288 keys, its Mamba states whole on both data indices;
 5. vision serving: a ``SmolRuntime`` over phase 3's model and corpus with
    ``warmup="full"`` (one CUDA graph per batch bucket), two tenants
    (weights 4 and 1), telemetry and a 64 MiB rendition cache serves every
@@ -1774,7 +1781,9 @@ def check_selective_scan(dev) -> float:
     channels, 16 states) at S = 1 (a decode step), 37 (ragged against the
     kernel's 32-step chunks) and 2048 (the prefill), with and without h0,
     the model dtype bf16 and f32; then the 8-state instance over 80
-    channels (the smoke config's: a ragged last block).  With ``z=None``
+    channels (the smoke config's: a ragged last block); then the serving
+    mesh's data-shard shapes in bf16 (phase 4G: 2 rows of 2048 without h0,
+    2 rows and 1 row at S = 1 with h0).  With ``z=None``
     y and h_last are held to ``SCAN_RTOL`` of the plain version's largest
     |value| (the recurrence in f32).  The gated output (the main path's
     form) rounds twice in bf16, bf16(bf16(y) bf16(silu(z))): bf16(y) is
@@ -1794,6 +1803,8 @@ def check_selective_scan(dev) -> float:
     cases = [(b, s, d, n, dt, h0) for s in (1, 37, PREFILL_S) for h0 in (False, True)
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(3, s, 80, 8, torch.float32, True) for s in (1, 37, 130)]
+    # phase 4G's per-shard shapes: a data shard's 2 rows on (2, 2) (the prompt, a step), part (c)'s 1 row
+    cases += [(2, s, d, n, torch.bfloat16, s == 1) for s in (PREFILL_S, 1)] + [(1, 1, d, n, torch.bfloat16, True)]
     worst = 0.0
     for bb, s, dd, nn, dt, with_h0 in cases:
         t = _scan_inputs(rng, bb, s, dd, nn, dt, dev)
@@ -4529,29 +4540,40 @@ def run_train_mesh(dev, card: str) -> dict:
 # (2, 2) streams: two data shards of two model devices.  Gemma3-1B at full size (kv 1 stored twice: one cache
 # head a model device), qwen3-32b and OLMoE-1B-7B at full width and 2 layers (``reduced``).  (a) Gemma3-1B at
 # full size on (1, 8): its 4 heads over 1 KV head split no group over 8, so its cache splits by sequence over
-# "model" (264 keys of the 2112 a device)
+# "model" (264 keys of the 2112 a device).  The recurrent states, at full size: xlstm-125m on (2, 2) (2 mLSTM heads
+# and 384 sLSTM channels a device) and on (1, 8) (4 heads over 8 stay whole on every device, 96 channels a
+# device: 16x16's layout), hymba-1.5b on (2, 2) (1600 Mamba channels a device beside its sequence-split cache)
 SERVE_MESH_MODELS = (("gemma3-1b", None, DECODE_STEPS, (2, 2)), ("qwen3-32b", 2, CUT_DECODE_STEPS, (2, 2)),
-                     ("olmoe-1b-7b", 2, CUT_DECODE_STEPS, (2, 2)), ("gemma3-1b", None, DECODE_STEPS, (1, 8)))
-# (b) Gemma3-1B at full size on (2, 8) at batch 1 over long_500k's 524,288 keys (32,768 a device: the sequence
-# splits over "data" and "model"), a seeded random bf16 cache; decode from a length whose local layers' 512-key
-# window straddles devices 14 and 15
-SERVE_MESH_LONG = True
+                     ("olmoe-1b-7b", 2, CUT_DECODE_STEPS, (2, 2)), ("gemma3-1b", None, DECODE_STEPS, (1, 8)),
+                     ("xlstm-125m", None, CUT_DECODE_STEPS, (2, 2)), ("xlstm-125m", None, CUT_DECODE_STEPS, (1, 8)),
+                     ("hymba-1.5b", None, CUT_DECODE_STEPS, (2, 2)))
+# the prompt length the dry run traces a prefill cell with where the model has an sLSTM: its token loop is traced op
+# by op (ms a step on the host), and no launch count depends on the length
+SLSTM_TRACE_S = 64
+# (b) Gemma3-1B and (c) hymba-1.5b at full size on (2, 8) at batch 1 over long_500k's 524,288 keys (32,768 a
+# device: the sequence splits over "data" and "model"), a seeded random cache; decode from a length whose sliding
+# window (512 keys, 1024) straddles devices 14 and 15; hymba's Mamba states whole on both data indices
+SERVE_MESH_LONG = ("gemma3-1b", "hymba-1.5b")
 LONG_MESH, LONG_KEYS, LONG_FROM, LONG_STEPS = (2, 8), 524_288, 491_720, 4
 
 
 @contextlib.contextmanager
 def _launches_by_device():
-    """For the block, K3's and K4's launches by logical device: yields
-    ({label: K3 launches}, {label: K4 launches})."""
+    """For the block, K3's, K4's and K6's launches by logical device:
+    yields ({label: K3 launches}, {label: K4 launches}, {label: K6
+    launches})."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
 
-    k3, k4, real = {}, {}, (fa_ops.flash_attention_bshd, da_ops.decode_attention_cache)
+    k3, k4, k6 = {}, {}, {}
+    real = (fa_ops.flash_attention_bshd, da_ops.decode_attention_cache, scan_ops.selective_scan)
     fa_ops.flash_attention_bshd, da_ops.decode_attention_cache = _ByDevice(real[0], k3), _ByDevice(real[1], k4)
+    scan_ops.selective_scan = _ByDevice(real[2], k6)
     try:
-        yield k3, k4
+        yield k3, k4, k6
     finally:
-        fa_ops.flash_attention_bshd, da_ops.decode_attention_cache = real
+        fa_ops.flash_attention_bshd, da_ops.decode_attention_cache, scan_ops.selective_scan = real
 
 
 def _lead_routing(record: list, leads: set):
@@ -4600,7 +4622,8 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     (``decode.make_mesh_prefill`` / ``make_mesh_decode_step`` over
     ``zero.place_params``' copies, the cache split as
     ``choose_cache_policy`` says: by heads and rows, or by sequence where
-    the heads do not split), bf16, seeded weights: a prefill of
+    the heads do not split; a recurrent state by rows and, where they
+    split, its heads or channels), bf16, seeded weights: a prefill of
     PREFILL_B x PREFILL_S into a DECODE_MAX_LEN cache, then ``steps``
     greedy decode steps.  Held: each call's logits against the same
     weights' single-device run on the same tokens within LM_LOGIT_RTOL (an
@@ -4610,11 +4633,14 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     default stream in program order) bitwise, logits and every cache
     slice; K3 once a layer on each model device in prefill (on each data
     shard's lead alone with a sequence-split cache: attention runs whole
-    there) and K4 once a layer a step on each, equal to the dry run's
-    per-device count of the same cell; each device's placed bytes (weights, cache) equal to
-    the reference layout's spec trees' at 2 bytes, plus 2 for each element
-    of the leaves the port keeps in f32.  Prefill and decode ms, mesh and
-    single device."""
+    there) and K4 once a layer a step on each, K6 once a layer a call on
+    each data shard's lead (hymba's Mamba), none for the xLSTM, equal to
+    the dry run's per-device count of the same cell (an sLSTM's prefill
+    cell traced at SLSTM_TRACE_S tokens); each device's placed bytes
+    (weights, cache) equal to the reference layout's spec trees' (the
+    weights at 2 bytes, each cache leaf at the reference's dtype: the
+    recurrent states f32), plus 2 for each element of the leaves the port
+    keeps in f32.  Prefill and decode ms, mesh and single device."""
     import dataclasses
 
     from repro_torch import configs
@@ -4628,6 +4654,7 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import decode as D
     from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
     from repro_torch.serving.kv_cache import choose_cache_policy
 
     full = configs.get_config(arch)
@@ -4635,12 +4662,14 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     tag = f"{full.name}{'' if layers is None else f' reduced to {layers} of {full.num_layers} layers'}"
     b, s, max_len, vocab = PREFILL_B, PREFILL_S, DECODE_MAX_LEN, cfg.vocab_size
     n_dev, on = shape[0] * shape[1], f"({shape[0]}, {shape[1]}) streams"
+    kind = T.main_block_kind(cfg)
     t0 = time.perf_counter()
     trace_mesh = make_mesh(shape, ("data", "model"), H.trace_devices(n_dev))
-    traced = {kind: dryrun.run_cell(cfg, InputShape(f"4g_{kind}", kind, n, b), trace_mesh)
-              for kind, n in (("prefill", s), ("decode", max_len))}
+    traced = {k: dryrun.run_cell(cfg, InputShape(f"4g_{k}", k, n, b), trace_mesh)
+              for k, n in (("prefill", SLSTM_TRACE_S if kind == "xlstm" else s), ("decode", max_len))}
     want_k3 = traced["prefill"]["hlo"]["launches"].get("flash_attention")
     want_k4 = traced["decode"]["hlo"]["launches"].get("decode_attention")
+    want_k6 = [traced[k]["hlo"]["launches"].get("selective_scan") for k in ("prefill", "decode")]
     trace_s = time.perf_counter() - t0
     model, _ = _build_lm(dev, cfg, f"{tag} (phase 4G)")
     mesh = make_mesh(shape, ("data", "model"), _mesh_devices(dev, n_dev))
@@ -4656,7 +4685,7 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
                              D.make_mesh_decode_step(cfg, serial, pspecs, policy))
         want_params, surplus = LS._param_spec_bytes(LS.param_structs(cfg), pspecs, mesh)
         whole_cache = D.init_cache(cfg, b, max_len, policy.kv_repeat, device="meta")
-        want_cache = LS._spec_bytes(whole_cache, D.cache_pspecs(whole_cache, policy, mesh), mesh, 2)
+        want_cache = LS._cache_spec_bytes(whole_cache, D.cache_pspecs(whole_cache, policy, mesh), mesh)
     rng = np.random.default_rng(SEED + 6)
     prompts = torch.from_numpy(rng.integers(0, vocab, size=(b, s))).to(dev)
     leads = {mesh.flat[i * shape[1]].label for i in range(shape[0])}
@@ -4689,9 +4718,9 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     prefill(placed, prompts, max_len=max_len)
     routing, differ = [], [0, 0]
     _zero_attention_counts()
-    with _launches_by_device() as (k3, k4), _lead_routing(routing, leads):
+    with _launches_by_device() as (k3, k4, k6), _lead_routing(routing, leads):
         (logits, cache, lens), mesh_prefill_ms = timed(lambda: prefill(placed, prompts, max_len=max_len))
-    launches = {"flash_attention": sum(k3.values())}
+    launches = {"flash_attention": sum(k3.values()), "selective_scan": sum(k6.values())}
     per_layer = _per_layer(routing, b * s // shards)  # each layer's routing, a shard's at a time under EP
     per_layer = [per_layer[layer * shards + i] for i in range(shards) for layer in range(len(per_layer) // shards)]
     with _pinned_routing(per_layer, differ):
@@ -4707,14 +4736,19 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
         f"{mesh_prefill_ms:.1f} ms against {single_prefill_ms:.1f} ms on one device; last-token logits vs the single "
         f"device's: max|d| / "
         f"max|logit| {err:.3e} (max|logit| {scale:.3e}, tolerance {LM_LOGIT_RTOL}){_mesh_routing_note(differ)}; K3 "
-        f"launches by device {k3} (dry run of the {shape} cell: {want_k3} a device, traced in {trace_s:.1f} s); placed "
-        f"bytes a device: weights {held}, cache {held_cache}; the reference layout's spec trees at 2 bytes give "
-        f"{want_params} and {want_cache}, and the port's f32 norm scales and routers add {surplus} [{card}]")
+        f"launches by device {k3}, K6 {k6} (dry run of the {shape} cell: K3 {want_k3}, K6 {want_k6[0]} a device, "
+        f"traced in {trace_s:.1f} s); placed bytes a device: weights {held}, cache {held_cache}; the reference "
+        f"layout's spec trees (weights at 2 bytes, the cache at its leaves' dtypes) give {want_params} and "
+        f"{want_cache}, and the port's f32 norm scales, routers and Mamba leaves add {surplus} [{card}]")
     if not err <= LM_LOGIT_RTOL:
         raise AssertionError(f"{tag}: mesh prefill logits differ from the single device's by {err}")
     k3_on = leads if policy.seq_axes else labels  # attention whole on the leads where the heads do not split
-    if k3 != dict.fromkeys(k3_on, cfg.num_layers) or want_k3 != cfg.num_layers or set(k4):
-        raise AssertionError(f"{tag}: prefill launches K3 {k3}, K4 {k4}; the dry run's {want_k3} a device")
+    n_attn = None if kind == "xlstm" else cfg.num_layers
+    n_scan = cfg.num_layers if kind == "hybrid" else None
+    if (k3 != (dict.fromkeys(k3_on, n_attn) if n_attn else {}) or want_k3 != n_attn or set(k4)
+            or k6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) or want_k6 != [n_scan, n_scan]):
+        raise AssertionError(f"{tag}: prefill launches K3 {k3}, K4 {k4}, K6 {k6}; the dry run's K3 {want_k3}, "
+                             f"K6 {want_k6} a device")
     if any(n != want_params + surplus for n in held) or any(n != want_cache for n in held_cache):
         raise AssertionError(f"{tag}: placed bytes {held} / {held_cache}, the spec trees' {want_params} + {surplus} "
                              f"/ {want_cache}")
@@ -4727,9 +4761,9 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     routing, differ = [], [0, 0]
     by_step = []
     for i in range(steps):
-        with _launches_by_device() as (k3, k4), _lead_routing(routing, leads):
+        with _launches_by_device() as (k3, k4, k6), _lead_routing(routing, leads):
             (lg, cache, lens), ms = timed(lambda: step(placed, tok, cache, lens))
-        by_step.append(dict(k4))
+        by_step.append((dict(k4), dict(k6)))
         mesh_ms.append(ms)
         per_layer = _per_layer(routing[-cfg.num_layers:] if cfg.is_moe else [], b)
         with _pinned_routing(per_layer, differ):
@@ -4744,20 +4778,22 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
         agree += int((nxt == slg.argmax(-1)).sum())
         n_tok += b
         tok = nxt
-    launches["decode_attention"] = sum(sum(c.values()) for c in by_step)
+    launches["decode_attention"] = sum(sum(c.values()) for c, _ in by_step)
+    launches["selective_scan_step"] = sum(sum(c.values()) for _, c in by_step)
     racy = [f"{mesh.flat[q].label} {k}" for q, (mine, theirs) in enumerate(zip(cache, serial_cache))
             for k in mine if not torch.equal(mine[k], theirs[k])]
     log(f"[serve-mesh] {tag}: decode {steps} steps x {b} from {s} keys: {statistics.median(mesh_ms):.2f} ms/step "
         f"median on the mesh against {statistics.median(single_ms):.2f} on one device (host clock, synchronised); "
         f"logits vs the single device's: max|d| / max|logit| {worst:.3e} (tolerance {LM_LOGIT_RTOL})"
         f"{_mesh_routing_note(differ)}; greedy tokens the single device's own argmax agrees with: {agree} of {n_tok}; K4 "
-        f"launches by device a step {by_step[0]} (dry run: {want_k4} a device); the mesh on streams bitwise the serial "
-        f"run: every call's logits and {'all' if not racy else 'NOT all'} {sum(len(c) for c in cache)} cache slices "
-        f"[{card}]")
+        f"launches by device a step {by_step[0][0]}, K6 {by_step[0][1]} (dry run: K4 {want_k4}, K6 {want_k6[1]} a "
+        f"device); the mesh on streams bitwise the serial run: every call's logits and "
+        f"{'all' if not racy else 'NOT all'} {sum(len(c) for c in cache)} cache slices [{card}]")
     if not worst <= LM_LOGIT_RTOL:
         raise AssertionError(f"{tag}: mesh decode logits differ from the single device's by {worst}")
-    if any(c != dict.fromkeys(labels, cfg.num_layers) for c in by_step) or want_k4 != cfg.num_layers:
-        raise AssertionError(f"{tag}: K4 launches by device a step {by_step}, the dry run's {want_k4}")
+    if (any(c4 != (dict.fromkeys(labels, n_attn) if n_attn else {})
+            or c6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) for c4, c6 in by_step) or want_k4 != n_attn):
+        raise AssertionError(f"{tag}: K4 and K6 launches by device a step {by_step}, the dry run's K4 {want_k4}")
     if racy:
         raise AssertionError(f"{tag}: cache slices differ from the serial run's: {racy}")
     del model, placed, cache, serial_cache, single_cache, prefill, step, prefill_s, step_s
@@ -4765,23 +4801,27 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     return launches
 
 
-def serve_mesh_long(dev, card: str) -> dict:
-    """(b) Gemma3-1B at full size, bf16, seeded weights, on (2, 8) streams
-    of the card at batch 1 over long_500k's cache: ``choose_cache_policy``
-    splits its sequence over ("data", "model"), LONG_KEYS / 16 keys a
-    device.  A seeded random bf16 cache (both leaves, every layer) is
-    placed with ``place_cache``, once for the mesh and once for the same
-    mesh without streams; LONG_STEPS greedy decode steps from LONG_FROM
-    (a local layer's 512-key window straddles devices 14 and 15) on the
-    mesh (the first data index's model group runs the layers, every device
-    K4 on its slice, the partials merged within each model group, then
-    over the groups), on the serial mesh and on one device over the whole
-    cache.  Held: the logits within LM_LOGIT_RTOL of the single device's,
-    bitwise the serial run's (logits and every cache slice); K4 once a
-    layer a step on every device and K3 never, equal to the dry run's
-    per-device count of the same cell; each device's placed bytes (weights,
-    cache) equal to the reference layout's spec trees' at 2 bytes plus 2
-    for each element of the port's f32 leaves.  Decode ms, mesh and one
+def serve_mesh_long(dev, card: str, arch: str = "gemma3-1b") -> dict:
+    """(b) Gemma3-1B, or (c) hymba-1.5b, at full size, bf16, seeded
+    weights, on (2, 8) streams of the card at batch 1 over long_500k's
+    cache: ``choose_cache_policy`` splits its sequence over ("data",
+    "model"), LONG_KEYS / 16 keys a device; hymba's Mamba states split by
+    channels over "model" and whole on both data indices.  A seeded random
+    cache (every leaf, every layer) is placed with ``place_cache``, once
+    for the mesh and once for the same mesh without streams; LONG_STEPS
+    greedy decode steps from LONG_FROM (a local layer's window, 512 keys or
+    1024, straddles devices 14 and 15) on the mesh (the first data index's
+    model group runs the layers, every device K4 on its slice, the
+    partials merged within each model group, then over the groups; the
+    Mamba step on the first lead, its new state sent to all 16 devices),
+    on the serial mesh and on one device over the whole cache.  Held: the
+    logits within LM_LOGIT_RTOL of the single device's, bitwise the serial
+    run's (logits and every cache slice); K4 once a layer a step on every
+    device, K6 once a layer a step on the first lead (hymba) and K3 never,
+    equal to the dry run's per-device count of the same cell; each
+    device's placed bytes (weights, cache) equal to the reference layout's
+    spec trees' (the weights at 2 bytes, each cache leaf at its dtype) plus
+    2 for each element of the port's f32 leaves.  Decode ms, mesh and one
     device."""
     from repro_torch import configs
     from repro_torch import device as Dv
@@ -4795,15 +4835,17 @@ def serve_mesh_long(dev, card: str) -> dict:
     from repro_torch.models import decode as D
     from repro_torch.serving.kv_cache import choose_cache_policy
 
-    cfg = configs.get_config("gemma3-1b")
+    cfg = configs.get_config(arch)
+    part = "(b)" if arch == "gemma3-1b" else "(c)"
+    tag = f"{arch} {part}"
     shape, keys, start, steps = LONG_MESH, LONG_KEYS, LONG_FROM, LONG_STEPS
     n_dev, vocab = shape[0] * shape[1], cfg.vocab_size
     t0 = time.perf_counter()
     traced = dryrun.run_cell(cfg, InputShape("4g_long", "decode", keys, 1),
                              make_mesh(shape, ("data", "model"), H.trace_devices(n_dev)))
-    want_k4 = traced["hlo"]["launches"]
+    want_launches = traced["hlo"]["launches"]
     trace_s = time.perf_counter() - t0
-    model, _ = _build_lm(dev, cfg, "gemma3-1b (phase 4G (b))")
+    model, _ = _build_lm(dev, cfg, f"{arch} (phase 4G {part})")
     mesh = make_mesh(shape, ("data", "model"), _mesh_devices(dev, n_dev))
     serial = make_mesh(shape, ("data", "model"),
                        [Dv.LogicalDevice(d.device, d.id, None, f"{d.label} serial") for d in mesh.flat])
@@ -4815,7 +4857,7 @@ def serve_mesh_long(dev, card: str) -> dict:
             cfg, serial, pspecs, policy)
         want_params, surplus = LS._param_spec_bytes(LS.param_structs(cfg), pspecs, mesh)
         whole_meta = D.init_cache(cfg, 1, keys, policy.kv_repeat, device="meta")
-        want_cache = LS._spec_bytes(whole_meta, D.cache_pspecs(whole_meta, policy, mesh), mesh, 2)
+        want_cache = LS._cache_spec_bytes(whole_meta, D.cache_pspecs(whole_meta, policy, mesh), mesh)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     cache = D.init_cache(cfg, 1, keys, policy.kv_repeat, device=dev)
@@ -4828,13 +4870,13 @@ def serve_mesh_long(dev, card: str) -> dict:
     whole_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
     held = [sum(t.numel() * t.element_size() for t in c.parameters()) for c in placed]
     held_cache = [sum(t.numel() * t.element_size() for t in mine.values()) for mine in placed_cache]
-    log(f"[serve-mesh] gemma3-1b (b) on ({shape[0]}, {shape[1]}) streams (cache policy {policy}): a seeded random "
-        f"bf16 cache of 1 x {keys} keys, {whole_gb:.2f} GB whole, {sum(held_cache) / 1e9:.2f} GB placed "
+    log(f"[serve-mesh] {tag} on ({shape[0]}, {shape[1]}) streams (cache policy {policy}): a seeded random "
+        f"cache of 1 x {keys} keys, {whole_gb:.2f} GB whole, {sum(held_cache) / 1e9:.2f} GB placed "
         f"({held_cache[0]} B a device), made and placed twice in {time.perf_counter() - t0:.1f} s; placed bytes a "
-        f"device: weights {held}; the reference layout's spec trees at 2 bytes give {want_params} and "
-        f"{want_cache}, and the port's f32 norm scales add {surplus} [{card}]")
+        f"device: weights {held}; the reference layout's spec trees (weights at 2 bytes, the cache at its leaves' "
+        f"dtypes) give {want_params} and {want_cache}, and the port's f32 leaves add {surplus} [{card}]")
     if any(n != want_params + surplus for n in held) or any(n != want_cache for n in held_cache):
-        raise AssertionError(f"gemma3-1b (b): placed bytes {held} / {held_cache}, the spec trees' {want_params} + "
+        raise AssertionError(f"{tag}: placed bytes {held} / {held_cache}, the spec trees' {want_params} + "
                              f"{surplus} / {want_cache}")
     lens_m = lens_s = lens_ser = torch.full((1,), start, dtype=torch.int32, device=dev)
     tok = torch.from_numpy(np.random.default_rng(SEED + 8).integers(0, vocab, size=1)).to(dev)
@@ -4847,57 +4889,61 @@ def serve_mesh_long(dev, card: str) -> dict:
         return out, (time.perf_counter() - t) * 1e3
 
     labels = [d.label for d in mesh.flat]
+    scans = cfg.num_layers if cfg.family == "hybrid" else None
     mesh_ms, single_ms, worst, by_step = [], [], 0.0, []
     _zero_attention_counts()
     for i in range(steps):
-        with _launches_by_device() as (k3, k4):
+        with _launches_by_device() as (k3, k4, k6):
             (lg, placed_cache, lens_m), ms = timed(lambda: step(placed, tok, placed_cache, lens_m))
-        by_step.append((dict(k3), dict(k4)))
+        by_step.append((dict(k3), dict(k4), dict(k6)))
         mesh_ms.append(ms)
         (slg, cache, lens_s), ms = timed(lambda: D.decode_step(model, cfg, tok, cache, lens_s))
         single_ms.append(ms)
         serial_lg, serial_cache, lens_ser = step_s(placed, tok, serial_cache, lens_ser)
         worst = max(worst, _rel_err(lg, slg, vocab)[0])
         if not torch.equal(lg, serial_lg):
-            raise AssertionError(f"gemma3-1b (b): decode step {i} logits differ from the serial run's")
+            raise AssertionError(f"{tag}: decode step {i} logits differ from the serial run's")
         tok = lg.argmax(-1)
     racy = [f"{mesh.flat[q].label} {k}" for q, (mine, theirs) in enumerate(zip(placed_cache, serial_cache))
             for k in mine if not torch.equal(mine[k], theirs[k])]
-    log(f"[serve-mesh] gemma3-1b (b): decode {steps} steps x 1 from {start} of {keys} keys: "
+    log(f"[serve-mesh] {tag}: decode {steps} steps x 1 from {start} of {keys} keys: "
         f"{statistics.median(mesh_ms):.2f} ms/step median on the mesh against {statistics.median(single_ms):.2f} on "
         f"one device over the whole cache (host clock, synchronised); logits vs the single device's: max|d| / "
-        f"max|logit| {worst:.3e} (tolerance {LM_LOGIT_RTOL}); K4 launches by device a step {by_step[0][1]}, K3 "
-        f"{by_step[0][0]} (dry run of the {shape} long_500k-size cell: {want_k4} a device, traced in {trace_s:.1f} "
-        f"s); lengths {lens_m.tolist()}; the mesh on streams bitwise the serial run: every step's logits and "
-        f"{'all' if not racy else 'NOT all'} {sum(len(c) for c in placed_cache)} cache slices [{card}]")
+        f"max|logit| {worst:.3e} (tolerance {LM_LOGIT_RTOL}); K4 launches by device a step {by_step[0][1]}, K6 "
+        f"{by_step[0][2]}, K3 {by_step[0][0]} (dry run of the {shape} long_500k-size cell: {want_launches} a device, "
+        f"traced in {trace_s:.1f} s); lengths {lens_m.tolist()}; the mesh on streams bitwise the serial run: every "
+        f"step's logits and {'all' if not racy else 'NOT all'} {sum(len(c) for c in placed_cache)} cache slices "
+        f"[{card}]")
     if not worst <= LM_LOGIT_RTOL:
-        raise AssertionError(f"gemma3-1b (b): mesh decode logits differ from the single device's by {worst}")
-    if (any(k3 or k4 != dict.fromkeys(labels, cfg.num_layers) for k3, k4 in by_step)
-            or want_k4 != {"decode_attention": cfg.num_layers}):
-        raise AssertionError(f"gemma3-1b (b): launches by device a step {by_step}, the dry run's {want_k4}")
+        raise AssertionError(f"{tag}: mesh decode logits differ from the single device's by {worst}")
+    want = {"decode_attention": cfg.num_layers, **({"selective_scan": scans} if scans else {})}
+    if (any(k3 or k4 != dict.fromkeys(labels, cfg.num_layers)
+            or k6 != ({labels[0]: scans} if scans else {}) for k3, k4, k6 in by_step) or want_launches != want):
+        raise AssertionError(f"{tag}: launches by device a step {by_step}, the dry run's {want_launches}")
     if racy:
-        raise AssertionError(f"gemma3-1b (b): cache slices differ from the serial run's: {racy}")
+        raise AssertionError(f"{tag}: cache slices differ from the serial run's: {racy}")
     if lens_m.tolist() != [start + steps] or lens_s.tolist() != [start + steps]:
-        raise AssertionError(f"gemma3-1b (b): lengths {lens_m.tolist()} / {lens_s.tolist()}")
+        raise AssertionError(f"{tag}: lengths {lens_m.tolist()} / {lens_s.tolist()}")
     del model, placed, cache, placed_cache, serial_cache, step, step_s
     torch.cuda.empty_cache()
-    return {"decode_attention": sum(sum(k4.values()) for _, k4 in by_step)}
+    return {"decode_attention": sum(sum(k4.values()) for _, k4, _ in by_step),
+            "selective_scan_step": sum(sum(k6.values()) for _, _, k6 in by_step)}
 
 
 def run_serve_mesh(dev, card: str) -> dict:
     """Phase 4G, prefill and decode on streams of the card
     (:func:`serve_mesh_model` for each of SERVE_MESH_MODELS on its mesh,
-    then, with SERVE_MESH_LONG, :func:`serve_mesh_long`; each model freed
-    before the next).  Returns the K3 and K4 launches."""
+    then :func:`serve_mesh_long` for each of SERVE_MESH_LONG; each model
+    freed before the next).  Returns the K3, K4 and K6 launches."""
     launches = {}
     for arch, layers, steps, shape in SERVE_MESH_MODELS:
         t0 = time.perf_counter()
         _add(launches, serve_mesh_model(dev, card, arch, layers, steps, shape))
         log(f"[serve-mesh] {arch} on {shape} took {time.perf_counter() - t0:.1f} s [{card}]")
-    if SERVE_MESH_LONG:
+    for arch in SERVE_MESH_LONG:
         t0 = time.perf_counter()
-        _add(launches, serve_mesh_long(dev, card))
-        log(f"[serve-mesh] gemma3-1b (b) on {LONG_MESH} at {LONG_KEYS} keys took {time.perf_counter() - t0:.1f} s "
+        _add(launches, serve_mesh_long(dev, card, arch))
+        log(f"[serve-mesh] {arch} on {LONG_MESH} at {LONG_KEYS} keys took {time.perf_counter() - t0:.1f} s "
             f"[{card}]")
     return launches
 
@@ -5251,7 +5297,8 @@ def main() -> int:
     _add(launches, run_train_mesh(dev, card))
     log(f"[train-mesh] phase 4F took {time.perf_counter() - t0:.1f} s [{card}]")
     # ---- phase 4G: prefill and decode on (2, 2) streams (Gemma3-1B, qwen3-32b and OLMoE at 2 layers), then
-    # Gemma3-1B's sequence-split cache on (1, 8) and at long_500k's length on (2, 8)
+    # Gemma3-1B's sequence-split cache on (1, 8) and at long_500k's length on (2, 8), then the recurrent states
+    # (xlstm-125m on (2, 2) and (1, 8), hymba-1.5b on (2, 2) and at long_500k's length on (2, 8))
     t0 = time.perf_counter()
     _add(launches, run_serve_mesh(dev, card))
     log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s [{card}]")

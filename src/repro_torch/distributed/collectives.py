@@ -24,7 +24,8 @@ per-device tensors, ``parts[i]`` on ``devices[i]``:
   compute cannot use as its slice, gathered before use; an FSDP leaf's
   feature slices, over its data column);
 * ``send`` — a tensor copied from one device to another, its gradient
-  sent back (an FSDP layer copied from the data index that owns it).
+  sent back (an FSDP layer copied from the data index that owns it; a
+  recurrent state from a serving shard's lead to each device holding it).
 
 On a card each step's work is enqueued on the receiving device's stream
 after a barrier of events over the group's streams: a receiver reads its
@@ -394,7 +395,7 @@ def all_gather(parts: list, devices, dim: int, at=None, slices: int | None = Non
 
 class _Send(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, devices, src, dst, x):
+    def forward(ctx, devices, src, dst, fanout, x):
         ctx.devices, ctx.src = devices, src
         with devices[dst].scope():
             out = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -405,6 +406,9 @@ class _Send(torch.autograd.Function):
                 _used_on(x, devices[dst])
                 out.copy_(x)
             _leave(devices, caller, [out])
+        if fanout and _build.tracing():
+            with _build.counted(fanout), _collective("send", [out], [devices[src]]):
+                pass
         return out
 
     @staticmethod
@@ -416,11 +420,14 @@ class _Send(torch.autograd.Function):
                 _used_on(g, devices[src])
                 out = g.clone(memory_format=torch.contiguous_format)
             _leave(devices, caller, [out])
-        return None, None, None, out
+        return None, None, None, None, out
 
 
-def send(x: torch.Tensor, devices, src: int, dst: int) -> torch.Tensor:
+def send(x: torch.Tensor, devices, src: int, dst: int, fanout: int | None = None) -> torch.Tensor:
     """``x`` (on ``devices[src]``) copied to ``devices[dst]``, made on its
     stream; under autograd its gradient is copied back to ``devices[src]``
-    on that device's stream."""
-    return _Send.apply(tuple(devices), src, dst, x)
+    on that device's stream.  An open trace counts the bytes at the
+    receiver; with ``fanout`` also at the source, as "send", for that many
+    receivers of the whole mesh (a :class:`~repro_torch.launch.mesh.RoleMesh`
+    device standing for those the span leaves out: ``Mesh.stands_for``)."""
+    return _Send.apply(tuple(devices), src, dst, fanout, x)

@@ -64,6 +64,12 @@ class Mesh:
             out = out * self.shape[a] + int(coords[a])
         return out
 
+    def stands_for(self, pos: int, beside: int) -> int:
+        """How many devices of the mesh the one at flat position ``pos``
+        stands for, as a receiver of the one at ``beside``: itself (a
+        :class:`RoleMesh` device may stand for more)."""
+        return 1
+
     def model_groups(self, data_axes) -> list[list]:
         """Per index along ``data_axes`` (a name or names, row-major over
         them), the devices along "model" (one device if the mesh has no
@@ -136,8 +142,10 @@ class RoleMesh(Mesh):
     receives a scatter of the gradient from each data shard's gather
     (``sharding.DataShards``, ``collectives.all_gather(alone=True)``); a
     gather of attention partials over a whole axis holds a slice for each
-    of its devices (``all_gather(slices=...)``, ``models/decode.py``).
-    The autograd engine's sums of a stored slice's scatters run outside
+    of its devices (``all_gather(slices=...)``, ``models/decode.py``); a
+    serving lead's send of a recurrent state to a holder counts for each
+    holder the receiver stands for (:meth:`stands_for`).  The autograd
+    engine's sums of a stored slice's scatters run outside
     any such block and are not scaled (a trace's traffic).  A layer
     stored whole on a data index the span leaves out is gathered from a
     stand-in (``zero.Layout.owner``), so each device sends as many layers
@@ -150,3 +158,15 @@ class RoleMesh(Mesh):
     @property
     def shape(self) -> collections.OrderedDict:
         return self._full
+
+    def stands_for(self, pos: int, beside: int) -> int:
+        """The whole mesh's devices the one at ``pos`` stands for as a
+        receiver of the one at ``beside``: along each axis the span cuts,
+        its last index stands for the indices left out as well, but along
+        an axis where it shares the sender's index (a sender whose receivers
+        lie on its own data index) for itself alone."""
+        n, mine = 1, self.coords(beside)
+        for axis, index in self.coords(pos).items():
+            if self._full[axis] > ROLE_SPAN and index == ROLE_SPAN - 1 and mine[axis] != index:
+                n *= self._full[axis] - ROLE_SPAN + 1
+        return n

@@ -33,15 +33,18 @@ What the port runs on a mesh, which is what the dry run traces:
   ``zero.place_params``' copies: every leaf whose serving spec has
   "model" on a dim stored as its slice in the config's dtype, and for
   decode the cache placed per device (``decode.init_mesh_cache``: its
-  data shard's rows, its model index's cache heads after ``kv_repeat``),
-  traced on the mesh's :class:`~repro_torch.launch.mesh.RoleMesh`.  The
-  argument bytes of the busiest device are the spec trees'
-  (``reference_argument_bytes``: every parameter and cache entry at the
-  reference's 2 bytes, plus the tokens over the data axes) plus
-  ``dtype_surplus_bytes``, what the port's f32 norm scales and MoE
-  routers add (the reference casts every leaf to bf16).
-  A cell whose cache ``choose_cache_policy`` splits by sequence, MLA, an
-  encoder-decoder, a recurrent state or parameters under FSDP
+  data shard's rows, its model index's cache heads after ``kv_repeat`` or
+  its keys of a sequence-split cache, its slice or replica of each
+  recurrent state), traced on the mesh's
+  :class:`~repro_torch.launch.mesh.RoleMesh`.  The argument bytes of the
+  busiest device are the spec trees' (``reference_argument_bytes``: every
+  parameter at the reference's 2 bytes, every cache entry at its leaf's
+  dtype in the reference's ``init_cache`` — the recurrent states f32 —,
+  plus the tokens over the data axes) plus ``dtype_surplus_bytes``, what
+  the port's f32 leaves add (its norm scales, MoE routers and Mamba's
+  conv, dt, A and D, where the reference casts every leaf to bf16).
+  A cell of MLA, an encoder-decoder, parameters under FSDP or a cache
+  split by sequence over the data axes while its heads split over "model"
   (``decode.mesh_serving_gap``) keeps its spec trees and a ``skip``
   reason, and is not traced.
 """
@@ -112,8 +115,8 @@ class LoweringSpec:
     skip: str | None = None  # why the port runs no such layout (then nothing is traced)
     argument_bytes: int = 0  # what the port places, on its busiest device
     reference_argument_bytes: int | None = None  # per device under the spec trees (cells on a mesh)
-    # serving cells on a mesh: what the port's leaves wider than the reference's bf16 (its f32 norm scales and MoE
-    # routers) add per device, so that argument_bytes == reference_argument_bytes + dtype_surplus_bytes
+    # serving cells on a mesh: what the port's leaves wider than the reference's bf16 (its f32 norm scales, MoE
+    # routers and Mamba's f32 leaves) add per device, so that argument_bytes == reference_argument_bytes + dtype_surplus_bytes
     dtype_surplus_bytes: int | None = None
     device_args: list = dataclasses.field(default_factory=list)  # per device: the placed tensors
 
@@ -227,7 +230,8 @@ def _placed_params(params, pspecs, mesh) -> tuple:
 def _param_spec_bytes(params, pspecs, mesh) -> tuple[int, int]:
     """(per-device bytes of the serving weights under ``pspecs`` at the
     reference's 2 bytes a parameter, what the port's leaves wider than
-    that add: its f32 norm scales and MoE routers)."""
+    that add: its f32 norm scales, MoE routers and Mamba's conv, dt, A
+    and D)."""
     shapes = T.stack_jax_layout(params.named_parameters())
 
     def surplus(shapes, specs) -> int:
@@ -290,6 +294,13 @@ def cache_structs_and_specs(cfg: ModelConfig, shape: InputShape, policy: CachePo
     return cache, D.cache_pspecs(cache, policy, mesh)
 
 
+def _cache_spec_bytes(cache: dict, specs: dict, mesh) -> int:
+    """Per-device bytes of the reference's cache under ``specs``, each leaf
+    at the reference's own dtype (``init_cache``'s: the KV cache and the
+    hybrid's conv window in bf16, the recurrent states in f32)."""
+    return sum(_spec_bytes(leaf, specs[k], mesh, leaf.element_size()) for k, leaf in cache.items())
+
+
 def decode_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
     data_size, policy, params, pspecs, skip = _serving(cfg, shape, mesh)
     cache, cache_specs = cache_structs_and_specs(cfg, shape, policy, mesh)
@@ -315,7 +326,7 @@ def decode_cell(cfg: ModelConfig, shape: InputShape, mesh) -> LoweringSpec:
         per_device = [list(c.parameters()) + list(mine.values()) for c, mine in zip(placed, caches)]
         weights, surplus = _param_spec_bytes(params, pspecs, mesh)
         data_size = data_size if split else 1
-        ref_bytes = weights + _spec_bytes(cache, cache_specs, mesh, 2) + inputs // data_size
+        ref_bytes = weights + _cache_spec_bytes(cache, cache_specs, mesh) + inputs // data_size
     return LoweringSpec(
         fn=serve_step,
         args=args,

@@ -53,7 +53,12 @@ What differs:
   on each model device's cache slice; or, where the heads do not split,
   the cache split by sequence, each device running K4 over its keys and
   the partial softmaxes merged by their log-sum-exp
-  (:func:`_gqa_decode_seq`).  What they do not serve yet raises
+  (:func:`_gqa_decode_seq`).  The recurrent states (the xLSTM's, hymba's
+  Mamba states beside its attention cache) are held as the reference's
+  specs place them, a state's heads and channels over "model" where they
+  split evenly, else whole on each model device; each layer's recurrent
+  branch runs on the data shard's lead and writes every holder's slice or
+  replica (:meth:`_MeshServing.recur`).  What they do not serve yet raises
   (:func:`mesh_serving_gap`).
 """
 
@@ -243,17 +248,42 @@ def _write_(cache_l: dict, names, values) -> None:
         cache_l[name].copy_(value)
 
 
+def _state_names(p) -> tuple:
+    """The cache leaves block ``p``'s recurrent branch keeps: Mamba's
+    (hybrid), the sLSTM's or the mLSTM's (xLSTM, by ``is_slstm``)."""
+    if p.kind == "hybrid":
+        return ("ssm", "conv")
+    return ssm.SLSTM_STATE if p.is_slstm else ("mlstm_c", "mlstm_n")
+
+
+def _recurrent(p, cfg, h, state=None):
+    """Block ``p``'s recurrent branch (Mamba, or the xLSTM layer's sLSTM or
+    mLSTM) over ``h``: the whole prompt (B, S, D) from zero with ``state``
+    None, else one token (B, D) from ``state`` (its leaves by
+    :func:`_state_names`) -> (y, the new state in that order).  Inside a
+    tensor shard the branch's leaves are gathered whole on the lead
+    (``sharding.whole``)."""
+    if p.kind == "hybrid":
+        m = S.whole(p.mamba)
+        if state is None:
+            return ssm.mamba_apply(m, h, cfg.ssm_state)
+        return ssm.mamba_step(m, h, state["ssm"], state["conv"].to(h.dtype), cfg.ssm_state)
+    if p.is_slstm:
+        if state is None:
+            return ssm.slstm_apply(S.whole(p.slstm), h, cfg.num_heads)
+        return ssm.slstm_step(S.whole(p.slstm), h, tuple(state[k] for k in ssm.SLSTM_STATE))
+    if state is None:
+        return ssm.mlstm_apply(S.whole(p.mlstm), h, cfg.num_heads)
+    return ssm.mlstm_step(S.whole(p.mlstm), h, state["mlstm_c"], state["mlstm_n"], cfg.num_heads)
+
+
 def _block_decode(p, cfg, x, cache_l, is_local, lengths, kv_repeat):
     """One block, one token.  x: (B, D); cache_l: this layer's slices by
-    leaf name, updated in place."""
+    leaf name, updated in place (the recurrent branch writes only its own
+    leaves)."""
     if p.kind == "xlstm":
-        h = L.apply_norm(p.pre_norm, x, cfg.norm_type)
-        if p.is_slstm:
-            y, state = ssm.slstm_step(p.slstm, h, tuple(cache_l[k] for k in ssm.SLSTM_STATE))
-            _write_(cache_l, ssm.SLSTM_STATE, state)
-        else:
-            y, state = ssm.mlstm_step(p.mlstm, h, cache_l["mlstm_c"], cache_l["mlstm_n"], cfg.num_heads)
-            _write_(cache_l, ("mlstm_c", "mlstm_n"), state)
+        y, state = _recurrent(p, cfg, L.apply_norm(p.pre_norm, x, cfg.norm_type), cache_l)
+        _write_(cache_l, _state_names(p), state)
         return x + y
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     if cfg.attn_type == "mla":
@@ -261,8 +291,8 @@ def _block_decode(p, cfg, x, cache_l, is_local, lengths, kv_repeat):
     else:
         y = _gqa_decode(p.attn, cfg, h, cache_l["k"], cache_l["v"], lengths, _window(cfg, is_local), kv_repeat)
     if p.kind == "hybrid":
-        m_out, state = ssm.mamba_step(p.mamba, h, cache_l["ssm"], cache_l["conv"].to(h.dtype), cfg.ssm_state)
-        _write_(cache_l, ("ssm", "conv"), state)
+        m_out, state = _recurrent(p, cfg, h, cache_l)
+        _write_(cache_l, _state_names(p), state)
         y = T.hybrid_mix(p, cfg, y, m_out)
     x = x + y
     h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
@@ -313,13 +343,8 @@ def _block_prefill(p, cfg, x, positions, is_local, cache_l, kv_repeat):
     (GQA) or c_kv / k_rope (MLA) rows, the hybrid's Mamba states, the
     xLSTM layer's mLSTM or sLSTM state (the other stays at zero)."""
     if p.kind == "xlstm":
-        h = L.apply_norm(p.pre_norm, x, cfg.norm_type)
-        if p.is_slstm:
-            y, state = ssm.slstm_apply(p.slstm, h, cfg.num_heads)
-            _write_(cache_l, ssm.SLSTM_STATE, state)
-        else:
-            y, state = ssm.mlstm_apply(p.mlstm, h, cfg.num_heads)
-            _write_(cache_l, ("mlstm_c", "mlstm_n"), state)
+        y, state = _recurrent(p, cfg, L.apply_norm(p.pre_norm, x, cfg.norm_type))
+        _write_(cache_l, _state_names(p), state)
         return x + y
     h = L.apply_norm(p.attn_norm, x, cfg.norm_type)
     if cfg.attn_type == "mla":
@@ -330,8 +355,8 @@ def _block_prefill(p, cfg, x, positions, is_local, cache_l, kv_repeat):
     else:
         y = _gqa_prefill(p.attn, cfg, h, positions, _window(cfg, is_local), cache_l["k"], cache_l["v"], kv_repeat)
     if p.kind == "hybrid":
-        m_out, state = ssm.mamba_apply(p.mamba, h, cfg.ssm_state)
-        _write_(cache_l, ("ssm", "conv"), state)
+        m_out, state = _recurrent(p, cfg, h)
+        _write_(cache_l, _state_names(p), state)
         y = T.hybrid_mix(p, cfg, y, m_out)
     x = x + y
     h2 = L.apply_norm(p.mlp_norm, x, cfg.norm_type)
@@ -384,39 +409,39 @@ def prefill(
 # split as ``serving.kv_cache.choose_cache_policy`` says — by heads over
 # "model" (each KV head stored ``kv_repeat`` times) and by rows over the
 # data axes, or by sequence over "model" (and the data axes at a batch
-# smaller than they are) — each device holding its slice
-# (:func:`cache_pspecs`).
+# smaller than they are) — and the recurrent states by rows and by their
+# heads or channels, each device holding its slice (:func:`cache_pspecs`).
 def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None:
     """Why the mesh's prefill and decode do not serve ``cfg`` under
     ``policy`` (a ``CachePolicy``) with the parameters under ``pspecs`` on
     ``mesh``, or None when they do: the next slices of ROADMAP 26b take
-    MLA, the encoder-decoder's cross cache, the recurrent states,
-    parameters under FSDP (a spec tree naming the current rules' data
-    axes, ``sharding.splits_over_data``) and a cache split by sequence over
-    the data axes while its heads split over "model"."""
+    MLA, the encoder-decoder's cross cache, parameters under FSDP (a spec
+    tree naming the current rules' data axes,
+    ``sharding.splits_over_data``) and a cache split by sequence over the
+    data axes while its heads split over "model".  The checks on the KV
+    cache's layout hold for a model that attends: the xLSTM keeps
+    recurrent states alone."""
     tp = mesh.shape.get("model", 1)
+    attends = T.main_block_kind(cfg) != "xlstm"
     what = None
     if cfg.attn_type == "mla":
         what = "MLA's compressed cache (choose_cache_policy splits its sequence)"
-    elif cfg.family == "ssm":
-        what = "a recurrent state (the xLSTM's mLSTM and sLSTM states)"
-    elif cfg.family == "hybrid":
-        what = "a recurrent state (Mamba's beside the attention cache)"
     elif cfg.is_encdec:
         what = "the encoder-decoder's cross K/V cache"
-    elif policy.seq_axes and policy.shard_heads:
+    elif attends and policy.seq_axes and policy.shard_heads:
         what = (f"a KV cache split by sequence over {'/'.join(policy.seq_axes)} while its heads split over "
                 "'model'")
-    elif not policy.seq_axes and not (policy.shard_heads and policy.shard_batch):
+    elif attends and not policy.seq_axes and not (policy.shard_heads and policy.shard_batch):
         what = "a KV cache that splits neither by heads nor by rows"
     elif S.splits_over_data(pspecs, mesh):
         what = "parameters under FSDP at 2 bytes (maybe_fsdp_pspecs)"
-    elif not policy.seq_axes and not L.heads_split(cfg, tp):
+    elif attends and not policy.seq_axes and not L.heads_split(cfg, tp):
         what = f"{cfg.num_heads} query heads over {tp} model devices, which split no whole GQA groups"
     if what is None:
         return None
     return (f"{cfg.name}: {what} is not served on a mesh yet (ROADMAP 26b: the serving mesh's next slices); "
-            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence")
+            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence, and the "
+            "recurrent states")
 
 
 def _semantic_axes(policy) -> dict:
@@ -468,13 +493,20 @@ def cache_pspecs(cache: dict, policy, mesh) -> dict:
     return specs
 
 
+# a recurrent state's heads and channels: kept whole on every model device where they do not split evenly, as
+# the reference's spec leaves them (4 mLSTM heads over 8 or 16)
+_REPLICABLE = frozenset({"inner", "rec_heads"})
+
+
 def _placed_specs(cache: dict, policy, mesh) -> dict:
     """:func:`cache_pspecs`, raising where a dim the policy splits does not
-    split evenly (the mesh's steps hold every split dim as slices)."""
+    split evenly (the mesh's steps hold every split dim as slices), but a
+    recurrent state's heads or channels, which stay whole there."""
     specs = cache_pspecs(cache, policy, mesh)
     for key, leaf in cache.items():
-        for d, (got, want) in enumerate(zip(specs[key], _leaf_axes(key, len(leaf.shape), policy))):
-            if got != want:
+        sem = CACHE_DIM_SEMANTICS.get(key, (None,) * len(leaf.shape))
+        for d, (got, want, name) in enumerate(zip(specs[key], _leaf_axes(key, len(leaf.shape), policy), sem)):
+            if got != want and name not in _REPLICABLE:
                 raise ValueError(f"{key}: dim {d} of {tuple(leaf.shape)} does not split over {want} "
                                  f"({_axes_size(want, mesh)} devices)")
     return specs
@@ -497,18 +529,19 @@ def _spec_part(spec, shape, mesh, pos: int) -> tuple:
 
 def init_mesh_cache(cfg: ModelConfig, mesh, policy, batch: int, max_len: int,
                     dtype: torch.dtype = torch.bfloat16) -> list[dict]:
-    """A zero-filled GQA cache (k and v, :func:`init_cache`'s) for ``batch``
-    sequences of up to ``max_len`` on ``mesh``: per device, in
-    ``mesh.flat`` order, its slice of each leaf (:func:`cache_pspecs`),
-    made on its stream.  The whole is never made (a trace would count it)."""
-    shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, policy.kv_repeat), cfg.resolved_head_dim)
-    whole = {k: SimpleNamespace(shape=shape) for k in ("k", "v")}
+    """A zero-filled cache (:func:`init_cache`'s leaves in its dtypes: k and
+    v in ``dtype``, the recurrent states in f32, the hybrid's conv window in
+    ``dtype``) for ``batch`` sequences of up to ``max_len`` on ``mesh``:
+    per device, in ``mesh.flat`` order, its slice of each leaf
+    (:func:`cache_pspecs`), made on its stream.  The whole is never made (a
+    trace would count it)."""
+    whole = init_cache(cfg, batch, max_len, policy.kv_repeat, dtype, device="meta")
     specs = _placed_specs(whole, policy, mesh)
     out = []
-    for pos, dev in enumerate(mesh.flat):
+    for dev in mesh.flat:
         with dev.scope():
-            out.append({k: torch.zeros(_part_shape(specs[k], shape, mesh), dtype=dtype, device=dev.device)
-                        for k in whole})
+            out.append({k: torch.zeros(_part_shape(specs[k], v.shape, mesh), dtype=v.dtype, device=dev.device)
+                        for k, v in whole.items()})
     return out
 
 
@@ -537,17 +570,29 @@ def place_cache(cache: dict, mesh, policy) -> list[dict]:
     return out
 
 
-def gather_cache(placed: list[dict], mesh, policy) -> dict:
+def gather_cache(placed: list[dict], mesh, policy, cfg: ModelConfig | None = None) -> dict:
     """The inverse of :func:`place_cache`: the whole cache on the first
-    device's torch device, each leaf joined from the devices' slices."""
+    device's torch device, each leaf joined from the devices' slices.  A
+    recurrent state's heads or channels are whole on each device where
+    they do not split, so their width comes from ``cfg`` (needed for those
+    leaves alone)."""
     devices = mesh.flat
     dev = devices[0].device
     caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     C._leave(devices, caller, [])  # the caller's stream reads after every device's writes
+    widths = None if cfg is None else init_cache(cfg, 1, 1, policy.kv_repeat, device="meta")
     out = {}
     for k, first in placed[0].items():
-        spec = S.P(*_leaf_axes(k, first.ndim, policy))
-        shape = [n * _axes_size(ax, mesh) for n, ax in zip(first.shape, spec)]
+        shape = []
+        for d, (n, ax, name) in enumerate(zip(first.shape, _leaf_axes(k, first.ndim, policy),
+                                              CACHE_DIM_SEMANTICS.get(k, (None,) * first.ndim))):
+            if name in _REPLICABLE:
+                if widths is None:
+                    raise ValueError(f"{k}: gathering a recurrent state needs the model's config (cfg=)")
+                shape.append(widths[k].shape[d])
+            else:
+                shape.append(n * _axes_size(ax, mesh))
+        spec = cache_pspecs({k: SimpleNamespace(shape=tuple(shape))}, policy, mesh)[k]
         whole = torch.empty(shape, dtype=first.dtype, device=dev)
         for pos in range(mesh.size):
             part = placed[pos][k]
@@ -592,9 +637,12 @@ class _MeshServing:
     ``shards`` are the model groups (flat positions, model order) that
     compute rows: every data index's with ``policy.shard_batch``, else the
     first alone (the rows do not split; the reference repeats them on
-    every data index).  With a cache split by sequence (``seq``: its mesh
-    axes) every group of ``groups`` holds keys of the shards' rows: a
-    shard's own group where the rows split, else every group."""
+    every data index, and each group of ``groups`` holds the rows' cache:
+    keys where the sequence splits over the data axes too, recurrent
+    states as replicas).  ``seq``: the mesh axes of a cache split by
+    sequence, or None.  ``state_dims``: each recurrent leaf's dim (of a
+    layer's slice) split over "model", or None where the model devices
+    keep it whole."""
 
     def __init__(self, cfg: ModelConfig, mesh, pspecs: dict, policy):
         rules = S.get_rules()
@@ -619,12 +667,63 @@ class _MeshServing:
         self.seq = _semantic_axes(policy)["seq"]
         if isinstance(self.seq, str):
             self.seq = (self.seq,)
+        self.attends = T.main_block_kind(cfg) != "xlstm"
+        whole = init_cache(cfg, self.data_size, 1, policy.kv_repeat, device="meta")
+        specs = cache_pspecs({k: v for k, v in whole.items() if k in RECURRENT}, policy, mesh)
+        self.state_dims = {k: next((d - 1 for d, ax in enumerate(spec) if ax == "model" and self.tp > 1), None)
+                           for k, spec in specs.items()}
 
     def holders(self, i: int) -> list:
         """The model groups holding data shard ``i``'s cache rows: its own,
-        or with a sequence-split cache whose rows do not split, every
-        group."""
-        return [self.shards[i]] if self.seq is None or self.policy.shard_batch else self.groups
+        or where the rows do not split over the data axes, every group."""
+        return [self.shards[i]] if self.policy.shard_batch else self.groups
+
+    def take_state(self, i: int, cache: list, layer: int, names) -> dict:
+        """Data shard ``i``'s state of ``layer`` (the leaves ``names``) whole
+        on its lead: gathered from its model group where a leaf splits over
+        "model", else the lead's own copy."""
+        group = self.shards[i]
+        out = {}
+        for name in names:
+            d = self.state_dims[name]
+            if d is None:
+                out[name] = cache[group[0]][name][layer]
+            else:
+                out[name] = C.all_gather([cache[q][name][layer] for q in group], [self.devices[q] for q in group],
+                                         d, (0,), self.tp)[0]
+        return out
+
+    def put_state(self, i: int, cache: list, layer: int, names, state) -> None:
+        """Data shard ``i``'s new state of ``layer`` (``state``, the leaves
+        ``names`` whole on its lead) written to every device holding its
+        rows (:meth:`holders`): each its slice over "model", or the whole
+        to each replica, copied from the lead (a trace counts what the lead
+        sends, "send", for every holder of the whole mesh)."""
+        lead, lead_pos = self.leads[i], self.shards[i][0]
+        for name, value in zip(names, state):
+            d = self.state_dims[name]
+            value = value.to(cache[lead_pos][name].dtype)  # moved as stored (the conv window in the cache's dtype)
+            for q in (q for group in self.holders(i) for q in group):
+                part = value
+                if d is not None:
+                    w = value.shape[d] // self.tp
+                    part = value.narrow(d, self.mesh.index(q, ("model",)) * w, w)
+                if self.devices[q] is not lead:
+                    part = C.send(part, [lead, self.devices[q]], 0, 1, fanout=self.mesh.stands_for(q, lead_pos))
+                with self.devices[q].scope():
+                    cache[q][name][layer].copy_(part)
+
+    def recur(self, i: int, cache: list, layer: int, blk, h: torch.Tensor) -> torch.Tensor:
+        """Data shard ``i``'s recurrent branch of ``blk`` (``layer``) on its
+        lead, the branch's leaves gathered there: over a prompt ``h`` (B, S,
+        D) from zero, or a token (B, D) from the layer's state
+        (:meth:`take_state`), the single device's functions unchanged; the
+        new state sent to every holder (:meth:`put_state`).  Returns y."""
+        names = _state_names(blk)
+        state = None if h.dim() == 3 else self.take_state(i, cache, layer, names)
+        y, state = _recurrent(blk, self.cfg, h, state)
+        self.put_state(i, cache, layer, names, state)
+        return y
 
     def offset(self, pos: int, width: int) -> int:
         """The first key of the cache slice of ``width`` keys that the
@@ -694,17 +793,21 @@ class _MeshServing:
             out.append(C.send(y[i * b:(i + 1) * b], [lead, self.leads[i]], 0, 1))
         return out
 
-    def run(self, params, embed, attend, bsz: int, s: int) -> torch.Tensor:
+    def run(self, params, embed, attend, bsz: int, s: int, cache: list) -> torch.Tensor:
         """Every layer over the data shards, under each shard's tensor
         shard on its lead: ``embed(i, group, lead copy)`` gives shard i's
         residual rows; a layer runs, per shard, its attention norm,
         ``attend(i, group, shard, layer, p_attn, h, window)`` (the
-        attention output, on the lead; it writes the cache), the residual
-        and the MLP norm, then every shard's FFN (:meth:`ffn`; the MoE
-        routes the whole batch of ``bsz`` x ``s`` tokens at once where the
-        reference would).  Returns the logits of each shard's last
-        position, joined in the shards' row order on the mesh's first
-        device (vocab-parallel under its tensor shard)."""
+        attention output, on the lead; it writes the cache), a hybrid's
+        Mamba branch over the same normed rows (:meth:`recur`, joined by
+        ``transformer.hybrid_mix``), the residual and the MLP norm, then
+        every shard's FFN (:meth:`ffn`; the MoE routes the whole batch of
+        ``bsz`` x ``s`` tokens at once where the reference would); an
+        xLSTM layer its norm and its recurrent branch alone.  ``cache``:
+        the per-device slices the recurrent branches read and write.
+        Returns the logits of each shard's last position, joined in the
+        shards' row order on the mesh's first device (vocab-parallel under
+        its tensor shard)."""
         cfg = self.cfg
         shards, experts = self.contexts(params)
         xs = []
@@ -718,12 +821,20 @@ class _MeshServing:
             for i, group in enumerate(self.shards):
                 blk = params[group[0]].layers[layer]
                 with self.leads[i].scope(), S.tensor_shard(shards[i]):
+                    if blk.kind == "xlstm":
+                        h = L.apply_norm(blk.pre_norm, xs[i], cfg.norm_type)
+                        xs[i] = xs[i] + self.recur(i, cache, layer, blk, h)
+                        continue
                     h = L.apply_norm(blk.attn_norm, xs[i], cfg.norm_type)
-                    xs[i] = xs[i] + attend(i, group, shards[i], layer, blk.attn, h, window)
-                    hs.append(L.apply_norm(blk.mlp_norm, xs[i], cfg.norm_type))
-            for i, y in enumerate(self.ffn(params, shards, experts, layer, hs, whole)):
-                with self.leads[i].scope():
+                    y = attend(i, group, shards[i], layer, blk.attn, h, window)
+                    if blk.kind == "hybrid":
+                        y = T.hybrid_mix(blk, cfg, y, self.recur(i, cache, layer, blk, h))
                     xs[i] = xs[i] + y
+                    hs.append(L.apply_norm(blk.mlp_norm, xs[i], cfg.norm_type))
+            if hs:
+                for i, y in enumerate(self.ffn(params, shards, experts, layer, hs, whole)):
+                    with self.leads[i].scope():
+                        xs[i] = xs[i] + y
             del hs
         parts = []
         for i, group in enumerate(self.shards):
@@ -757,9 +868,13 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
     With a cache split by sequence (heads that do not split over "model")
     attention runs whole on the shard's lead over the leaves gathered there
     (``sharding.whole``; K3 on every head), and each model device receives
-    its key slice of the layer's K and V (``collectives.send``).  Rows
-    that do not split over the data axes raise, as the reference's
-    prefill cannot shard them either."""
+    its key slice of the layer's K and V (``collectives.send``).  A
+    recurrent branch (the xLSTM layer's mLSTM or sLSTM, hymba's Mamba
+    beside its attention) runs whole on the lead too, the single device's
+    function over the prompt (K6 for Mamba), and each device holding the
+    rows receives its slice of the final state, or the whole
+    (:meth:`_MeshServing.recur`).  Rows that do not split over the data
+    axes raise, as the reference's prefill cannot shard them either."""
     plan = _MeshServing(cfg, mesh, pspecs, policy)
 
     @torch.no_grad()
@@ -776,7 +891,7 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
             caches = init_mesh_cache(cfg, mesh, policy, bsz, max_len, cache_dtype)
-            width = caches[0]["k"].shape[2]
+            width = caches[0]["k"].shape[2] if plan.seq else None
             positions = []
 
             def embed(i, group, lead):
@@ -822,7 +937,7 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
                         caches[q]["v"][layer][:, :s] = _cache_heads(v, cfg, plan.tp, m, policy.kv_repeat)
                 return y
 
-            logits = plan.run(params, embed, attend, bsz, s)
+            logits = plan.run(params, embed, attend, bsz, s, caches)
             with plan.devices[0].scope():
                 lengths = torch.full((bsz,), s, dtype=torch.int32, device=plan.devices[0].device)
             C._leave(plan.devices, caller, [logits, lengths])
@@ -927,7 +1042,11 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
     they are, the sequence split over them too) the first data index's
     model group runs the layers once and every device of the mesh runs
     K4 on its slice; the reference repeats the layers on every data
-    index."""
+    index.  A recurrent branch takes the layer's state whole on the lead
+    (gathered from the model group where it splits), runs the single
+    device's step (K6 at S = 1 for Mamba) and writes the new state back to
+    every device holding the rows: each its slice, or the whole to each
+    replica (every data index's where the rows do not split)."""
     plan = _MeshServing(cfg, mesh, pspecs, policy)
 
     @torch.no_grad()
@@ -938,10 +1057,12 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
             lens, glob = [None] * len(plan.devices), {}
-            width = cache[0]["k"].shape[2]
+            width = cache[0]["k"].shape[2] if plan.seq else 0
 
             def embed(i, group, lead):
                 tok = plan.rows(token, i, b, torch.long)
+                if not plan.attends:
+                    return T.embed_tokens(lead, cfg, tok[:, None])[:, 0]
                 ln = plan.rows(lengths, i, b)
                 glob[i] = ln
                 holders = [q for g in plan.holders(i) for q in g]
@@ -966,7 +1087,7 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
                 return _gqa_decode_tp(p_attn, cfg, h, [(cache[q]["k"][layer], cache[q]["v"][layer]) for q in group],
                                       [lens[q] for q in group], window, shard, policy.kv_repeat)
 
-            logits = plan.run(params, embed, attend, bsz, 1)
+            logits = plan.run(params, embed, attend, bsz, 1, cache)
             with plan.devices[0].scope():
                 if lengths.device.type == plan.devices[0].device.type:
                     C._used_on(lengths, plan.devices[0])

@@ -100,7 +100,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_moe and cfg.first_dense_layers and cfg.attn_type != "mla":
         raise NotImplementedError(
             f"{cfg.name}: the {main_block_kind(cfg)}/{cfg.attn_type} stack with a dense prefix "
-            "is not ported to repro_torch yet: ROADMAP port queue item 25 (LLM side stack)"
+            "is not ported to repro_torch: the reference's prefill and decode disagree on its cache (a reference "
+            "defect, ROADMAP §3)"
         )
 
 

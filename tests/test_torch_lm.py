@@ -207,9 +207,9 @@ def test_init_lm_is_seeded_with_the_reference_scales():
     assert n == ref_n
 
 
-# the stack still to port (ROADMAP item 25): a dense-FFN prefix under GQA
-# (no configuration has one); the SSM and hybrid stacks are
-# tests/test_torch_ssm.py's
+# the stack the port raises for (a reference defect, ROADMAP §3): a
+# dense-FFN prefix under GQA (no configuration has one); the SSM and hybrid
+# stacks are tests/test_torch_ssm.py's
 UNPORTED = ["gqa-dense-prefix"]
 
 
@@ -217,7 +217,7 @@ UNPORTED = ["gqa-dense-prefix"]
 def test_unported_stacks_raise(which):
     cfg = ModelConfig("t", "moe", 3, 48, 4, 4, 32, 61, head_dim=12, num_experts=8,
                       experts_per_token=2, first_dense_layers=1, dense_d_ff=64, dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 25"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §3"):
         T.TransformerLM(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 25"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §3"):
         D.init_cache(cfg, 1, 8, device="cpu")

@@ -565,8 +565,6 @@ def _not_served():
         "sequence-over-data-with-heads": ("internlm2-1.8b", CachePolicy(1, True, False, ("data",)), False),
         "mla": ("deepseek-v2-236b", CachePolicy(1, False, True, ("model",)), False),
         "encoder-decoder": ("whisper-large-v3", heads, False),
-        "ssm": ("xlstm-125m", CachePolicy(1, False, True, ()), False),
-        "hybrid": ("hymba-1.5b", heads, False),
         "fsdp": ("qwen3-32b", heads, True),
     }
 

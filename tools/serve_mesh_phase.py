@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Phase 4G of ``chip_smoke.py`` alone, with the K3 and K4 checks against
-their plain versions before it: prefill and decode on (2, 2) streams of one
-card, then Gemma3-1B's sequence-split cache on (1, 8) (part a) and at
-long_500k's length on (2, 8) (part b).
+"""Phase 4G of ``chip_smoke.py`` alone, with the K3, K4 and K6 checks
+against their plain versions before it: prefill and decode on (2, 2)
+streams of one card, Gemma3-1B's sequence-split cache on (1, 8) (part a),
+the recurrent states (xlstm-125m on (2, 2) and (1, 8), hymba-1.5b on
+(2, 2)), then long_500k's length on (2, 8) for Gemma3-1B (part b) and
+hymba-1.5b (part c).
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 tools/serve_mesh_phase.py                 # K3/K4 checks, then 4G
     KERNELS=0 python3 tools/serve_mesh_phase.py       # 4G only
     ONLY=olmoe-1b-7b python3 tools/serve_mesh_phase.py
-    KERNELS=0 ONLY=gemma3-1b@1x8,long python3 tools/serve_mesh_phase.py   # parts (a) and (b)
+    KERNELS=0 ONLY=gemma3-1b@1x8,long:gemma3-1b python3 tools/serve_mesh_phase.py   # parts (a) and (b)
+    ONLY=xlstm-125m,hymba-1.5b,long:hymba-1.5b python3 tools/serve_mesh_phase.py   # the recurrent states
 
-It builds the kernels, runs ``check_flash_attention`` and
-``check_decode_attention`` (every case, the serving mesh's per-device
-shapes and K4's log-sum-exp cases among them) and times K4 (its
-log-sum-exp variant at part (a)'s slice shape among the lines) unless
-``KERNELS=0``, then ``run_serve_mesh`` for the entries of
-``SERVE_MESH_MODELS`` and part (b) (or those named in ``ONLY``, comma
-separated: an architecture, an architecture on one mesh as ``arch@DxM``,
-``long`` for part (b)).  Every line carries the card's name and power
+It builds the kernels, runs ``check_flash_attention``,
+``check_decode_attention`` and ``check_selective_scan`` (every case, the
+serving mesh's per-device and per-shard shapes and K4's log-sum-exp cases
+among them) and times K4 (its log-sum-exp variant at part (a)'s slice
+shape among the lines) unless ``KERNELS=0``, then ``run_serve_mesh`` for
+the entries of ``SERVE_MESH_MODELS`` and ``SERVE_MESH_LONG`` (or those
+named in ``ONLY``, comma separated: an architecture, an architecture on
+one mesh as ``arch@DxM``, ``long`` for every long_500k part, ``long:arch``
+for one).  Every line carries the card's name and power
 limit.  A watchdog ends the process after ``WATCHDOG_S`` seconds (default
 700).  It exits non-zero without a card or on any miss.
 """
@@ -63,16 +67,17 @@ def main() -> int:
         names = only.split(",")
         cs.SERVE_MESH_MODELS = tuple(m for m in cs.SERVE_MESH_MODELS
                                      if m[0] in names or f"{m[0]}@{m[3][0]}x{m[3][1]}" in names)
-        cs.SERVE_MESH_LONG = "long" in names
+        cs.SERVE_MESH_LONG = tuple(a for a in cs.SERVE_MESH_LONG if "long" in names or f"long:{a}" in names)
     dev = torch.device("cuda")
     if os.environ.get("KERNELS", "1") == "1":
         t0 = time.perf_counter()
         cs.check_flash_attention(dev)
         cs.check_decode_attention(dev)
+        cs.check_selective_scan(dev)
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
         cs.time_decode_attention(dev, flush)
         del flush
-        cs.log(f"[kernels] K3 and K4 checks and K4's times took {time.perf_counter() - t0:.1f} s [{card}]")
+        cs.log(f"[kernels] K3, K4 and K6 checks and K4's times took {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
     launches = cs.run_serve_mesh(dev, card)
     cs.log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s, launches {launches} [{card}]")
