@@ -825,7 +825,9 @@ def check_flash_attention(dev) -> dict:
     1024, 2 heads over 1, window 512 and none, bf16; a model device's
     share in phase 4G's prefill, 2 x 2048: Gemma3-1B's 2 heads over 1,
     window 512 and none, qwen3-32b's 32 over 4 and OLMoE's 8 over 8 of
-    128, bf16) and 128/64 (GQA),
+    128, bf16) and 128/64 (GQA; whisper-large-v3's 10 heads of 64 a model
+    device of (2, 2), 2 x 1500 non-causal, its encoder, and 2 x 224
+    causal),
     ragged S, causal and not; for the bf16 tensor-core kernel also the
     edges of its 128-row query and 64-key tiles (S = 1, 63, 65, 127, 129,
     2049), windows that end inside a tile (64, 100), groups 1/4/8, D
@@ -881,6 +883,12 @@ def check_flash_attention(dev) -> dict:
         (1, 300, 48, 8, 128, True, None, torch.bfloat16),  # group 6 (internvl2-26b, internlm2-20b)
         (1, 300, 64, 8, 128, True, None, torch.bfloat16),  # group 8 at D 128 (qwen3-32b)
         (1, 1500, 20, 20, 64, False, None, torch.bfloat16),  # whisper's encoder
+        # a model device's heads of whisper-large-v3 in phase 4G's prefill on (2, 2): a data shard's 2 rows, 10 of
+        # the 20 heads, the encoder over 1500 frames and the decoder's self attention over the 224-token prompt
+        (WHISPER_B // 2, WHISPER_FRAMES, WHISPER_HEADS // 2, WHISPER_HEADS // 2, WHISPER_HD, False, None,
+         torch.bfloat16),
+        (WHISPER_B // 2, WHISPER_PROMPT, WHISPER_HEADS // 2, WHISPER_HEADS // 2, WHISPER_HD, True, None,
+         torch.bfloat16),
         (1, 200, 4, 1, 64, False, None, torch.bfloat16),
         (1, 200, 4, 2, 128, False, 100, torch.bfloat16),
         (1, 129, 4, 1, 256, False, None, torch.bfloat16),
@@ -1014,7 +1022,8 @@ def time_flash_attention_mla(dev, flush) -> dict:
 def check_flash_attention_cross(dev) -> float:
     """K3 with a key length other than the query length: whisper's cross
     attention (20 heads of 64, group 1, non-causal) at its prefill shape
-    (4 x 224 decoder rows over 1500 encoder frames) and at ragged Sq (1, 63,
+    (4 x 224 decoder rows over 1500 encoder frames; a model device's share
+    in phase 4G's prefill on (2, 2), 2 x 224 at 10 heads) and at ragged Sq (1, 63,
     129, 224) x Sk (1, 100, 1500), in f32 and bf16; then GQA groups 4 and
     6, causal (both positions from 0: ``kpos <= qpos``) with Sk below and
     above Sq, and a window.  Sk 1500 takes the plain version's blockwise
@@ -1027,6 +1036,8 @@ def check_flash_attention_cross(dev) -> float:
     h, d = WHISPER_HEADS, WHISPER_HD
     cases = [(WHISPER_B, WHISPER_PROMPT, WHISPER_FRAMES, h, h, d, False, None, dt)
              for dt in (torch.bfloat16, torch.float32)]
+    # a model device's cross attention in phase 4G's prefill on (2, 2): 2 rows x 224 over 1500 frames, 10 heads
+    cases.append((WHISPER_B // 2, WHISPER_PROMPT, WHISPER_FRAMES, h // 2, h // 2, d, False, None, torch.bfloat16))
     cases += [(2, sq, sk, h, h, d, False, None, dt) for dt in (torch.float32, torch.bfloat16)
               for sq in (1, 63, 129, 224) for sk in (1, 100, WHISPER_FRAMES)]
     cases += [  # B, Sq, Sk, H, KVH, D, causal, window, dtype
@@ -1419,8 +1430,10 @@ def check_decode_attention(dev) -> float:
     with q in f32 and bf16, the decode phase's lengths 2048..2060, and the
     serve shape; a model device's cache slice in phase 4G's decode, 2 rows
     of 2112 keys from 2048: Gemma3-1B's 2 heads over 1, window 512 and
-    none, qwen3-32b's 32 over 4 and OLMoE's 8 over 8 of 128) and 128/64
-    (GQA, up to 8 heads a group), window and none,
+    none, qwen3-32b's 32 over 4 and OLMoE's 8 over 8 of 128;
+    whisper-large-v3's 10 heads of 64 over 2 rows of its 1500-key cross
+    cache and of its 448-key self cache) and 128/64 (GQA, up to 8 heads a
+    group), window and none,
     ragged lengths (int32, and int64 the wrapper converts), q f32/bf16 and
     the cache f32/bf16; and sequences with no valid key (length 0, length
     >= S + window), whose rows must be the mean of the cache's S value
@@ -1476,6 +1489,12 @@ def check_decode_attention(dev) -> float:
          torch.bfloat16, [WHISPER_FRAMES] * WHISPER_B),
         (SERVE_4C_SLOTS, WHISPER_FRAMES, WHISPER_HEADS, WHISPER_HEADS, WHISPER_HD, None, torch.bfloat16,
          torch.float32, [WHISPER_FRAMES] * SERVE_4C_SLOTS),
+        # a model device's slices in phase 4G's whisper decode on (2, 2): a data shard's 2 rows, 10 of the 20 heads,
+        # its cross cache (every one of the 1500 keys valid) and its self cache of 448 keys from 224
+        (WHISPER_B // 2, WHISPER_FRAMES, WHISPER_HEADS // 2, WHISPER_HEADS // 2, WHISPER_HD, None, torch.bfloat16,
+         torch.bfloat16, [WHISPER_FRAMES] * (WHISPER_B // 2)),
+        (WHISPER_B // 2, WHISPER_MAX_LEN, WHISPER_HEADS // 2, WHISPER_HEADS // 2, WHISPER_HD, None, torch.bfloat16,
+         torch.bfloat16, [WHISPER_PROMPT + 1, WHISPER_PROMPT + 4]),
     ]
     worst = 0.0
     for i, (b, s_, h, kvh, d, window, qdt, cdt, lens_list) in enumerate(cases):
@@ -1519,7 +1538,9 @@ def check_decode_attention_lse(dev) -> float:
     slices, and slices with no valid key (lse -1e30, the output the mean of
     V); the output held as every f32 case, the lse within DECODE_LSE_ATOL.
     Then 8 slices' (out, lse) merged (``merge_partials``) against one K4
-    call on the whole cache, within the f32 bound.  The same at phase 4G
+    call on the whole cache, within the f32 bound.  The same at phase 4G's
+    whisper-large-v3 self-attention slices on (1, 8): 4 rows, 56 of 448
+    keys a device, 20 heads of 64.  The same at phase 4G
     (b)'s shapes: batch 1, a seeded random bf16 cache of LONG_KEYS keys
     over its 16 devices (32,768 keys a slice, where K4 takes 64-key chunks
     and 512 splits), at the last decode step's length LONG_FROM +
@@ -1533,48 +1554,55 @@ def check_decode_attention_lse(dev) -> float:
     from repro_torch.kernels.decode_attention import plain as da_plain
 
     rng = np.random.default_rng(SEED + 14)
-    s, n = DECODE_MAX_LEN, 8
-    w = s // n
-    b, h, d, dt = PREFILL_B, 4, 256, torch.float32
-    q = _randn(rng, (b, h, d), dt, dev)
-    kc, vc = (_randn(rng, (2, b, s, 1, d), torch.bfloat16, dev) for _ in range(2))
-    glob = [  # (global lengths, window): decode's, a window across slices 1 and 2, past the cache, none valid
-        ([PREFILL_S, PREFILL_S + 5, PREFILL_S + 9, PREFILL_S + 15], None),
-        ([PREFILL_S, PREFILL_S + 5, PREFILL_S + 9, PREFILL_S + 15], GEMMA_WINDOW),
-        ([w + 100, 2 * w + 40, 2 * w + 200, w + 1], GEMMA_WINDOW),
-        ([0, s + GEMMA_WINDOW, 5, 3 * w], GEMMA_WINDOW),
+    n, dt = 8, torch.float32
+    w, ww = DECODE_MAX_LEN // n, WHISPER_MAX_LEN // n
+    cases = [  # B, the cache's keys, H, KVH, D, [(global lengths, window)]: Gemma3-1B's decode's, a window across
+        # slices 1 and 2, past the cache, none valid; whisper-large-v3's on (1, 8), 56 of 448 keys a device, 20
+        # heads of 64 (its decode's lengths, and lengths ending in slices 1, 2 and 7)
+        (PREFILL_B, DECODE_MAX_LEN, 4, 1, 256, [
+            ([PREFILL_S, PREFILL_S + 5, PREFILL_S + 9, PREFILL_S + 15], None),
+            ([PREFILL_S, PREFILL_S + 5, PREFILL_S + 9, PREFILL_S + 15], GEMMA_WINDOW),
+            ([w + 100, 2 * w + 40, 2 * w + 200, w + 1], GEMMA_WINDOW),
+            ([0, DECODE_MAX_LEN + GEMMA_WINDOW, 5, 3 * w], GEMMA_WINDOW)]),
+        (WHISPER_B, WHISPER_MAX_LEN, WHISPER_HEADS, WHISPER_HEADS, WHISPER_HD, [
+            ([WHISPER_PROMPT + i for i in range(WHISPER_B)], None),
+            ([ww + 3, 2 * ww + 17, WHISPER_MAX_LEN - 1, 0], None)]),
     ]
     worst = 0.0
-    for lens_list, window in glob:
-        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-        outs, lses = [], []
-        for j in range(n):
-            ks, vs = kc[1][:, j * w:(j + 1) * w], vc[1][:, j * w:(j + 1) * w]
-            local = lens - j * w
-            got, lse = da_ops.decode_attention_cache(q, ks, vs, local, window=window, return_lse=True)
-            want, want_lse = da_plain.decode_attention(q, ks, vs, local, window=window, return_lse=True)
+    for b, s, h, kvh, d, glob in cases:
+        w = s // n
+        q = _randn(rng, (b, h, d), dt, dev)
+        kc, vc = (_randn(rng, (2, b, s, kvh, d), torch.bfloat16, dev) for _ in range(2))
+        for lens_list, window in glob:
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            outs, lses = [], []
+            for j in range(n):
+                ks, vs = kc[1][:, j * w:(j + 1) * w], vc[1][:, j * w:(j + 1) * w]
+                local = lens - j * w
+                got, lse = da_ops.decode_attention_cache(q, ks, vs, local, window=window, return_lse=True)
+                want, want_lse = da_plain.decode_attention(q, ks, vs, local, window=window, return_lse=True)
+                torch.cuda.synchronize()
+                err, inside, tol = _attn_bound(got, want, dt)
+                lse_err = (lse - want_lse).abs().max().item()
+                empty = want_lse <= da_plain.NEG_INF
+                inside &= lse_err <= DECODE_LSE_ATOL and bool((lse[empty] == want_lse[empty]).all())
+                log(f"  decode_attention lse B={b} H={h} KVH={kvh} D={d} slice {j} of {n} ({w} keys from {j * w}) "
+                    f"lengths {local.tolist()} window={window}: max|kernel-plain| out {err:.3e} (bound {tol}), lse "
+                    f"{lse_err:.3e} (bound {DECODE_LSE_ATOL}); no valid key in {int(empty[:, 0].sum())} rows")
+                if not (lse.dtype == torch.float32 and lse.shape == (b, h) and inside):
+                    raise AssertionError(f"decode_attention's lse disagrees with its plain version: {err} / {lse_err}")
+                worst = max(worst, err)
+                outs.append(got)
+                lses.append(lse)
+            merged = da_ops.merge_partials(outs, lses)
+            whole = da_ops.decode_attention_cache(q, kc[1], vc[1], lens, window=window)
             torch.cuda.synchronize()
-            err, inside, tol = _attn_bound(got, want, dt)
-            lse_err = (lse - want_lse).abs().max().item()
-            empty = want_lse <= da_plain.NEG_INF
-            inside &= lse_err <= DECODE_LSE_ATOL and bool((lse[empty] == want_lse[empty]).all())
-            log(f"  decode_attention lse slice {j} of {n} ({w} keys from {j * w}) lengths "
-                f"{local.tolist()} window={window}: max|kernel-plain| out {err:.3e} (bound {tol}), lse {lse_err:.3e} "
-                f"(bound {DECODE_LSE_ATOL}); no valid key in {int(empty[:, 0].sum())} rows")
-            if not (lse.dtype == torch.float32 and lse.shape == (b, h) and inside):
-                raise AssertionError(f"decode_attention's lse disagrees with its plain version: {err} / {lse_err}")
+            err, inside, tol = _attn_bound(merged, whole, dt)
+            log(f"  decode_attention: {n} slices merged vs one launch over the {s}-key cache (H={h}, D={d}), "
+                f"lengths {lens_list} window={window}: max|merged-whole|={err:.3e} (bound {tol})")
+            if not inside:
+                raise AssertionError(f"{n} merged K4 slices differ from the whole cache's K4 by {err}")
             worst = max(worst, err)
-            outs.append(got)
-            lses.append(lse)
-        merged = da_ops.merge_partials(outs, lses)
-        whole = da_ops.decode_attention_cache(q, kc[1], vc[1], lens, window=window)
-        torch.cuda.synchronize()
-        err, inside, tol = _attn_bound(merged, whole, dt)
-        log(f"  decode_attention: {n} slices merged vs one launch over the {s}-key cache, lengths {lens_list} "
-            f"window={window}: max|merged-whole|={err:.3e} (bound {tol})")
-        if not inside:
-            raise AssertionError(f"{n} merged K4 slices differ from the whole cache's K4 by {err}")
-        worst = max(worst, err)
     return max(worst, _check_decode_attention_lse_long(dev))
 
 
@@ -3779,7 +3807,7 @@ def run_training_path(dev, card: str) -> dict:
 
 
 # ---------------------------------------------- phase 4F: the training mesh
-MESH_RING_LENGTHS = (37, 2**24 + 3)  # f32 elements a device: one padded short, one of 64 MB
+MESH_RING_LENGTHS = (37, 2**24 + 3)  # f32 elements a device: one whose last chunk is short, one of 64 MB
 MESH_TIMED_RING = 2**30  # f32 elements a device for the timed ring: 4 GiB each ("1.0 B f32 leaves")
 MESH_PSUM_RTOL = 1e-6  # psum_in_chunks against the plain sum, of the largest |sum|
 MESH_COMPRESSED_ATOL = 2e-2  # the int8 all-reduce against the exact sum, of the largest |sum|
@@ -4542,11 +4570,16 @@ def run_train_mesh(dev, card: str) -> dict:
 # full size on (1, 8): its 4 heads over 1 KV head split no group over 8, so its cache splits by sequence over
 # "model" (264 keys of the 2112 a device).  The recurrent states, at full size: xlstm-125m on (2, 2) (2 mLSTM heads
 # and 384 sLSTM channels a device) and on (1, 8) (4 heads over 8 stay whole on every device, 96 channels a
-# device: 16x16's layout), hymba-1.5b on (2, 2) (1600 Mamba channels a device beside its sequence-split cache)
+# device: 16x16's layout), hymba-1.5b on (2, 2) (1600 Mamba channels a device beside its sequence-split cache).  The
+# encoder-decoder, at phase 4C's sizes: whisper-large-v3 at full size on (2, 2) (its 20 heads split: 10 a device of
+# the self and the cross cache) and on (1, 8) (they do not: the self cache split by sequence, 56 of 448 keys a
+# device, the cross cache whole on each of 8)
 SERVE_MESH_MODELS = (("gemma3-1b", None, DECODE_STEPS, (2, 2)), ("qwen3-32b", 2, CUT_DECODE_STEPS, (2, 2)),
                      ("olmoe-1b-7b", 2, CUT_DECODE_STEPS, (2, 2)), ("gemma3-1b", None, DECODE_STEPS, (1, 8)),
                      ("xlstm-125m", None, CUT_DECODE_STEPS, (2, 2)), ("xlstm-125m", None, CUT_DECODE_STEPS, (1, 8)),
-                     ("hymba-1.5b", None, CUT_DECODE_STEPS, (2, 2)))
+                     ("hymba-1.5b", None, CUT_DECODE_STEPS, (2, 2)),
+                     ("whisper-large-v3", None, CUT_DECODE_STEPS, (2, 2)),
+                     ("whisper-large-v3", None, CUT_DECODE_STEPS, (1, 8)))
 # the prompt length the dry run traces a prefill cell with where the model has an sLSTM: its token loop is traced op
 # by op (ms a step on the host), and no launch count depends on the length
 SLSTM_TRACE_S = 64
@@ -4622,25 +4655,31 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     (``decode.make_mesh_prefill`` / ``make_mesh_decode_step`` over
     ``zero.place_params``' copies, the cache split as
     ``choose_cache_policy`` says: by heads and rows, or by sequence where
-    the heads do not split; a recurrent state by rows and, where they
-    split, its heads or channels), bf16, seeded weights: a prefill of
-    PREFILL_B x PREFILL_S into a DECODE_MAX_LEN cache, then ``steps``
-    greedy decode steps.  Held: each call's logits against the same
-    weights' single-device run on the same tokens within LM_LOGIT_RTOL (an
-    MoE model's single-device run takes the mesh's routing, and how many
-    token-layers its own gates would route elsewhere is logged); the same
-    calls on a mesh of the same devices without streams (every op on the
-    default stream in program order) bitwise, logits and every cache
-    slice; K3 once a layer on each model device in prefill (on each data
-    shard's lead alone with a sequence-split cache: attention runs whole
-    there) and K4 once a layer a step on each, K6 once a layer a call on
-    each data shard's lead (hymba's Mamba), none for the xLSTM, equal to
-    the dry run's per-device count of the same cell (an sLSTM's prefill
-    cell traced at SLSTM_TRACE_S tokens); each device's placed bytes
-    (weights, cache) equal to the reference layout's spec trees' (the
-    weights at 2 bytes, each cache leaf at the reference's dtype: the
-    recurrent states f32), plus 2 for each element of the leaves the port
-    keeps in f32.  Prefill and decode ms, mesh and single device."""
+    the heads do not split; a recurrent state by rows and, where they split,
+    its heads or channels; an encoder-decoder's cross cache by rows and
+    heads where the heads split, else whole on each model device), bf16,
+    seeded weights: a prefill of PREFILL_B x PREFILL_S into a DECODE_MAX_LEN
+    cache (an encoder-decoder's WHISPER_B x WHISPER_PROMPT over
+    WHISPER_FRAMES seeded stub frames each, ``conv_stub_frames``, into a
+    WHISPER_MAX_LEN cache), then ``steps`` greedy decode steps.  Held: each
+    call's logits against the same weights' single-device run on the same
+    tokens within LM_LOGIT_RTOL (an MoE model's single-device run takes the
+    mesh's routing, and how many token-layers its own gates would route
+    elsewhere is logged); the same calls on a mesh of the same devices
+    without streams (every op on the default stream in program order)
+    bitwise, logits and every cache slice; K3 once a layer on each model
+    device in prefill (on each data shard's lead alone with a sequence-split
+    cache: attention runs whole there) and K4 once a layer a step on each,
+    K6 once a layer a call on each data shard's lead (hymba's Mamba), none
+    for the xLSTM; an encoder-decoder's K3 also once an encoder layer and
+    once a cross layer and K4 once a cross layer a step, on every model
+    device where the heads split, on each lead where they do not; the
+    busiest device's counts equal to the dry run's per-device count of the
+    same cell (an sLSTM's prefill cell traced at SLSTM_TRACE_S tokens); each
+    device's placed bytes (weights, cache) equal to the reference layout's
+    spec trees' (the weights at 2 bytes, each cache leaf at the reference's
+    dtype: the recurrent states f32), plus 2 for each element of the leaves
+    the port keeps in f32.  Prefill and decode ms, mesh and single device."""
     import dataclasses
 
     from repro_torch import configs
@@ -4653,6 +4692,7 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     from repro_torch.launch import specs as LS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import decode as D
+    from repro_torch.models import frontends
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serving.kv_cache import choose_cache_policy
@@ -4661,6 +4701,8 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
     tag = f"{full.name}{'' if layers is None else f' reduced to {layers} of {full.num_layers} layers'}"
     b, s, max_len, vocab = PREFILL_B, PREFILL_S, DECODE_MAX_LEN, cfg.vocab_size
+    if cfg.is_encdec:
+        b, s, max_len = WHISPER_B, WHISPER_PROMPT, WHISPER_MAX_LEN
     n_dev, on = shape[0] * shape[1], f"({shape[0]}, {shape[1]}) streams"
     kind = T.main_block_kind(cfg)
     t0 = time.perf_counter()
@@ -4689,6 +4731,10 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     rng = np.random.default_rng(SEED + 6)
     prompts = torch.from_numpy(rng.integers(0, vocab, size=(b, s))).to(dev)
     leads = {mesh.flat[i * shape[1]].label for i in range(shape[0])}
+    inputs = {}
+    if cfg.is_encdec:
+        inputs["encoder_frames"] = frontends.conv_stub_frames(torch.Generator(device=dev).manual_seed(SEED + 9), b,
+                                                              WHISPER_FRAMES, cfg.d_model, device=dev)
 
     # ---- prefill: single device, then the mesh (a warm-up call each), then the serial mesh
     def timed(fn):
@@ -4708,28 +4754,33 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
         capacity a shard's tokens), so each shard's rows run alone."""
         rows = b // shards
         parts = [D.prefill(model, cfg, prompts[i * rows:(i + 1) * rows], max_len=max_len,
-                           kv_repeat=policy.kv_repeat) for i in range(shards)]
+                           kv_repeat=policy.kv_repeat, **{k: v[i * rows:(i + 1) * rows] for k, v in inputs.items()})
+                 for i in range(shards)]
         if shards == 1:
             return parts[0]
         return (torch.cat([p[0] for p in parts]), {k: torch.cat([p[1][k] for p in parts], 1) for k in parts[0][1]},
                 torch.cat([p[2] for p in parts]))
 
     single_prefill()
-    prefill(placed, prompts, max_len=max_len)
+    prefill(placed, prompts, max_len=max_len, **inputs)
     routing, differ = [], [0, 0]
     _zero_attention_counts()
     with _launches_by_device() as (k3, k4, k6), _lead_routing(routing, leads):
-        (logits, cache, lens), mesh_prefill_ms = timed(lambda: prefill(placed, prompts, max_len=max_len))
-    launches = {"flash_attention": sum(k3.values()), "selective_scan": sum(k6.values())}
+        (logits, cache, lens), mesh_prefill_ms = timed(lambda: prefill(placed, prompts, max_len=max_len, **inputs))
+    n_cross = _attention_counts()["flash_attention_cross"]
+    launches = {"flash_attention": sum(k3.values()) - n_cross, "flash_attention_cross": n_cross,
+                "selective_scan": sum(k6.values())}
     per_layer = _per_layer(routing, b * s // shards)  # each layer's routing, a shard's at a time under EP
     per_layer = [per_layer[layer * shards + i] for i in range(shards) for layer in range(len(per_layer) // shards)]
     with _pinned_routing(per_layer, differ):
         (single_logits, single_cache, single_lens), single_prefill_ms = timed(single_prefill)
-    serial_logits, serial_cache, serial_lens = prefill_s(placed, prompts, max_len=max_len)
+    serial_logits, serial_cache, serial_lens = prefill_s(placed, prompts, max_len=max_len, **inputs)
     err, scale = _rel_err(logits, single_logits, vocab)
     labels = [d.label for d in mesh.flat]
     held = [sum(t.numel() * t.element_size() for t in c.parameters()) for c in placed]
     held_cache = [sum(t.numel() * t.element_size() for t in mine.values()) for mine in cache]
+    held_cross = [sum(t.numel() * t.element_size() for k, t in mine.items() if k.startswith("cross_"))
+                  for mine in cache]
     routed = ("; MoE expert-parallel per data shard (each shard's rows alone on one device)" if ep else
               "; MoE routing the whole batch" if cfg.is_moe else "")
     log(f"[serve-mesh] {tag} on {on} (cache policy {policy}{routed}): prefill {b}x{s} in "
@@ -4737,7 +4788,8 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
         f"device's: max|d| / "
         f"max|logit| {err:.3e} (max|logit| {scale:.3e}, tolerance {LM_LOGIT_RTOL}){_mesh_routing_note(differ)}; K3 "
         f"launches by device {k3}, K6 {k6} (dry run of the {shape} cell: K3 {want_k3}, K6 {want_k6[0]} a device, "
-        f"traced in {trace_s:.1f} s); placed bytes a device: weights {held}, cache {held_cache}; the reference "
+        f"traced in {trace_s:.1f} s); placed bytes a device: weights {held}, cache {held_cache}"
+        f"{f' (of it the cross K/V {held_cross})' if cfg.is_encdec else ''}; the reference "
         f"layout's spec trees (weights at 2 bytes, the cache at its leaves' dtypes) give {want_params} and "
         f"{want_cache}, and the port's f32 norm scales, routers and Mamba leaves add {surplus} [{card}]")
     if not err <= LM_LOGIT_RTOL:
@@ -4745,13 +4797,19 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     k3_on = leads if policy.seq_axes else labels  # attention whole on the leads where the heads do not split
     n_attn = None if kind == "xlstm" else cfg.num_layers
     n_scan = cfg.num_layers if kind == "hybrid" else None
-    if (k3 != (dict.fromkeys(k3_on, n_attn) if n_attn else {}) or want_k3 != n_attn or set(k4)
-            or k6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) or want_k6 != [n_scan, n_scan]):
-        raise AssertionError(f"{tag}: prefill launches K3 {k3}, K4 {k4}, K6 {k6}; the dry run's K3 {want_k3}, "
-                             f"K6 {want_k6} a device")
+    # an encoder-decoder's K3 also over the encoder's frames and from the prompt over them, where self attention runs
+    n_k3 = cfg.encoder_layers + 2 * cfg.num_layers if cfg.is_encdec else n_attn
+    if (k3 != (dict.fromkeys(k3_on, n_k3) if n_k3 else {}) or want_k3 != n_k3 or set(k4)
+            or k6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) or want_k6 != [n_scan, n_scan]
+            or n_cross != (cfg.num_layers * len(k3_on) if cfg.is_encdec else 0)):
+        raise AssertionError(f"{tag}: prefill launches K3 {k3} ({n_cross} cross), K4 {k4}, K6 {k6}; the dry run's "
+                             f"K3 {want_k3}, K6 {want_k6} a device")
     if any(n != want_params + surplus for n in held) or any(n != want_cache for n in held_cache):
         raise AssertionError(f"{tag}: placed bytes {held} / {held_cache}, the spec trees' {want_params} + {surplus} "
                              f"/ {want_cache}")
+    whole_cross = sum(t.numel() * t.element_size() for k, t in whole_cache.items() if k.startswith("cross_"))
+    if held_cross != [whole_cross // (shape[0] * (1 if policy.seq_axes else shape[1]))] * n_dev:
+        raise AssertionError(f"{tag}: cross K/V bytes a device {held_cross}, {whole_cross} whole")
     if lens.tolist() != single_lens.tolist() or not torch.equal(logits, serial_logits):
         raise AssertionError(f"{tag}: prefill lengths {lens.tolist()}, or its logits differ from the serial run's")
 
@@ -4791,8 +4849,11 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
         f"{'all' if not racy else 'NOT all'} {sum(len(c) for c in cache)} cache slices [{card}]")
     if not worst <= LM_LOGIT_RTOL:
         raise AssertionError(f"{tag}: mesh decode logits differ from the single device's by {worst}")
-    if (any(c4 != (dict.fromkeys(labels, n_attn) if n_attn else {})
-            or c6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) for c4, c6 in by_step) or want_k4 != n_attn):
+    want_c4 = dict.fromkeys(labels, n_attn) if n_attn else {}
+    if cfg.is_encdec:  # K4 over the cross cache on each device that holds its heads, or on each lead
+        want_c4 = {label: n + (cfg.num_layers if label in k3_on else 0) for label, n in want_c4.items()}
+    if (any(c4 != want_c4 or c6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) for c4, c6 in by_step)
+            or want_k4 != max(want_c4.values(), default=None)):
         raise AssertionError(f"{tag}: K4 and K6 launches by device a step {by_step}, the dry run's K4 {want_k4}")
     if racy:
         raise AssertionError(f"{tag}: cache slices differ from the serial run's: {racy}")
@@ -5297,8 +5358,9 @@ def main() -> int:
     _add(launches, run_train_mesh(dev, card))
     log(f"[train-mesh] phase 4F took {time.perf_counter() - t0:.1f} s [{card}]")
     # ---- phase 4G: prefill and decode on (2, 2) streams (Gemma3-1B, qwen3-32b and OLMoE at 2 layers), then
-    # Gemma3-1B's sequence-split cache on (1, 8) and at long_500k's length on (2, 8), then the recurrent states
-    # (xlstm-125m on (2, 2) and (1, 8), hymba-1.5b on (2, 2) and at long_500k's length on (2, 8))
+    # Gemma3-1B's sequence-split cache on (1, 8) and at long_500k's length on (2, 8), the recurrent states
+    # (xlstm-125m on (2, 2) and (1, 8), hymba-1.5b on (2, 2) and at long_500k's length on (2, 8)), then the
+    # encoder-decoder's cross cache (whisper-large-v3 on (2, 2) and (1, 8))
     t0 = time.perf_counter()
     _add(launches, run_serve_mesh(dev, card))
     log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s [{card}]")

@@ -136,16 +136,28 @@ def _collective(kind: str, tensors, devices):
 
 
 # -------------------------------------------------------------------- ring
+def _ring_chunks(flat: torch.Tensor, p: int) -> list:
+    """``flat``'s P chunks in the reference's schedule, which pads it to a
+    multiple of P: ceil(n / P) elements each, the last ones cut short (or
+    empty) where the reference's hold its zeros, which add nothing."""
+    n = flat.numel()
+    w = -(-n // p)
+    return [flat[min(i * w, n):min((i + 1) * w, n)] for i in range(p)]
+
+
 def ring_allreduce_(flats: list, devices) -> list:
     """The ring over ``flats`` in place: ``flats[i]`` a contiguous 1-d
-    tensor on ``devices[i]`` whose length is a multiple of P.  Afterwards
-    each holds the sum, the same bits everywhere.  The caller orders the
-    flats' writes before the call and its reads after it (``_enter`` /
-    ``_leave``, as :func:`ring_allreduce` does)."""
+    tensor on ``devices[i]``, all of one length, chunked as the reference
+    chunks it padded (:func:`_ring_chunks`; no padding is stored, so a
+    ring over a ``RoleMesh``'s group of roles holds the same bytes as over
+    the whole axis).  Afterwards each holds the sum, the same bits
+    everywhere.  The caller orders the flats' writes before the call and
+    its reads after it (``_enter`` / ``_leave``, as
+    :func:`ring_allreduce` does)."""
     p = len(devices)
     if p == 1:
         return flats
-    parts = [f.view(p, -1) for f in flats]
+    parts = [_ring_chunks(f, p) for f in flats]
     for me, f in enumerate(flats):
         _used_on(f, devices[(me + 1) % p])  # its chunks are read by the next device
     # reduce-scatter: after P-1 steps, device r holds the full sum of
@@ -171,28 +183,24 @@ def ring_allreduce(parts: list, devices) -> list:
     """Ring all-reduce of ``parts`` (one tensor per device, equal shapes)
     -> the sums, one per device (new tensors; the inputs are unchanged).
 
-    The reference's schedule: flatten, pad to a multiple of P, P - 1
-    reduce-scatter steps and P - 1 all-gather steps over 1/P-sized chunks,
-    crop."""
+    The reference's schedule: flatten, P - 1 reduce-scatter steps and
+    P - 1 all-gather steps over the chunks of the flat padded to a multiple
+    of P (the padding is not stored: :func:`_ring_chunks`)."""
     p = len(devices)
     if len(parts) != p:
         raise ValueError(f"{len(parts)} parts for {p} devices")
     if p == 1:
         return [parts[0]]
     shape, n = parts[0].shape, parts[0].numel()
-    pad = (-n) % p
     with _collective("all-reduce", parts[:1], devices):
         caller = _enter(devices)
         flats = []
         for part, dev in zip(parts, devices):
             with dev.scope():
                 _used_on(part, dev)
-                flat = torch.empty(n + pad, dtype=part.dtype, device=part.device)
-                flat[:n].copy_(part.reshape(-1))
-                flat[n:].zero_()
-                flats.append(flat)
+                flats.append(torch.empty(n, dtype=part.dtype, device=part.device).copy_(part.reshape(-1)))
         ring_allreduce_(flats, devices)
-        outs = [f[:n].view(shape) for f in flats]
+        outs = [f.view(shape) for f in flats]
         _leave(devices, caller, outs)
     return outs
 
@@ -228,14 +236,12 @@ def psum_in_chunks(trees: list, devices, num_buckets: int = 4) -> list:
         for bucket in bucket_leaves(sizes, num_buckets):
             if not bucket:
                 continue
-            pad = (-sum(sizes[i] for i in bucket)) % p
             flats = []
             for ls, dev in zip(leaves, devices):
                 with dev.scope():
                     for i in bucket:
                         _used_on(ls[i], dev)
-                    tail = [torch.zeros(pad, dtype=ls[bucket[0]].dtype, device=ls[bucket[0]].device)] if pad else []
-                    flats.append(torch.cat([ls[i].reshape(-1) for i in bucket] + tail))
+                    flats.append(torch.cat([ls[i].reshape(-1) for i in bucket]))
             ring_allreduce_(flats, devices)
             for k, flat in enumerate(flats):
                 offset = 0

@@ -35,7 +35,9 @@ What the port runs on a mesh, which is what the dry run traces:
   decode the cache placed per device (``decode.init_mesh_cache``: its
   data shard's rows, its model index's cache heads after ``kv_repeat`` or
   its keys of a sequence-split cache, its slice or replica of each
-  recurrent state), traced on the mesh's
+  recurrent state, an encoder-decoder's cross K/V by its heads or whole),
+  an encoder-decoder's prefill given its ``encoder_frames``, traced on the
+  mesh's
   :class:`~repro_torch.launch.mesh.RoleMesh`.  The argument bytes of the
   busiest device are the spec trees' (``reference_argument_bytes``: every
   parameter at the reference's 2 bytes, every cache entry at its leaf's
@@ -43,8 +45,8 @@ What the port runs on a mesh, which is what the dry run traces:
   plus the tokens over the data axes) plus ``dtype_surplus_bytes``, what
   the port's f32 leaves add (its norm scales, MoE routers and Mamba's
   conv, dt, A and D, where the reference casts every leaf to bf16).
-  A cell of MLA, an encoder-decoder, parameters under FSDP or a cache
-  split by sequence over the data axes while its heads split over "model"
+  A cell of MLA, parameters under FSDP or a cache split by sequence over
+  the data axes while its heads split over "model"
   (``decode.mesh_serving_gap``) keeps its spec trees and a ``skip``
   reason, and is not traced.
 """

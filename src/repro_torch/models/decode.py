@@ -58,8 +58,11 @@ What differs:
   specs place them, a state's heads and channels over "model" where they
   split evenly, else whole on each model device; each layer's recurrent
   branch runs on the data shard's lead and writes every holder's slice or
-  replica (:meth:`_MeshServing.recur`).  What they do not serve yet raises
-  (:func:`mesh_serving_gap`).
+  replica (:meth:`_MeshServing.recur`).  An encoder-decoder's encoder runs
+  on each data shard's model group, and its cross K/V cache is split by
+  heads beside a head-split self-attention cache, else whole on each
+  model device (the encoder's sequence is never split).  What they do not
+  serve yet raises (:func:`mesh_serving_gap`).
 """
 
 from __future__ import annotations
@@ -106,6 +109,42 @@ CACHE_DIM_SEMANTICS: dict[str, tuple[str, ...]] = {
 RECURRENT = frozenset(k for k, dims in CACHE_DIM_SEMANTICS.items() if "seq" not in dims and "enc_seq" not in dims)
 
 
+def cache_leaves(
+    cfg: ModelConfig, batch: int, max_len: int, kv_repeat: int = 1, dtype: torch.dtype = torch.bfloat16,
+    cross_dtype: torch.dtype | None = None,
+) -> dict[str, tuple[tuple, torch.dtype]]:
+    """:func:`init_cache`'s leaves as {name: (shape, dtype)}, in its order,
+    nothing allocated (a trace counts what a meta tensor holds)."""
+    T.check_supported(cfg)
+    kind = T.main_block_kind(cfg)
+    n, f32 = cfg.num_layers, torch.float32
+    if kind == "xlstm":
+        d, mh = cfg.d_model, cfg.num_heads
+        mhd = 2 * d // mh
+        out = {"mlstm_c": ((n, batch, mh, mhd, mhd), f32), "mlstm_n": ((n, batch, mh, mhd), f32)}
+        out.update({name: ((n, batch, d), f32) for name in ssm.SLSTM_STATE})
+        return out
+    if cfg.attn_type != "mla":
+        hd = cfg.resolved_head_dim
+        shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), hd)
+        out = {"k": (shape, dtype), "v": (shape, dtype)}
+        if kind == "hybrid":
+            d_in = 2 * cfg.d_model
+            out["ssm"] = ((n, batch, d_in, cfg.ssm_state), f32)
+            out["conv"] = ((n, batch, cfg.ssm_conv - 1, d_in), dtype)
+        if cfg.is_encdec:
+            cross = (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads, hd)
+            out["cross_k"] = out["cross_v"] = (cross, cross_dtype or dtype)
+        return out
+    n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
+    out = {}
+    for prefix, n in (("", cfg.num_layers - n_prefix), ("prefix_", n_prefix)):
+        if n:
+            out[prefix + "c_kv"] = ((n, batch, max_len, cfg.kv_lora_rank), dtype)
+            out[prefix + "k_rope"] = ((n, batch, max_len, cfg.rope_head_dim), dtype)
+    return out
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, kv_repeat: int = 1,
     dtype: torch.dtype = torch.bfloat16, device: str | torch.device | None = "cuda",
@@ -115,40 +154,9 @@ def init_cache(
     cross K/V of an encoder-decoder in ``cross_dtype`` (default ``dtype``);
     the recurrent states in f32, but the hybrid's conv window in ``dtype``
     (the xLSTM's take neither ``max_len`` nor ``dtype``)."""
-    T.check_supported(cfg)
+    leaves = cache_leaves(cfg, batch, max_len, kv_repeat, dtype, cross_dtype)
     dev = resolve_device(device)
-    kind = T.main_block_kind(cfg)
-    n, f32 = cfg.num_layers, dict(dtype=torch.float32, device=dev)
-    if kind == "xlstm":
-        d, mh = cfg.d_model, cfg.num_heads
-        mhd = 2 * d // mh
-        cache = {"mlstm_c": torch.zeros((n, batch, mh, mhd, mhd), **f32),
-                 "mlstm_n": torch.zeros((n, batch, mh, mhd), **f32)}
-        for name in ssm.SLSTM_STATE:
-            cache[name] = torch.zeros((n, batch, d), **f32)
-        return cache
-    if cfg.attn_type != "mla":
-        hd = cfg.resolved_head_dim
-        shape = (cfg.num_layers, batch, max_len, kv_cache_heads(cfg, kv_repeat), hd)
-        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        if kind == "hybrid":
-            d_in = 2 * cfg.d_model
-            cache["ssm"] = torch.zeros((n, batch, d_in, cfg.ssm_state), **f32)
-            cache["conv"] = torch.zeros((n, batch, cfg.ssm_conv - 1, d_in), dtype=dtype, device=dev)
-        if cfg.is_encdec:
-            cross = (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads, hd)
-            for name in ("cross_k", "cross_v"):
-                cache[name] = torch.zeros(cross, dtype=cross_dtype or dtype, device=dev)
-        return cache
-    n_prefix = cfg.first_dense_layers if cfg.is_moe else 0
-    cache = {}
-    for prefix, n in (("", cfg.num_layers - n_prefix), ("prefix_", n_prefix)):
-        if n:
-            cache[prefix + "c_kv"] = torch.zeros((n, batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=dev)
-            cache[prefix + "k_rope"] = torch.zeros((n, batch, max_len, cfg.rope_head_dim), dtype=dtype,
-                                                   device=dev)
-    return cache
+    return {name: torch.zeros(shape, dtype=dt, device=dev) for name, (shape, dt) in leaves.items()}
 
 
 def _layer_caches(params: T.TransformerLM, cache: dict):
@@ -230,17 +238,53 @@ def _window(cfg: ModelConfig, is_local) -> int | None:
     return cfg.sliding_window
 
 
+def _lead_leaves(p, *names) -> list:
+    """``p``'s leaves ``names`` whole on the lead: inside a tensor shard
+    each one stored split is gathered there (``TensorShard.gather``), the
+    others are ``p``'s own."""
+    shard = S.current_tensor_shard()
+    out = []
+    for name in names:
+        w = getattr(p, name)
+        out.append(w if shard is None or not shard.is_split(w) else shard.gather(w, (0,))[0])
+    return out
+
+
 def _cross_decode(p_cross, cfg, x, cross_k, cross_v):
     """One cross-attention insertion, one token: K4 over this layer's
     (B, S_enc, KVH, hd) cross cache with every length S_enc, made on the
-    device (no host copy: the step stays capturable)."""
+    device (no host copy: the step stays capturable).  Inside a tensor
+    shard (a mesh's cross cache whole on each model device) it runs on the
+    lead, ``wq`` and ``wo`` gathered there."""
     h = L.apply_norm(p_cross.norm, x, cfg.norm_type)
     bsz, _ = h.shape
     hd, dt = cfg.resolved_head_dim, h.dtype
-    q = (h @ p_cross.attn.wq.to(dt)).reshape(bsz, cfg.num_heads, hd)
+    wq, wo = _lead_leaves(p_cross.attn, "wq", "wo")
+    q = (h @ wq.to(dt)).reshape(bsz, cfg.num_heads, hd)
     lens = torch.full((bsz,), cross_k.shape[1], dtype=torch.int32, device=x.device)
     out = decode_ops.decode_attention_cache(q, cross_k, cross_v, lens)
-    return x + out.reshape(bsz, cfg.num_heads * hd) @ p_cross.attn.wo.to(dt)
+    return x + out.reshape(bsz, cfg.num_heads * hd) @ wo.to(dt)
+
+
+def _cross_decode_tp(p_cross, cfg, x, layer_caches: list, shard):
+    """One token's cross attention head-parallel over ``shard``'s model
+    group, over a cross cache split by heads: the normed ``x`` (B, D)
+    broadcast, device m computing q for its H/TP heads from its columns
+    of ``wq``, running K4 over its slice (``layer_caches[m]``: this
+    layer's (B, S_enc, KVH/TP, hd) cross k and v) with every length S_enc
+    and multiplying by its rows of ``wo``; the partial outputs summed with
+    the ring on the lead.  Nothing is written."""
+    h = L.apply_norm(p_cross.norm, x, cfg.norm_type)
+    bsz, hd, local = h.shape[0], cfg.resolved_head_dim, cfg.num_heads // shard.tp
+    parts = []
+    for dev, pm, hm, (kc, vc) in zip(shard.devices, shard.members(p_cross.attn), C.broadcast(h, shard.devices),
+                                     layer_caches):
+        with dev.scope():
+            q = (hm @ pm.wq.to(hm.dtype)).reshape(bsz, local, hd)
+            lens = torch.full((bsz,), kc.shape[1], dtype=torch.int32, device=hm.device)
+            out = decode_ops.decode_attention_cache(q, kc, vc, lens)
+            parts.append(out.reshape(bsz, local * hd) @ pm.wo.to(hm.dtype))
+    return x + C.ring_sum(parts, shard.devices)
 
 
 def _write_(cache_l: dict, names, values) -> None:
@@ -410,24 +454,25 @@ def prefill(
 # "model" (each KV head stored ``kv_repeat`` times) and by rows over the
 # data axes, or by sequence over "model" (and the data axes at a batch
 # smaller than they are) — and the recurrent states by rows and by their
-# heads or channels, each device holding its slice (:func:`cache_pspecs`).
+# heads or channels, and an encoder-decoder's cross K/V by rows and, beside
+# a cache split by heads, by heads, each device holding its slice
+# (:func:`cache_pspecs`).
 def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None:
     """Why the mesh's prefill and decode do not serve ``cfg`` under
     ``policy`` (a ``CachePolicy``) with the parameters under ``pspecs`` on
     ``mesh``, or None when they do: the next slices of ROADMAP 26b take
-    MLA, the encoder-decoder's cross cache, parameters under FSDP (a spec
-    tree naming the current rules' data axes,
-    ``sharding.splits_over_data``) and a cache split by sequence over the
-    data axes while its heads split over "model".  The checks on the KV
-    cache's layout hold for a model that attends: the xLSTM keeps
-    recurrent states alone."""
+    MLA, parameters under FSDP (a spec tree naming the current rules' data
+    axes, ``sharding.splits_over_data``) and a cache split by sequence
+    over the data axes while its heads split over "model".  The checks on
+    the KV cache's layout hold for a model that attends (an
+    encoder-decoder's self-attention cache among them; its cross cache
+    follows them, split by heads beside a head-split cache, else whole on
+    each model device): the xLSTM keeps recurrent states alone."""
     tp = mesh.shape.get("model", 1)
     attends = T.main_block_kind(cfg) != "xlstm"
     what = None
     if cfg.attn_type == "mla":
         what = "MLA's compressed cache (choose_cache_policy splits its sequence)"
-    elif cfg.is_encdec:
-        what = "the encoder-decoder's cross K/V cache"
     elif attends and policy.seq_axes and policy.shard_heads:
         what = (f"a KV cache split by sequence over {'/'.join(policy.seq_axes)} while its heads split over "
                 "'model'")
@@ -440,8 +485,8 @@ def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None
     if what is None:
         return None
     return (f"{cfg.name}: {what} is not served on a mesh yet (ROADMAP 26b: the serving mesh's next slices); "
-            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence, and the "
-            "recurrent states")
+            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence, the "
+            "recurrent states and the encoder-decoder's cross cache")
 
 
 def _semantic_axes(policy) -> dict:
@@ -528,14 +573,16 @@ def _spec_part(spec, shape, mesh, pos: int) -> tuple:
 
 
 def init_mesh_cache(cfg: ModelConfig, mesh, policy, batch: int, max_len: int,
-                    dtype: torch.dtype = torch.bfloat16) -> list[dict]:
+                    dtype: torch.dtype = torch.bfloat16, cross_dtype: torch.dtype | None = None) -> list[dict]:
     """A zero-filled cache (:func:`init_cache`'s leaves in its dtypes: k and
     v in ``dtype``, the recurrent states in f32, the hybrid's conv window in
+    ``dtype``, an encoder-decoder's cross K/V in ``cross_dtype``, default
     ``dtype``) for ``batch`` sequences of up to ``max_len`` on ``mesh``:
     per device, in ``mesh.flat`` order, its slice of each leaf
     (:func:`cache_pspecs`), made on its stream.  The whole is never made (a
     trace would count it)."""
-    whole = init_cache(cfg, batch, max_len, policy.kv_repeat, dtype, device="meta")
+    whole = {k: SimpleNamespace(shape=shape, dtype=dt) for k, (shape, dt) in
+             cache_leaves(cfg, batch, max_len, policy.kv_repeat, dtype, cross_dtype).items()}
     specs = _placed_specs(whole, policy, mesh)
     out = []
     for dev in mesh.flat:
@@ -580,7 +627,7 @@ def gather_cache(placed: list[dict], mesh, policy, cfg: ModelConfig | None = Non
     dev = devices[0].device
     caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     C._leave(devices, caller, [])  # the caller's stream reads after every device's writes
-    widths = None if cfg is None else init_cache(cfg, 1, 1, policy.kv_repeat, device="meta")
+    widths = None if cfg is None else cache_leaves(cfg, 1, 1, policy.kv_repeat)
     out = {}
     for k, first in placed[0].items():
         shape = []
@@ -589,7 +636,7 @@ def gather_cache(placed: list[dict], mesh, policy, cfg: ModelConfig | None = Non
             if name in _REPLICABLE:
                 if widths is None:
                     raise ValueError(f"{k}: gathering a recurrent state needs the model's config (cfg=)")
-                shape.append(widths[k].shape[d])
+                shape.append(widths[k][0][d])
             else:
                 shape.append(n * _axes_size(ax, mesh))
         spec = cache_pspecs({k: SimpleNamespace(shape=tuple(shape))}, policy, mesh)[k]
@@ -668,8 +715,9 @@ class _MeshServing:
         if isinstance(self.seq, str):
             self.seq = (self.seq,)
         self.attends = T.main_block_kind(cfg) != "xlstm"
-        whole = init_cache(cfg, self.data_size, 1, policy.kv_repeat, device="meta")
-        specs = cache_pspecs({k: v for k, v in whole.items() if k in RECURRENT}, policy, mesh)
+        specs = cache_pspecs({k: SimpleNamespace(shape=shape) for k, (shape, _) in
+                              cache_leaves(cfg, self.data_size, 1, policy.kv_repeat).items() if k in RECURRENT},
+                             policy, mesh)
         self.state_dims = {k: next((d - 1 for d, ax in enumerate(spec) if ax == "model" and self.tp > 1), None)
                            for k, spec in specs.items()}
 
@@ -793,7 +841,7 @@ class _MeshServing:
             out.append(C.send(y[i * b:(i + 1) * b], [lead, self.leads[i]], 0, 1))
         return out
 
-    def run(self, params, embed, attend, bsz: int, s: int, cache: list) -> torch.Tensor:
+    def run(self, params, embed, attend, bsz: int, s: int, cache: list, cross=None) -> torch.Tensor:
         """Every layer over the data shards, under each shard's tensor
         shard on its lead: ``embed(i, group, lead copy)`` gives shard i's
         residual rows; a layer runs, per shard, its attention norm,
@@ -803,11 +851,13 @@ class _MeshServing:
         ``transformer.hybrid_mix``), the residual and the MLP norm, then
         every shard's FFN (:meth:`ffn`; the MoE routes the whole batch of
         ``bsz`` x ``s`` tokens at once where the reference would); an
-        xLSTM layer its norm and its recurrent branch alone.  ``cache``:
-        the per-device slices the recurrent branches read and write.
-        Returns the logits of each shard's last position, joined in the
-        shards' row order on the mesh's first device (vocab-parallel under
-        its tensor shard)."""
+        xLSTM layer its norm and its recurrent branch alone.  An
+        encoder-decoder's layer then runs its cross attention, per shard
+        (the reference's order): ``cross(i, group, shard, layer, p_cross,
+        x)`` gives the new residual rows.  ``cache``: the per-device slices
+        the recurrent branches read and write.  Returns the logits of each
+        shard's last position, joined in the shards' row order on the
+        mesh's first device (vocab-parallel under its tensor shard)."""
         cfg = self.cfg
         shards, experts = self.contexts(params)
         xs = []
@@ -836,6 +886,10 @@ class _MeshServing:
                     with self.leads[i].scope():
                         xs[i] = xs[i] + y
             del hs
+            if cross is not None:  # each decoder layer, then its cross layer
+                for i, group in enumerate(self.shards):
+                    with self.leads[i].scope(), S.tensor_shard(shards[i]):
+                        xs[i] = cross(i, group, shards[i], layer, params[group[0]].cross[layer], xs[i])
         parts = []
         for i, group in enumerate(self.shards):
             last = xs[i][:, -1:] if xs[i].dim() == 3 else xs[i][:, None]
@@ -846,9 +900,10 @@ class _MeshServing:
 
 def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
     """The mesh's prefill: ``prefill_fn(params, tokens, max_len,
-    cache_dtype=bf16, vision_embeds=None) -> (last-token logits (B, V) on
-    the mesh's first device, the cache — per device its slice, as
-    :func:`init_mesh_cache` —, lengths (B,) on the first device)`` over
+    cache_dtype=bf16, vision_embeds=None, encoder_frames=None) ->
+    (last-token logits (B, V) on the mesh's first device, the cache — per
+    device its slice, as :func:`init_mesh_cache` —, lengths (B,) on the
+    first device)`` over
     ``zero.place_params``' copies (``params``, one a device in
     ``mesh.flat`` order, under ``pspecs``).  Build it inside the rules'
     ``use_rules``; ``policy``: ``choose_cache_policy``'s for the cell.
@@ -874,11 +929,27 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
     function over the prompt (K6 for Mamba), and each device holding the
     rows receives its slice of the final state, or the whole
     (:meth:`_MeshServing.recur`).  Rows that do not split over the data
-    axes raise, as the reference's prefill cannot shard them either."""
+    axes raise, as the reference's prefill cannot shard them either.
+
+    An encoder-decoder's ``encoder_frames`` (B, S_enc, D) split over the
+    data shards as the tokens do; each shard's encoder runs on its model
+    group under its tensor shard (``transformer.encode``: attention
+    head-parallel where the heads split, else whole on the lead; the MLP
+    on its columns).  Each layer's cross attention, after the FFN: with
+    the heads split, head-parallel (``layers.gqa_tp_kv(kv_x=)``), each
+    model device writing the K/V of its heads into its own cross slice;
+    with a cache split by sequence the cross cache is whole on each model
+    device: each projects the encoder's output (copied to the group once)
+    with the columns of ``wk`` / ``wv`` it stores, the columns are
+    gathered over the group into every device's replica, and K3 runs on
+    the lead over its replica, ``wq`` and ``wo`` gathered there.  The
+    cross K/V are stored in the model's dtype, as the single device
+    stores them."""
     plan = _MeshServing(cfg, mesh, pspecs, policy)
 
     @torch.no_grad()
-    def prefill_fn(params, tokens, max_len: int, cache_dtype: torch.dtype = torch.bfloat16, vision_embeds=None):
+    def prefill_fn(params, tokens, max_len: int, cache_dtype: torch.dtype = torch.bfloat16, vision_embeds=None,
+                   encoder_frames=None):
         tokens = torch.as_tensor(tokens)
         bsz, n_text = tokens.shape
         b = bsz // plan.data_size
@@ -888,16 +959,21 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
         if plan.row_split != plan.data_size:
             raise ValueError(f"a prefill of {bsz} rows does not split over {plan.data_size} data shards "
                              f"(cache policy {policy}): prefill at the data size or more, then place the cache")
+        if cfg.is_encdec and encoder_frames is None:
+            raise ValueError("encoder-decoder prefill needs encoder_frames")
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
-            caches = init_mesh_cache(cfg, mesh, policy, bsz, max_len, cache_dtype)
+            caches = init_mesh_cache(cfg, mesh, policy, bsz, max_len, cache_dtype, cross_dtype=T.torch_dtype(cfg.dtype))
             width = caches[0]["k"].shape[2] if plan.seq else None
-            positions = []
+            positions, encoded = [], []
 
             def embed(i, group, lead):
                 tok = plan.rows(tokens, i, b, torch.long)
                 vis = None if vision_embeds is None else plan.rows(vision_embeds, i, b)
                 positions.append(torch.arange(s, device=plan.leads[i].device))
+                if cfg.is_encdec:  # the encoder's output on the lead; with the cross cache whole, on every device
+                    enc = T.encode(lead, cfg, plan.rows(encoder_frames, i, b))
+                    encoded.append(C.broadcast(enc, [plan.devices[q] for q in group]) if plan.seq else [enc])
                 return T.embed_inputs(lead, cfg, tok, vis)
 
             def attend_seq(i, group, shard, layer, p_attn, h, window):
@@ -937,7 +1013,40 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
                         caches[q]["v"][layer][:, :s] = _cache_heads(v, cfg, plan.tp, m, policy.kv_repeat)
                 return y
 
-            logits = plan.run(params, embed, attend, bsz, s, caches)
+            def cross(i, group, shard, layer, p_cross, x):
+                mine = [(caches[q]["cross_k"][layer], caches[q]["cross_v"][layer]) for q in group]
+                if shard is None:
+                    k, v = T._encoder_kv(p_cross, cfg, encoded[i][0])
+                    mine[0][0].copy_(k)
+                    mine[0][1].copy_(v)
+                    return T._cross_attend(p_cross, cfg, x, mine[0])
+                h = L.apply_norm(p_cross.norm, x, cfg.norm_type)
+                if plan.seq is None:  # the heads split: each device's K/V into its slice
+                    y, kvs = L.gqa_tp_kv(p_cross.attn, cfg, h, None, False, None, shard, kv_x=encoded[i][0])
+                    for dev, (kc, vc), (k, v) in zip(shard.devices, mine, kvs):
+                        with dev.scope():
+                            kc.copy_(k)
+                            vc.copy_(v)
+                    return x + y
+                # the cross cache whole on each model device: the stored columns' K/V gathered into every replica
+                for n, name in enumerate(("wk", "wv")):
+                    parts = []
+                    for dev, pm, e in zip(shard.devices, shard.members(p_cross.attn), encoded[i]):
+                        with dev.scope():
+                            parts.append(e @ getattr(pm, name).to(e.dtype))
+                    if shard.is_split(getattr(p_cross.attn, name)):
+                        parts = C.all_gather(parts, shard.devices, -1, None, plan.tp)
+                    for dev, kv, part in zip(shard.devices, mine, parts):
+                        with dev.scope():
+                            kv[n].copy_(part.view(kv[n].shape))
+                    del parts
+                wq, wo = _lead_leaves(p_cross.attn, "wq", "wo")
+                hd, dt = cfg.resolved_head_dim, h.dtype
+                q = (h @ wq.to(dt)).reshape(*h.shape[:2], cfg.num_heads, hd)
+                out = L.attention_scores_blockwise(q, *mine[0], causal=False)
+                return x + out.reshape(*h.shape[:2], cfg.num_heads * hd) @ wo.to(dt)
+
+            logits = plan.run(params, embed, attend, bsz, s, caches, cross if cfg.is_encdec else None)
             with plan.devices[0].scope():
                 lengths = torch.full((bsz,), s, dtype=torch.int32, device=plan.devices[0].device)
             C._leave(plan.devices, caller, [logits, lengths])
@@ -1046,7 +1155,13 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
     (gathered from the model group where it splits), runs the single
     device's step (K6 at S = 1 for Mamba) and writes the new state back to
     every device holding the rows: each its slice, or the whole to each
-    replica (every data index's where the rows do not split)."""
+    replica (every data index's where the rows do not split).  An
+    encoder-decoder's cross attention reads its cross cache and writes
+    nothing: head-parallel over a cross cache split by heads
+    (:func:`_cross_decode_tp`: K4 on each device's heads, every length
+    S_enc), else on the lead over its replica (:func:`_cross_decode`, ``wq``
+    and ``wo`` gathered there); where the rows do not split, the first
+    group's lead, as for self attention."""
     plan = _MeshServing(cfg, mesh, pspecs, policy)
 
     @torch.no_grad()
@@ -1087,7 +1202,14 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
                 return _gqa_decode_tp(p_attn, cfg, h, [(cache[q]["k"][layer], cache[q]["v"][layer]) for q in group],
                                       [lens[q] for q in group], window, shard, policy.kv_repeat)
 
-            logits = plan.run(params, embed, attend, bsz, 1, cache)
+            def cross(i, group, shard, layer, p_cross, x):
+                if shard is not None and plan.seq is None:
+                    return _cross_decode_tp(p_cross, cfg, x, [(cache[q]["cross_k"][layer], cache[q]["cross_v"][layer])
+                                                              for q in group], shard)
+                mine = cache[group[0]]
+                return _cross_decode(p_cross, cfg, x, mine["cross_k"][layer], mine["cross_v"][layer])
+
+            logits = plan.run(params, embed, attend, bsz, 1, cache, cross if cfg.is_encdec else None)
             with plan.devices[0].scope():
                 if lengths.device.type == plan.devices[0].device.type:
                     C._used_on(lengths, plan.devices[0])

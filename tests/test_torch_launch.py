@@ -137,20 +137,22 @@ def test_spec_trees_equal_reference_on_2x2_mesh(reference_specs_2x2):
 
 # the smoke cells on (2, 2): gemma3-1b's cache splits by heads (kv 1 repeated 2 over 2 model devices),
 # hymba-1.5b's by sequence (5 KV heads over 2) beside its Mamba states, split by channels, xlstm-125m keeps its
-# recurrent states alone (4 mLSTM heads and 32 channels over 2); the others keep the reason they are not served on
-# a mesh
+# recurrent states alone (4 mLSTM heads and 32 channels over 2), whisper-large-v3's self and cross caches split by
+# heads (4 over 2); deepseek-v2-236b keeps the reason it is not served on a mesh
 MESH_SERVING = {"gemma3-1b": None, "hymba-1.5b": None, "xlstm-125m": None,
-                "deepseek-v2-236b": "MLA's compressed cache", "whisper-large-v3": "cross K/V cache"}
+                "deepseek-v2-236b": "MLA's compressed cache", "whisper-large-v3": None}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", list(MESH_SERVING))
 def test_prefill_and_decode_skip_a_mesh_of_more_than_one_device(arch, kind):
-    """On (2, 2) gemma3-1b's, hymba-1.5b's and xlstm-125m's prefill and
-    decode step are traced (the mesh's steps, at head width 64): K3 or K4
-    once a layer on the busiest device, hymba's K6 once a layer beside it,
-    no kernel for the xLSTM; MLA and the encoder-decoder keep a skip
-    reason naming what the slice leaves out (``decode.mesh_serving_gap``)."""
+    """On (2, 2) gemma3-1b's, hymba-1.5b's, xlstm-125m's and
+    whisper-large-v3's prefill and decode step are traced (the mesh's
+    steps, at head width 64): K3 or K4 once a layer on the busiest device,
+    hymba's K6 once a layer beside it, no kernel for the xLSTM; whisper's
+    K3 once an encoder layer and twice a decoder layer (self and cross),
+    K4 twice a decoder layer; MLA keeps a skip reason naming what the
+    slice leaves out (``decode.mesh_serving_gap``)."""
     mesh = make_mesh((2, 2), ("data", "model"), H.trace_devices(4))
     cfg = _widened(arch) if MESH_SERVING[arch] is None else TC.get_smoke_config(arch)
     rec = dryrun.run_cell(cfg, InputShape("c", kind, 64, 8), mesh)
@@ -158,7 +160,9 @@ def test_prefill_and_decode_skip_a_mesh_of_more_than_one_device(arch, kind):
         assert "skipped" not in rec and "hlo" in rec
         kernel = "flash_attention" if kind == "prefill" else "decode_attention"
         want = {"gemma3-1b": {kernel: cfg.num_layers}, "xlstm-125m": {},
-                "hymba-1.5b": {kernel: cfg.num_layers, "selective_scan": cfg.num_layers}}[arch]
+                "hymba-1.5b": {kernel: cfg.num_layers, "selective_scan": cfg.num_layers},
+                "whisper-large-v3": {kernel: (cfg.encoder_layers if kind == "prefill" else 0) + 2 * cfg.num_layers}
+                }[arch]
         assert rec["hlo"]["launches"] == want
         mem = rec["memory"]
         assert mem["dtype_surplus_bytes"] > 0  # the port's f32 norm scales over the reference's bf16

@@ -559,12 +559,15 @@ def test_place_params_under_fsdp_round_trips(arch, monkeypatch):
 
 # ------------------------------------------------------------------ raises
 def _not_served():
-    """(arch, a policy, a FSDP flag) for each case the slice leaves out."""
+    """(arch, a policy, a FSDP flag) for each case the slice leaves out: a
+    KV cache split by neither heads nor rows, nor by sequence (no policy
+    ``choose_cache_policy`` gives; here for the encoder-decoder, whose
+    cross cache is served beside a cache split by heads or by sequence)."""
     heads = CachePolicy(1, True, True, ())
     return {
         "sequence-over-data-with-heads": ("internlm2-1.8b", CachePolicy(1, True, False, ("data",)), False),
         "mla": ("deepseek-v2-236b", CachePolicy(1, False, True, ("model",)), False),
-        "encoder-decoder": ("whisper-large-v3", heads, False),
+        "neither-heads-nor-rows": ("whisper-large-v3", CachePolicy(1, False, True, ()), False),
         "fsdp": ("qwen3-32b", heads, True),
     }
 
@@ -574,7 +577,8 @@ def test_what_the_slice_leaves_out_raises(case, monkeypatch):
     """Each case the slice does not serve raises ``NotImplementedError``
     naming ROADMAP 26b from make_mesh_prefill and make_mesh_decode_step
     (under FSDP: ``zero_pspecs``' tree, the parameters split over the data
-    axes too); ``mesh_serving_gap`` names it."""
+    axes too); ``mesh_serving_gap`` names it.  The encoder-decoder with
+    ``choose_cache_policy``'s policy is served (``test_torch_serve_mesh_encdec.py``)."""
     arch, policy, fsdp = _not_served()[case]
     cfg = configs.get_smoke_config(arch)
     m = _mesh((2, 2), monkeypatch)
@@ -587,3 +591,6 @@ def test_what_the_slice_leaves_out_raises(case, monkeypatch):
             with pytest.raises(NotImplementedError, match="26b"):
                 make(cfg, m, pspecs, policy)
         assert "26b" in D.mesh_serving_gap(cfg, policy, pspecs, m)
+        if case == "neither-heads-nor-rows":
+            assert "neither by heads nor by rows" in D.mesh_serving_gap(cfg, policy, pspecs, m)
+            assert D.mesh_serving_gap(cfg, choose_cache_policy(cfg, 2, 4, 2), pspecs, m) is None

@@ -3,8 +3,9 @@
 against their plain versions before it: prefill and decode on (2, 2)
 streams of one card, Gemma3-1B's sequence-split cache on (1, 8) (part a),
 the recurrent states (xlstm-125m on (2, 2) and (1, 8), hymba-1.5b on
-(2, 2)), then long_500k's length on (2, 8) for Gemma3-1B (part b) and
-hymba-1.5b (part c).
+(2, 2)), the encoder-decoder (whisper-large-v3 on (2, 2) and (1, 8)),
+then long_500k's length on (2, 8) for Gemma3-1B (part b) and hymba-1.5b
+(part c).
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -13,9 +14,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     ONLY=olmoe-1b-7b python3 tools/serve_mesh_phase.py
     KERNELS=0 ONLY=gemma3-1b@1x8,long:gemma3-1b python3 tools/serve_mesh_phase.py   # parts (a) and (b)
     ONLY=xlstm-125m,hymba-1.5b,long:hymba-1.5b python3 tools/serve_mesh_phase.py   # the recurrent states
+    ONLY=whisper-large-v3 python3 tools/serve_mesh_phase.py   # the encoder-decoder's cross cache
 
 It builds the kernels, runs ``check_flash_attention``,
-``check_decode_attention`` and ``check_selective_scan`` (every case, the
+``check_flash_attention_cross``, ``check_decode_attention`` and
+``check_selective_scan`` (every case, the
 serving mesh's per-device and per-shard shapes and K4's log-sum-exp cases
 among them) and times K4 (its log-sum-exp variant at part (a)'s slice
 shape among the lines) unless ``KERNELS=0``, then ``run_serve_mesh`` for
@@ -72,12 +75,13 @@ def main() -> int:
     if os.environ.get("KERNELS", "1") == "1":
         t0 = time.perf_counter()
         cs.check_flash_attention(dev)
+        cs.check_flash_attention_cross(dev)
         cs.check_decode_attention(dev)
         cs.check_selective_scan(dev)
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
         cs.time_decode_attention(dev, flush)
         del flush
-        cs.log(f"[kernels] K3, K4 and K6 checks and K4's times took {time.perf_counter() - t0:.1f} s [{card}]")
+        cs.log(f"[kernels] K3 (cross too), K4 and K6 checks and K4's times took {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
     launches = cs.run_serve_mesh(dev, card)
     cs.log(f"[serve-mesh] phase 4G took {time.perf_counter() - t0:.1f} s, launches {launches} [{card}]")
