@@ -834,7 +834,9 @@ def check_flash_attention(dev) -> dict:
     64/128/256, causal off, and q/k/v as (B, H, S, D) views; K and V
     expanded (stride 0) over the batch or the KV heads; then the MLA
     instance, q/k 192 and v 128: DeepSeek-V2's prefill shape (4 x 1024, 128
-    heads, group 1, causal) in bf16 and f32, OLMoE's (16 heads of 128),
+    heads, group 1, causal) in bf16 and f32, a model device's share in
+    phase 4G's prefill (2 x 2048 at 64 heads on (2, 2), 4 x 2048 at 16 on
+    (1, 8)), OLMoE's (16 heads of 128),
     and ragged and edge cases: S where the 3-stage ring and the tiles wrap
     (193, 257, 1025), a window ending inside a tile, more (batch, head)
     pairs than SMs at groups 1 and 2 (tile groups that end inside a batch
@@ -934,6 +936,10 @@ def check_flash_attention(dev) -> dict:
     mla_cases = [  # B, S, H, KVH, causal, window, dtype (q/k 192, v 128)
         (b4, s4, 128, 128, True, None, torch.bfloat16),  # DeepSeek-V2's prefill
         (b4, s4, 128, 128, True, None, torch.float32),
+        # a model device's heads in phase 4G's prefill: a data shard's 2 x 2048 rows, 64 of the 128 heads on (2, 2);
+        # the 4 x 2048 rows, 16 heads on (1, 8)
+        (PREFILL_B // 2, PREFILL_S, 64, 64, True, None, torch.bfloat16),
+        (PREFILL_B, PREFILL_S, 16, 16, True, None, torch.bfloat16),
         (1, 1, 4, 4, True, None, torch.bfloat16),
         (2, 63, 4, 4, True, None, torch.bfloat16),
         (2, 300, 8, 8, True, None, torch.bfloat16),
@@ -1676,6 +1682,40 @@ def _expect_zero_counters(kernel: str, when: str) -> None:
         raise AssertionError(f"{left} {kernel} counters were left non-zero")
 
 
+def _efficient_attention_lse(q, ks, vs, lengths, window, flush) -> str:
+    """One PyTorch call computing K4-with-lse's function on a slice:
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, the lengths (and window) as an additive bias
+    (0 on a valid key, -1e30 elsewhere, as K4 masks), q (B, H, D) in the
+    cache's dtype (the library takes one dtype: K4 reads q in f32), K and V
+    expanded over the query heads.  Returns its log line: the median ms and
+    its largest |lse - K4's plain lse| over the rows with a valid key."""
+    from repro_torch.kernels.decode_attention import plain as da_plain
+
+    b, h, d = q.shape
+    s = ks.shape[1]
+    pos = torch.arange(s, device=q.device)
+    valid = (pos[None, :] < lengths[:, None]) & (pos[None, :] >= 0)
+    if window is not None:
+        valid &= pos[None, :] >= lengths[:, None] - window
+    pad = -(-s // 16) * 16  # the kernel reads the bias rows at a 16-element stride
+    bias = torch.full((b, h, 1, pad), -1e30, dtype=ks.dtype, device=q.device)[..., :s]
+    bias.masked_fill_(valid[:, None, None, :], 0.0)
+    qt = q[:, :, None, :].to(ks.dtype)
+    kt, vt = (x.transpose(1, 2).expand(b, h, s, d) for x in (ks, vs))
+    call = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+        qt, kt, vt, bias, True, scale=d**-0.5)
+    try:
+        _, lse = call()[:2]
+        ms = median_ms(call, flush)
+    except Exception as e:  # a private op: log, never fail on it
+        return f"library (SDPA efficient with lse) not run: {type(e).__name__}: {str(e)[:160]}"
+    _, want = da_plain.decode_attention(q, ks, vs, lengths, window=window, return_lse=True)
+    rows = valid.any(-1)
+    err = (lse[..., 0].float() - want)[rows].abs().max().item() if bool(rows.any()) else 0.0
+    return f"library (SDPA efficient with lse, q bf16) {ms:.4f} ms, max|lse - plain| {err:.3e}"
+
+
 def time_decode_attention(dev, flush) -> dict:
     """One Gemma3-1B decode step's K4 launches at the decode phase's shape
     (4 sequences at 2048..2060 keys in a 2112-key bf16 cache, q bf16):
@@ -1741,7 +1781,7 @@ def time_decode_attention(dev, flush) -> dict:
     # the log-sum-exp variant at phase 4G (a)'s slice shape: a model device's 264 keys of the 2112-key cache
     # over 8, q f32, lengths less the slice's first key — device 0 (every key valid in a global layer) and
     # device 7 (the decode lengths' last keys, valid in every layer)
-    n_dev, qf = 8, q.float()
+    n_dev, qf, card = 8, q.float(), card_line()
     w = s // n_dev
     for j, window in ((0, None), (n_dev - 1, None), (n_dev - 1, GEMMA_WINDOW)):
         ks, vs = kc[:, j * w:(j + 1) * w], vc[:, j * w:(j + 1) * w]
@@ -1755,9 +1795,10 @@ def time_decode_attention(dev, flush) -> dict:
         keys = int(np.maximum(hi - lo, 0).sum())
         slice_bound, slice_by = da_ops.decode_attention_cost(b, w, h, kvh, d, window, torch.float32, dt, keys=keys,
                                                              lse=True).bound_ms()
+        library = _efficient_attention_lse(q, ks, vs, local, window, flush)
         log(f"  decode_attention with lse, device {j}'s slice of {n_dev} ({b} seqs x {w} keys from {j * w}, "
             f"{keys} valid, window {window}, q f32, bf16 cache): kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {slice_bound:.4f} ms ({slice_by})")
+            f"bound {slice_bound:.4f} ms ({slice_by}); {library} [{card}]")
     # OLMoE's decode layer (4 sequences at 1024.. keys, 16 heads of 128, group 1), logged
     s, h, d = MOE_MAX_LEN, OLMOE_HEADS, OLMOE_HD
     q = _randn(rng, (b, h, d), dt, dev)
@@ -4573,13 +4614,17 @@ def run_train_mesh(dev, card: str) -> dict:
 # device: 16x16's layout), hymba-1.5b on (2, 2) (1600 Mamba channels a device beside its sequence-split cache).  The
 # encoder-decoder, at phase 4C's sizes: whisper-large-v3 at full size on (2, 2) (its 20 heads split: 10 a device of
 # the self and the cross cache) and on (1, 8) (they do not: the self cache split by sequence, 56 of 448 keys a
-# device, the cross cache whole on each of 8)
+# device, the cross cache whole on each of 8).  MLA: deepseek-v2-236b at full width reduced to 2 layers (the dense
+# prefix and one MoE layer; all 60, ~470 GB, do not fit) on (2, 2) (64 of the 128 heads a device) and (1, 8) (16),
+# its latent cache split by sequence over "model" (1056 or 264 of the 2112 keys a device)
 SERVE_MESH_MODELS = (("gemma3-1b", None, DECODE_STEPS, (2, 2)), ("qwen3-32b", 2, CUT_DECODE_STEPS, (2, 2)),
                      ("olmoe-1b-7b", 2, CUT_DECODE_STEPS, (2, 2)), ("gemma3-1b", None, DECODE_STEPS, (1, 8)),
                      ("xlstm-125m", None, CUT_DECODE_STEPS, (2, 2)), ("xlstm-125m", None, CUT_DECODE_STEPS, (1, 8)),
                      ("hymba-1.5b", None, CUT_DECODE_STEPS, (2, 2)),
                      ("whisper-large-v3", None, CUT_DECODE_STEPS, (2, 2)),
-                     ("whisper-large-v3", None, CUT_DECODE_STEPS, (1, 8)))
+                     ("whisper-large-v3", None, CUT_DECODE_STEPS, (1, 8)),
+                     ("deepseek-v2-236b", 2, CUT_DECODE_STEPS, (2, 2)),
+                     ("deepseek-v2-236b", 2, CUT_DECODE_STEPS, (1, 8)))
 # the prompt length the dry run traces a prefill cell with where the model has an sLSTM: its token loop is traced op
 # by op (ms a step on the host), and no launch count depends on the length
 SLSTM_TRACE_S = 64
@@ -4657,7 +4702,8 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     ``choose_cache_policy`` says: by heads and rows, or by sequence where
     the heads do not split; a recurrent state by rows and, where they split,
     its heads or channels; an encoder-decoder's cross cache by rows and
-    heads where the heads split, else whole on each model device), bf16,
+    heads where the heads split, else whole on each model device; MLA's
+    latent cache by rows and sequence beside its heads over "model"), bf16,
     seeded weights: a prefill of PREFILL_B x PREFILL_S into a DECODE_MAX_LEN
     cache (an encoder-decoder's WHISPER_B x WHISPER_PROMPT over
     WHISPER_FRAMES seeded stub frames each, ``conv_stub_frames``, into a
@@ -4668,8 +4714,9 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     elsewhere is logged); the same calls on a mesh of the same devices
     without streams (every op on the default stream in program order)
     bitwise, logits and every cache slice; K3 once a layer on each model
-    device in prefill (on each data shard's lead alone with a sequence-split
-    cache: attention runs whole there) and K4 once a layer a step on each,
+    device in prefill (on each data shard's lead alone with a GQA cache
+    split by sequence: attention runs whole there; MLA's head-parallel on
+    every model device, its decode no kernel) and K4 once a layer a step on each,
     K6 once a layer a call on each data shard's lead (hymba's Mamba), none
     for the xLSTM; an encoder-decoder's K3 also once an encoder layer and
     once a cross layer and K4 once a cross layer a step, on every model
@@ -4681,6 +4728,7 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     dtype: the recurrent states f32), plus 2 for each element of the leaves
     the port keeps in f32.  Prefill and decode ms, mesh and single device."""
     import dataclasses
+    from unittest import mock
 
     from repro_torch import configs
     from repro_torch import device as Dv
@@ -4707,8 +4755,11 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     kind = T.main_block_kind(cfg)
     t0 = time.perf_counter()
     trace_mesh = make_mesh(shape, ("data", "model"), H.trace_devices(n_dev))
-    traced = {k: dryrun.run_cell(cfg, InputShape(f"4g_{k}", k, n, b), trace_mesh)
-              for k, n in (("prefill", SLSTM_TRACE_S if kind == "xlstm" else s), ("decode", max_len))}
+    # the mesh places the weights under the tensor-parallel specs (``param_pspecs``) and the trace follows: above
+    # the reference's FSDP threshold (deepseek-v2-236b's 2 layers at TP 2) its cell would add FSDP (ROADMAP 26b.4b)
+    with mock.patch.object(LS, "FSDP_THRESHOLD_BYTES", float("inf")):
+        traced = {k: dryrun.run_cell(cfg, InputShape(f"4g_{k}", k, n, b), trace_mesh)
+                  for k, n in (("prefill", SLSTM_TRACE_S if kind == "xlstm" else s), ("decode", max_len))}
     want_k3 = traced["prefill"]["hlo"]["launches"].get("flash_attention")
     want_k4 = traced["decode"]["hlo"]["launches"].get("decode_attention")
     want_k6 = [traced[k]["hlo"]["launches"].get("selective_scan") for k in ("prefill", "decode")]
@@ -4746,7 +4797,9 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
 
     with S.use_rules(S.SINGLE_POD_RULES), mesh:
         ep = cfg.is_moe and L._expert_parallel(cfg, b, s) is not None
-    shards = 2 if ep else 1
+    shards = shape[0] if ep else 1
+    mla = cfg.attn_type == "mla"
+    n_moe = cfg.num_layers - (cfg.first_dense_layers if cfg.is_moe else 0)  # the MoE layers' routings a call
 
     def single_prefill():
         """The single-device prefill of the same function: with the
@@ -4767,9 +4820,9 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
     _zero_attention_counts()
     with _launches_by_device() as (k3, k4, k6), _lead_routing(routing, leads):
         (logits, cache, lens), mesh_prefill_ms = timed(lambda: prefill(placed, prompts, max_len=max_len, **inputs))
-    n_cross = _attention_counts()["flash_attention_cross"]
-    launches = {"flash_attention": sum(k3.values()) - n_cross, "flash_attention_cross": n_cross,
-                "selective_scan": sum(k6.values())}
+    n_cross, n_mla = (_attention_counts()[k] for k in ("flash_attention_cross", "flash_attention_mla"))
+    launches = {"flash_attention": sum(k3.values()) - n_cross - n_mla, "flash_attention_cross": n_cross,
+                "flash_attention_mla": n_mla, "selective_scan": sum(k6.values())}
     per_layer = _per_layer(routing, b * s // shards)  # each layer's routing, a shard's at a time under EP
     per_layer = [per_layer[layer * shards + i] for i in range(shards) for layer in range(len(per_layer) // shards)]
     with _pinned_routing(per_layer, differ):
@@ -4794,12 +4847,15 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
         f"{want_cache}, and the port's f32 norm scales, routers and Mamba leaves add {surplus} [{card}]")
     if not err <= LM_LOGIT_RTOL:
         raise AssertionError(f"{tag}: mesh prefill logits differ from the single device's by {err}")
-    k3_on = leads if policy.seq_axes else labels  # attention whole on the leads where the heads do not split
-    n_attn = None if kind == "xlstm" else cfg.num_layers
+    # attention whole on the leads where a GQA model's heads do not split; MLA's head-parallel on every device
+    k3_on = leads if policy.seq_axes and not mla else labels
+    n_attn = None if kind == "xlstm" or mla else cfg.num_layers  # K4's a step: MLA decodes in plain torch
+    n_k3 = cfg.num_layers if mla else n_attn
     n_scan = cfg.num_layers if kind == "hybrid" else None
     # an encoder-decoder's K3 also over the encoder's frames and from the prompt over them, where self attention runs
-    n_k3 = cfg.encoder_layers + 2 * cfg.num_layers if cfg.is_encdec else n_attn
+    n_k3 = cfg.encoder_layers + 2 * cfg.num_layers if cfg.is_encdec else n_k3
     if (k3 != (dict.fromkeys(k3_on, n_k3) if n_k3 else {}) or want_k3 != n_k3 or set(k4)
+            or n_mla != (cfg.num_layers * len(k3_on) if mla else 0)
             or k6 != (dict.fromkeys(leads, n_scan) if n_scan else {}) or want_k6 != [n_scan, n_scan]
             or n_cross != (cfg.num_layers * len(k3_on) if cfg.is_encdec else 0)):
         raise AssertionError(f"{tag}: prefill launches K3 {k3} ({n_cross} cross), K4 {k4}, K6 {k6}; the dry run's "
@@ -4823,7 +4879,7 @@ def serve_mesh_model(dev, card: str, arch: str, layers, steps: int, shape=(2, 2)
             (lg, cache, lens), ms = timed(lambda: step(placed, tok, cache, lens))
         by_step.append((dict(k4), dict(k6)))
         mesh_ms.append(ms)
-        per_layer = _per_layer(routing[-cfg.num_layers:] if cfg.is_moe else [], b)
+        per_layer = _per_layer(routing[-n_moe:] if cfg.is_moe else [], b)
         with _pinned_routing(per_layer, differ):
             (slg, single_cache, single_lens), ms = timed(
                 lambda: D.decode_step(model, cfg, tok, single_cache, single_lens, kv_repeat=policy.kv_repeat))

@@ -13,8 +13,8 @@ for the latter beside what the port's f32 leaves add to them) and the
 roofline at the H100's peaks (``roofline``: each dtype's FLOPs at its
 peak, the traffic at the HBM's rate, the collective bytes over one
 NVLink direction).  Where the port
-does not run the cell's layout (prefill and decode on a mesh for MLA or
-parameters under FSDP: ``decode.mesh_serving_gap``),
+does not run the cell's layout (prefill and decode on a mesh for
+parameters under FSDP, among others: ``decode.mesh_serving_gap``),
 the record says so under ``skipped`` and holds no number.
 
 Usage:

@@ -45,7 +45,9 @@ What the port runs on a mesh, which is what the dry run traces:
   plus the tokens over the data axes) plus ``dtype_surplus_bytes``, what
   the port's f32 leaves add (its norm scales, MoE routers and Mamba's
   conv, dt, A and D, where the reference casts every leaf to bf16).
-  A cell of MLA, parameters under FSDP or a cache split by sequence over
+  A cell of parameters under FSDP, MLA at a batch below the data size
+  (its latent cache split by sequence over the data axes too) or whose
+  heads do not split over "model", or a GQA cache split by sequence over
   the data axes while its heads split over "model"
   (``decode.mesh_serving_gap``) keeps its spec trees and a ``skip``
   reason, and is not traced.

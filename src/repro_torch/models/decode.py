@@ -53,16 +53,20 @@ What differs:
   on each model device's cache slice; or, where the heads do not split,
   the cache split by sequence, each device running K4 over its keys and
   the partial softmaxes merged by their log-sum-exp
-  (:func:`_gqa_decode_seq`).  The recurrent states (the xLSTM's, hymba's
-  Mamba states beside its attention cache) are held as the reference's
-  specs place them, a state's heads and channels over "model" where they
-  split evenly, else whole on each model device; each layer's recurrent
-  branch runs on the data shard's lead and writes every holder's slice or
-  replica (:meth:`_MeshServing.recur`).  An encoder-decoder's encoder runs
-  on each data shard's model group, and its cross K/V cache is split by
-  heads beside a head-split self-attention cache, else whole on each
-  model device (the encoder's sequence is never split).  What they do not
-  serve yet raises (:func:`mesh_serving_gap`).
+  (:func:`_gqa_decode_seq`).  MLA's latent cache, which has no head dim,
+  splits by sequence beside its heads over "model": prefill runs K3 on
+  each device's heads (``layers.mla_tp_latent``) and decode the absorbed
+  form head-parallel, each device scoring every head against its own keys
+  (:func:`_mla_decode_tp`), so no weight moves.  The recurrent states
+  (the xLSTM's, hymba's Mamba states beside its attention cache) are held
+  as the reference's specs place them, a state's heads and channels over
+  "model" where they split evenly, else whole on each model device; each
+  layer's recurrent branch runs on the data shard's lead and writes every
+  holder's slice or replica (:meth:`_MeshServing.recur`).  An
+  encoder-decoder's encoder runs on each data shard's model group, and its
+  cross K/V cache is split by heads beside a head-split self-attention
+  cache, else whole on each model device (the encoder's sequence is never
+  split).  What they do not serve yet raises (:func:`mesh_serving_gap`).
 """
 
 from __future__ import annotations
@@ -170,6 +174,21 @@ def _layer_caches(params: T.TransformerLM, cache: dict):
         yield blk, None, {k: v[i] for k, v in prefix.items()}
     for i, (blk, is_local) in enumerate(zip(params.layers, params.is_local)):
         yield blk, is_local, {k: v[i] for k, v in main.items()}
+
+
+def _blocks(params: T.TransformerLM) -> list:
+    """(the block list's name, its cache leaves' prefix, the index in it)
+    for every layer in :func:`_layer_caches`' order: the dense prefix
+    (MLA's prefix_c_kv / prefix_k_rope), then the main layers."""
+    prefix = [("dense_prefix", "prefix_", i) for i in range(len(params.dense_prefix or ()))]
+    return prefix + [("layers", "", i) for i in range(len(params.layers))]
+
+
+def _at(cache: dict, at: tuple, *names) -> tuple:
+    """A device's cache slices ``names`` of the layer ``at`` (its leaves'
+    prefix, the index in its stack: :func:`_blocks`)."""
+    prefix, layer = at
+    return tuple(cache[prefix + name][layer] for name in names)
 
 
 # ------------------------------------------------------------------ helpers
@@ -461,32 +480,40 @@ def mesh_serving_gap(cfg: ModelConfig, policy, pspecs: dict, mesh) -> str | None
     """Why the mesh's prefill and decode do not serve ``cfg`` under
     ``policy`` (a ``CachePolicy``) with the parameters under ``pspecs`` on
     ``mesh``, or None when they do: the next slices of ROADMAP 26b take
-    MLA, parameters under FSDP (a spec tree naming the current rules' data
-    axes, ``sharding.splits_over_data``) and a cache split by sequence
-    over the data axes while its heads split over "model".  The checks on
-    the KV cache's layout hold for a model that attends (an
-    encoder-decoder's self-attention cache among them; its cross cache
-    follows them, split by heads beside a head-split cache, else whole on
-    each model device): the xLSTM keeps recurrent states alone."""
+    parameters under FSDP (a spec tree naming the current rules' data
+    axes, ``sharding.splits_over_data``; checked first), MLA whose query
+    heads do not split over "model" or whose latent cache splits by
+    sequence over the data axes too (a batch below the data size), and a
+    GQA cache split by sequence over the data axes while its heads split
+    over "model".  The checks on the KV cache's layout hold for a model
+    that attends (an encoder-decoder's self-attention cache among them;
+    its cross cache follows them, split by heads beside a head-split
+    cache, else whole on each model device): the xLSTM keeps recurrent
+    states alone."""
     tp = mesh.shape.get("model", 1)
     attends = T.main_block_kind(cfg) != "xlstm"
     what = None
-    if cfg.attn_type == "mla":
-        what = "MLA's compressed cache (choose_cache_policy splits its sequence)"
+    if S.splits_over_data(pspecs, mesh):
+        what = "parameters under FSDP at 2 bytes (maybe_fsdp_pspecs)"
+    elif cfg.attn_type == "mla":
+        if not L.heads_split(cfg, tp):
+            what = f"MLA's {cfg.num_heads} query heads over {tp} model devices, which do not split"
+        elif policy.seq_axes != ("model",):
+            what = (f"MLA's latent cache split by sequence over {'/'.join(policy.seq_axes)} (a batch below the "
+                    "data size)")
     elif attends and policy.seq_axes and policy.shard_heads:
         what = (f"a KV cache split by sequence over {'/'.join(policy.seq_axes)} while its heads split over "
                 "'model'")
     elif attends and not policy.seq_axes and not (policy.shard_heads and policy.shard_batch):
         what = "a KV cache that splits neither by heads nor by rows"
-    elif S.splits_over_data(pspecs, mesh):
-        what = "parameters under FSDP at 2 bytes (maybe_fsdp_pspecs)"
     elif attends and not policy.seq_axes and not L.heads_split(cfg, tp):
         what = f"{cfg.num_heads} query heads over {tp} model devices, which split no whole GQA groups"
     if what is None:
         return None
     return (f"{cfg.name}: {what} is not served on a mesh yet (ROADMAP 26b: the serving mesh's next slices); "
-            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence, the "
-            "recurrent states and the encoder-decoder's cross cache")
+            "prefill and decode on a mesh serve GQA caches split by heads and rows, or by sequence, MLA's "
+            "latent cache split by sequence over 'model' beside its heads, the recurrent states and the "
+            "encoder-decoder's cross cache")
 
 
 def _semantic_axes(policy) -> dict:
@@ -681,9 +708,10 @@ class _MeshServing:
     current rules' batch axes; raises ``NotImplementedError`` for what the
     slice does not serve (:func:`mesh_serving_gap`).
 
-    ``shards`` are the model groups (flat positions, model order) that
-    compute rows: every data index's with ``policy.shard_batch``, else the
-    first alone (the rows do not split; the reference repeats them on
+    Its loop (:meth:`run`) walks the dense prefix, then the main layers
+    (:func:`_blocks`).  ``shards`` are the model groups (flat positions,
+    model order) that compute rows: every data index's with
+    ``policy.shard_batch``, else the first alone (the rows do not split; the reference repeats them on
     every data index, and each group of ``groups`` holds the rows' cache:
     keys where the sequence splits over the data axes too, recurrent
     states as replicas).  ``seq``: the mesh axes of a cache split by
@@ -773,6 +801,13 @@ class _MeshServing:
         self.put_state(i, cache, layer, names, state)
         return y
 
+    def width(self, mine: dict) -> int:
+        """The keys one device's slice of a cache split by sequence holds
+        (``mine``: its cache), or 0 where the sequence does not split."""
+        if self.seq is None:
+            return 0
+        return next(v.shape[2] for k, v in mine.items() if CACHE_DIM_SEMANTICS[k][2] == "seq")
+
     def offset(self, pos: int, width: int) -> int:
         """The first key of the cache slice of ``width`` keys that the
         device at flat position ``pos`` holds: its index over the
@@ -814,19 +849,19 @@ class _MeshServing:
         it (``layers._expert_parallel`` on the global batch)."""
         return self.cfg.is_moe and L._expert_parallel(self.cfg, bsz, s) is None
 
-    def ffn(self, copies, shards, experts, layer: int, hs: list, whole: bool) -> list:
-        """Each data shard's FFN output of ``layer`` over its normed rows
-        ``hs``: per shard under its tensor shard (the MLP's columns, or the
-        MoE's expert-parallel branch over its own tokens); with ``whole``,
-        the MoE routes every shard's rows at once, as the reference
-        routes the global batch below its expert-parallel threshold: the
-        rows gathered on the first shard's lead, routed on its model group
-        with the experts split (``layers.moe_apply_whole``), each shard's
-        rows sent back."""
-        if not whole:
+    def ffn(self, copies, shards, experts, stack: str, layer: int, hs: list, whole: bool) -> list:
+        """Each data shard's FFN output of block ``layer`` of ``stack``
+        (:func:`_blocks`) over its normed rows ``hs``: per shard under its
+        tensor shard (the MLP's columns, or the MoE's expert-parallel
+        branch over its own tokens); with ``whole``, a MoE routes every
+        shard's rows at once, as the reference routes the global batch
+        below its expert-parallel threshold: the rows gathered on the first
+        shard's lead, routed on its model group with the experts split
+        (``layers.moe_apply_whole``), each shard's rows sent back."""
+        if not whole or getattr(copies[0], stack)[layer].moe is None:
             out = []
             for i, group in enumerate(self.shards):
-                blk = copies[group[0]].layers[layer]
+                blk = getattr(copies[group[0]], stack)[layer]
                 with self.leads[i].scope(), S.tensor_shard(shards[i]), S.expert_shard(experts[i]):
                     out.append(T.ffn(blk, self.cfg, hs[i]))
             return out
@@ -834,7 +869,7 @@ class _MeshServing:
         lead = self.leads[0]
         xs = hs[0] if len(hs) == 1 else C.all_gather(hs, self.leads, 0, (0,), self.row_split)[0]
         with lead.scope(), S.tensor_shard(shards[0]), S.expert_shard(experts[0]):
-            y = L.moe_apply_whole(copies[self.shards[0][0]].layers[layer].moe, self.cfg,
+            y = L.moe_apply_whole(getattr(copies[self.shards[0][0]], stack)[layer].moe, self.cfg,
                                   xs.reshape(-1, 1, xs.shape[-1]), self.cfg.mlp_act).reshape(xs.shape)
             out = [y[:b]]
         for i in range(1, len(hs)):
@@ -843,11 +878,12 @@ class _MeshServing:
 
     def run(self, params, embed, attend, bsz: int, s: int, cache: list, cross=None) -> torch.Tensor:
         """Every layer over the data shards, under each shard's tensor
-        shard on its lead: ``embed(i, group, lead copy)`` gives shard i's
-        residual rows; a layer runs, per shard, its attention norm,
-        ``attend(i, group, shard, layer, p_attn, h, window)`` (the
-        attention output, on the lead; it writes the cache), a hybrid's
-        Mamba branch over the same normed rows (:meth:`recur`, joined by
+        shard on its lead, the dense prefix first (:func:`_blocks`):
+        ``embed(i, group, lead copy)`` gives shard i's residual rows; a
+        layer runs, per shard, its attention norm, ``attend(i, group,
+        shard, at, p_attn, h, window)`` (the attention output, on the lead;
+        it writes the cache slices of the layer ``at``, :func:`_at`), a
+        hybrid's Mamba branch over the same normed rows (:meth:`recur`, joined by
         ``transformer.hybrid_mix``), the residual and the MLP norm, then
         every shard's FFN (:meth:`ffn`; the MoE routes the whole batch of
         ``bsz`` x ``s`` tokens at once where the reference would); an
@@ -865,24 +901,24 @@ class _MeshServing:
             with self.leads[i].scope(), S.tensor_shard(shards[i]):
                 xs.append(embed(i, group, params[group[0]]))
         whole = self.moe_route_whole(bsz, s)
-        for layer in range(cfg.num_layers):
-            window = _window(cfg, params[0].is_local[layer])
+        for stack, prefix, layer in _blocks(params[0]):
+            window = _window(cfg, params[0].is_local[layer] if stack == "layers" else None)
             hs = []
             for i, group in enumerate(self.shards):
-                blk = params[group[0]].layers[layer]
+                blk = getattr(params[group[0]], stack)[layer]
                 with self.leads[i].scope(), S.tensor_shard(shards[i]):
                     if blk.kind == "xlstm":
                         h = L.apply_norm(blk.pre_norm, xs[i], cfg.norm_type)
                         xs[i] = xs[i] + self.recur(i, cache, layer, blk, h)
                         continue
                     h = L.apply_norm(blk.attn_norm, xs[i], cfg.norm_type)
-                    y = attend(i, group, shards[i], layer, blk.attn, h, window)
+                    y = attend(i, group, shards[i], (prefix, layer), blk.attn, h, window)
                     if blk.kind == "hybrid":
                         y = T.hybrid_mix(blk, cfg, y, self.recur(i, cache, layer, blk, h))
                     xs[i] = xs[i] + y
                     hs.append(L.apply_norm(blk.mlp_norm, xs[i], cfg.norm_type))
             if hs:
-                for i, y in enumerate(self.ffn(params, shards, experts, layer, hs, whole)):
+                for i, y in enumerate(self.ffn(params, shards, experts, stack, layer, hs, whole)):
                     with self.leads[i].scope():
                         xs[i] = xs[i] + y
             del hs
@@ -923,8 +959,13 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
     With a cache split by sequence (heads that do not split over "model")
     attention runs whole on the shard's lead over the leaves gathered there
     (``sharding.whole``; K3 on every head), and each model device receives
-    its key slice of the layer's K and V (``collectives.send``).  A
-    recurrent branch (the xLSTM layer's mLSTM or sLSTM, hymba's Mamba
+    its key slice of the layer's K and V (``collectives.send``).  MLA's
+    latent cache splits by sequence while its heads split over "model":
+    the dense prefix, then the main layers, each head-parallel on the
+    stored slices (``layers.mla_tp_latent``: K3 on each device's H/TP
+    heads), each model device writing its key slice of the prompt's c_kv /
+    k_rope rows (broadcast to the group for its heads) into its cache; no
+    weight moves.  A recurrent branch (the xLSTM layer's mLSTM or sLSTM, hymba's Mamba
     beside its attention) runs whole on the lead too, the single device's
     function over the prompt (K6 for Mamba), and each device holding the
     rows receives its slice of the final state, or the whole
@@ -964,7 +1005,7 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
             caches = init_mesh_cache(cfg, mesh, policy, bsz, max_len, cache_dtype, cross_dtype=T.torch_dtype(cfg.dtype))
-            width = caches[0]["k"].shape[2] if plan.seq else None
+            width = plan.width(caches[0])
             positions, encoded = [], []
 
             def embed(i, group, lead):
@@ -976,7 +1017,30 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
                     encoded.append(C.broadcast(enc, [plan.devices[q] for q in group]) if plan.seq else [enc])
                 return T.embed_inputs(lead, cfg, tok, vis)
 
-            def attend_seq(i, group, shard, layer, p_attn, h, window):
+            def write_keys(group, at, names, parts) -> None:
+                """Each model device's keys [lo, lo + n) of the prompt's rows
+                ``parts`` (per device its copies, in ``names``' order) into its
+                cache slices of the layer ``at``."""
+                for q_pos, rows in zip(group, parts):
+                    lo = plan.offset(q_pos, width)
+                    n = min(s, lo + width) - lo
+                    if n <= 0:
+                        continue
+                    with plan.devices[q_pos].scope():
+                        for leaf, row in zip(_at(caches[q_pos], at, *names), rows):
+                            leaf[:, :n] = row[:, lo:lo + n]
+
+            def attend_mla(i, group, shard, at, p_attn, h):
+                if shard is None:
+                    y, c_kv, k_rope = L.mla_apply_with_latent(p_attn, cfg, h, positions[i], causal=True)
+                    latent = [(c_kv, k_rope)]
+                else:  # head-parallel: each device K3 on its heads, its copy of the latent rows
+                    y, latent = L.mla_tp_latent(p_attn, cfg, h, positions[i], True, None, shard)
+                write_keys(group, at, ("c_kv", "k_rope"), latent)
+                return y
+
+            def attend_seq(i, group, shard, at, p_attn, h, window):
+                layer = at[1]
                 p = S.whole(p_attn)
                 q, k, v = L.gqa_project_qkv(p, cfg, h, positions[i])
                 out = L.attention_scores_blockwise(q, k, v, causal=True, window=window)
@@ -999,9 +1063,12 @@ def make_mesh_prefill(cfg: ModelConfig, mesh, pspecs: dict, policy):
                         caches[q_pos]["v"][layer][:, :n] = vv
                 return y
 
-            def attend(i, group, shard, layer, p_attn, h, window):
+            def attend(i, group, shard, at, p_attn, h, window):
+                if cfg.attn_type == "mla":
+                    return attend_mla(i, group, shard, at, p_attn, h)
                 if plan.seq is not None:
-                    return attend_seq(i, group, shard, layer, p_attn, h, window)
+                    return attend_seq(i, group, shard, at, p_attn, h, window)
+                layer = at[1]
                 if shard is None:
                     mine = caches[group[0]]
                     return _gqa_prefill(p_attn, cfg, h, positions[i], window, mine["k"][layer], mine["v"][layer],
@@ -1128,6 +1195,68 @@ def _gqa_decode_seq(p_attn, cfg, x, lengths, plan, holders: list, layer_caches: 
     return out.reshape(bsz, cfg.num_heads * hd) @ p.wo.to(dt)
 
 
+def _mla_decode_tp(p_attn, cfg, x, lengths, shard, layer_caches: list, lens: list, offsets: list):
+    """One token's MLA attention in the absorbed form (:func:`_mla_decode`'s
+    arithmetic, in f32) head-parallel over ``shard``'s model group, over a
+    latent cache split by sequence over it; no parameter moves.  On the
+    lead, from ``x`` (B, D) at ``lengths`` (the global cache fill): the
+    replicated compressions, the queries' input (``wq_a`` -> ``q_norm``)
+    and the token's latent row (``wkv_a`` -> ``kv_norm``, k_rope), copied
+    to the group.  Device m (``layer_caches[m]``: this layer's (c_kv,
+    k_rope) slice holding keys ``offsets[m]`` on; ``lens[m]``: (lengths,
+    lengths + 1) less that first key) writes the row where its slice holds
+    the position and computes, for its H/TP heads from its columns of
+    ``wq_b`` (or ``wq``) and ``wkv_b``, q_c = q_nope W_uk and q_rope (rope
+    at the global lengths).  Those are gathered over the group; each device
+    scores every head against its own keys (masked at its lengths + 1 with
+    -1e30) and packs its f32 partial o_c (B, H, R) with the log-sum-exp.
+    Device m receives head block m of every device's partial and merges
+    them (``decode_attention.ops.merge_partials``: a slice with no valid
+    key weighs 0), then multiplies by its columns of W_uv and its rows of
+    ``wo``; the outputs are summed with the ring on the lead."""
+    bsz, dt = x.shape[0], x.dtype
+    nope, rd, vd, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    local, devices = cfg.num_heads // shard.tp, shard.devices
+    q_in = L.rmsnorm(x @ p_attn.wq_a.to(dt), p_attn.q_norm.scale) if cfg.q_lora_rank else x
+    c_kv, k_rope = L.mla_compress(p_attn, cfg, x[:, None, :], lengths[:, None])
+    members = shard.members(p_attn)
+    qs, w_uv = [], []
+    for dev, pm, (qm, cm, rm), (ckv, krope), (ln, _), off in zip(
+            devices, members, C.copy_leaves([q_in, c_kv[:, 0], k_rope[:, 0]], devices), layer_caches, lens, offsets):
+        with dev.scope():
+            _scatter_rows_(ckv, cm, ln)
+            _scatter_rows_(krope, rm, ln)
+            q = (qm @ (pm.wq_b if cfg.q_lora_rank else pm.wq).to(dt)).reshape(bsz, 1, local, nope + rd)
+            q_nope, q_rope = q.split([nope, rd], dim=-1)
+            cos, sin = L.rope_cos_sin((ln + off)[:, None], rd, cfg.rope_theta)
+            w_b = pm.wkv_b.to(dt).reshape(r, local, nope + vd)  # (R, H/TP, nope + v): W_uk | W_uv
+            w_uv.append(w_b[..., nope:])
+            q_c = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_b[..., :nope].float())
+            qs.append(torch.cat([q_c, L.apply_rope(q_rope, cos, sin)[:, 0].float()], -1))  # (B, H/TP, R + rd)
+    parts = []
+    for dev, q_all, (ckv, krope), (_, ln1) in zip(devices, C.all_gather(qs, devices, 1, None, shard.tp),
+                                                  layer_caches, lens):
+        with dev.scope():
+            ckv_f = ckv.float()
+            scores = torch.einsum("bhr,bsr->bhs", q_all[..., :r], ckv_f)
+            scores = scores + torch.einsum("bhr,bsr->bhs", q_all[..., r:], krope.float())
+            scores = scores * (nope + rd) ** -0.5
+            pos = torch.arange(ckv.shape[1], device=dev.device)
+            scores = scores.masked_fill(pos[None, None, :] >= ln1[:, None, None], -1e30)
+            o_c = torch.einsum("bhs,bsr->bhr", torch.softmax(scores, dim=-1), ckv_f)
+            parts.append(torch.cat([o_c, torch.logsumexp(scores, dim=-1)[..., None]], -1))  # (B, H, R + 1)
+    outs = []
+    for m, (dev, pm, w) in enumerate(zip(devices, members, w_uv)):
+        # head block m of every device's partial (a slice for each device of the whole axis)
+        block = C.all_gather([part[None, :, m * local:(m + 1) * local] for part in parts], devices, 0, (m,),
+                             shard.tp)[0]
+        with dev.scope():
+            o_c = decode_ops.merge_partials(block[..., :r], block[..., r])  # (B, H/TP, R) f32
+            out = torch.einsum("bhr,rhv->bhv", o_c, w.float()).to(dt)
+            outs.append(out.reshape(bsz, local * vd) @ pm.wo.to(dt))
+    return C.ring_sum(outs, devices)
+
+
 def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
     """The mesh's decode step: ``decode_fn(params, token, cache, lengths)
     -> (logits (B, V) on the mesh's first device, the cache — each device's
@@ -1147,6 +1276,10 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
     With a cache split by sequence attention is :func:`_gqa_decode_seq`:
     the token's q, k, v on the shard's lead, K4 on every device holding
     keys of its rows, the partial softmaxes merged back on the lead.
+    MLA's is :func:`_mla_decode_tp`: the absorbed form head-parallel on
+    the stored slices, each device scoring every head against its own
+    keys, the partials exchanged by head blocks and merged (no kernel, as
+    on one device; no weight moves).
     Where the rows do not split over the data axes (a batch smaller than
     they are, the sequence split over them too) the first data index's
     model group runs the layers once and every device of the mesh runs
@@ -1172,7 +1305,7 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
         with mesh, S.use_rules(plan.rules):
             caller = C._enter(plan.devices)
             lens, glob = [None] * len(plan.devices), {}
-            width = cache[0]["k"].shape[2] if plan.seq else 0
+            width = plan.width(cache[0])
 
             def embed(i, group, lead):
                 tok = plan.rows(token, i, b, torch.long)
@@ -1189,7 +1322,14 @@ def make_mesh_decode_step(cfg: ModelConfig, mesh, pspecs: dict, policy):
                         lens[q] = (mine, mine + 1)
                 return T.embed_tokens(lead, cfg, tok[:, None])[:, 0]
 
-            def attend(i, group, shard, layer, p_attn, h, window):
+            def attend(i, group, shard, at, p_attn, h, window):
+                if cfg.attn_type == "mla":
+                    mine = [_at(cache[q], at, "c_kv", "k_rope") for q in group]
+                    if shard is None:
+                        return _mla_decode(p_attn, cfg, h, *mine[0], lens[group[0]][0])
+                    return _mla_decode_tp(p_attn, cfg, h, glob[i], shard, mine, [lens[q] for q in group],
+                                          [plan.offset(q, width) for q in group])
+                layer = at[1]
                 if plan.seq is not None:
                     holders = plan.holders(i)
                     layer_caches = {q: (cache[q]["k"][layer], cache[q]["v"][layer]) for g in holders for q in g}

@@ -27,7 +27,7 @@ computes it in jnp.
 Inside a training mesh's tensor shard (``sharding.tensor_shard``: a data
 shard's model group, each device holding its slice of every "model"-ruled
 leaf) attention runs on each model device's whole heads
-(:func:`gqa_tp`, MLA's :func:`_mla_tp`) and the MLP on its columns, each
+(:func:`gqa_tp`, MLA's :func:`mla_tp_latent`) and the MLP on its columns, each
 with its input broadcast to the group and its partial outputs summed with
 the ring on the lead (Megatron's f and g); a layer whose heads do not
 split over the group runs on the lead over its leaves gathered
@@ -291,22 +291,24 @@ def mla_apply_with_latent(p, cfg, x: torch.Tensor, positions: torch.Tensor, caus
     return out @ p.wo.to(x.dtype), c_kv, k_rope
 
 
-def _mla_tp(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool, window: int | None,
-            shard) -> torch.Tensor:
+def mla_tp_latent(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool, window: int | None,
+                  shard) -> tuple[torch.Tensor, list]:
     """MLA head-parallel over ``shard``'s model group: the lead computes
     the replicated compressions (``wq_a`` -> ``q_norm``, ``wkv_a`` ->
     ``kv_norm``, k_rope), broadcast to the group; device m expands its
     H/TP heads with its column slices of ``wq_b`` (or ``wq``) and
     ``wkv_b`` (head-major columns: whole heads), runs K3 on them and
     multiplies by its row slice of ``wo``; the partial outputs summed with
-    the ring on the lead."""
+    the ring on the lead.  Returns (that sum, per device its copy of
+    (c_kv (B, S, R), k_rope (B, S, rope_hd)): what prefill writes into its
+    slice of the latent cache)."""
     b, s, _ = x.shape
     dt, local = x.dtype, cfg.num_heads // shard.tp
     q_in = rmsnorm(x @ p.wq_a.to(dt), p.q_norm.scale) if cfg.q_lora_rank else x
     c_kv, k_rope = mla_compress(p, cfg, x, positions)
     devices = shard.devices
     cos, sin = rope_cos_sin(positions, cfg.rope_head_dim, cfg.rope_theta)
-    parts = []
+    parts, latent = [], []
     for dev, pm, qm, cm, rm in zip(devices, shard.members(p), C.broadcast(q_in, devices),
                                    C.broadcast(c_kv, devices), C.broadcast(k_rope, devices)):
         with dev.scope():
@@ -320,18 +322,19 @@ def _mla_tp(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool, wind
             scale = (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
             out = attention_scores_blockwise(q, k, v, causal=causal, window=window, scale=scale)
             parts.append(out.reshape(b, s, local * cfg.v_head_dim) @ pm.wo.to(dt))
-    return C.ring_sum(parts, devices)
+            latent.append((cm, rm))
+    return C.ring_sum(parts, devices), latent
 
 
 def mla_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
               window: int | None = None) -> torch.Tensor:
     """Full-sequence MLA attention (forward / prefill).  Inside a training
-    mesh's tensor shard head-parallel (:func:`_mla_tp`), or, when the heads
+    mesh's tensor shard head-parallel (:func:`mla_tp_latent`), or, when the heads
     do not split, on the lead over the gathered leaves."""
     shard = S.current_tensor_shard()
     if shard is not None and shard.is_split(p):
         if cfg.num_heads % shard.tp == 0:
-            return _mla_tp(p, cfg, x, positions, causal, window, shard)
+            return mla_tp_latent(p, cfg, x, positions, causal, window, shard)[0]
         p = shard.whole(p)
     return mla_apply_with_latent(p, cfg, x, positions, causal, window)[0]
 

@@ -138,21 +138,25 @@ def test_spec_trees_equal_reference_on_2x2_mesh(reference_specs_2x2):
 # the smoke cells on (2, 2): gemma3-1b's cache splits by heads (kv 1 repeated 2 over 2 model devices),
 # hymba-1.5b's by sequence (5 KV heads over 2) beside its Mamba states, split by channels, xlstm-125m keeps its
 # recurrent states alone (4 mLSTM heads and 32 channels over 2), whisper-large-v3's self and cross caches split by
-# heads (4 over 2); deepseek-v2-236b keeps the reason it is not served on a mesh
+# heads (4 over 2), deepseek-v2-236b's latent cache by sequence beside its heads over "model" (4 over 2); no arch
+# keeps a reason it is not served on (2, 2)
 MESH_SERVING = {"gemma3-1b": None, "hymba-1.5b": None, "xlstm-125m": None,
-                "deepseek-v2-236b": "MLA's compressed cache", "whisper-large-v3": None}
+                "deepseek-v2-236b": None, "whisper-large-v3": None}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", list(MESH_SERVING))
 def test_prefill_and_decode_skip_a_mesh_of_more_than_one_device(arch, kind):
-    """On (2, 2) gemma3-1b's, hymba-1.5b's, xlstm-125m's and
-    whisper-large-v3's prefill and decode step are traced (the mesh's
-    steps, at head width 64): K3 or K4 once a layer on the busiest device,
-    hymba's K6 once a layer beside it, no kernel for the xLSTM; whisper's
-    K3 once an encoder layer and twice a decoder layer (self and cross),
-    K4 twice a decoder layer; MLA keeps a skip reason naming what the
-    slice leaves out (``decode.mesh_serving_gap``)."""
+    """On (2, 2) gemma3-1b's, hymba-1.5b's, xlstm-125m's,
+    deepseek-v2-236b's and whisper-large-v3's prefill and decode step are
+    traced (the mesh's steps, at head widths the kernels take): K3 or K4
+    once a layer on the busiest device, hymba's K6 once a layer beside it,
+    no kernel for the xLSTM; whisper's K3 once an encoder layer and twice a
+    decoder layer (self and cross), K4 twice a decoder layer; MLA's K3 once
+    a layer (the dense prefix's among them) on each model device in
+    prefill and no kernel in decode (its absorbed form is plain torch).  A
+    cell the slice leaves out would keep a skip reason naming it
+    (``decode.mesh_serving_gap``)."""
     mesh = make_mesh((2, 2), ("data", "model"), H.trace_devices(4))
     cfg = _widened(arch) if MESH_SERVING[arch] is None else TC.get_smoke_config(arch)
     rec = dryrun.run_cell(cfg, InputShape("c", kind, 64, 8), mesh)
@@ -161,6 +165,7 @@ def test_prefill_and_decode_skip_a_mesh_of_more_than_one_device(arch, kind):
         kernel = "flash_attention" if kind == "prefill" else "decode_attention"
         want = {"gemma3-1b": {kernel: cfg.num_layers}, "xlstm-125m": {},
                 "hymba-1.5b": {kernel: cfg.num_layers, "selective_scan": cfg.num_layers},
+                "deepseek-v2-236b": {kernel: cfg.num_layers} if kind == "prefill" else {},
                 "whisper-large-v3": {kernel: (cfg.encoder_layers if kind == "prefill" else 0) + 2 * cfg.num_layers}
                 }[arch]
         assert rec["hlo"]["launches"] == want

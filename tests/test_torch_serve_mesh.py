@@ -559,17 +559,30 @@ def test_place_params_under_fsdp_round_trips(arch, monkeypatch):
 
 # ------------------------------------------------------------------ raises
 def _not_served():
-    """(arch, a policy, a FSDP flag) for each case the slice leaves out: a
-    KV cache split by neither heads nor rows, nor by sequence (no policy
-    ``choose_cache_policy`` gives; here for the encoder-decoder, whose
-    cross cache is served beside a cache split by heads or by sequence)."""
+    """(arch, a policy, a FSDP flag, the mesh) for each case the slice
+    leaves out: a KV cache split by neither heads nor rows, nor by sequence
+    (no policy ``choose_cache_policy`` gives; here for the encoder-decoder,
+    whose cross cache is served beside a cache split by heads or by
+    sequence); MLA under FSDP (the FSDP reason is named first), MLA whose 4
+    query heads do not split over 8 model devices, and MLA at batch 1 on
+    (2, 2), its latent cache split by sequence over the data axes too."""
     heads = CachePolicy(1, True, True, ())
+    mla = CachePolicy(1, False, True, ("model",))
     return {
-        "sequence-over-data-with-heads": ("internlm2-1.8b", CachePolicy(1, True, False, ("data",)), False),
-        "mla": ("deepseek-v2-236b", CachePolicy(1, False, True, ("model",)), False),
-        "neither-heads-nor-rows": ("whisper-large-v3", CachePolicy(1, False, True, ()), False),
-        "fsdp": ("qwen3-32b", heads, True),
+        "sequence-over-data-with-heads": ("internlm2-1.8b", CachePolicy(1, True, False, ("data",)), False, (2, 2)),
+        "mla": ("deepseek-v2-236b", mla, True, (2, 2)),
+        "mla-heads-not-split": ("deepseek-v2-236b", mla, False, (1, 8)),
+        "mla-sequence-over-data": ("deepseek-v2-236b", CachePolicy(1, False, False, ("data", "model")), False, (2, 2)),
+        "neither-heads-nor-rows": ("whisper-large-v3", CachePolicy(1, False, True, ()), False, (2, 2)),
+        "fsdp": ("qwen3-32b", heads, True, (2, 2)),
     }
+
+
+# what each case's reason names
+_REASONS = {"sequence-over-data-with-heads": "split by sequence over data", "mla": "FSDP",
+            "mla-heads-not-split": "4 query heads over 8 model devices",
+            "mla-sequence-over-data": "latent cache split by sequence over data/model",
+            "neither-heads-nor-rows": "neither by heads nor by rows", "fsdp": "FSDP"}
 
 
 @pytest.mark.parametrize("case", list(_not_served()))
@@ -577,11 +590,14 @@ def test_what_the_slice_leaves_out_raises(case, monkeypatch):
     """Each case the slice does not serve raises ``NotImplementedError``
     naming ROADMAP 26b from make_mesh_prefill and make_mesh_decode_step
     (under FSDP: ``zero_pspecs``' tree, the parameters split over the data
-    axes too); ``mesh_serving_gap`` names it.  The encoder-decoder with
-    ``choose_cache_policy``'s policy is served (``test_torch_serve_mesh_encdec.py``)."""
-    arch, policy, fsdp = _not_served()[case]
+    axes too); ``mesh_serving_gap`` names it.  The encoder-decoder and MLA
+    with ``choose_cache_policy``'s policy at a batch of the data size on
+    (2, 2) are served (``test_torch_serve_mesh_encdec.py``,
+    ``test_torch_serve_mesh_mla.py``); at batch 1 the policy is the one
+    this case raises for."""
+    arch, policy, fsdp, shape = _not_served()[case]
     cfg = configs.get_smoke_config(arch)
-    m = _mesh((2, 2), monkeypatch)
+    m = _mesh(shape, monkeypatch)
     model = T.TransformerLM(cfg, "meta")
     with S.use_rules(S.SINGLE_POD_RULES):
         pspecs = S.param_pspecs(model)
@@ -591,6 +607,8 @@ def test_what_the_slice_leaves_out_raises(case, monkeypatch):
             with pytest.raises(NotImplementedError, match="26b"):
                 make(cfg, m, pspecs, policy)
         assert "26b" in D.mesh_serving_gap(cfg, policy, pspecs, m)
-        if case == "neither-heads-nor-rows":
-            assert "neither by heads nor by rows" in D.mesh_serving_gap(cfg, policy, pspecs, m)
-            assert D.mesh_serving_gap(cfg, choose_cache_policy(cfg, 2, 4, 2), pspecs, m) is None
+        assert _REASONS[case] in D.mesh_serving_gap(cfg, policy, pspecs, m)
+        if case in ("neither-heads-nor-rows", "mla"):
+            assert D.mesh_serving_gap(cfg, choose_cache_policy(cfg, 2, 4, 2), S.param_pspecs(model), m) is None
+        if case == "mla-sequence-over-data":
+            assert choose_cache_policy(cfg, 2, 1, 2) == policy

@@ -4,6 +4,7 @@ against their plain versions before it: prefill and decode on (2, 2)
 streams of one card, Gemma3-1B's sequence-split cache on (1, 8) (part a),
 the recurrent states (xlstm-125m on (2, 2) and (1, 8), hymba-1.5b on
 (2, 2)), the encoder-decoder (whisper-large-v3 on (2, 2) and (1, 8)),
+MLA (deepseek-v2-236b at full width and 2 layers on (2, 2) and (1, 8)),
 then long_500k's length on (2, 8) for Gemma3-1B (part b) and hymba-1.5b
 (part c).
 
@@ -15,13 +16,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     KERNELS=0 ONLY=gemma3-1b@1x8,long:gemma3-1b python3 tools/serve_mesh_phase.py   # parts (a) and (b)
     ONLY=xlstm-125m,hymba-1.5b,long:hymba-1.5b python3 tools/serve_mesh_phase.py   # the recurrent states
     ONLY=whisper-large-v3 python3 tools/serve_mesh_phase.py   # the encoder-decoder's cross cache
+    ONLY=deepseek-v2-236b python3 tools/serve_mesh_phase.py   # MLA's latent cache split by sequence
 
 It builds the kernels, runs ``check_flash_attention``,
 ``check_flash_attention_cross``, ``check_decode_attention`` and
 ``check_selective_scan`` (every case, the
 serving mesh's per-device and per-shard shapes and K4's log-sum-exp cases
 among them) and times K4 (its log-sum-exp variant at part (a)'s slice
-shape among the lines) unless ``KERNELS=0``, then ``run_serve_mesh`` for
+shape among the lines, beside the library's memory-efficient SDPA with its
+log-sum-exp) unless ``KERNELS=0``, then ``run_serve_mesh`` for
 the entries of ``SERVE_MESH_MODELS`` and ``SERVE_MESH_LONG`` (or those
 named in ``ONLY``, comma separated: an architecture, an architecture on
 one mesh as ``arch@DxM``, ``long`` for every long_500k part, ``long:arch``
